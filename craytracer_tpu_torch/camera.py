@@ -1,0 +1,108 @@
+"""Camera + film: batched primary-ray generation (counterpart of
+craytracer_tpu/camera.py: `make_camera` :60, `film_dims` :110, pinhole
+`generate_rays` :118).
+
+Conventions are the JAX package's (and the reference's): lookAt basis
+z = -normalize(look - pos), x = normalize(up x z), y = z x x; film
+length 2 sin(fov/2) focal_dist; image-plane x = -L/2 + px (col + jx),
+y = H/2 - px (row + jy); the pinhole ray starts on the view plane and
+points away from the focal point. Thin-lens raygen waits for K1's next
+gate items (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from craytracer_tpu_torch.core import math as vm
+from craytracer_tpu_torch.scene.types import to_device
+
+PINHOLE = 0
+THINLENS = 1
+
+
+@dataclass(frozen=True)
+class Camera:
+    position: torch.Tensor  # [3]
+    x_axis: torch.Tensor  # [3]
+    y_axis: torch.Tensor  # [3]
+    z_axis: torch.Tensor  # [3]
+    focal_dist: torch.Tensor  # scalar; view-plane distance
+    focal_length: torch.Tensor  # scalar; focal-plane distance (thin lens)
+    lens_radius: torch.Tensor  # scalar
+    camera_type: int = PINHOLE
+
+    def to(self, device) -> "Camera":
+        return to_device(self, device)
+
+
+@dataclass(frozen=True)
+class Film:
+    fov: torch.Tensor  # scalar, radians
+    width: int = 256
+    height: int = 256
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+    def to(self, device) -> "Film":
+        return to_device(self, device)
+
+
+def make_camera(position, look_point, up=(0.0, 1.0, 0.0),
+                focal_dist: float = 0.035, camera_type: int = PINHOLE,
+                focal_length: float = 3.0, lens_radius: float = 0.2,
+                device="cpu") -> Camera:
+    """Host-side lookAt in numpy f32, exactly as camera.py:60-86."""
+    position = np.asarray(position, np.float32)
+    look = np.asarray(look_point, np.float32)
+    up = np.asarray(up, np.float32)
+    z = -(look - position)
+    z = z / np.linalg.norm(z)
+    x = np.cross(up, z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+
+    def t(v):
+        return torch.tensor(np.asarray(v, np.float32), device=device)
+
+    return Camera(position=t(position), x_axis=t(x), y_axis=t(y),
+                  z_axis=t(z), focal_dist=t(focal_dist),
+                  focal_length=t(focal_length), lens_radius=t(lens_radius),
+                  camera_type=camera_type)
+
+
+def film_dims(film: Film, camera: Camera):
+    """(frame_length, frame_height, pixel_length) f32 scalars —
+    calcFilmDimension (camera.cpp:144-149)."""
+    frame_length = 2.0 * torch.sin(film.fov / 2.0) * camera.focal_dist
+    frame_height = frame_length * (film.height / film.width)
+    pixel_length = frame_length / film.width
+    return frame_length, frame_height, pixel_length
+
+
+def generate_rays(camera: Camera, film: Film, pixel_ids, jitter):
+    """Pinhole primary rays for `pixel_ids` ([N] int) with film jitter
+    ([N, 2] in [0, 1)). Returns (origin[N,3], direction[N,3])."""
+    if camera.camera_type != PINHOLE:
+        raise NotImplementedError(
+            "thin-lens raygen is not ported to craytracer_tpu_torch yet "
+            "(ROADMAP queue 2, K1 remaining gate features)")
+    frame_length, frame_height, pixel_length = film_dims(film, camera)
+    pixel_ids = torch.as_tensor(pixel_ids)
+    col = (pixel_ids % film.width).to(torch.float32)
+    row = torch.div(pixel_ids, film.width, rounding_mode="floor"
+                    ).to(torch.float32)
+    ix = -frame_length / 2.0 + pixel_length * (col + jitter[..., 0])
+    iy = frame_height / 2.0 - pixel_length * (row + jitter[..., 1])
+    fd = -camera.focal_dist.expand(ix.shape)
+    direction = vm.normalize(ix[..., None] * camera.x_axis
+                             + iy[..., None] * camera.y_axis
+                             + fd[..., None] * camera.z_axis)
+    origin = (ix[..., None] * camera.x_axis + iy[..., None] * camera.y_axis
+              + camera.position)
+    return origin, direction

@@ -1,0 +1,83 @@
+"""Parameter carry-over from the JAX package: numpy leaves -> port objects.
+
+The JAX package's Scene / Camera / Film are dataclasses; `numpy_leaves`
+flattens one into nested mappings of numpy arrays (`np.asarray` on every
+leaf, static fields as plain values), and the `*_from_numpy` functions
+rebuild the port's dataclasses from such mappings, so both packages
+compute on identical data. This module imports neither JAX nor the JAX
+package: it only reads dataclass fields.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from craytracer_tpu_torch.camera import Camera, Film
+from craytracer_tpu_torch.scene import types as T
+
+_GROUPS = {
+    "spheres": T.Spheres, "planes": T.Planes, "rects": T.Rects,
+    "disks": T.Disks, "triangles": T.Triangles, "instanced": T.Instanced,
+    "materials": T.Materials, "lights": T.Lights,
+    "mesh_lights": T.MeshLights, "textures": T.TexturePack,
+}
+_STATIC = ("accel", "mat_types_present", "light_types_present",
+           "matte_lambertian")
+
+
+def numpy_leaves(obj):
+    """Any (nested) dataclass -> nested dict: array leaves through
+    np.asarray, None and Python scalars/strings/tuples kept as they are."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: numpy_leaves(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if obj is None or isinstance(obj, (bool, int, float, str, tuple)):
+        return obj
+    return np.asarray(obj)
+
+
+def _tensor(x, device):
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def _build(cls, leaves: Mapping, device):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = leaves.get(f.name)
+        kw[f.name] = (_tensor(v, device) if isinstance(v, np.ndarray)
+                      else v)
+    return cls(**kw)
+
+
+def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
+    """`leaves` maps each Scene group name to a mapping of its fields
+    (numpy arrays) plus the static fields. Accel tables are not carried:
+    a scene that holds any is refused (ROADMAP queue 1, slice B)."""
+    for name in ("tri_bvh", "tri_shadow", "tri_parts", "tri_cam", "sph_bvh"):
+        if leaves.get(name) is not None:
+            raise NotImplementedError(
+                f"scene carries {name}; accelerated scenes are not ported "
+                "(ROADMAP queue 1, slice B)")
+    if np.asarray(leaves["triangles"]["smooth"]).any():
+        raise NotImplementedError(
+            "smooth triangles are not ported (ROADMAP queue 1, slice B)")
+    kw = {name: _build(cls, leaves[name], device)
+          for name, cls in _GROUPS.items()}
+    kw["env"] = _build(T.EnvLight, leaves["env"], device)
+    for name in _STATIC:
+        kw[name] = leaves[name]
+    kw["mat_types_present"] = tuple(kw["mat_types_present"])
+    kw["light_types_present"] = tuple(kw["light_types_present"])
+    return T.Scene(**kw)
+
+
+def camera_from_numpy(leaves: Mapping, device="cpu") -> Camera:
+    return _build(Camera, leaves, device)
+
+
+def film_from_numpy(leaves: Mapping, device="cpu") -> Film:
+    return _build(Film, leaves, device)

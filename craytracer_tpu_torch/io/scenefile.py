@@ -1,0 +1,193 @@
+"""Reference-compatible scene-file parser (counterpart of
+craytracer_tpu/io/scenefile.py; `load_scene_file` :347).
+
+The same keyword-driven, tolerant reading of the positional grammar
+(scene/scenefile.h:92-791): block collection, preset colors, legacy
+material keys, C-`atof` floats, film/camera header defaults. Materials,
+primitives and lights outside the Cornell slice raise
+NotImplementedError naming the ROADMAP item that will port them; a
+shape the parser does not know is skipped, as in the JAX parser.
+
+Returns (Scene, Camera, Film).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from craytracer_tpu_torch.camera import Film, make_camera
+from craytracer_tpu_torch.constants import PRESET_COLORS
+from craytracer_tpu_torch.io.tokenizer import TokenStream, atof, tokenize
+from craytracer_tpu_torch.scene.build import SceneBuilder, not_ported
+
+_OBJECT_TYPES = {
+    "SPHERE", "PLANE", "RECTANGLE", "TRIANGLE", "BOX", "OPENCYLINDER",
+    "SOLIDCYLINDER", "DISK", "TORUS", "MESH",
+}
+_MATERIAL_TYPES = {
+    "MATTE", "MIRROR", "TRANSPARENT", "EMISSIVE", "PLASTIC", "GLASS", "METAL",
+    "REFLECTIVE", "PHONG",
+}
+_KNOWN_KEYS = {
+    "NAME", "COLOR", "SIGMA", "NORMAL_MAP", "TEXTURE", "KD", "KD_TEXTURE",
+    "IMPORTANCE",
+    "KS", "ROUGHNESS", "IOR_IN", "IOR_OUT", "CF_IN", "CF_OUT", "INTENSITY",
+    "TYPE",
+    "SHADOWED", "AMB_COLOR", "AMB_CONSTANT", "DIFF_COLOR", "DIFF_CONSTANT",
+    "SPEC_COLOR", "SPEC_CONSTANT", "EXP",
+    "CAST_SHADOW", "RADIUS", "CENTER", "PHI", "MIN_THETA", "MAX_THETA",
+    "MATERIAL", "POINT", "NORMAL", "WIDTH", "HEIGHT", "V0", "V1", "V2",
+    "LENGTH", "LOCATION", "SCALE", "ORIENTATION", "NORMAL_TYPE",
+    "SWEPT_RADIUS", "TUBE_RADIUS", "FILE", "FILE_NAME", "SMOOTH", "SCALING",
+    "DIST_ATTEN", "DIRECTION",
+}
+# material / object keywords -> the feature name NotImplementedError cites
+_MAT_FEATURE = {"MIRROR": "mirror", "TRANSPARENT": "transparent",
+                "PLASTIC": "plastic", "GLASS": "glass", "METAL": "metal",
+                "REFLECTIVE": "plastic"}
+_OBJ_FEATURE = {"SPHERE": "sphere", "PLANE": "plane", "DISK": "disk",
+                "BOX": "box", "OPENCYLINDER": "cylinder",
+                "SOLIDCYLINDER": "cylinder", "TORUS": "torus",
+                "MESH": "mesh"}
+
+
+def _is_block_start(ts: TokenStream) -> bool:
+    """`MATERIAL` starts a block only when a material type follows
+    (scenefile.py:60-73)."""
+    tok = ts.peek()
+    if tok in ("OBJECT", "ENV_LIGHT", "END_MATERIALS", "POINT_LIGHT",
+               "DIRECTIONAL_LIGHT"):
+        return True
+    if tok == "MATERIAL":
+        nxt = ts.tokens[ts.pos + 1] if ts.pos + 1 < len(ts.tokens) else None
+        return nxt in _MATERIAL_TYPES
+    return False
+
+
+def _collect_block(ts: TokenStream) -> dict:
+    """KEY [values...] pairs until the next block starter or END
+    (scenefile.py:85-108)."""
+    kv: dict[str, list[str]] = {}
+    while not ts.eof():
+        if _is_block_start(ts):
+            break
+        tok = ts.next()
+        if tok == "END":
+            break
+        vals: list[str] = []
+        if not ts.eof() and not _is_block_start(ts) and ts.peek() != "END":
+            vals.append(ts.next())
+        while not ts.eof():
+            if _is_block_start(ts):
+                break
+            nxt = ts.peek()
+            if nxt == "END" or nxt in _KNOWN_KEYS:
+                break
+            vals.append(ts.next())
+        kv[tok] = vals
+    return kv
+
+
+def _vec3_from(vals, default=(0.0, 0.0, 0.0)):
+    if not vals:
+        return default
+    nums = [atof(v) for v in vals[:3]]
+    while len(nums) < 3:
+        nums.append(0.0)
+    return tuple(nums)
+
+
+def _color_from(vals, default=(0.0, 0.0, 0.0)):
+    if vals and vals[0] in PRESET_COLORS:
+        return PRESET_COLORS[vals[0]]
+    return _vec3_from(vals, default)
+
+
+def _f(vals, default=0.0):
+    return atof(vals[0]) if vals else default
+
+
+def _parse_material(builder: SceneBuilder, mat_type: str, kv: dict):
+    name = (kv.get("NAME") or ["unnamed"])[0]
+    cvals = kv.get("COLOR")
+    if ("TEXTURE" in kv or "KD_TEXTURE" in kv
+            or (cvals and cvals[0] == "TEXTURE") or kv.get("NORMAL_MAP")):
+        raise not_ported("texture")
+    if mat_type in _MAT_FEATURE:
+        raise not_ported(_MAT_FEATURE[mat_type])
+    if mat_type == "MATTE":
+        builder.add_matte(name, _color_from(cvals or kv.get("DIFF_COLOR"),
+                                            (0.5, 0.5, 0.5)),
+                          _f(kv.get("SIGMA"), 0.0))
+    elif mat_type == "EMISSIVE":
+        builder.add_emissive(name, _color_from(cvals, (1, 1, 1)),
+                             _f(kv.get("INTENSITY"), 1.0))
+    else:
+        builder.add_matte(name, (0.5, 0.5, 0.5))
+
+
+def _parse_object(builder: SceneBuilder, obj_type: str, kv: dict):
+    mat = (kv.get("MATERIAL") or ["__default__"])[0]
+    if obj_type in _OBJ_FEATURE:
+        raise not_ported(_OBJ_FEATURE[obj_type])
+    if obj_type == "RECTANGLE":
+        builder.add_rect(_vec3_from(kv.get("POINT")),
+                         _vec3_from(kv.get("WIDTH"), (1, 0, 0)),
+                         _vec3_from(kv.get("HEIGHT"), (0, 1, 0)), mat)
+    elif obj_type == "TRIANGLE":
+        builder.add_triangle(_vec3_from(kv.get("V0")),
+                             _vec3_from(kv.get("V1")),
+                             _vec3_from(kv.get("V2")), mat)
+
+
+def load_scene_file(path: str, accel: str = "auto", device="cpu"):
+    """Parse a scene file -> (Scene, Camera, Film) on `device`."""
+    with open(path) as f:
+        ts = TokenStream(tokenize(f.read()))
+    builder = SceneBuilder()
+    film_kv = dict(WINDOW_WIDTH=256, WINDOW_HEIGHT=256, IMAGE_WIDTH=256,
+                   IMAGE_HEIGHT=256, FOV=40.0)
+    cam_pos = (0.0, 0.0, 5.0)
+    look_point = (0.0, 0.0, 0.0)
+
+    while not ts.eof():
+        tok = ts.next()
+        if tok in ("WINDOW_WIDTH", "WINDOW_HEIGHT", "IMAGE_WIDTH",
+                   "IMAGE_HEIGHT"):
+            film_kv[tok] = ts.next_int()
+        elif tok == "FOV":
+            film_kv["FOV"] = ts.next_float()
+        elif tok == "CAMERA_POS":
+            cam_pos = ts.next_vec3()
+        elif tok == "LOOK_POINT":
+            look_point = ts.next_vec3()
+        elif tok == "MATERIAL":
+            mat_type = ts.next()
+            _parse_material(builder, mat_type, _collect_block(ts))
+        elif tok == "END_MATERIALS":
+            continue
+        elif tok == "OBJECT":
+            obj_type = ts.next()
+            kv = _collect_block(ts)
+            if obj_type in _OBJECT_TYPES:
+                _parse_object(builder, obj_type, kv)
+        elif tok in ("POINT_LIGHT", "DIRECTIONAL_LIGHT"):
+            raise not_ported("point/directional light")
+        elif tok == "ENV_LIGHT":
+            kv = _collect_block(ts)
+            kind = (kv.get("TYPE") or ["CONSTANT"])[0]
+            if kind == "TEXTURE":
+                raise not_ported("texture")
+            builder.set_env_light("constant",
+                                  _color_from(kv.get("COLOR"), (1, 1, 1)),
+                                  _f(kv.get("INTENSITY"), 0.0))
+
+    scene = builder.build(accel=accel, device=device)
+    camera = make_camera(cam_pos, look_point, device=device)
+    film = Film(fov=torch.tensor(math.radians(film_kv["FOV"]),
+                                 dtype=torch.float32, device=device),
+                width=int(film_kv["IMAGE_WIDTH"]),
+                height=int(film_kv["IMAGE_HEIGHT"]))
+    return scene, camera, film

@@ -1,0 +1,196 @@
+"""Batched brute-force ray-primitive intersection (counterpart of
+craytracer_tpu/ops/intersect.py, brute path only: `rect_ts` :117,
+`triangle_ts` :163, `_fill_rect` :355, `_fill_triangle` :380,
+`intersect_scene` :518, `shadow_distance` :685).
+
+Two phases over [N] ray batches, as in the JAX package: a search over
+[N, M] (ray, primitive) pairs reduced to the first minimum per group and
+then across groups in the reference's tie-break order, and a fill that
+re-derives t/normal/dpdu/uv for the winning primitive only. The slice's
+scenes hold rects and flat triangles only: the builder refuses other
+primitives and K1's gate refuses scenes that carry any.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from craytracer_tpu_torch.constants import K_EPSILON, TMAX
+from craytracer_tpu_torch.core import math as vm
+from craytracer_tpu_torch.scene import types as T
+
+
+@dataclass(frozen=True)
+class Hit:
+    """SoA hit record (intersect.py:34-49)."""
+
+    t: torch.Tensor  # [N]
+    group: torch.Tensor  # [N] int32 GROUP_*, -1 for miss
+    prim: torch.Tensor  # [N] int32 index within group
+    point: torch.Tensor  # [N, 3]
+    normal: torch.Tensor  # [N, 3]
+    dpdu: torch.Tensor  # [N, 3]
+    uv: torch.Tensor  # [N, 2]
+    mat_id: torch.Tensor  # [N] int32
+
+    @property
+    def hit_mask(self):
+        return self.t < TMAX
+
+
+def _cols(v):
+    """[M, 3] -> three [1, M] rows."""
+    return v[None, :, 0], v[None, :, 1], v[None, :, 2]
+
+
+def rect_ts(o, d, r: T.Rects):
+    """rayIntersectRect (shapes/rect.cpp:3-54) over [N, M] pairs."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    pxr, pyr, pzr = _cols(r.point)
+    nx, ny, nz = _cols(r.normal)
+    wx, wy, wz = _cols(r.width)
+    hx, hy, hz = _cols(r.height)
+    denom = dx * nx + dy * ny + dz * nz
+    t = ((pxr - ox) * nx + (pyr - oy) * ny + (pzr - oz) * nz) / vm._safe(denom)
+    qx = ox + t * dx - pxr
+    qy = oy + t * dy - pyr
+    qz = oz + t * dz - pzr
+    u = (qx * wx + qy * wy + qz * wz) / (wx * wx + wy * wy + wz * wz)
+    v = (qx * hx + qy * hy + qz * hz) / (hx * hx + hy * hy + hz * hz)
+    ok = (t > K_EPSILON) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
+    return torch.where(ok, t, TMAX)
+
+
+def triangle_ts(o, d, tr: T.Triangles):
+    """Moller-Trumbore over [N, M] pairs (shapes/triangle.cpp:14-79)."""
+    e1 = tr.v1 - tr.v0
+    e2 = tr.v2 - tr.v0
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    v0x, v0y, v0z = _cols(tr.v0)
+    e1x, e1y, e1z = _cols(e1)
+    e2x, e2y, e2z = _cols(e2)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = 1.0 / vm._safe(det)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    beta = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    gamma = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = ((beta >= 0.0) & (gamma >= 0.0) & (beta + gamma <= 1.0)
+          & (t > K_EPSILON))
+    return torch.where(ok, t, TMAX)
+
+
+def _fill_rect(o, d, idx, r: T.Rects):
+    n, w, p0, mat_id = r.normal[idx], r.width[idx], r.point[idx], r.mat_id[idx]
+    h = r.height[idx]
+    t_diff = vm.dot(p0 - o, n) / vm._safe(vm.dot(d, n))
+    hp = o + t_diff[:, None] * d
+    q = hp - p0
+    u = vm.dot(q, w) / vm.dot(w, w)
+    v = vm.dot(q, h) / vm.dot(h, h)
+    # face the normal toward wo, negating dpdu with it (rect.cpp:36-46)
+    flip = (vm.dot(-d, n) < 0.0)[:, None]
+    n = torch.where(flip, -n, n)
+    dpdu = vm.normalize(torch.where(flip, -w, w))
+    return n, dpdu, torch.stack([u, v], dim=-1), mat_id, t_diff
+
+
+def _fill_triangle(o, d, idx, tr: T.Triangles):
+    v0, v1, v2 = tr.v0[idx], tr.v1[idx], tr.v2[idx]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = vm.cross(d, e2)
+    det = vm.dot(e1, pvec)
+    inv_det = 1.0 / vm._safe(det)
+    tvec = o - v0
+    beta = vm.dot(tvec, pvec) * inv_det
+    qvec = vm.cross(tvec, e1)
+    gamma = vm.dot(d, qvec) * inv_det
+    t_diff = vm.dot(e2, qvec) * inv_det
+    alpha = 1.0 - beta - gamma
+    # flat triangles: the face normal (the builder and interop refuse
+    # smooth ones)
+    n = tr.face_normal[idx]
+    # standalone triangles face the ray (shapes/triangle.cpp:160-166)
+    flip = (tr.double_sided[idx] & (vm.dot(-d, n) < 0.0))[:, None]
+    n = torch.where(flip, -n, n)
+    uv = (alpha[:, None] * tr.uv0[idx] + beta[:, None] * tr.uv1[idx]
+          + gamma[:, None] * tr.uv2[idx])
+    uv = uv - torch.floor(uv)
+    return n, vm.normalize(e1), uv, tr.mat_id[idx], t_diff
+
+
+# intersect_scene's group order (intersect.py:504-511), restricted to the
+# groups the port's builder emits
+_GROUPS = (
+    (T.GROUP_RECT, "rects", rect_ts, _fill_rect),
+    (T.GROUP_TRIANGLE, "triangles", triangle_ts, _fill_triangle),
+)
+
+
+@torch.no_grad()
+def intersect_scene(scene: T.Scene, o, d) -> Hit:
+    """Closest hit across the primitive groups: first minimum within a
+    group, strict < across groups (the reference's tie-break order)."""
+    n = o.shape[0]
+    best_t = torch.full((n,), TMAX, dtype=o.dtype, device=o.device)
+    best_group = torch.full((n,), T.GROUP_NONE, dtype=torch.int32,
+                            device=o.device)
+    best_idx = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    for gid, name, ts_fn, _ in _GROUPS:
+        group = getattr(scene, name)
+        if group.mat_id.shape[0] == 0:
+            continue
+        gmin, gidx = torch.min(ts_fn(o, d, group), dim=1)
+        better = gmin < best_t
+        best_t = torch.where(better, gmin, best_t)
+        best_group = torch.where(better, gid, best_group)
+        best_idx = torch.where(better, gidx, best_idx)
+
+    hit = best_t < TMAX
+    normal = torch.zeros_like(o)
+    normal[:, 2] = 1.0
+    dpdu = torch.zeros_like(o)
+    dpdu[:, 0] = 1.0
+    uv = torch.zeros((n, 2), dtype=o.dtype, device=o.device)
+    mat_id = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    t_out = best_t
+    for gid, name, _, fill_fn in _GROUPS:
+        group = getattr(scene, name)
+        if group.mat_id.shape[0] == 0:
+            continue
+        # clamp: lanes of other groups index this group's table too; their
+        # values are discarded by the select below
+        idx = torch.clamp(best_idx, max=group.mat_id.shape[0] - 1)
+        g_n, g_dpdu, g_uv, g_mat, g_t = fill_fn(o, d, idx, group)
+        sel = best_group == gid
+        normal = torch.where(sel[:, None], g_n, normal)
+        dpdu = torch.where(sel[:, None], g_dpdu, dpdu)
+        uv = torch.where(sel[:, None], g_uv, uv)
+        mat_id = torch.where(sel, g_mat, mat_id)
+        t_out = torch.where(sel, g_t, t_out)
+    point = torch.where(hit[:, None], o + t_out[:, None] * d,
+                        torch.zeros_like(o))
+    return Hit(t=t_out, group=best_group, prim=best_idx.to(torch.int32),
+               point=point, normal=normal, dpdu=dpdu, uv=uv, mat_id=mat_id)
+
+
+@torch.no_grad()
+def shadow_distance(scene: T.Scene, o, d):
+    """Min hit distance for shadow rays over every primitive."""
+    best_t = torch.full((o.shape[0],), TMAX, dtype=o.dtype, device=o.device)
+    for _, name, ts_fn, _ in _GROUPS:
+        group = getattr(scene, name)
+        if group.mat_id.shape[0]:
+            best_t = torch.minimum(best_t, ts_fn(o, d, group).min(dim=1).values)
+    return best_t

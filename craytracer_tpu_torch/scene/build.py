@@ -1,0 +1,315 @@
+"""Host-side scene builder: Python API -> scene tensors (counterpart of
+craytracer_tpu/scene/build.py; `SceneBuilder` :84, `build` :405,
+`_build_lights` :645).
+
+The accumulation runs in numpy with the JAX builder's exact arithmetic
+(same dtypes, same order), so both packages emit bit-identical tables:
+the area-light derivation from emissive rects, the reference's
+product-of-components light power, the normalized power CDF and the env
+world radius. Only what the Cornell slice needs is ported; every other
+primitive, material, light and accelerator raises NotImplementedError
+naming the ROADMAP item that will port it.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from craytracer_tpu_torch.scene import types as T
+
+_TODO_K1 = "ROADMAP queue 2, K1 remaining gate features"
+_TODO = {
+    "sphere": _TODO_K1, "plane": _TODO_K1, "disk": _TODO_K1,
+    "box": _TODO_K1, "mirror": _TODO_K1, "plastic": _TODO_K1,
+    "metal": _TODO_K1, "glass": _TODO_K1, "transparent": _TODO_K1,
+    "cylinder": "ROADMAP queue 1, slice D", "torus": "ROADMAP queue 1, slice D",
+    "mesh": "ROADMAP queue 1, slice B",
+    "texture": "ROADMAP queue 1, slice E",
+    "point/directional light": "ROADMAP queue 1, slice E",
+}
+
+
+def not_ported(feature: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to craytracer_tpu_torch yet "
+        f"({_TODO.get(feature, _TODO_K1)})")
+
+
+@dataclass
+class _Mat:
+    name: str
+    mat_type: int
+    color: tuple = (0.0, 0.0, 0.0)
+    sigma: float = 0.0
+    intensity: float = 0.0
+
+
+class SceneBuilder:
+    """Accumulates rects, triangles, matte/emissive materials and the env
+    light, then `build()`s the Scene (build.py:84-833)."""
+
+    def __init__(self):
+        self._mats: list[_Mat] = []
+        self._mat_index: dict[str, int] = {}
+        self._rects = []
+        self._triangles = []
+        self._env: Optional[dict] = None
+        self.add_material(_Mat(name="__default__", mat_type=T.MAT_MATTE,
+                               color=(0.5, 0.5, 0.5)))
+
+    # -- materials ---------------------------------------------------------
+
+    def add_material(self, mat: _Mat) -> int:
+        idx = len(self._mats)
+        self._mats.append(mat)
+        self._mat_index[mat.name] = idx
+        return idx
+
+    def add_matte(self, name, color=(0.5, 0.5, 0.5), sigma=0.0):
+        return self.add_material(_Mat(name=name, mat_type=T.MAT_MATTE,
+                                      color=tuple(color), sigma=float(sigma)))
+
+    def add_emissive(self, name, color=(1.0, 1.0, 1.0), intensity=1.0):
+        return self.add_material(_Mat(name=name, mat_type=T.MAT_EMISSIVE,
+                                      color=tuple(color),
+                                      intensity=float(intensity)))
+
+    def material_id(self, name) -> int:
+        if isinstance(name, int):
+            return name
+        return self._mat_index.get(name, 0)
+
+    # -- primitives --------------------------------------------------------
+
+    def add_rect(self, point, width, height, mat):
+        w = np.asarray(width, np.float64)
+        h = np.asarray(height, np.float64)
+        n = np.cross(w, h)
+        n = n / np.linalg.norm(n)
+        self._rects.append((np.asarray(point, np.float32), w.astype(np.float32),
+                            h.astype(np.float32), n.astype(np.float32),
+                            self.material_id(mat)))
+
+    def add_triangle(self, v0, v1, v2, mat, double_sided=True):
+        """Flat standalone triangle (build.py:205-220): face normal in f64,
+        vertex normals = face normal, zero uvs."""
+        v0 = np.asarray(v0, np.float32)
+        v1 = np.asarray(v1, np.float32)
+        v2 = np.asarray(v2, np.float32)
+        fn = np.cross((v1 - v0).astype(np.float64),
+                      (v2 - v0).astype(np.float64))
+        norm = np.linalg.norm(fn)
+        fn = (fn / norm if norm > 0 else np.array([0.0, 0.0, 1.0])
+              ).astype(np.float32)
+        z2 = np.zeros(2, np.float32)
+        self._triangles.append((v0, v1, v2, fn, fn, fn, z2, z2, z2, fn,
+                                False, bool(double_sided),
+                                self.material_id(mat)))
+
+    # -- lights ------------------------------------------------------------
+
+    def set_env_light(self, kind, color=(1, 1, 1), intensity=1.0):
+        if kind != "constant":
+            raise not_ported("texture")
+        self._env = dict(kind=kind, color=tuple(color),
+                         intensity=float(intensity))
+
+    # -- build -------------------------------------------------------------
+
+    def _scene_bounds(self):
+        mins = np.full(3, np.inf)
+        maxs = np.full(3, -np.inf)
+
+        def cover(p):
+            nonlocal mins, maxs
+            mins = np.minimum(mins, p)
+            maxs = np.maximum(maxs, p)
+
+        for p, w, h, n, m in self._rects:
+            for q in (p, p + w, p + h, p + w + h):
+                cover(q)
+        for tri in self._triangles:
+            for q in tri[:3]:
+                cover(q)
+        if not np.all(np.isfinite(mins)):
+            mins = np.zeros(3)
+            maxs = np.ones(3)
+        return mins, maxs
+
+    def build(self, accel: str = "auto", device="cpu") -> T.Scene:
+        """accel: 'none' or 'auto' ('none' below 64 triangles, as
+        build.py:485-487 resolves it)."""
+        f32 = np.float32
+        n_tris = len(self._triangles)
+        if accel == "auto":
+            accel = "bvh4" if n_tris >= 64 else "none"
+        if n_tris == 0:
+            accel = "none"
+        if accel != "none":
+            item = "slice B" if accel in ("bvh", "bvh4") else "slice I"
+            raise NotImplementedError(
+                f"accel={accel!r} is not ported to craytracer_tpu_torch yet "
+                f"(ROADMAP queue 1, {item})")
+
+        def soa(rows, spec):
+            if not rows:
+                return [np.zeros((0,) + s, d) for s, d in spec]
+            cols = list(zip(*rows))
+            return [np.asarray(c, dtype=d).reshape((len(rows),) + s)
+                    for c, (s, d) in zip(cols, spec)]
+
+        def tensors(cls, arrays):
+            return cls(*(torch.from_numpy(np.ascontiguousarray(a))
+                         for a in arrays))
+
+        spheres = tensors(T.Spheres, soa([], [((3,), f32)] + [((), f32)] * 4
+                                         + [((), np.int32)]))
+        planes = tensors(T.Planes, soa([], [((3,), f32), ((3,), f32),
+                                            ((), np.int32)]))
+        rects = tensors(T.Rects, soa(self._rects, [((3,), f32)] * 4
+                                     + [((), np.int32)]))
+        disks = tensors(T.Disks, soa([], [((3,), f32), ((3,), f32),
+                                          ((), f32), ((), np.int32)]))
+        triangles = tensors(T.Triangles, soa(
+            self._triangles, [((3,), f32)] * 6 + [((2,), f32)] * 3
+            + [((3,), f32), ((), bool), ((), bool), ((), np.int32)]))
+        instanced = tensors(T.Instanced, soa(
+            [], [((3, 4), f32), ((3, 3), f32), ((), np.int32), ((4,), f32),
+                 ((), np.int32), ((), np.int32)]))
+
+        mats = self._mats
+        zeros3 = [(0.0, 0.0, 0.0)] * len(mats)
+        ones3 = [(1.0, 1.0, 1.0)] * len(mats)
+
+        def col(values, dtype=f32):
+            return np.asarray(values, dtype)
+
+        materials = tensors(T.Materials, [
+            col([m.mat_type for m in mats], np.int32),
+            col([m.color for m in mats]),
+            col(zeros3),                                   # ks
+            col([m.sigma for m in mats]),
+            col([self._on_a(m.sigma) for m in mats]),
+            col([self._on_b(m.sigma) for m in mats]),
+            col([1.5] * len(mats)), col([1.0] * len(mats)),  # ior in/out
+            col(ones3), col(ones3),                        # cf in/out
+            col(ones3), col(zeros3),                       # eta, k
+            col([0.0] * len(mats)), col([0.0] * len(mats)),  # alphax/y
+            col([T.DIST_BECKMANN] * len(mats), np.int32),
+            col([m.intensity for m in mats]),
+            col([-1] * len(mats), np.int32), col([-1] * len(mats), np.int32),
+        ])
+        lights, mesh_lights, env = self._build_lights(mats)
+        mat_type = materials.mat_type.numpy()
+        scene = T.Scene(
+            spheres=spheres, planes=planes, rects=rects, disks=disks,
+            triangles=triangles, instanced=instanced, materials=materials,
+            lights=lights, mesh_lights=mesh_lights, env=env,
+            textures=T.empty_texture_pack(),
+            accel=accel,
+            mat_types_present=tuple(sorted(int(t) for t in
+                                           np.unique(mat_type))),
+            light_types_present=tuple(sorted(
+                int(t) for t in np.unique(lights.light_type.numpy()))),
+            matte_lambertian=bool(np.all(
+                materials.on_b.numpy()[mat_type == T.MAT_MATTE] == 0.0)),
+        )
+        return scene.to(device)
+
+    @staticmethod
+    def _on_a(sigma_deg):
+        s = math.radians(sigma_deg)
+        s2 = s * s
+        return 1.0 - s2 / (2.0 * (s2 + 0.33))
+
+    @staticmethod
+    def _on_b(sigma_deg):
+        s = math.radians(sigma_deg)
+        s2 = s * s
+        return 0.45 * s2 / (s2 + 0.09)
+
+    def _build_lights(self, mats):
+        """Area lights from emissive rects, the env light row, the
+        reference power rule and the normalized CDF (build.py:645-833)."""
+        f32 = np.float32
+        rows = []  # (type, p0, v1, v2, normal, radius, color, intensity,
+        #              area, mesh_id, src_group, src_prim)
+        for i, (p, w, h, n, mat_id) in enumerate(self._rects):
+            m = mats[mat_id]
+            if m.mat_type == T.MAT_EMISSIVE:
+                area = float(np.linalg.norm(w) * np.linalg.norm(h))
+                rows.append((T.LIGHT_AREA_RECT, p, w, h, n, 0.0, m.color,
+                             m.intensity, area, -1, T.GROUP_RECT, i))
+
+        env_cfg = self._env
+        mins, maxs = self._scene_bounds()
+        world_radius = float(2.0 * np.linalg.norm(maxs - mins))
+        if env_cfg is not None and env_cfg["intensity"] > 0.0:
+            rows.append((T.LIGHT_ENV, np.zeros(3, f32), np.zeros(3, f32),
+                         np.zeros(3, f32), np.zeros(3, f32), 0.0,
+                         env_cfg["color"], env_cfg["intensity"], world_radius,
+                         -1, -1, -1))
+
+        powers = []
+        for row in rows:
+            ltype, _, _, _, _, radius, color, inten, area = row[:9]
+            c = np.asarray(color, np.float64)
+            if ltype == T.LIGHT_ENV:
+                powers.append(float(c.mean() * inten * world_radius))
+            else:
+                powers.append(float((c[0] * c[1] * c[2]) / 3.0 * inten * area))
+        total_p = sum(powers)
+        if total_p <= 0.0 and rows:
+            powers = [1.0 / len(rows)] * len(rows)
+        elif rows:
+            powers = [p / total_p for p in powers]
+
+        n = len(rows)
+
+        def t(values, dtype, shape):
+            return torch.from_numpy(np.asarray(values, dtype).reshape(shape))
+
+        lights = T.Lights(
+            light_type=t([r[0] for r in rows], np.int32, (n,)),
+            p0=t(np.array([r[1] for r in rows], f32), f32, (n, 3)),
+            v1=t(np.array([r[2] for r in rows], f32), f32, (n, 3)),
+            v2=t(np.array([r[3] for r in rows], f32), f32, (n, 3)),
+            normal=t(np.array([r[4] for r in rows], f32), f32, (n, 3)),
+            radius=t([r[5] for r in rows], f32, (n,)),
+            color=t(np.array([r[6] for r in rows], f32), f32, (n, 3)),
+            intensity=t([r[7] for r in rows], f32, (n,)),
+            power=t(powers, f32, (n,)),
+            power_cdf=t(np.cumsum(powers, dtype=np.float64), f32, (n,)),
+            mesh_light_id=t([r[9] for r in rows], np.int32, (n,)),
+            src_group=t([r[10] for r in rows], np.int32, (n,)),
+            src_prim=t([r[11] for r in rows], np.int32, (n,)),
+        )
+        n_tris = len(self._triangles)
+        mesh_lights = T.MeshLights(
+            tri_index=torch.zeros((0,), dtype=torch.int32),
+            cdf=torch.zeros((0,), dtype=torch.float32),
+            light_offset=torch.zeros((1,), dtype=torch.int32),
+            surface_area=torch.zeros((0,), dtype=torch.float32),
+            tri_light_id=torch.full((max(n_tris, 1),), -1, dtype=torch.int32),
+        )
+        if env_cfg is None:
+            env = T.EnvLight(
+                color=torch.zeros(3, dtype=torch.float32),
+                intensity=torch.tensor(0.0, dtype=torch.float32),
+                transform=torch.eye(3, dtype=torch.float32),
+                world_radius=torch.tensor(world_radius, dtype=torch.float32),
+                tex_id=torch.tensor(-1, dtype=torch.int32), kind=0)
+        else:
+            env = T.EnvLight(
+                color=torch.tensor(env_cfg["color"], dtype=torch.float32),
+                intensity=torch.tensor(env_cfg["intensity"],
+                                       dtype=torch.float32),
+                transform=torch.eye(3, dtype=torch.float32),
+                world_radius=torch.tensor(world_radius, dtype=torch.float32),
+                tex_id=torch.tensor(-1, dtype=torch.int32), kind=1)
+        return lights, mesh_lights, env

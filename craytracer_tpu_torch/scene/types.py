@@ -1,0 +1,233 @@
+"""Flat SoA scene model as tensor dataclasses (counterpart of
+craytracer_tpu/scene/types.py:1-299).
+
+Field names, shapes and dtypes follow the JAX pytrees leaf for leaf, so a
+test can compare the two packages' scenes field by field. Groups the
+slice does not render (spheres, planes, disks, instanced, mesh lights)
+are still present, as zero-row tensors, exactly as the JAX builder emits
+them for a scene without such primitives. The static fields `accel`,
+`mat_types_present`, `light_types_present` and `matte_lambertian` stay
+plain Python values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+# Material type codes (types.py:18-25).
+MAT_INVALID = 0
+MAT_MATTE = 1
+MAT_MIRROR = 2
+MAT_TRANSPARENT = 3
+MAT_EMISSIVE = 4
+MAT_PLASTIC = 5
+MAT_GLASS = 6
+MAT_METAL = 7
+
+DIST_BECKMANN = 0
+
+# Light type codes (types.py:45-51).
+LIGHT_AREA_RECT = 0
+LIGHT_AREA_SPHERE = 1
+LIGHT_AREA_DISK = 2
+LIGHT_ENV = 3
+LIGHT_MESH = 4
+LIGHT_DIRECTIONAL = 5
+LIGHT_POINT = 6
+
+# Geometry group ids used in hit records (types.py:54-60).
+GROUP_NONE = -1
+GROUP_SPHERE = 0
+GROUP_PLANE = 1
+GROUP_RECT = 2
+GROUP_DISK = 3
+GROUP_TRIANGLE = 4
+GROUP_INSTANCED = 5
+
+
+def to_device(obj, device):
+    """Copy every tensor leaf of a (nested) dataclass to `device`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+@dataclass(frozen=True)
+class Spheres:
+    center: torch.Tensor  # [N, 3]
+    radius: torch.Tensor  # [N]
+    phi: torch.Tensor  # [N]
+    min_theta: torch.Tensor  # [N]
+    max_theta: torch.Tensor  # [N]
+    mat_id: torch.Tensor  # [N] int32
+
+
+@dataclass(frozen=True)
+class Planes:
+    point: torch.Tensor  # [N, 3]
+    normal: torch.Tensor  # [N, 3]
+    mat_id: torch.Tensor  # [N]
+
+
+@dataclass(frozen=True)
+class Rects:
+    point: torch.Tensor  # [N, 3]
+    width: torch.Tensor  # [N, 3] edge vector
+    height: torch.Tensor  # [N, 3] edge vector
+    normal: torch.Tensor  # [N, 3] normalize(width x height)
+    mat_id: torch.Tensor  # [N]
+
+
+@dataclass(frozen=True)
+class Disks:
+    center: torch.Tensor  # [N, 3]
+    normal: torch.Tensor  # [N, 3]
+    radius: torch.Tensor  # [N]
+    mat_id: torch.Tensor  # [N]
+
+
+@dataclass(frozen=True)
+class Triangles:
+    v0: torch.Tensor  # [N, 3]
+    v1: torch.Tensor
+    v2: torch.Tensor
+    n0: torch.Tensor  # [N, 3] vertex normals (face normal when flat)
+    n1: torch.Tensor
+    n2: torch.Tensor
+    uv0: torch.Tensor  # [N, 2]
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    face_normal: torch.Tensor  # [N, 3]
+    smooth: torch.Tensor  # [N] bool
+    double_sided: torch.Tensor  # [N] bool: standalone triangles face the ray
+    mat_id: torch.Tensor  # [N]
+
+
+@dataclass(frozen=True)
+class Instanced:
+    inv_transform: torch.Tensor  # [N, 3, 4]
+    normal_mat: torch.Tensor  # [N, 3, 3]
+    kind: torch.Tensor  # [N] int32
+    params: torch.Tensor  # [N, 4]
+    normal_type: torch.Tensor  # [N] int32
+    mat_id: torch.Tensor  # [N]
+
+
+@dataclass(frozen=True)
+class Materials:
+    mat_type: torch.Tensor  # [M] int32
+    color: torch.Tensor  # [M, 3]
+    ks: torch.Tensor  # [M, 3]
+    sigma: torch.Tensor  # [M]
+    on_a: torch.Tensor  # [M] Oren-Nayar A
+    on_b: torch.Tensor  # [M] Oren-Nayar B
+    ior_in: torch.Tensor
+    ior_out: torch.Tensor
+    cf_in: torch.Tensor  # [M, 3]
+    cf_out: torch.Tensor
+    eta: torch.Tensor  # [M, 3]
+    k: torch.Tensor  # [M, 3]
+    alphax: torch.Tensor
+    alphay: torch.Tensor
+    distrib: torch.Tensor  # [M] int32
+    intensity: torch.Tensor  # [M] emissive scale
+    diffuse_tex: torch.Tensor  # [M] int32
+    normal_tex: torch.Tensor  # [M] int32
+
+
+@dataclass(frozen=True)
+class Lights:
+    light_type: torch.Tensor  # [L] int32
+    p0: torch.Tensor  # [L, 3]
+    v1: torch.Tensor  # [L, 3] rect width edge
+    v2: torch.Tensor  # [L, 3] rect height edge
+    normal: torch.Tensor  # [L, 3]
+    radius: torch.Tensor  # [L]
+    color: torch.Tensor  # [L, 3]
+    intensity: torch.Tensor  # [L]
+    power: torch.Tensor  # [L] normalized selection probabilities
+    power_cdf: torch.Tensor  # [L] inclusive prefix sum of power
+    mesh_light_id: torch.Tensor  # [L] int32
+    src_group: torch.Tensor  # [L] int32
+    src_prim: torch.Tensor  # [L] int32
+
+
+@dataclass(frozen=True)
+class MeshLights:
+    tri_index: torch.Tensor
+    cdf: torch.Tensor
+    light_offset: torch.Tensor
+    surface_area: torch.Tensor
+    tri_light_id: torch.Tensor
+
+
+@dataclass(frozen=True)
+class EnvLight:
+    """`kind` is static: 0 none, 1 constant, 2 texture."""
+
+    color: torch.Tensor  # [3]
+    intensity: torch.Tensor  # scalar
+    transform: torch.Tensor  # [3, 3]
+    world_radius: torch.Tensor  # scalar
+    tex_id: torch.Tensor  # int32 scalar
+    kind: int = 0
+    flat_cdf: Optional[torch.Tensor] = None
+    flat_pdf: Optional[torch.Tensor] = None
+    importance: int = 0
+    imp_h: int = 0
+    imp_w: int = 0
+
+
+@dataclass(frozen=True)
+class TexturePack:
+    texels: torch.Tensor  # [T, 3]
+    offset: torch.Tensor  # [K] int32
+    width: torch.Tensor  # [K] int32
+    height: torch.Tensor  # [K] int32
+
+
+def empty_texture_pack(device="cpu") -> TexturePack:
+    return TexturePack(
+        texels=torch.zeros((1, 3), dtype=torch.float32, device=device),
+        offset=torch.zeros((1,), dtype=torch.int32, device=device),
+        width=torch.ones((1,), dtype=torch.int32, device=device),
+        height=torch.ones((1,), dtype=torch.int32, device=device),
+    )
+
+
+@dataclass(frozen=True)
+class Scene:
+    """The whole scene. The slice has no accel tables, so the JAX Scene's
+    tri_bvh/tri_shadow/tri_parts/tri_cam/sph_bvh slots are absent: the
+    port's builder accepts accel='none' only."""
+
+    spheres: Spheres
+    planes: Planes
+    rects: Rects
+    disks: Disks
+    triangles: Triangles
+    instanced: Instanced
+    materials: Materials
+    lights: Lights
+    mesh_lights: MeshLights
+    env: EnvLight
+    textures: TexturePack
+    accel: str = "none"
+    mat_types_present: tuple = ()
+    light_types_present: tuple = ()
+    matte_lambertian: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.materials.color.device
+
+    def to(self, device) -> "Scene":
+        return to_device(self, device)
