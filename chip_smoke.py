@@ -8,37 +8,73 @@ never JAX or the JAX package. Phases, each printing its own lines:
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and
    power limit.
-2. build: compiles K1 (csrc/pass_kernel.cu, nvcc, sm_90a) from the
-   checkout into craytracer_tpu_torch/_build/ and prints the build time.
-3. kernel vs plain: K1 against its plain PyTorch version on the card, on
+2. build: compiles K1 (csrc/pass_kernel.cu), K2 (csrc/shade_kernel.cu)
+   and K3/K4 (csrc/bvh4_traverse.cu) from the checkout with one nvcc each,
+   all started together (sm_90a), into craytracer_tpu_torch/_build/;
+   prints each build's seconds and ptxas' registers and spills; then
+   builds the native scene runtime (native/craynative.cpp, g++).
+3. K1 vs plain: K1 against its plain PyTorch version on the card, on
    scenes/parity_cornell.txt at 64x64, depth 0, 2 and 5, scalar and
-   per-lane spp, both raygen variants; then at the main path's own shape,
-   512x512 lanes in the Renderer's Morton order with its per-lane spp
-   (first and last pass), depth 0, 2 and 5. At least 99.9% of lanes must
-   have equal `good`, L within 1e-4 (absolute + relative) on those lanes,
-   rays and shadow_rays within 0.1% (exact at depth 0).
-4. main path: the port's Renderer at 512x512, depth 5, 64 spp, reference
-   estimator. Every pass must launch K1 once and no NaN may be
+   per-lane spp, both raygen variants; then at the Cornell main path's own
+   shape, 512x512 lanes in the Renderer's Morton order with its per-lane
+   spp (first and last pass), depth 0, 2 and 5. At least 99.9% of lanes
+   must have equal `good`, L within 1e-4 (absolute + relative) on those
+   lanes, rays and shadow_rays within 0.1% (exact at depth 0).
+4. Cornell main path: the port's Renderer at 512x512, depth 5, 64 spp,
+   reference estimator; every launch count is set to 0 just before it and
+   read just after: one K1 launch per pass, no K2/K3/K4 launch, no NaN
    substituted; the image must match tests/goldens/golden_cornell.is by
    tone-mapped 8x8 block means (the thresholds of
-   tests/test_reference_parity.py). The PPM goes to
+   tests/test_reference_parity.py).
+5. Cornell time: 512x512, depth 5, 16 passes per timed run, CUDA events
+   after a warm-up, median of 5, in turns: bare K1 launches on prebuilt
+   inputs, K1 through fused_pass, and the plain version; the last timed
+   passes of K1 and of the plain version are held against each other.
+6. K3/K4 vs plain on scenes/parity_mesh_mid.txt (20,480 triangles): the
+   512x512 camera rays in Morton order, the bounce-1 and bounce-3 rays and
+   shadow rays of one plain pass, and 64k seeded random rays with 1%
+   escape lanes. Bars: hit masks and ids equal and t within rtol 1e-6 on
+   >= 99.99% of hit lanes; the any-hit verdict t < max_dist and, for the
+   shadow rays, the `lit` predicate equal on >= 99.99% of lanes.
+7. K2 vs plain on the hit records of bounces 0, 1 and 4 of that pass:
+   float outputs within 1e-5 (absolute + relative), int outputs equal on
+   >= 99.9% of lanes.
+8. whole mesh pass vs plain: trace_paths through the kernels (K3 -> K2 ->
+   K4, with the ray_key sorts) against the plain trace_paths (no sort) at
+   512x512 Morton lanes, per-lane spp, depth 0, 2, 5 (spp 0) and depth 5
+   (spp 63), with phase 3's bars.
+9. mesh main path: the Renderer on parity_mesh_mid at 512x512, depth 5,
+   64 spp, reference estimator; counts set to 0 just before and read just
+   after: K3, K2 and K4 launch passes x 6 times each, K1 never, no NaN;
+   the image against tests/goldens/golden_mesh_mid.is, and parity_mesh
+   the same way against golden_mesh.is. PPMs go to
    craytracer_tpu_torch/_build/.
-5. time: 512x512, depth 5, 16 passes per timed run, CUDA events after a
-   warm-up, median of 5, in turns: bare K1 launches on prebuilt inputs,
-   K1 through the fused_pass wrapper, and the plain version. Rays/s
-   counts rays + shadow_rays from the kernel's own counters. The last
-   timed pass of K1 (through the wrapper) and of the plain version are
-   held against each other as in phase 3. The JSON line's "ms" is the
-   bare launch, "plain_ms" the plain version, per pass; "max_abs_err" is
-   the largest |dL| over all lanes of every phase-3 and phase-5 check.
+10. mesh time (CUDA events after a warm-up, median of 5): parity_mesh_mid
+   512x512 depth 5 rays/s through render_sample over 16 passes (live
+   closest-hit rays + shadow rays, from the counters); bare K3, K2 and K4
+   per launch on the six bounces of one pass's real inputs, and the plain
+   versions once; then the bench_mesh.py city of 327,680 triangles built
+   with add_triangles_array: its build seconds, 256x256 depth 4 rays/s,
+   and bare K3 per launch on camera and bounce-1 rays, each with and
+   without the ray_key sort.
 
-Then one JSON line describing the kernels, and as the last line
-{"ok": true, "device": {...}}. Any failure exits non-zero without it.
+Then one JSON line describing the kernels (each with its launches on the
+main path, max_abs_err over its checks, ms per bare launch, the plain
+version's ms, and bound_ms: the larger of the bytes it must move over
+3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s f32,
+counted from the CUDA sources; for K3/K4 both are counted from the rows
+the plain traversal pops: each visited row read once, and per pop the
+slab tests of its internal children and the triangle tests of its filled
+slots; library_ms is null, since no single
+PyTorch call computes any of these functions), the nvidia-smi line, and
+as the last line {"ok": true, "device": {...}}. Any failure exits
+non-zero without them.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,7 +87,41 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(REPO, "scenes", "parity_cornell.txt")
 GOLDEN = os.path.join(REPO, "tests", "goldens", "golden_cornell.is")
+MESH_MID = os.path.join(REPO, "scenes", "parity_mesh_mid.txt")
+MESH = os.path.join(REPO, "scenes", "parity_mesh.txt")
 L_TOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
+# operations per unit of work, counted from the CUDA sources (f32 adds,
+# multiplies, divisions, square roots, min/max and compares; integer
+# hashing and address arithmetic left out)
+BOX_OPS = 25  # K3/K4: one child's slab test
+SLOT_OPS = 53  # K3/K4: one triangle slot's Moller-Trumbore test
+SORT_OPS = 16  # K3/K4: the sorting network and the push, once per pop
+RECT_OPS = 52  # K1 rect_t
+TRI_OPS = 50  # K1 tri_t
+SHADE_OPS = 330  # shade_core.cuh, one lane and bounce
+K2_LANE_BYTES = 15 * 4 + 4 + 4 + 1 + 1 + 4 + 4 + 23 * 4 + 4 * 4
+ROW_BYTES = 108 * 4  # the columns K3/K4 load of a row: boxes, children, slots
+
+
+def _bound(nbytes, ops):
+    """(bound ms, what bounds it) for one launch."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def _pop_bound(bvh, visits, lanes):
+    """Bound of one K3/K4 launch from the rows its rays popped (`visits`,
+    [M] pops per row): each visited row read once and each lane's 32 bytes
+    of ray, max_dist and result; per pop, a slab test for each internal
+    child (child id >= 0) and a Moller-Trumbore test for each filled slot
+    (triangle id >= 0) of the popped row, and the sort."""
+    fat = bvh.fat
+    row_ops = (BOX_OPS * (fat[:, 24:28] >= 0).sum(1)
+               + SLOT_OPS * (fat[:, 37:108:10] >= 0).sum(1) + SORT_OPS)
+    return _bound(int((visits > 0).sum()) * ROW_BYTES + lanes * 32,
+                  int((visits * row_ops).sum()))
 
 
 def _tonemapped(img):
@@ -65,9 +135,29 @@ def _block_means(img, blocks=8):
         axis=(1, 3))
 
 
+def _golden(ours, golden_path):
+    """Tone-mapped mean and 8x8 block-mean agreement with a golden:
+    (mean ours, mean golden, max block dev, share of blocks < 0.02,
+    failures)."""
+    from craytracer_tpu_torch.io.imagestate import read_reference_is
+
+    accum, spp, w, h = read_reference_is(golden_path)
+    ref = (accum / spp).reshape(h, w, 3)
+    dev_b = np.abs(_block_means(ours) - _block_means(ref))
+    full_r, full_o = _tonemapped(ref).mean(), _tonemapped(ours).mean()
+    fails = []
+    if not np.isfinite(ours).all():
+        fails.append("image is not finite")
+    if not abs(full_o - full_r) < 0.02 * max(full_r, 0.05):
+        fails.append(f"tone-mapped mean {full_o} vs {full_r}")
+    if not (dev_b.max() < 0.05 and (dev_b < 0.02).mean() > 0.9):
+        fails.append("golden block means disagree")
+    return full_o, full_r, dev_b.max(), (dev_b < 0.02).mean(), fails
+
+
 def _compare(kernel_out, plain_out, depth):
-    """K1 vs plain on one batch: (share of lanes with differing good, max
-    |dL| over agreeing lanes, max |dL| overall, failures)."""
+    """Kernel route vs plain on one batch: (share of lanes with differing
+    good, max |dL| over agreeing lanes, max |dL| overall, failures)."""
     (Lk, gk, mk), (Lp, gp, mp) = kernel_out, plain_out
     Lk, Lp = Lk.double(), Lp.double()
     same = gk == gp
@@ -80,7 +170,7 @@ def _compare(kernel_out, plain_out, depth):
     if ok_share < 0.999:
         fails.append(f"only {ok_share:.5f} of lanes agree")
     if not torch.isfinite(Lk).all():
-        fails.append("non-finite L from K1")
+        fails.append("non-finite L from the kernels")
     for key in ("rays", "shadow_rays"):
         a, b = int(mk[key]), int(mp[key])
         if depth == 0 and a != b or abs(a - b) > 1e-3 * max(b, 1):
@@ -88,20 +178,67 @@ def _compare(kernel_out, plain_out, depth):
     return bad_share, err_same, dL.max().item(), fails
 
 
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def _timed(fn):
+    """ms of fn() between CUDA events (fn's own return value too)."""
+    start, stop = _events()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def _median5(fn):
+    """Warm-up, then the median of 5 timed runs and the five times."""
+    fn()
+    torch.cuda.synchronize()
+    ts = [_timed(fn)[0] for _ in range(5)]
+    return statistics.median(ts), ts
+
+
+def _runs(ts):
+    return ", ".join(f"{t:.3f}" for t in ts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (this smoke test needs the card)")
         return 1
     sys.path.insert(0, REPO)
-    from craytracer_tpu_torch.camera import Film
+    from craytracer_tpu_torch import cuda_build, native
+    from craytracer_tpu_torch.accel import bvh4_kernel as bk
+    from craytracer_tpu_torch.accel.bvh4 import (bvh4_any_hit_stats,
+                                                 bvh4_closest_hit_stats)
+    from craytracer_tpu_torch.camera import Film, generate_rays, make_camera
+    from craytracer_tpu_torch.constants import K_EPSILON, TMAX
     from craytracer_tpu_torch.integrator import pass_kernel as pk
+    from craytracer_tpu_torch.integrator import shade_kernel as sk
+    from craytracer_tpu_torch.integrator import wavefront as wf
     from craytracer_tpu_torch.integrator.render import RenderConfig, Renderer
     from craytracer_tpu_torch.io.image import write_ppm
-    from craytracer_tpu_torch.io.imagestate import read_reference_is
     from craytracer_tpu_torch.io.scenefile import load_scene_file
+    from craytracer_tpu_torch.ops.intersect import intersect_scene
+    from craytracer_tpu_torch.ops.raysort import ray_key
+    from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
+    from craytracer_tpu_torch.scene.build import SceneBuilder
 
     dev = torch.device("cuda", 0)
     fails: list[str] = []
+    counters = {"k1_pass": pk.KERNEL, "k2_shade": sk.KERNEL,
+                "k3_bvh4_closest": bk.CLOSEST, "k4_bvh4_any": bk.ANY}
+    err = dict.fromkeys(counters, 0.0)  # max |kernel - plain| per kernel
+
+    def reset_counts():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
 
     # ---- 1. device
     smi = subprocess.run(
@@ -112,31 +249,41 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     # ---- 2. build
+    libs = {"k1_pass": pk.LIBRARY, "k2_shade": sk.LIBRARY,
+            "k3_bvh4_closest + k4_bvh4_any": bk.LIBRARY}
     t0 = time.perf_counter()
-    pk.KERNEL.build()
-    print(f"[build] K1 built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {' '.join(pk.NVCC_FLAGS)})", flush=True)
-    for line in pk.KERNEL.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    cuda_build.build_all(libs.values())
+    print(f"[build] K1, K2, K3/K4 built in parallel in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          f"{' '.join(cuda_build.NVCC_FLAGS)})", flush=True)
+    t0 = time.perf_counter()
+    native.library()
+    print(f"[build] native scene runtime ({native.SOURCE.name}, g++ "
+          f"{' '.join(native.CXX_FLAGS)}) ready in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, lib in libs.items():
+        secs = ("cached" if lib.build_seconds is None
+                else f"{lib.build_seconds:.2f} s")
+        print(f"[build] {name} ({lib.source.name}): {secs}")
+        for line in lib.ptxas_log.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
+                print(f"[build]   ptxas: {line.strip()}")
 
     scene, cam, film0 = load_scene_file(SCENE, device=dev)
 
-    # ---- 3. kernel vs plain
-    err_max = 0.0
-
+    # ---- 3. K1 vs plain
     def check(label, film, pix, spp, seed, depth, raygen, out_k=None,
               out_p=None):
         """Hold K1 against the plain version on one batch (running both
         unless their outputs are given) and record any failure."""
-        nonlocal err_max
         if out_k is None:
             args = (scene, cam, film, pix, spp, seed, depth)
             out_k = pk.fused_pass(*args, raygen=raygen)
             out_p = pk.fused_pass_reference(*args, raygen=raygen)
         torch.cuda.synchronize()
         bad, err_same, err_all, f = _compare(out_k, out_p, depth)
-        err_max = max(err_max, err_all)
+        err["k1_pass"] = max(err["k1_pass"], err_all)
         print(f"[kernel-vs-plain] {label} depth {depth} raygen {raygen}: "
               f"lanes {pix.shape[0]}, good differs on {bad:.5f}, max|dL| "
               f"{err_same:.3g} (agreeing lanes) {err_all:.3g} (all), rays "
@@ -172,77 +319,61 @@ def main() -> int:
         check(f"512x512 Morton spp {s}", film, morton, spp, cfg.seed, depth,
               "strat")
 
-    # ---- 4. main path
+    # ---- 4. Cornell main path
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     r = Renderer(scene, cam, film, cfg)
-    pk.KERNEL.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     r.render()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = pk.KERNEL.launches
+    launches_cornell = counts()
     ours = r.raw_mean()
-    accum, spp, w, h = read_reference_is(GOLDEN)
-    ref = (accum / spp).reshape(h, w, 3)
-    rb, ob = _block_means(ref), _block_means(ours)
-    full_r, full_o = _tonemapped(ref).mean(), _tonemapped(ours).mean()
-    dev_b = np.abs(ob - rb)
-    pk.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ppm = str(pk.BUILD_DIR / "cornell_512.ppm")
+    full_o, full_r, dev_max, share, f = _golden(ours, GOLDEN)
+    ppm = str(cuda_build.BUILD_DIR / "cornell_512.ppm")
     write_ppm(ppm, r.image())
-    print(f"[main-path] Renderer 512x512 64 spp depth 5: {dt:.2f} s, "
-          f"{r.passes} passes, {launches} K1 launches, {r.nan_count} NaN; "
-          f"tone-mapped mean {full_o:.4f} vs golden {full_r:.4f}, block dev "
-          f"max {dev_b.max():.4f}, share < 0.02 {(dev_b < 0.02).mean():.3f};"
-          f" wrote {os.path.relpath(ppm, REPO)}", flush=True)
-    if launches != r.passes or launches == 0:
-        fails.append(f"{launches} K1 launches for {r.passes} passes")
+    print(f"[main-path] Renderer cornell 512x512 64 spp depth 5: {dt:.2f} s, "
+          f"{r.passes} passes, launches {launches_cornell}, {r.nan_count} "
+          f"NaN; tone-mapped mean {full_o:.4f} vs golden {full_r:.4f}, "
+          f"block dev max {dev_max:.4f}, share < 0.02 {share:.3f}; wrote "
+          f"{os.path.relpath(ppm, REPO)}", flush=True)
+    if (launches_cornell["k1_pass"] != r.passes or r.passes == 0
+            or sum(launches_cornell.values()) != r.passes):
+        fails.append(f"cornell launches {launches_cornell} for {r.passes} "
+                     "passes")
     if r.nan_count:
         fails.append(f"{r.nan_count} NaN samples substituted")
-    if ours.shape != (size, size, 3) or not np.isfinite(ours).all():
-        fails.append("image is not finite [512, 512, 3]")
-    if not abs(full_o - full_r) < 0.02 * max(full_r, 0.05):
-        fails.append(f"tone-mapped mean {full_o} vs {full_r}")
-    if not (dev_b.max() < 0.05 and (dev_b < 0.02).mean() > 0.9):
-        fails.append("golden block means disagree")
+    if ours.shape != (size, size, 3):
+        fails.append("cornell image is not [512, 512, 3]")
+    fails.extend(f"cornell golden: {x}" for x in f)
 
-    # ---- 5. time
+    # ---- 5. Cornell time
     pix = torch.arange(size * size, dtype=torch.int32, device=dev)
     passes = 16
 
-    def events():
-        return (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-
-    def timed(fn, spp0):
+    def timed_passes(fn, spp0):
         """`passes` wrapper calls (tables, launch, counter sums) in a row;
         returns the time and the last pass's output."""
-        start, stop = events()
-        start.record()
-        for s in range(passes):
-            out = fn(scene, cam, film, pix, spp0 + s, 0, 5, raygen="plain")
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop), out
+        return _timed(lambda: [fn(scene, cam, film, pix, spp0 + s, 0, 5,
+                                  raygen="plain") for s in range(passes)][-1])
 
     tab = pk.kernel_tables(scene, cam, film)
-    counts = (scene.materials.mat_type.shape[0],
-              scene.lights.light_type.shape[0], scene.rects.mat_id.shape[0],
-              scene.triangles.mat_id.shape[0])
+    k1_counts = (scene.materials.mat_type.shape[0],
+                 scene.lights.light_type.shape[0],
+                 scene.rects.mat_id.shape[0], scene.triangles.mat_id.shape[0])
 
     def timed_kernel(spp0):
-        """`passes` bare K1 launches on prebuilt inputs."""
+        """`passes` bare K1 launches on prebuilt inputs; returns the time
+        and the (rays, shadow rays) they traced."""
         spps = [torch.full_like(pix, spp0 + s) for s in range(passes)]
-        start, stop = events()
-        start.record()
-        outs = [pk.KERNEL.launch(tab, *counts, pix, sp, 0, 5, False, size)
-                for sp in spps]
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop), sum(int(g[1].sum() + g[2].sum())
-                                             for _, g in outs)
+        ms, outs = _timed(lambda: [
+            pk.KERNEL.launch(tab, *k1_counts, pix, sp, 0, 5, False, size)
+            for sp in spps])
+        return ms, (sum(int(g[1].sum()) for _, g in outs),
+                    sum(int(g[2].sum()) for _, g in outs))
 
-    timed(pk.fused_pass, 1000)
-    timed(pk.fused_pass_reference, 1000)
+    timed_passes(pk.fused_pass, 1000)
+    timed_passes(pk.fused_pass_reference, 1000)
     timed_kernel(1000)
     t_k, t_w, t_p, rays_k = [], [], [], []
     for rep in range(5):
@@ -250,41 +381,415 @@ def main() -> int:
         ms, rays = timed_kernel(spp0)
         t_k.append(ms)
         rays_k.append(rays)
-        ms, out_k = timed(pk.fused_pass, spp0)
+        ms, out_k = timed_passes(pk.fused_pass, spp0)
         t_w.append(ms)
-        ms, out_p = timed(pk.fused_pass_reference, spp0)
+        ms, out_p = timed_passes(pk.fused_pass_reference, spp0)
         t_p.append(ms)
     # the timed passes' own outputs: the last pass of the last run
     check(f"512x512 raster spp {spp0 + passes - 1} (timed)", film, pix,
           spp0 + passes - 1, 0, 5, "plain", out_k, out_p)
     med_k, med_w, med_p = (statistics.median(t) for t in (t_k, t_w, t_p))
-    rays_med = rays_k[t_k.index(med_k)]
-
-    def runs(ts):
-        return ", ".join(f"{t:.3f}" for t in ts)
-
-    print(f"[time] {card}, 512x512 depth 5, {passes} passes per run, median "
-          f"of 5: K1 launch {med_k / passes:.4f} ms/pass "
-          f"({rays_med / (med_k / 1e3):.6g} rays/s; runs {runs(t_k)} ms); "
+    n_rays, n_shadow = rays_k[t_k.index(med_k)]
+    rays_med = n_rays + n_shadow
+    prim_ops = 8 * RECT_OPS + 20 * TRI_OPS
+    k1_bound = _bound(
+        (tab.numel() * 4 + size * size * (8 + 28)),
+        (n_rays * (prim_ops + SHADE_OPS) + n_shadow * prim_ops) / passes)
+    print(f"[time] {card}, cornell 512x512 depth 5, {passes} passes per "
+          f"run, median of 5: K1 launch {med_k / passes:.4f} ms/pass "
+          f"({rays_med / (med_k / 1e3):.6g} rays/s; runs {_runs(t_k)} ms); "
           f"K1 through fused_pass {med_w / passes:.4f} ms/pass "
-          f"({rays_med / (med_w / 1e3):.6g} rays/s; runs {runs(t_w)} ms); "
-          f"plain PyTorch {med_p / passes:.4f} ms/pass (runs {runs(t_p)} "
-          f"ms); {rays_med} rays + shadow rays per run", flush=True)
+          f"({rays_med / (med_w / 1e3):.6g} rays/s; runs {_runs(t_w)} ms); "
+          f"plain PyTorch {med_p / passes:.4f} ms/pass (runs {_runs(t_p)} "
+          f"ms); {n_rays} rays + {n_shadow} shadow rays per run; K1 bound "
+          f"{k1_bound[0]:.4f} ms/pass ({k1_bound[1]})", flush=True)
+    kernels = {"k1_pass": {
+        "name": "k1_pass", "route": "cuda",
+        "source": "craytracer_tpu_torch/csrc/pass_kernel.cu",
+        "replaces": "craytracer_tpu/integrator/pallas_shade.py:781",
+        "launches": launches_cornell["k1_pass"],
+        "ms": med_k / passes, "plain_ms": med_p / passes,
+        "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+        "library_ms": None}}
+
+    # ---- 6. K3/K4 vs plain on parity_mesh_mid
+    mesh, mcam, mfilm0 = load_scene_file(MESH_MID, device=dev)
+    bvh = mesh.tri_bvh
+    mfilm = Film(fov=mfilm0.fov, width=size, height=size)
+    mmorton = torch.from_numpy(
+        Renderer(mesh, mcam, mfilm, cfg).pixel_order()).to(dev)
+    print(f"[mesh] parity_mesh_mid: {bvh.n_tris} triangles, "
+          f"{bvh.fat.shape[0]} fat rows, stack {bvh.stack_size}, route "
+          f"{wf.production_fast_shade(mesh, mcam, mfilm)}", flush=True)
+
+    def plain_records(scn, o, d, pix, spp, depth):
+        """(ray state, hit record, shade outputs) of every bounce of one
+        plain pass."""
+        state = wf._init_state(o, d, depth, pix)
+        recs = []
+        for b in range(depth + 1):
+            hit = intersect_scene(scn, state[0], state[1])
+            out = sk.fused_shade_reference(scn, state[1], hit, state[2],
+                                           state[5], state[6], state[10],
+                                           spp, cfg.seed, b, depth)
+            recs.append((state, hit, out))
+            state = wf._bounce_step(scn, cfg.seed, spp, depth, b, state,
+                                    kernels=False)
+        return recs
+
+    mspp = torch.zeros_like(mmorton)
+    o_cam, d_cam = generate_rays(mcam, mfilm, mmorton,
+                                 stratified_jitter(cfg.seed, mmorton, mspp))
+    recs = plain_records(mesh, o_cam, d_cam, mmorton, mspp, 5)
+    torch.cuda.synchronize()
+
+    def check_k3(label, o, d, bvh_=bvh):
+        t_k, tri_k = bk.bvh4_closest_hit_kernel(bvh_, o, d)
+        t_p, tri_p = bvh4_closest_hit_stats(bvh_, o, d)[:2]
+        hit_p = t_p < TMAX
+        same = (tri_k == tri_p) & ((t_k - t_p).abs() <= 1e-6 * t_p.abs())
+        agree = (same & hit_p).sum().item() / max(hit_p.sum().item(), 1)
+        masks = ((t_k < TMAX) == hit_p).double().mean().item()
+        exact = (torch.equal(t_k, t_p), torch.equal(tri_k, tri_p))
+        e = (t_k - t_p)[hit_p & (tri_k == tri_p)].abs().max().item() \
+            if bool(hit_p.any()) else 0.0
+        err["k3_bvh4_closest"] = max(err["k3_bvh4_closest"], e)
+        bad = agree < 0.9999 or masks < 0.9999
+        print(f"[k3-vs-plain] {label}: rays {o.shape[0]}, hits "
+              f"{int(hit_p.sum())}, ids and t agree on {agree:.6f} of hit "
+              f"lanes, hit masks on {masks:.6f} of lanes, bit-equal t/ids "
+              f"{exact}, max|dt| {e:.3g}" + (" FAIL" if bad else ""),
+              flush=True)
+        if bad:
+            fails.append(f"K3 {label}: {agree} / {masks}")
+
+    def check_k4(label, o, d, md, dadj=None):
+        t_k = bk.bvh4_any_hit_kernel(bvh, o, d, md)
+        t_p = bvh4_any_hit_stats(bvh, o, d, md)[0]
+        verdict = ((t_k < md) == (t_p < md)).double().mean().item()
+        both = (t_k < TMAX) & (t_p < TMAX)
+        e = (t_k - t_p)[both].abs().max().item() if bool(both.any()) else 0.0
+        err["k4_bvh4_any"] = max(err["k4_bvh4_any"], e)
+        msg = (f"[k4-vs-plain] {label}: rays {o.shape[0]}, occluded "
+               f"{int((t_p < md).sum())}, verdicts agree on {verdict:.6f}, "
+               f"bit-equal t {torch.equal(t_k, t_p)}, max|dt| {e:.3g}")
+        bad = verdict < 0.9999
+        if dadj is not None:
+            band = dadj - torch.clamp(1e-3 * dadj, min=K_EPSILON)
+            lit = ((t_k >= band) == (t_p >= band)).double().mean().item()
+            msg += f", lit agrees on {lit:.6f}"
+            bad = bad or lit < 0.9999
+        print(msg + (" FAIL" if bad else ""), flush=True)
+        if bad:
+            fails.append(f"K4 {label}")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t_cam = bvh4_closest_hit_stats(bvh, o_cam, d_cam)[0]
+    check_k3("512x512 camera rays (Morton)", o_cam, d_cam)
+    md_cam = torch.where(t_cam < TMAX, t_cam * (0.5 + torch.rand(
+        t_cam.shape, generator=gen, device=dev)), 5.0)
+    md_cam[1::3] = 1e30
+    check_k4("512x512 camera rays, max_dist around the hit", o_cam, d_cam,
+             md_cam)
+    for b in (1, 3):
+        state, _, out = recs[b]
+        check_k3(f"bounce-{b} rays", state[0], state[1])
+        check_k4(f"bounce-{b} shadow rays", out["shadow_o"], out["shadow_d"],
+                 out["dist_adj_t"], out["dist_adj"])
+    nr = 65536
+    o_r = torch.rand((nr, 3), generator=gen, device=dev) * torch.tensor(
+        [20.0, 4.0, 20.0], device=dev) - torch.tensor([10.0, 0.0, 10.0],
+                                                      device=dev)
+    d_r = torch.nn.functional.normalize(
+        torch.randn((nr, 3), generator=gen, device=dev), dim=1)
+    o_r[: nr // 100] = 3.0e18
+    d_r[: nr // 100] = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    check_k3("64k random rays, 1% escape", o_r, d_r)
+    check_k4("64k random rays, 1% escape, max_dist U(0, 20)", o_r, d_r,
+             torch.rand(nr, generator=gen, device=dev) * 20.0)
+
+    # ---- 7. K2 vs plain
+    float_keys = ("L_add", "shadow_o", "shadow_d", "dist_adj", "dist_adj_t",
+                  "contrib_cand", "new_o", "new_d", "new_beta")
+    int_keys = ("good_inc", "want_shadow", "new_alive", "new_prev_sg")
+    for b in (0, 1, 4):
+        state, hit, ref = recs[b]
+        got = sk.fused_shade(mesh, state[1], hit, state[2], state[5],
+                             state[6], state[10], mspp, cfg.seed, b, 5)
+        torch.cuda.synchronize()
+        e = max((got[k] - ref[k]).abs().max().item() for k in float_keys)
+        close = all(bool(torch.allclose(got[k], ref[k], rtol=1e-5, atol=1e-5))
+                    for k in float_keys)
+        ints = min((got[k] == ref[k]).double().mean().item()
+                   for k in int_keys)
+        err["k2_shade"] = max(err["k2_shade"], e)
+        bad = not close or ints < 0.999
+        print(f"[k2-vs-plain] bounce {b}: lanes {state[1].shape[0]}, alive "
+              f"{int(state[5].sum())}, max|d| floats {e:.3g}, int rows "
+              f"equal on >= {ints:.6f}" + (" FAIL" if bad else ""),
+              flush=True)
+        if bad:
+            fails.append(f"K2 bounce {b}")
+
+    # ---- 8. whole mesh pass vs plain
+    for depth, s in ((0, 0), (2, 0), (5, 0), (5, cfg.num_samples - 1)):
+        spp = torch.full_like(mmorton, s)
+        o, d = generate_rays(mcam, mfilm, mmorton,
+                             stratified_jitter(cfg.seed, mmorton, spp))
+        out_k = wf.trace_paths(mesh, o, d, cfg.seed, mmorton, spp, depth,
+                               with_metrics=True, fast_shade="shade")
+        out_p = wf.trace_paths(mesh, o, d, cfg.seed, mmorton, spp, depth,
+                               with_metrics=True)
+        torch.cuda.synchronize()
+        bad, err_same, err_all, f = _compare(out_k, out_p, depth)
+        print(f"[pass-vs-plain] mesh_mid 512x512 Morton spp {s} depth "
+              f"{depth}: good differs on {bad:.5f}, max|dL| {err_same:.3g} "
+              f"(agreeing lanes) {err_all:.3g} (all), rays "
+              f"{int(out_k[2]['rays'])}/{int(out_p[2]['rays'])}, shadow_rays "
+              f"{int(out_k[2]['shadow_rays'])}/"
+              f"{int(out_p[2]['shadow_rays'])}"
+              + (" FAIL " + "; ".join(f) if f else ""), flush=True)
+        fails.extend(f"mesh pass depth {depth}: {x}" for x in f)
+
+    # ---- 9. mesh main path
+    for name, path, gold in (
+            ("parity_mesh_mid", MESH_MID, "golden_mesh_mid.is"),
+            ("parity_mesh", MESH, "golden_mesh.is")):
+        scn, c, f0 = load_scene_file(path, device=dev)
+        fm = Film(fov=f0.fov, width=size, height=size)
+        r = Renderer(scn, c, fm, cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        if name == "parity_mesh_mid":
+            launches_mesh = got
+        ours = r.raw_mean()
+        full_o, full_r, dev_max, share, f = _golden(
+            ours, os.path.join(REPO, "tests", "goldens", gold))
+        ppm = str(cuda_build.BUILD_DIR / f"{name}_512.ppm")
+        write_ppm(ppm, r.image())
+        print(f"[main-path] Renderer {name} 512x512 64 spp depth 5: "
+              f"{dt:.2f} s, {r.passes} passes, launches {got}, "
+              f"{r.nan_count} NaN; tone-mapped mean {full_o:.4f} vs golden "
+              f"{full_r:.4f}, block dev max {dev_max:.4f}, share < 0.02 "
+              f"{share:.3f}; wrote {os.path.relpath(ppm, REPO)}", flush=True)
+        want = 6 * r.passes
+        if (r.passes == 0 or got["k1_pass"] != 0
+                or any(got[k] != want for k in ("k2_shade",
+                                                "k3_bvh4_closest",
+                                                "k4_bvh4_any"))):
+            fails.append(f"{name} launches {got}, want {want} each of "
+                         "K2/K3/K4 and no K1")
+        if r.nan_count:
+            fails.append(f"{name}: {r.nan_count} NaN samples substituted")
+        fails.extend(f"{name} golden: {x}" for x in f)
+
+    # ---- 10. mesh time
+    mpasses = 16
+
+    def mesh_passes(s0):
+        return [wf.render_sample(mesh, mcam, mfilm, mmorton, cfg.seed,
+                                 s0 + s, 5) for s in range(mpasses)][-1]
+
+    def pass_rays(scn, c, fm, ids, s0, np_, depth):
+        total = 0
+        for s in range(np_):
+            o, d = generate_rays(c, fm, ids, stratified_jitter(
+                cfg.seed, ids, s0 + s))
+            _, _, m = wf.trace_paths(scn, o, d, cfg.seed, ids, s0 + s, depth,
+                                     with_metrics=True, fast_shade="shade")
+            total += int(m["rays"]) + int(m["shadow_rays"])
+        return total
+
+    med_m, t_m = _median5(lambda: mesh_passes(3000))
+    rays_m = pass_rays(mesh, mcam, mfilm, mmorton, 3000, mpasses, 5)
+    print(f"[time] {card}, parity_mesh_mid 512x512 depth 5, {mpasses} "
+          f"passes through render_sample per run, median of 5: "
+          f"{med_m / mpasses:.4f} ms/pass, {rays_m / (med_m / 1e3):.6g} "
+          f"rays/s ({rays_m} rays + shadow rays per run; runs "
+          f"{_runs(t_m)} ms)", flush=True)
+
+    # bare kernels on the six bounces of one pass's real inputs, in the
+    # order the route hands them over (ray_key-sorted for K3 and K4), as
+    # launches on prebuilt inputs and outputs
+    def sorted_rays(o, d, *extra):
+        perm = torch.argsort(ray_key(o, d), stable=True)
+        return tuple(x[perm].contiguous() for x in (o, d) + extra)
+
+    k3_in = [sorted_rays(st[0], st[1]) for st, _, _ in recs]
+    k4_in = [sorted_rays(out["shadow_o"], out["shadow_d"], out["dist_adj_t"])
+             for _, _, out in recs]
+    k2_in = [(st[1], hit, st[2], st[5], st[6], st[10], mspp, cfg.seed, b, 5)
+             for b, (st, hit, _) in enumerate(recs)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    keep = []  # the prebuilt outputs stay alive while the pointers are used
+
+    def empty(*shape, dtype=torch.float32):
+        keep.append(torch.empty(shape, dtype=dtype, device=dev))
+        return keep[-1].data_ptr()
+
+    lib3, lib2 = bk.LIBRARY.load(), sk.LIBRARY.load()
+    fat_args = (bvh.fat.data_ptr(), bvh.fat.shape[0], bvh.stack_size)
+    k3_calls = [fat_args + (o.data_ptr(), d.data_ptr(), o.shape[0],
+                            empty(o.shape[0]),
+                            empty(o.shape[0], dtype=torch.int32), stream)
+                for o, d in k3_in]
+    k4_calls = [fat_args + (o.data_ptr(), d.data_ptr(), md.data_ptr(),
+                            o.shape[0], empty(o.shape[0]), stream)
+                for o, d, md in k4_in]
+    tab2 = sk.shade_tables(mesh)
+    k2_calls = [(tab2.data_ptr(), tab2.numel(),
+                 mesh.materials.mat_type.shape[0],
+                 mesh.lights.light_type.shape[0], d.data_ptr(),
+                 hit.point.data_ptr(), hit.normal.data_ptr(),
+                 hit.dpdu.data_ptr(), beta.data_ptr(), hit.t.data_ptr(),
+                 hit.mat_id.data_ptr(), al.data_ptr(), psg.data_ptr(),
+                 px.data_ptr(), sp.data_ptr(), 0, d.shape[0], seed, bo, dp,
+                 sk.RR_START, empty(7, d.shape[0], 3), empty(2, d.shape[0]),
+                 empty(4, d.shape[0], dtype=torch.int32), stream)
+                for d, hit, beta, al, psg, px, sp, seed, bo, dp in k2_in]
+    bare = {
+        "k3_bvh4_closest": lambda: [lib3.k3_closest_launch(*a)
+                                    for a in k3_calls],
+        "k2_shade": lambda: [lib2.k2_shade_launch(*a) for a in k2_calls],
+        "k4_bvh4_any": lambda: [lib3.k4_any_launch(*a) for a in k4_calls]}
+    plain = {
+        "k3_bvh4_closest": lambda: [bvh4_closest_hit_stats(bvh, *a)
+                                    for a in k3_in],
+        "k2_shade": lambda: [sk.fused_shade_reference(mesh, *a)
+                             for a in k2_in],
+        "k4_bvh4_any": lambda: [bvh4_any_hit_stats(bvh, *a) for a in k4_in]}
+    sources = {"k2_shade": ("craytracer_tpu_torch/csrc/shade_kernel.cu",
+                            "craytracer_tpu/integrator/pallas_shade.py:240"),
+               "k3_bvh4_closest": (
+                   "craytracer_tpu_torch/csrc/bvh4_traverse.cu",
+                   "craytracer_tpu/accel/pallas_bvh4.py:146"),
+               "k4_bvh4_any": ("craytracer_tpu_torch/csrc/bvh4_traverse.cu",
+                               "craytracer_tpu/accel/pallas_bvh4.py:451")}
+    # bounds per launch, from this pass's inputs (the rows each launch's
+    # rays pop, from the plain traversal's counters)
+    def pops_and_bound(stats_fn, bvh_, *args):
+        visits = torch.zeros(bvh_.fat.shape[0], dtype=torch.int64,
+                             device=dev)
+        pops = stats_fn(bvh_, *args, visits=visits)[-1]
+        return pops, _pop_bound(bvh_, visits, args[0].shape[0])
+
+    k3_pb = [pops_and_bound(bvh4_closest_hit_stats, bvh, *a) for a in k3_in]
+    k4_pb = [pops_and_bound(bvh4_any_hit_stats, bvh, *a) for a in k4_in]
+    k3_pops, k4_pops = [p for p, _ in k3_pb], [p for p, _ in k4_pb]
+    lanes = [a[0].shape[0] for a in k3_in]
+    bounds = {
+        "k3_bvh4_closest": [b for _, b in k3_pb],
+        "k4_bvh4_any": [b for _, b in k4_pb],
+        "k2_shade": [_bound(nl * K2_LANE_BYTES, nl * SHADE_OPS)
+                     for nl in lanes]}
+    for name in ("k3_bvh4_closest", "k2_shade", "k4_bvh4_any"):
+        med, ts = _median5(bare[name])
+        if any(bare[name]()):
+            fails.append(f"bare {name} launch failed")
+        ms_plain = _timed(plain[name])[0] / len(recs)
+        bms = sum(b for b, _ in bounds[name]) / len(recs)
+        by = bounds[name][0][1]
+        extra = ""
+        if name != "k2_shade":
+            pops = k3_pops if name == "k3_bvh4_closest" else k4_pops
+            extra = (f", pops per lane mean "
+                     f"{sum(int(p.sum()) for p in pops) / sum(lanes):.3f} max "
+                     f"{max(int(p.max()) for p in pops)}")
+        print(f"[time] {card}, {name} on the 6 bounces of one "
+              f"parity_mesh_mid 512x512 pass: bare {med / len(recs):.4f} "
+              f"ms/launch (runs of 6 {_runs(ts)} ms), plain "
+              f"{ms_plain:.4f} ms/launch (timed once), bound {bms:.4f} "
+              f"ms/launch ({by}){extra}", flush=True)
+        src, rep = sources[name]
+        kernels[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches_mesh[name], "ms": med / len(recs),
+            "plain_ms": ms_plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+    # the city of bench_mesh.py:18-53 (327,680 triangles)
+    sys.path.insert(0, os.path.join(REPO, "scenes"))
+    from make_fixtures import icosphere
+
+    v, fc = icosphere(3)
+    count = 327680 // fc.shape[0]
+    grid = int(np.ceil(np.sqrt(count)))
+    builder = SceneBuilder()
+    builder.add_matte("w", (0.7, 0.7, 0.7))
+    builder.add_emissive("l", (1, 1, 1), 40.0)
+    builder.add_rect((-200, 0, -200), (400, 0, 0), (0, 0, 400), "w")
+    builder.add_rect((-10, 80, -10), (20, 0, 0), (0, 0, 20), "l")
+    rng = np.random.default_rng(0)
+    v0s, v1s, v2s = [], [], []
+    k = 0
+    for i in range(grid):
+        for j in range(grid):
+            if k >= count:
+                break
+            ctr = np.array([i * 6.0 - 3 * grid, 1.0 + rng.random() * 2,
+                            j * 6.0 - 3 * grid])
+            w = v * (0.8 + rng.random()) + ctr
+            v0s.append(w[fc[:, 0]])
+            v1s.append(w[fc[:, 1]])
+            v2s.append(w[fc[:, 2]])
+            k += 1
+    builder.add_triangles_array(np.concatenate(v0s), np.concatenate(v1s),
+                                np.concatenate(v2s), "w")
+    t0 = time.perf_counter()
+    city = builder.build(device=dev)
+    build_s = time.perf_counter() - t0
+    n_city = city.triangles.mat_id.shape[0]
+    ccam = make_camera((0, 40, 3.2 * (n_city / 1280) ** 0.5 + 40), (0, 2, 0),
+                       device=dev)
+    cfilm = Film(fov=torch.tensor(math.radians(50.0), device=dev),
+                 width=256, height=256)
+    cids = torch.from_numpy(Renderer(city, ccam, cfilm, cfg).pixel_order()
+                            ).to(dev)
+    cpasses = 4
+    med_c, t_c = _median5(lambda: [
+        wf.render_sample(city, ccam, cfilm, cids, cfg.seed, 4000 + s, 4)
+        for s in range(cpasses)])
+    rays_c = pass_rays(city, ccam, cfilm, cids, 4000, cpasses, 4)
+    print(f"[time] {card}, city {n_city} triangles ({city.tri_bvh.fat.shape[0]}"
+          f" fat rows, stack {city.tri_bvh.stack_size}): host build "
+          f"{build_s:.2f} s; 256x256 depth 4, {cpasses} passes through "
+          f"render_sample per run, median of 5: {med_c / cpasses:.4f} "
+          f"ms/pass, {rays_c / (med_c / 1e3):.6g} rays/s ({rays_c} rays + "
+          f"shadow rays per run; runs {_runs(t_c)} ms)", flush=True)
+    s0 = torch.zeros_like(cids)
+    oc, dc = generate_rays(ccam, cfilm, cids,
+                           stratified_jitter(cfg.seed, cids, s0))
+    check_k3("city 256x256 camera rays", oc, dc, city.tri_bvh)
+    st1 = wf._bounce_step(city, cfg.seed, s0, 4, 0,
+                          wf._init_state(oc, dc, 4, cids), kernels=True)
+    for label, o, d in (("camera", oc, dc), ("bounce-1", st1[0], st1[1])):
+        os_, ds_ = sorted_rays(o, d)
+        t_u = _median5(lambda: bk.bvh4_closest_hit_kernel(
+            city.tri_bvh, o, d))[0]
+        t_s = _median5(lambda: bk.bvh4_closest_hit_kernel(
+            city.tri_bvh, os_, ds_))[0]
+        pops, cb = pops_and_bound(bvh4_closest_hit_stats, city.tri_bvh, o, d)
+        print(f"[time] {card}, city bare K3 on {o.shape[0]} {label} rays: "
+              f"{t_u:.4f} ms unsorted (Morton pixel order), {t_s:.4f} ms "
+              f"ray_key-sorted; bound {cb[0]:.4f} ms ({cb[1]}); pops per "
+              f"lane mean {pops.double().mean().item():.3f} max "
+              f"{int(pops.max())}", flush=True)
 
     if fails:
         for f in fails:
             print(f"FAIL: {f}")
         return 1
-    print(json.dumps({"kernels": [{
-        "name": "k1_pass", "route": "cuda",
-        "source": "craytracer_tpu_torch/csrc/pass_kernel.cu",
-        "replaces": "craytracer_tpu/integrator/pallas_shade.py:781",
-        "launches": launches, "max_abs_err": err_max,
-        "ms": med_k / passes, "plain_ms": med_p / passes}]}))
+    for name in kernels:
+        kernels[name]["max_abs_err"] = err[name]
+    print(json.dumps({"kernels": [kernels[k] for k in counters]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

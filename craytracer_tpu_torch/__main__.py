@@ -1,12 +1,15 @@
 """Command line: render a reference-grammar scene file to a PPM (the
-port's counterpart of the repo-root render.py, for the slice's options).
+port's counterpart of the repo-root render.py, for the slices' options).
 
-    python -m craytracer_tpu_torch scenes/parity_cornell.txt \\
+    python -m craytracer_tpu_torch scenes/parity_mesh_mid.txt \\
         --spp 64 --depth 5 --size 512 --seed 0 --estimator reference \\
-        -o cornell.ppm --device cuda
+        -o mesh.ppm
 
-On a CUDA device every pass runs through the K1 kernel; on the CPU the
-plain PyTorch version runs instead. Prints one summary line.
+It runs on the CUDA card, and raises when there is none, unless asked for
+the CPU (--device cpu). On the card every pass runs through the kernels
+(K1 for Cornell-class scenes, K3 -> K2 -> K4 per bounce for meshes); on
+the CPU the plain PyTorch versions run instead. Prints one summary line
+with each kernel's launches.
 """
 
 from __future__ import annotations
@@ -14,12 +17,11 @@ from __future__ import annotations
 import argparse
 import time
 
-import torch
-
 
 def main(argv=None):
+    from craytracer_tpu_torch.accel import bvh4_kernel
     from craytracer_tpu_torch.camera import Film
-    from craytracer_tpu_torch.integrator.pass_kernel import KERNEL
+    from craytracer_tpu_torch.integrator import pass_kernel, shade_kernel
     from craytracer_tpu_torch.integrator.render import RenderConfig, Renderer
     from craytracer_tpu_torch.io.image import write_ppm
     from craytracer_tpu_torch.io.scenefile import load_scene_file
@@ -35,12 +37,11 @@ def main(argv=None):
                     choices=("reference", "physical"))
     ap.add_argument("--spp-batch", type=int, default=1)
     ap.add_argument("-o", "--output", default="out_torch.ppm")
-    ap.add_argument("--device", default=None,
-                    help="cuda or cpu (default: cuda when available)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    scene, camera, film = load_scene_file(args.scene, device=device)
+    scene, camera, film = load_scene_file(args.scene, device=args.device)
     if args.size:
         film = Film(fov=film.fov, width=args.size, height=args.size)
     r = Renderer(scene, camera, film,
@@ -51,9 +52,12 @@ def main(argv=None):
     img = r.render()
     dt = time.perf_counter() - t0
     write_ppm(args.output, img)
+    launches = {"K1": pass_kernel.KERNEL, "K2": shade_kernel.KERNEL,
+                "K3": bvh4_kernel.CLOSEST, "K4": bvh4_kernel.ANY}
+    ks = ", ".join(f"{k} {c.launches}" for k, c in launches.items())
     print(f"{film.width}x{film.height} {args.spp} spp depth {args.depth} on "
-          f"{device}: {dt:.3f} s, {r.passes} passes, {KERNEL.launches} K1 "
-          f"launches, {r.nan_count} NaN samples -> {args.output}")
+          f"{scene.device}: {dt:.3f} s, {r.passes} passes, launches {ks}, "
+          f"{r.nan_count} NaN samples -> {args.output}")
 
 
 if __name__ == "__main__":

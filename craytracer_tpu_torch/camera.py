@@ -91,7 +91,7 @@ def generate_rays(camera: Camera, film: Film, pixel_ids, jitter):
     if camera.camera_type != PINHOLE:
         raise NotImplementedError(
             "thin-lens raygen is not ported to craytracer_tpu_torch yet "
-            "(ROADMAP queue 2, K1 remaining gate features)")
+            "(ROADMAP queue 2, K1/K2 remaining gate features)")
     frame_length, frame_height, pixel_length = film_dims(film, camera)
     pixel_ids = torch.as_tensor(pixel_ids)
     col = (pixel_ids % film.width).to(torch.float32)

@@ -1,12 +1,20 @@
-"""The K1 gate: which scenes the port can render (the port's restriction
-of craytracer_tpu/integrator/pallas_shade.py `production_fast_shade`
-:1490, `fast_shade_mode` :1521 and `fast_shade_ok` :1566 to what K1
-covers).
+"""The route gate: which scenes the port can render and through which
+kernels (the port's restriction of
+craytracer_tpu/integrator/pallas_shade.py `production_fast_shade` :1490,
+`fast_shade_mode` :1521 and `fast_shade_ok` :1566 to what K1 and K2
+cover).
 
-Both K1 (integrator/pass_kernel.py) and its plain version, the torch-op
-`trace_paths` (integrator/wavefront.py), cover exactly these scenes, so
-both ask this module; neither imports the other for it. The gate reads
-only static fields and table shapes, so asking costs no device sync.
+`production_fast_shade` returns "bounce" (the whole pass is one K1
+launch, integrator/pass_kernel.py) or "shade" (per bounce: closest hit,
+through K3 for a bvh4 scene, then K2 shading, then the shadow any hit,
+through K4 for a bvh4 scene; integrator/wavefront.py). A scene leaves
+K1's gate for "shade" by its geometry only: a bvh4 accelerator, more
+than 64 primitives, smooth triangles, or depth 31 and over. Materials,
+lights, the env light and the camera are restricted to what K1 and K2
+both cover; anything else raises NotImplementedError naming its ROADMAP
+item. The plain versions ask the same gate, so they cover the same
+scenes. The gate reads only static fields and table shapes, so asking
+costs no device sync.
 """
 
 from __future__ import annotations
@@ -17,11 +25,11 @@ from craytracer_tpu_torch.scene import types as T
 MAX_LIGHTS = 16
 MAX_PRIMS = 64
 MAX_MATS = 64
-MAX_DEPTH = 30  # the alive-per-bounce bitmask is one 32-bit word
+MAX_DEPTH = 30  # K1's alive-per-bounce bitmask is one 32-bit word
 ESTIMATORS = ("reference", "physical")
 
-_K1_TODO = "ROADMAP queue 2, K1 remaining gate features"
-_SLICE_C = "ROADMAP queue 1, slice C (per-bounce shading, K2)"
+_KERNEL_TODO = "ROADMAP queue 2, K1/K2 remaining gate features"
+_TABLES_TODO = "ROADMAP queue 2, K1/K2 table limits"
 
 
 def _refuse(reason: str):
@@ -35,51 +43,56 @@ def check_estimator(estimator: str):
         _refuse(f"estimator {estimator!r} (ROADMAP queue 1, slice F)")
 
 
-def fast_shade_refusal(scene: T.Scene):
-    """Why K1 cannot run this scene, or None when it can. A light table
+def shading_refusal(scene: T.Scene):
+    """Why neither K1 nor K2 can shade this scene, or None. A light table
     holding any type but rect area lights is refused outright (the JAX
     gate looks at per-row powers; the port's builder emits a non-rect row
     only with nonzero power)."""
     mats = set(scene.mat_types_present)
     if not mats <= {T.MAT_MATTE, T.MAT_EMISSIVE}:
-        return f"materials other than matte and emissive ({_K1_TODO})"
+        return f"materials other than matte and emissive ({_KERNEL_TODO})"
     if T.MAT_MATTE in mats and not scene.matte_lambertian:
-        return f"Oren-Nayar matte with sigma != 0 ({_K1_TODO})"
+        return f"Oren-Nayar matte with sigma != 0 ({_KERNEL_TODO})"
     if scene.textures.texels.shape[0] > 1:
         return "textures (ROADMAP queue 1, slice E)"
     if scene.env.kind not in (0, 1) or scene.env.importance:
         return "texture env lights (ROADMAP queue 1, slice E)"
     n_lights = scene.lights.light_type.shape[0]
     if n_lights == 0 or n_lights > MAX_LIGHTS:
-        return f"{n_lights} lights, outside K1's 1..{MAX_LIGHTS} ({_SLICE_C})"
+        return f"{n_lights} lights, outside 1..{MAX_LIGHTS} ({_TABLES_TODO})"
     if not set(scene.light_types_present) <= {T.LIGHT_AREA_RECT}:
-        return f"lights other than rect area lights ({_K1_TODO})"
+        return f"lights other than rect area lights ({_KERNEL_TODO})"
     if scene.materials.mat_type.shape[0] > MAX_MATS:
-        return f"more than {MAX_MATS} materials ({_SLICE_C})"
+        return f"more than {MAX_MATS} materials ({_TABLES_TODO})"
     for name in ("spheres", "planes", "disks", "instanced"):
         if getattr(scene, name).mat_id.shape[0]:
-            return f"{name} ({_K1_TODO})"
-    if scene.accel != "none":
-        return "accelerated meshes (ROADMAP queue 1, slice B)"
-    n_prims = scene.rects.mat_id.shape[0] + scene.triangles.mat_id.shape[0]
-    if n_prims > MAX_PRIMS:
-        return f"more than {MAX_PRIMS} primitives ({_SLICE_C})"
+            return f"{name} ({_KERNEL_TODO})"
+    if scene.accel not in ("none", "bvh4"):
+        return f"accel={scene.accel!r} (ROADMAP queue 1, slice I)"
     return None
+
+
+def fast_shade_mode(scene: T.Scene, max_depth: int = 5) -> str:
+    """"bounce" when K1 takes the whole pass, "shade" when the scene
+    leaves K1's gate by geometry only (fast_shade_mode :1521-1563)."""
+    n_prims = scene.rects.mat_id.shape[0] + scene.triangles.mat_id.shape[0]
+    if (scene.tri_bvh is not None or n_prims > MAX_PRIMS
+            or scene.smooth_triangles or max_depth > MAX_DEPTH):
+        return "shade"
+    return "bounce"
 
 
 def production_fast_shade(scene: T.Scene, camera=None, film=None,
                           estimator: str = "reference", max_depth: int = 5):
-    """THE production decision (pallas_shade.py:1490): returns "bounce"
-    when the whole pass can run through K1, and otherwise raises
-    NotImplementedError naming the ROADMAP item that will cover it. The
-    port has no other route, so nothing is quietly traced another way."""
+    """THE production decision (pallas_shade.py:1490): "bounce" or
+    "shade", or NotImplementedError naming the ROADMAP item that will
+    cover the scene. The port has no other route, so nothing is quietly
+    traced another way."""
     check_estimator(estimator)
-    if max_depth > MAX_DEPTH:
-        _refuse(f"max_depth {max_depth} > {MAX_DEPTH} ({_SLICE_C})")
     if camera is not None and camera.camera_type != PINHOLE:
         kind = "thin-lens" if camera.camera_type == THINLENS else "unknown"
-        _refuse(f"{kind} camera ({_K1_TODO})")
-    reason = fast_shade_refusal(scene)
+        _refuse(f"{kind} camera ({_KERNEL_TODO})")
+    reason = shading_refusal(scene)
     if reason is not None:
         _refuse(reason)
-    return "bounce"
+    return fast_shade_mode(scene, max_depth)

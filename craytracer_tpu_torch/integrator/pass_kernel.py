@@ -3,17 +3,18 @@ craytracer_tpu/integrator/pallas_shade.py: `_pass_kernel` :781 with
 `_camera_raygen` :696, `_brute_hit` :533, `_brute_closest` :471,
 `_brute_any` :509 and `_shade_core` :874, launched by `fused_pass`
 :1667). The gate that decides which scenes K1 takes is
-integrator/gate.py.
+integrator/gate.py ("bounce" scenes).
 
 One launch runs a whole spp-pass: raygen, then for every bounce the
 closest hit over the prim table, shading, NEE with a shadow any-hit,
 throughput and Russian roulette. The CUDA C++ source is
-csrc/pass_kernel.cu; it is compiled with nvcc for sm_90a at first use
-into craytracer_tpu_torch/_build/ and bound through a plain C ABI with
-ctypes.
+csrc/pass_kernel.cu, whose shading is csrc/shade_core.cuh (shared with
+K2); it is compiled with nvcc for sm_90a at first use into
+craytracer_tpu_torch/_build/ and bound through a plain C ABI with ctypes
+(cuda_build.py).
 
 `fused_pass` is the wrapper: for CPU tensors it takes the plain version
-`fused_pass_reference` (the ported raygen followed by the torch-op
+`fused_pass_reference` (the ported raygen followed by the plain
 `trace_paths`); for CUDA tensors it launches K1 or raises. It never falls
 back. `KERNEL.launches` counts K1 launches.
 """
@@ -22,35 +23,21 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from craytracer_tpu_torch.camera import film_dims, generate_rays
+from craytracer_tpu_torch.cuda_build import CudaLibrary, LaunchCount
 from craytracer_tpu_torch.integrator.gate import (MAX_DEPTH, MAX_LIGHTS,
                                                   MAX_MATS, MAX_PRIMS,
                                                   production_fast_shade)
-from craytracer_tpu_torch.integrator.wavefront import RR_START, trace_paths
+from craytracer_tpu_torch.integrator.shade_kernel import (RR_START,
+                                                          material_light_rows)
+from craytracer_tpu_torch.integrator.wavefront import _trace
 from craytracer_tpu_torch.sampling.multijitter import (CAMERA_BOUNCE,
                                                        stratified_jitter)
 from craytracer_tpu_torch.sampling.rng import MASK32, uniforms
 from craytracer_tpu_torch.scene import types as T
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "pass_kernel.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-    # no FMA contraction, IEEE division and sqrt: every multiply-add rounds
-    # as the op-by-op plain version does (see the source note)
-    "--fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-Xptxas", "-v",
-)
 
 # table layout handed to the kernel (floats): camera at 0, env radiance at
 # _ENV, then from _MATS the material, light and prim rows. The column
@@ -58,6 +45,16 @@ NVCC_FLAGS = (
 # :1707-1750), unread columns included, so K1's remaining gate features
 # need no format change.
 _ENV, _MATS = 18, 24
+
+
+def _k1_gate(scene, camera, film, max_depth):
+    """K1 takes "bounce" scenes only; any other raises."""
+    if production_fast_shade(scene, camera, film,
+                             max_depth=max_depth) != "bounce":
+        raise NotImplementedError(
+            "outside K1's gate (a bvh4 accel, more than 64 prims, smooth "
+            "triangles or depth > 30): render_sample traces it per bounce "
+            "(fast_shade='shade'); ROADMAP queue 2, K1")
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +68,14 @@ def fused_pass_reference(scene: T.Scene, camera, film, pixel_ids, spp_index,
     or the plain CAMERA_BOUNCE jitter, then generate_rays) followed by the
     ported trace_paths in torch ops. Same contract as `fused_pass`; a
     scene outside the K1 gate raises NotImplementedError."""
-    production_fast_shade(scene, camera, film, max_depth=max_depth)
+    _k1_gate(scene, camera, film, max_depth)
+    return _pass_reference(scene, camera, film, pixel_ids, spp_index, seed,
+                           max_depth, raygen)
+
+
+def _pass_reference(scene, camera, film, pixel_ids, spp_index, seed,
+                    max_depth, raygen):
+    """fused_pass_reference for a scene the gate has admitted."""
     if raygen == "strat":
         jitter = stratified_jitter(seed, pixel_ids, spp_index)
     elif raygen == "plain":
@@ -79,69 +83,28 @@ def fused_pass_reference(scene: T.Scene, camera, film, pixel_ids, spp_index,
     else:
         raise ValueError(f"raygen must be 'strat' or 'plain', not {raygen!r}")
     o, d = generate_rays(camera, film, pixel_ids, jitter)
-    return trace_paths(scene, o, d, seed, pixel_ids, spp_index, max_depth,
-                       with_metrics=True)
+    return _trace(scene, o, d, seed, pixel_ids, spp_index, max_depth,
+                  kernels=False)
 
 
 # ---------------------------------------------------------------------------
 # K1 on the card
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.k1_pass_launch.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci,
+                                   ctypes.c_uint, ci, ci, ci, ci, vp, vp, vp]
+    lib.k1_pass_launch.restype = ci
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: K1 needs the CUDA toolkit to build")
+LIBRARY = CudaLibrary("pass_kernel", headers=("shade_core.cuh",), bind=_bind)
+SOURCE = LIBRARY.source
 
 
-class PassKernel:
-    """K1's shared library: built from csrc/ on first use, loaded with
-    ctypes, launched on PyTorch's current stream. `launches` counts the
+class PassKernel(LaunchCount):
+    """K1's launcher on PyTorch's current stream. `launches` counts the
     launches made through `launch`."""
-
-    def __init__(self):
-        self.launches = 0
-        self.ptxas_log = ""
-        self._lib = None
-
-    def build(self):
-        """Compile (unless this source was built before) and load."""
-        if self._lib is not None:
-            return self._lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = _source_hash()
-        so = BUILD_DIR / f"libpass_kernel_{tag}.so"
-        log = BUILD_DIR / f"pass_kernel_{tag}.log"
-        if not so.exists():
-            tmp = BUILD_DIR / f".libpass_kernel_{tag}.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stdout}\n"
-                    f"{res.stderr}")
-            log.write_text(res.stdout + res.stderr)
-            os.replace(tmp, so)
-        self.ptxas_log = log.read_text() if log.exists() else ""
-        lib = ctypes.CDLL(str(so))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.k1_pass_launch.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci,
-                                       ctypes.c_uint, ci, ci, ci, ci, vp, vp,
-                                       vp]
-        lib.k1_pass_launch.restype = ci
-        lib.k1_error_string.argtypes = [ci]
-        lib.k1_error_string.restype = ctypes.c_char_p
-        self._lib = lib
-        return lib
 
     def launch(self, tables, n_mats, n_lights, n_rects, n_tris, pix, spp,
                seed: int, max_depth: int, strat: bool, width: int):
@@ -162,18 +125,15 @@ class PassKernel:
                 and n_rects + n_tris <= MAX_PRIMS
                 and 0 <= max_depth <= MAX_DEPTH and width > 0):
             raise ValueError("K1 table sizes or depth out of range")
-        lib = self.build()
+        lib = LIBRARY.load()
         L = torch.empty((n, 3), dtype=torch.float32, device=dev)
         g = torch.empty((4, n), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.k1_pass_launch(
             tables.data_ptr(), tables.numel(), pix.data_ptr(), spp.data_ptr(),
             n, n_mats, n_lights, n_rects, n_tris, int(seed) & MASK32,
             max_depth, RR_START, int(strat), width, L.data_ptr(),
-            g.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError("K1 launch failed: "
-                               + lib.k1_error_string(err).decode())
+            g.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        LIBRARY.check(err, "K1")
         self.launches += 1
         return L, g
 
@@ -192,21 +152,7 @@ def kernel_tables(scene: T.Scene, camera, film):
                      camera.z_axis,
                      torch.stack([camera.focal_dist, fl, fh, pxl,
                                   camera.focal_length, camera.lens_radius])])
-    env = scene.env
-    env_li = (env.color * env.intensity if env.kind == 1
-              else torch.zeros(3, dtype=f32, device=dev))
-    m = scene.materials
-    mt = torch.stack([m.mat_type.to(f32), m.color[:, 0], m.color[:, 1],
-                      m.color[:, 2], m.on_a, m.intensity, m.on_b, m.alphax,
-                      m.ks[:, 0], m.ks[:, 1], m.ks[:, 2],
-                      m.eta[:, 0], m.eta[:, 1], m.eta[:, 2],
-                      m.k[:, 0], m.k[:, 1], m.k[:, 2], m.ior_in, m.ior_out],
-                     dim=-1)
-    li = scene.lights
-    lt = torch.cat([li.p0, li.v1, li.v2, li.normal,
-                    li.color * li.intensity[:, None], li.radius[:, None],
-                    li.power_cdf[:, None], li.power[:, None],
-                    li.light_type[:, None].to(f32)], dim=-1)
+    env_li, mt, lt = material_light_rows(scene)
     r = scene.rects
     zr = torch.zeros((r.mat_id.shape[0], 1), dtype=f32, device=dev)
     pt_rect = torch.cat([r.point, r.width, r.height, r.normal,
@@ -217,7 +163,7 @@ def kernel_tables(scene: T.Scene, camera, film):
                         tr.mat_id[:, None].to(f32),
                         tr.double_sided[:, None].to(f32), zt, zt], dim=-1)
     pad = torch.zeros(_MATS - _ENV - 3, dtype=f32, device=dev)
-    return torch.cat([cam.to(f32), env_li.to(f32), pad, mt.reshape(-1),
+    return torch.cat([cam.to(f32), env_li, pad, mt.reshape(-1),
                       lt.reshape(-1), pt_rect.reshape(-1),
                       pt_tri.reshape(-1)]).contiguous()
 
@@ -238,7 +184,18 @@ def fused_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
     with `rays`/`shadow_rays` scalars and the `bounce_live` histogram) —
     the trace_paths contract. `pixel_ids` decides the device: a CPU
     tensor takes the plain version, a CUDA tensor launches K1.
-    Forward-only, as in the JAX package (pallas_shade.py:47)."""
+    Forward-only, as in the JAX package (pallas_shade.py:47). A scene
+    outside K1's gate raises NotImplementedError."""
+    _k1_gate(scene, camera, film, max_depth)
+    return _admitted_pass(scene, camera, film, pixel_ids, spp_index, seed,
+                          max_depth, raygen)
+
+
+@torch.no_grad()
+def _admitted_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
+                   seed: int, max_depth: int, raygen: str = "strat"):
+    """fused_pass for a scene the gate has admitted as "bounce"
+    (render_sample asks the gate once per pass)."""
     pixel_ids = torch.as_tensor(pixel_ids)
     if raygen not in ("strat", "plain"):
         raise ValueError(f"raygen must be 'strat' or 'plain', not {raygen!r}")
@@ -249,11 +206,10 @@ def fused_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
             raise ValueError(f"scene/camera on {t.device}, pixel ids on "
                              f"{pixel_ids.device}")
     if pixel_ids.device.type == "cpu":
-        return fused_pass_reference(scene, camera, film, pixel_ids,
-                                    spp_index, seed, max_depth, raygen)
+        return _pass_reference(scene, camera, film, pixel_ids, spp_index,
+                               seed, max_depth, raygen)
     if pixel_ids.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, not {pixel_ids.device}")
-    production_fast_shade(scene, camera, film, max_depth=max_depth)
     n = pixel_ids.shape[0]
     pix = pixel_ids.to(torch.int32).contiguous()
     if isinstance(spp_index, torch.Tensor) and spp_index.dim() > 0:

@@ -4,9 +4,10 @@ with the Morton pixel order :150-168, spp batching :98-116 and NaN
 substitution :241-255).
 
 Each pass traces one sample per pixel for the whole image through
-`render_sample`, i.e. one K1 launch on the card, and accumulates into an
-f32 buffer on the scene's device. With `spp_batch` B > 1 one pass carries
-B samples per pixel (lanes = B * pixels) and still makes one launch.
+`render_sample` (one K1 launch on the card for a Cornell-class scene; a
+K3, K2 and K4 launch per bounce for a mesh scene) and accumulates into
+an f32 buffer on the scene's device. With `spp_batch` B > 1 one pass
+carries B samples per pixel (lanes = B * pixels) with the same launches.
 Pixels go out in Morton order, a pure reorder (the RNG keys off pixel
 id) that keeps each warp's rays coherent. A NaN sample is replaced by the
 running mean (main.cpp:127-136); the JAX Renderer's NaN-log retrace
@@ -45,7 +46,7 @@ class Renderer:
         self.accum = torch.zeros((film.num_pixels, 3), dtype=torch.float32,
                                  device=self.device)
         self.spp_done = 0
-        self.passes = 0  # render_sample calls (one K1 launch each on CUDA)
+        self.passes = 0  # render_sample calls
         self.nan_count = 0
 
     def pixel_order(self) -> np.ndarray:

@@ -55,23 +55,25 @@ def _build(cls, leaves: Mapping, device):
 
 def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     """`leaves` maps each Scene group name to a mapping of its fields
-    (numpy arrays) plus the static fields. Accel tables are not carried:
-    a scene that holds any is refused (ROADMAP queue 1, slice B)."""
-    for name in ("tri_bvh", "tri_shadow", "tri_parts", "tri_cam", "sph_bvh"):
+    (numpy arrays) plus the static fields. The bvh4 table `tri_bvh` (fat
+    rows, n_tris, leaf_size, stack_size) is carried; a scene holding any
+    other accel table is refused (ROADMAP queue 1, slice I)."""
+    for name in ("tri_shadow", "tri_parts", "tri_cam", "sph_bvh"):
         if leaves.get(name) is not None:
             raise NotImplementedError(
-                f"scene carries {name}; accelerated scenes are not ported "
-                "(ROADMAP queue 1, slice B)")
-    if np.asarray(leaves["triangles"]["smooth"]).any():
-        raise NotImplementedError(
-            "smooth triangles are not ported (ROADMAP queue 1, slice B)")
+                f"scene carries {name}; that accelerator is not ported "
+                "(ROADMAP queue 1, slice I)")
     kw = {name: _build(cls, leaves[name], device)
           for name, cls in _GROUPS.items()}
     kw["env"] = _build(T.EnvLight, leaves["env"], device)
+    if leaves.get("tri_bvh") is not None:
+        kw["tri_bvh"] = _build(T.BVH4Arrays, leaves["tri_bvh"], device)
     for name in _STATIC:
         kw[name] = leaves[name]
     kw["mat_types_present"] = tuple(kw["mat_types_present"])
     kw["light_types_present"] = tuple(kw["light_types_present"])
+    kw["smooth_triangles"] = bool(np.asarray(
+        leaves["triangles"]["smooth"]).any())
     return T.Scene(**kw)
 
 

@@ -1,26 +1,37 @@
 """Reference-compatible scene-file parser (counterpart of
-craytracer_tpu/io/scenefile.py; `load_scene_file` :347).
+craytracer_tpu/io/scenefile.py; `_parse_mesh` :313, `load_scene_file`
+:347).
 
 The same keyword-driven, tolerant reading of the positional grammar
 (scene/scenefile.h:92-791): block collection, preset colors, legacy
-material keys, C-`atof` floats, film/camera header defaults. Materials,
-primitives and lights outside the Cornell slice raise
-NotImplementedError naming the ROADMAP item that will port them; a
-shape the parser does not know is skipped, as in the JAX parser.
+material keys, C-`atof` floats, film/camera header defaults, and OBJECT
+MESH (FILE/FILE_NAME, SMOOTH, SCALING, LOCATION, ORIENTATION; the file is
+looked up beside the scene file, then in the working directory).
+Materials, primitives and lights outside slices A and B raise
+NotImplementedError naming the ROADMAP item that will port them; a shape
+the parser does not know is skipped, as in the JAX parser.
 
-Returns (Scene, Camera, Film).
+Deviation on purpose: a mesh file that cannot be found raises
+FileNotFoundError, where the JAX parser skips the object silently
+(:323-324) and renders a scene without it.
+
+Returns (Scene, Camera, Film) on the CUDA card unless the caller asks
+for another device.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
 from craytracer_tpu_torch.camera import Film, make_camera
 from craytracer_tpu_torch.constants import PRESET_COLORS
+from craytracer_tpu_torch.io.objloader import compute_vertex_normals, load_obj
 from craytracer_tpu_torch.io.tokenizer import TokenStream, atof, tokenize
 from craytracer_tpu_torch.scene.build import SceneBuilder, not_ported
+from craytracer_tpu_torch.scene.types import resolve_device
 
 _OBJECT_TYPES = {
     "SPHERE", "PLANE", "RECTANGLE", "TRIANGLE", "BOX", "OPENCYLINDER",
@@ -49,8 +60,7 @@ _MAT_FEATURE = {"MIRROR": "mirror", "TRANSPARENT": "transparent",
                 "REFLECTIVE": "plastic"}
 _OBJ_FEATURE = {"SPHERE": "sphere", "PLANE": "plane", "DISK": "disk",
                 "BOX": "box", "OPENCYLINDER": "cylinder",
-                "SOLIDCYLINDER": "cylinder", "TORUS": "torus",
-                "MESH": "mesh"}
+                "SOLIDCYLINDER": "cylinder", "TORUS": "torus"}
 
 
 def _is_block_start(ts: TokenStream) -> bool:
@@ -128,10 +138,36 @@ def _parse_material(builder: SceneBuilder, mat_type: str, kv: dict):
         builder.add_matte(name, (0.5, 0.5, 0.5))
 
 
-def _parse_object(builder: SceneBuilder, obj_type: str, kv: dict):
+def _parse_mesh(builder: SceneBuilder, kv: dict, mat: str, search_dirs):
+    """OBJECT MESH (scenefile.py:313-344): every OBJ group becomes one
+    baked mesh with the object's material."""
+    if mat == "FROM_MTL":
+        raise not_ported("MATERIAL FROM_MTL")
+    file_name = (kv.get("FILE") or kv.get("FILE_NAME") or [""])[0]
+    path = next((p for p in (os.path.join(d, file_name) for d in search_dirs)
+                 if file_name and os.path.isfile(p)), None)
+    if path is None:
+        raise FileNotFoundError(
+            f"mesh file {file_name!r} not found in {search_dirs}")
+    smooth = (kv.get("SMOOTH") or ["no"])[0] == "yes"
+    for shape in load_obj(path):
+        normals = shape.normals
+        if smooth and normals is None:
+            normals = compute_vertex_normals(shape.positions, shape.indices)
+        builder.add_mesh(shape.positions, shape.indices, mat,
+                         normals=normals, uvs=shape.texcoords, smooth=smooth,
+                         scaling=_vec3_from(kv.get("SCALING"), (1, 1, 1)),
+                         location=_vec3_from(kv.get("LOCATION")),
+                         orientation=_vec3_from(kv.get("ORIENTATION")))
+
+
+def _parse_object(builder: SceneBuilder, obj_type: str, kv: dict,
+                  search_dirs=()):
     mat = (kv.get("MATERIAL") or ["__default__"])[0]
     if obj_type in _OBJ_FEATURE:
         raise not_ported(_OBJ_FEATURE[obj_type])
+    if obj_type == "MESH":
+        _parse_mesh(builder, kv, mat, search_dirs)
     if obj_type == "RECTANGLE":
         builder.add_rect(_vec3_from(kv.get("POINT")),
                          _vec3_from(kv.get("WIDTH"), (1, 0, 0)),
@@ -142,10 +178,13 @@ def _parse_object(builder: SceneBuilder, obj_type: str, kv: dict):
                              _vec3_from(kv.get("V2")), mat)
 
 
-def load_scene_file(path: str, accel: str = "auto", device="cpu"):
-    """Parse a scene file -> (Scene, Camera, Film) on `device`."""
+def load_scene_file(path: str, accel: str = "auto", device=None):
+    """Parse a scene file -> (Scene, Camera, Film) on `device` (default:
+    the CUDA card; raises when there is none)."""
+    device = resolve_device(device)
     with open(path) as f:
         ts = TokenStream(tokenize(f.read()))
+    search_dirs = [os.path.dirname(os.path.abspath(path)), os.getcwd()]
     builder = SceneBuilder()
     film_kv = dict(WINDOW_WIDTH=256, WINDOW_HEIGHT=256, IMAGE_WIDTH=256,
                    IMAGE_HEIGHT=256, FOV=40.0)
@@ -172,7 +211,7 @@ def load_scene_file(path: str, accel: str = "auto", device="cpu"):
             obj_type = ts.next()
             kv = _collect_block(ts)
             if obj_type in _OBJECT_TYPES:
-                _parse_object(builder, obj_type, kv)
+                _parse_object(builder, obj_type, kv, search_dirs)
         elif tok in ("POINT_LIGHT", "DIRECTIONAL_LIGHT"):
             raise not_ported("point/directional light")
         elif tok == "ENV_LIGHT":

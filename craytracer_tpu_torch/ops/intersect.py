@@ -1,14 +1,20 @@
-"""Batched brute-force ray-primitive intersection (counterpart of
-craytracer_tpu/ops/intersect.py, brute path only: `rect_ts` :117,
-`triangle_ts` :163, `_fill_rect` :355, `_fill_triangle` :380,
-`intersect_scene` :518, `shadow_distance` :685).
+"""Batched ray-primitive intersection (counterpart of
+craytracer_tpu/ops/intersect.py: `rect_ts` :117, `triangle_ts` :163,
+`_fill_rect` :355, `_fill_triangle` :380, `intersect_scene` :518,
+`shadow_distance` :685).
 
-Two phases over [N] ray batches, as in the JAX package: a search over
-[N, M] (ray, primitive) pairs reduced to the first minimum per group and
-then across groups in the reference's tie-break order, and a fill that
-re-derives t/normal/dpdu/uv for the winning primitive only. The slice's
-scenes hold rects and flat triangles only: the builder refuses other
-primitives and K1's gate refuses scenes that carry any.
+Two phases over [N] ray batches, as in the JAX package: a search that
+finds the closest primitive per group and keeps the earlier group on a
+tie (strict < across groups), and a fill that re-derives t, normal (flat
+or smooth), dpdu and uv for the winning primitive only. Rects are always
+brute force over [N, M] (ray, primitive) pairs. Triangles are brute
+force too in an accel="none" scene; in an accel="bvh4" scene they go
+through the fat-row BVH4 (accel/bvh4.py): with `kernels=True`, K3 for the
+closest hit inside the ray_key coherence sort (ops/raysort.py), as
+intersect.py:609-620 runs the Pallas kernel, and K4 for the shadow any
+hit behind a ray_key argsort (:737-747); with `kernels=False`, the plain
+traversal. The tracer (integrator/wavefront.py) asks for the kernels only
+for rays on the card.
 """
 
 from __future__ import annotations
@@ -17,8 +23,11 @@ from dataclasses import dataclass
 
 import torch
 
+from craytracer_tpu_torch.accel import bvh4_kernel
+from craytracer_tpu_torch.accel.bvh4 import bvh4_any_hit, bvh4_closest_hit
 from craytracer_tpu_torch.constants import K_EPSILON, TMAX
 from craytracer_tpu_torch.core import math as vm
+from craytracer_tpu_torch.ops.raysort import sorted_traversal
 from craytracer_tpu_torch.scene import types as T
 
 
@@ -118,9 +127,9 @@ def _fill_triangle(o, d, idx, tr: T.Triangles):
     gamma = vm.dot(d, qvec) * inv_det
     t_diff = vm.dot(e2, qvec) * inv_det
     alpha = 1.0 - beta - gamma
-    # flat triangles: the face normal (the builder and interop refuse
-    # smooth ones)
-    n = tr.face_normal[idx]
+    ns = vm.normalize(alpha[:, None] * tr.n0[idx] + beta[:, None] * tr.n1[idx]
+                      + gamma[:, None] * tr.n2[idx])
+    n = torch.where(tr.smooth[idx][:, None], ns, tr.face_normal[idx])
     # standalone triangles face the ray (shapes/triangle.cpp:160-166)
     flip = (tr.double_sided[idx] & (vm.dot(-d, n) < 0.0))[:, None]
     n = torch.where(flip, -n, n)
@@ -138,10 +147,24 @@ _GROUPS = (
 )
 
 
+def _tri_closest(scene: T.Scene, o, d, kernels: bool):
+    """(t, index) of the closest triangle per ray (index 0 on a miss)."""
+    if scene.accel == "bvh4":
+        if kernels:
+            t, tri = sorted_traversal(
+                lambda oo, dd: bvh4_kernel.bvh4_closest_hit_kernel(
+                    scene.tri_bvh, oo, dd), o, d)
+        else:
+            t, tri = bvh4_closest_hit(scene.tri_bvh, o, d)
+        return t, torch.clamp(tri, min=0).to(torch.int64)
+    return torch.min(triangle_ts(o, d, scene.triangles), dim=1)
+
+
 @torch.no_grad()
-def intersect_scene(scene: T.Scene, o, d) -> Hit:
+def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
     """Closest hit across the primitive groups: first minimum within a
-    group, strict < across groups (the reference's tie-break order)."""
+    group, strict < across groups (the reference's tie-break order).
+    `kernels` routes a bvh4 scene's triangles through K3."""
     n = o.shape[0]
     best_t = torch.full((n,), TMAX, dtype=o.dtype, device=o.device)
     best_group = torch.full((n,), T.GROUP_NONE, dtype=torch.int32,
@@ -151,7 +174,10 @@ def intersect_scene(scene: T.Scene, o, d) -> Hit:
         group = getattr(scene, name)
         if group.mat_id.shape[0] == 0:
             continue
-        gmin, gidx = torch.min(ts_fn(o, d, group), dim=1)
+        if gid == T.GROUP_TRIANGLE:
+            gmin, gidx = _tri_closest(scene, o, d, kernels)
+        else:
+            gmin, gidx = torch.min(ts_fn(o, d, group), dim=1)
         better = gmin < best_t
         best_t = torch.where(better, gmin, best_t)
         best_group = torch.where(better, gid, best_group)
@@ -186,11 +212,28 @@ def intersect_scene(scene: T.Scene, o, d) -> Hit:
 
 
 @torch.no_grad()
-def shadow_distance(scene: T.Scene, o, d):
-    """Min hit distance for shadow rays over every primitive."""
-    best_t = torch.full((o.shape[0],), TMAX, dtype=o.dtype, device=o.device)
-    for _, name, ts_fn, _ in _GROUPS:
+def shadow_distance(scene: T.Scene, o, d, max_dist=None,
+                    kernels: bool = False):
+    """Hit distance for shadow rays: the minimum over the brute-force
+    groups, and for a bvh4 scene's triangles the any hit under `max_dist`
+    (t < max_dist when occluded, TMAX otherwise). `kernels` routes that
+    any hit through K4 in ray_key order."""
+    n = o.shape[0]
+    best_t = torch.full((n,), TMAX, dtype=o.dtype, device=o.device)
+    for gid, name, ts_fn, _ in _GROUPS:
         group = getattr(scene, name)
-        if group.mat_id.shape[0]:
-            best_t = torch.minimum(best_t, ts_fn(o, d, group).min(dim=1).values)
+        if group.mat_id.shape[0] == 0:
+            continue
+        if gid == T.GROUP_TRIANGLE and scene.accel == "bvh4":
+            md = (torch.full_like(best_t, TMAX) if max_dist is None
+                  else max_dist)
+            if kernels:
+                t = sorted_traversal(
+                    lambda oo, dd, mm: bvh4_kernel.bvh4_any_hit_kernel(
+                        scene.tri_bvh, oo, dd, mm), o, d, md)
+            else:
+                t = bvh4_any_hit(scene.tri_bvh, o, d, md)
+        else:
+            t = ts_fn(o, d, group).min(dim=1).values
+        best_t = torch.minimum(best_t, t)
     return best_t

@@ -1,16 +1,19 @@
 """Where the time of a Renderer run goes on the card: a torch.profiler
 pass over the port's Renderer.
 
-    python -m craytracer_tpu_torch.profile_render [--size 512] [--spp 64]
-        [--depth 5] [--spp-batch 1 16] [--out FILE.json]
+    python -m craytracer_tpu_torch.profile_render [--scene FILE]
+        [--size 512] [--spp 64] [--depth 5] [--spp-batch 1 16]
+        [--out FILE.json]
 
 For each spp batch it warms up with one full render (which also builds
-K1), then profiles one more render of the same size and prints its wall
-time, the device's busy time (the union of every device-side event:
-kernels, copies and fills), K1's share of it and launch count, and the
-device idle share 1 - busy / wall. The profiler's own overhead is
-inside the wall time, so the idle share it reports is an upper bound for
-an unprofiled run. Needs a CUDA card.
+the kernels), then profiles one more render of the same size and prints
+its wall time, the device's busy time (the union of every device-side
+event: kernels, copies and fills), each of the port's kernels' (K1-K4)
+device time and launch count, and the device idle share 1 - busy / wall.
+The profiler's own overhead is inside the wall time, so the idle share
+it reports is an upper bound for an unprofiled run. The default scene is
+scenes/parity_cornell.txt (K1); scenes/parity_mesh_mid.txt takes the
+per-bounce K3 -> K2 -> K4 route. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ import torch
 
 _SCENE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scenes", "parity_cornell.txt")
+# the port's kernels by a piece of their (mangled) device function names
+KERNELS = {"k1_pass": "k1_pass_kernel", "k2_shade": "k2_shade_kernel",
+           "k3_bvh4_closest": "k3_closest_kernel",
+           "k4_bvh4_any": "k4_any_kernel"}
 
 
 def _busy_us(spans) -> float:
@@ -40,7 +47,8 @@ def _busy_us(spans) -> float:
 def profile_render(scene, camera, film, spp: int, depth: int,
                    spp_batch: int) -> dict:
     """Profile one Renderer run (after a warm-up run) and return its
-    breakdown: wall_ms, device_ms, k1_ms, k1_launches, passes, idle."""
+    breakdown: wall_ms, device_ms, per-kernel (ms, launches), passes,
+    idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -65,10 +73,13 @@ def profile_render(scene, camera, film, spp: int, depth: int,
     for e in on_dev:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    k1 = [v for k, v in by_name.items() if "k1_pass" in k]
-    return {"spp_batch": spp_batch, "passes": r.passes,
-            "k1_launches": sum(n for _, n in k1), "wall_ms": wall_ms,
-            "device_ms": device_ms, "k1_ms": sum(us for us, _ in k1) / 1e3,
+    kernels = {}
+    for name, part in KERNELS.items():
+        hits = [v for k, v in by_name.items() if part in k]
+        kernels[name] = (sum(us for us, _ in hits) / 1e3,
+                         sum(n for _, n in hits))
+    return {"spp_batch": spp_batch, "passes": r.passes, "kernels": kernels,
+            "wall_ms": wall_ms, "device_ms": device_ms,
             "idle": (1.0 - device_ms / wall_ms) if on_dev else None,
             "top_device": [(k, us / 1e3, n) for k, (us, n) in sorted(
                 by_name.items(), key=lambda kv: -kv[1][0])[:6]]}
@@ -98,14 +109,17 @@ def main(argv=None) -> int:
         res = profile_render(scene, camera, film, args.spp, args.depth, b)
         results.append(res)
         idle = "not measured" if res["idle"] is None else f"{res['idle']:.4f}"
-        print(f"[profile] {args.size}x{args.size} {args.spp} spp depth "
-              f"{args.depth} spp_batch {b}: {res['passes']} passes, wall "
-              f"{res['wall_ms']:.3f} ms, device {res['device_ms']:.3f} ms, "
-              f"K1 {res['k1_ms']:.3f} ms over {res['k1_launches']} launches,"
-              f" idle share {idle}", flush=True)
+        ks = ", ".join(f"{k} {ms:.3f} ms over {n} launches"
+                       for k, (ms, n) in res["kernels"].items() if n)
+        print(f"[profile] {os.path.basename(args.scene)} {args.size}x"
+              f"{args.size} {args.spp} spp depth {args.depth} spp_batch {b}: "
+              f"{res['passes']} passes, wall {res['wall_ms']:.3f} ms, device "
+              f"{res['device_ms']:.3f} ms ({ks}), idle share {idle}",
+              flush=True)
         for key, ms, count in res["top_device"]:
             print(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
-    out = {"device": torch.cuda.get_device_name(0), "size": args.size,
+    out = {"device": torch.cuda.get_device_name(0), "scene": args.scene,
+           "size": args.size,
            "spp": args.spp, "depth": args.depth, "runs": results}
     if args.out:
         with open(args.out, "w") as f:

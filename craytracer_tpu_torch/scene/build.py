@@ -1,14 +1,16 @@
 """Host-side scene builder: Python API -> scene tensors (counterpart of
-craytracer_tpu/scene/build.py; `SceneBuilder` :84, `build` :405,
+craytracer_tpu/scene/build.py; `SceneBuilder` :84, `add_triangle` :205,
+`add_triangles_array` :222, `add_mesh` :254, `build` :405,
 `_build_lights` :645).
 
 The accumulation runs in numpy with the JAX builder's exact arithmetic
 (same dtypes, same order), so both packages emit bit-identical tables:
 the area-light derivation from emissive rects, the reference's
-product-of-components light power, the normalized power CDF and the env
-world radius. Only what the Cornell slice needs is ported; every other
-primitive, material, light and accelerator raises NotImplementedError
-naming the ROADMAP item that will port it.
+product-of-components light power, the normalized power CDF, the env
+world radius, mesh triangles baked to world space (flat or smooth) and
+the SAH fat-row BVH4 (accel/bvh4.py). Only what slices A and B need is
+ported; every other primitive, material, light and accelerator raises
+NotImplementedError naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -20,17 +22,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from craytracer_tpu_torch.core.math import euler_to_mat3
 from craytracer_tpu_torch.scene import types as T
 
-_TODO_K1 = "ROADMAP queue 2, K1 remaining gate features"
+_TODO_K1 = "ROADMAP queue 2, K1/K2 remaining gate features"
 _TODO = {
     "sphere": _TODO_K1, "plane": _TODO_K1, "disk": _TODO_K1,
     "box": _TODO_K1, "mirror": _TODO_K1, "plastic": _TODO_K1,
     "metal": _TODO_K1, "glass": _TODO_K1, "transparent": _TODO_K1,
     "cylinder": "ROADMAP queue 1, slice D", "torus": "ROADMAP queue 1, slice D",
-    "mesh": "ROADMAP queue 1, slice B",
     "texture": "ROADMAP queue 1, slice E",
     "point/directional light": "ROADMAP queue 1, slice E",
+    "mesh light": "ROADMAP queue 1, slice E",
+    "MATERIAL FROM_MTL": "ROADMAP queue 1, slice E",
+    "accelerator": "ROADMAP queue 1, slice I",
 }
 
 
@@ -50,14 +55,16 @@ class _Mat:
 
 
 class SceneBuilder:
-    """Accumulates rects, triangles, matte/emissive materials and the env
-    light, then `build()`s the Scene (build.py:84-833)."""
+    """Accumulates rects, triangles, meshes, matte/emissive materials and
+    the env light, then `build()`s the Scene (build.py:84-833)."""
 
     def __init__(self):
         self._mats: list[_Mat] = []
         self._mat_index: dict[str, int] = {}
         self._rects = []
         self._triangles = []
+        self._bulk_triangles = []  # [T]-row column blocks (13 columns)
+        self._tri_columns = None  # merged columns, set by build()
         self._env: Optional[dict] = None
         self.add_material(_Mat(name="__default__", mat_type=T.MAT_MATTE,
                                color=(0.5, 0.5, 0.5)))
@@ -95,9 +102,11 @@ class SceneBuilder:
                             h.astype(np.float32), n.astype(np.float32),
                             self.material_id(mat)))
 
-    def add_triangle(self, v0, v1, v2, mat, double_sided=True):
-        """Flat standalone triangle (build.py:205-220): face normal in f64,
-        vertex normals = face normal, zero uvs."""
+    def add_triangle(self, v0, v1, v2, mat, n0=None, n1=None, n2=None,
+                     uv0=(0, 0), uv1=(0, 0), uv2=(0, 0), smooth=False,
+                     double_sided=True):
+        """One triangle (build.py:205-220): face normal in f64, vertex
+        normals default to it."""
         v0 = np.asarray(v0, np.float32)
         v1 = np.asarray(v1, np.float32)
         v2 = np.asarray(v2, np.float32)
@@ -106,10 +115,84 @@ class SceneBuilder:
         norm = np.linalg.norm(fn)
         fn = (fn / norm if norm > 0 else np.array([0.0, 0.0, 1.0])
               ).astype(np.float32)
-        z2 = np.zeros(2, np.float32)
-        self._triangles.append((v0, v1, v2, fn, fn, fn, z2, z2, z2, fn,
-                                False, bool(double_sided),
-                                self.material_id(mat)))
+        n0 = fn if n0 is None else np.asarray(n0, np.float32)
+        n1 = fn if n1 is None else np.asarray(n1, np.float32)
+        n2 = fn if n2 is None else np.asarray(n2, np.float32)
+        self._triangles.append((v0, v1, v2, n0, n1, n2,
+                                np.asarray(uv0, np.float32),
+                                np.asarray(uv1, np.float32),
+                                np.asarray(uv2, np.float32), fn, bool(smooth),
+                                bool(double_sided), self.material_id(mat)))
+
+    def _refuse_mesh_light(self, mat_id):
+        if self._mats[mat_id].mat_type == T.MAT_EMISSIVE:
+            raise not_ported("mesh light")
+
+    def add_triangles_array(self, v0, v1, v2, mat, normals=None, uvs=None,
+                            smooth=False, double_sided=False):
+        """Bulk-add a triangle soup ([T, 3] corner arrays; `normals` and
+        `uvs` optional per-corner triples), build.py:222-249. Returns the
+        (start, end) triangle range."""
+        v0 = np.asarray(v0, np.float32).reshape(-1, 3)
+        v1 = np.asarray(v1, np.float32).reshape(-1, 3)
+        v2 = np.asarray(v2, np.float32).reshape(-1, 3)
+        t = v0.shape[0]
+        fn = np.cross((v1 - v0).astype(np.float64),
+                      (v2 - v0).astype(np.float64))
+        lens = np.linalg.norm(fn, axis=-1, keepdims=True)
+        fn = (fn / np.where(lens > 0, lens, 1.0)).astype(np.float32)
+        n0, n1, n2 = (fn, fn, fn) if normals is None else [
+            np.asarray(x, np.float32) for x in normals]
+        z2 = np.zeros((t, 2), np.float32)
+        uv0, uv1, uv2 = (z2, z2, z2) if uvs is None else [
+            np.asarray(x, np.float32) for x in uvs]
+        mat_id = self.material_id(mat)
+        self._refuse_mesh_light(mat_id)
+        start = self.num_triangles()
+        self._bulk_triangles.append((
+            v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, fn,
+            np.full(t, bool(smooth)), np.full(t, bool(double_sided)),
+            np.full(t, mat_id, np.int32)))
+        return start, start + t
+
+    def num_triangles(self) -> int:
+        return len(self._triangles) + sum(b[0].shape[0]
+                                          for b in self._bulk_triangles)
+
+    def add_mesh(self, positions, indices, mat, normals=None, uvs=None,
+                 smooth=False, scaling=(1, 1, 1), location=(0, 0, 0),
+                 orientation=(0, 0, 0)):
+        """Bake a mesh's triangles into world space (generateMeshTriangles,
+        buildscene.h:214-314; build.py:254-288): vertices through T R S,
+        normals through R S^-1; one-sided triangles."""
+        pos = np.asarray(positions, np.float64).reshape(-1, 3)
+        idx = np.asarray(indices, np.int64).reshape(-1, 3)
+        rot = euler_to_mat3(orientation).astype(np.float64)
+        m = rot @ np.diag(np.asarray(scaling, np.float64))
+        nm = rot @ np.diag(1.0 / np.asarray(scaling, np.float64))
+        world = pos @ m.T + np.asarray(location, np.float64)
+        if normals is not None and len(np.asarray(normals)) > 0:
+            nrm = np.asarray(normals, np.float64).reshape(-1, 3) @ nm.T
+            lens = np.linalg.norm(nrm, axis=-1, keepdims=True)
+            nrm = nrm / np.where(lens > 0, lens, 1.0)
+        else:
+            nrm = None
+            smooth = False
+        uv = (np.asarray(uvs, np.float32).reshape(-1, 2)
+              if uvs is not None and len(np.asarray(uvs)) else None)
+        mat_id = self.material_id(mat)
+        self._refuse_mesh_light(mat_id)
+        start = len(self._triangles)
+        for f in idx:
+            tri_v = [world[i].astype(np.float32) for i in f]
+            tri_n = ([nrm[i].astype(np.float32) for i in f]
+                     if nrm is not None else [None] * 3)
+            tri_uv = [uv[i] for i in f] if uv is not None else [(0, 0)] * 3
+            self.add_triangle(tri_v[0], tri_v[1], tri_v[2], mat_id,
+                              n0=tri_n[0], n1=tri_n[1], n2=tri_n[2],
+                              uv0=tri_uv[0], uv1=tri_uv[1], uv2=tri_uv[2],
+                              smooth=smooth, double_sided=False)
+        return start, len(self._triangles)
 
     # -- lights ------------------------------------------------------------
 
@@ -133,28 +216,36 @@ class SceneBuilder:
         for p, w, h, n, m in self._rects:
             for q in (p, p + w, p + h, p + w + h):
                 cover(q)
-        for tri in self._triangles:
-            for q in tri[:3]:
-                cover(q)
+        cols = self._tri_columns
+        if cols is not None and cols[0].shape[0] > 0:
+            for c in cols[:3]:
+                cover(c.min(axis=0))
+                cover(c.max(axis=0))
+        else:
+            for tri in self._triangles:
+                for q in tri[:3]:
+                    cover(q)
         if not np.all(np.isfinite(mins)):
             mins = np.zeros(3)
             maxs = np.ones(3)
         return mins, maxs
 
-    def build(self, accel: str = "auto", device="cpu") -> T.Scene:
-        """accel: 'none' or 'auto' ('none' below 64 triangles, as
-        build.py:485-487 resolves it)."""
+    def build(self, accel: str = "auto", device=None) -> T.Scene:
+        """accel: 'none', 'bvh4', or 'auto' (bvh4 from 64 triangles, as
+        build.py:485-487 resolves it). The scene goes to `device`: the
+        CUDA card unless the caller asks for another (scene/types.py
+        `resolve_device`)."""
+        device = T.resolve_device(device)
         f32 = np.float32
-        n_tris = len(self._triangles)
+        n_tris = self.num_triangles()
         if accel == "auto":
             accel = "bvh4" if n_tris >= 64 else "none"
         if n_tris == 0:
             accel = "none"
-        if accel != "none":
-            item = "slice B" if accel in ("bvh", "bvh4") else "slice I"
+        if accel not in ("none", "bvh4"):
             raise NotImplementedError(
                 f"accel={accel!r} is not ported to craytracer_tpu_torch yet "
-                f"(ROADMAP queue 1, {item})")
+                f"({_TODO['accelerator']})")
 
         def soa(rows, spec):
             if not rows:
@@ -175,9 +266,19 @@ class SceneBuilder:
                                      + [((), np.int32)]))
         disks = tensors(T.Disks, soa([], [((3,), f32), ((3,), f32),
                                           ((), f32), ((), np.int32)]))
-        triangles = tensors(T.Triangles, soa(
-            self._triangles, [((3,), f32)] * 6 + [((2,), f32)] * 3
-            + [((3,), f32), ((), bool), ((), bool), ((), np.int32)]))
+        tv = soa(self._triangles, [((3,), f32)] * 6 + [((2,), f32)] * 3
+                 + [((3,), f32), ((), bool), ((), bool), ((), np.int32)])
+        if self._bulk_triangles:
+            tv = [np.concatenate([tv[c]] + [blk[c] for blk in
+                                            self._bulk_triangles], axis=0)
+                  for c in range(13)]
+        self._tri_columns = tv  # corners by global index for the bounds
+        triangles = tensors(T.Triangles, tv)
+        tri_bvh = None
+        if accel == "bvh4":
+            from craytracer_tpu_torch.accel.bvh4 import build_bvh4
+
+            tri_bvh = build_bvh4(tv[0], tv[1], tv[2])
         instanced = tensors(T.Instanced, soa(
             [], [((3, 4), f32), ((3, 3), f32), ((), np.int32), ((4,), f32),
                  ((), np.int32), ((), np.int32)]))
@@ -210,7 +311,7 @@ class SceneBuilder:
             spheres=spheres, planes=planes, rects=rects, disks=disks,
             triangles=triangles, instanced=instanced, materials=materials,
             lights=lights, mesh_lights=mesh_lights, env=env,
-            textures=T.empty_texture_pack(),
+            textures=T.empty_texture_pack(), tri_bvh=tri_bvh,
             accel=accel,
             mat_types_present=tuple(sorted(int(t) for t in
                                            np.unique(mat_type))),
@@ -218,6 +319,7 @@ class SceneBuilder:
                 int(t) for t in np.unique(lights.light_type.numpy()))),
             matte_lambertian=bool(np.all(
                 materials.on_b.numpy()[mat_type == T.MAT_MATTE] == 0.0)),
+            smooth_triangles=bool(tv[10].any()),
         )
         return scene.to(device)
 
@@ -289,7 +391,7 @@ class SceneBuilder:
             src_group=t([r[10] for r in rows], np.int32, (n,)),
             src_prim=t([r[11] for r in rows], np.int32, (n,)),
         )
-        n_tris = len(self._triangles)
+        n_tris = self.num_triangles()
         mesh_lights = T.MeshLights(
             tri_index=torch.zeros((0,), dtype=torch.int32),
             cdf=torch.zeros((0,), dtype=torch.float32),

@@ -7,7 +7,10 @@ slice does not render (spheres, planes, disks, instanced, mesh lights)
 are still present, as zero-row tensors, exactly as the JAX builder emits
 them for a scene without such primitives. The static fields `accel`,
 `mat_types_present`, `light_types_present` and `matte_lambertian` stay
-plain Python values.
+plain Python values, as do BVH4Arrays' `n_tris`, `leaf_size` and
+`stack_size` (accel/bvh4.py:56-72). `smooth_triangles` (not in the JAX
+Scene) records whether any triangle is smooth, so the route gate reads it
+without a device sync.
 """
 
 from __future__ import annotations
@@ -47,6 +50,19 @@ GROUP_RECT = 2
 GROUP_DISK = 3
 GROUP_TRIANGLE = 4
 GROUP_INSTANCED = 5
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    asks for another (`device="cpu"`). Raises when the card is asked for,
+    by default or by name, and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("craytracer_tpu_torch runs on a CUDA card by "
+                           "default and none is available; pass "
+                           "device='cpu' (--device cpu) to run the plain "
+                           "PyTorch version on the CPU")
+    return dev
 
 
 def to_device(obj, device):
@@ -204,10 +220,24 @@ def empty_texture_pack(device="cpu") -> TexturePack:
 
 
 @dataclass(frozen=True)
+class BVH4Arrays:
+    """The 4-wide fat-row BVH (accel/bvh4.py BVH4Arrays :56): one f32 row
+    per node, [0:12) four child mins, [12:24) four child maxs, [24:28)
+    child node ids (-1: leaf or empty slot), then per slot `leaf_size`
+    inlined triangles of 10 columns (v0, e1, e2, id; id -1 pads), the row
+    padded to 128 columns. `stack_size` bounds the traversal stack."""
+
+    fat: torch.Tensor  # [M, 128] f32
+    n_tris: int = 0
+    leaf_size: int = 2
+    stack_size: int = 128
+
+
+@dataclass(frozen=True)
 class Scene:
-    """The whole scene. The slice has no accel tables, so the JAX Scene's
-    tri_bvh/tri_shadow/tri_parts/tri_cam/sph_bvh slots are absent: the
-    port's builder accepts accel='none' only."""
+    """The whole scene. Of the JAX Scene's accel slots only `tri_bvh`
+    (accel="bvh4") is carried; tri_shadow/tri_parts/tri_cam/sph_bvh belong
+    to accelerators the port does not build (ROADMAP slice I)."""
 
     spheres: Spheres
     planes: Planes
@@ -220,10 +250,12 @@ class Scene:
     mesh_lights: MeshLights
     env: EnvLight
     textures: TexturePack
+    tri_bvh: Optional[BVH4Arrays] = None
     accel: str = "none"
     mat_types_present: tuple = ()
     light_types_present: tuple = ()
     matte_lambertian: bool = False
+    smooth_triangles: bool = False  # any triangle interpolates normals
 
     @property
     def device(self) -> torch.device:

@@ -1,5 +1,6 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version,
-the launch count, and the wrapper's refusals. These cases carry the
+"""K1, K2, K3 and K4 on the card: each CUDA kernel against its plain
+PyTorch version, the launch counts, and the wrappers' refusals. These
+cases carry the
 `cuda` marker (pytest.ini) and need a CUDA card and nvcc; without a card
 they skip. The file imports no JAX, so on a machine with the card (and
 no JAX) it runs on its own, without tests/conftest.py (which imports
@@ -14,9 +15,15 @@ import os
 import pytest
 import torch
 
-from craytracer_tpu_torch.camera import Film
+from craytracer_tpu_torch.accel import bvh4_kernel as bk
+from craytracer_tpu_torch.accel.bvh4 import bvh4_any_hit, bvh4_closest_hit
+from craytracer_tpu_torch.camera import Film, generate_rays
 from craytracer_tpu_torch.integrator import pass_kernel as pk
+from craytracer_tpu_torch.integrator import shade_kernel as sk
+from craytracer_tpu_torch.integrator import wavefront as wf
 from craytracer_tpu_torch.io.scenefile import load_scene_file
+from craytracer_tpu_torch.ops.intersect import intersect_scene
+from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 
 pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,7 +33,7 @@ CORNELL = os.path.join(REPO, "scenes", "parity_cornell.txt")
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -75,3 +82,99 @@ def test_k1_refuses_mixed_devices(cuda):
     scene, cam, film = _cornell(cuda, 8)
     with pytest.raises(ValueError, match="pixel ids"):
         pk.fused_pass(scene, cam, film, torch.arange(64), 0, 0, 2)
+
+
+# ---- slice B: K2, K3 and K4 on the card
+
+MESH = os.path.join(REPO, "scenes", "parity_mesh.txt")
+
+
+def _mesh(dev, size=32):
+    scene, cam, film = load_scene_file(MESH, device=dev)
+    film = Film(fov=film.fov, width=size, height=size)
+    pix = torch.arange(film.num_pixels, dtype=torch.int32, device=dev)
+    o, d = generate_rays(cam, film, pix, stratified_jitter(3, pix, 1))
+    return scene, cam, film, pix, o, d
+
+
+def test_k3_k4_match_plain_traversal(cuda):
+    """K3's t and ids and K4's t equal the plain traversal's on every lane
+    (same visit order, --fmad=false), camera rays and random rays."""
+    scene, _, _, _, o, d = _mesh(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    o_r = torch.rand((4096, 3), generator=gen, device=cuda) * 5.0 - 2.5
+    d_r = torch.nn.functional.normalize(
+        torch.randn((4096, 3), generator=gen, device=cuda), dim=1)
+    for oo, dd in ((o, d), (o_r, d_r)):
+        before = (bk.CLOSEST.launches, bk.ANY.launches)
+        t, tri = bk.bvh4_closest_hit_kernel(scene.tri_bvh, oo, dd)
+        t_p, tri_p = bvh4_closest_hit(scene.tri_bvh, oo, dd)
+        assert torch.equal(t, t_p) and torch.equal(tri, tri_p)
+        md = torch.where(t_p < 3e38, t_p * 1.25, 4.0)
+        ta = bk.bvh4_any_hit_kernel(scene.tri_bvh, oo, dd, md)
+        assert torch.equal(ta, bvh4_any_hit(scene.tri_bvh, oo, dd, md))
+        assert (bk.CLOSEST.launches, bk.ANY.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+
+
+@pytest.mark.parametrize("bounce", [0, 2])
+def test_k2_matches_plain_shade(cuda, bounce):
+    """K2's outputs against fused_shade_reference on a plain pass's hit
+    records: floats within 1e-5 (absolute + relative), ints equal."""
+    scene, _, _, pix, o, d = _mesh(cuda)
+    spp = torch.full_like(pix, 1)
+    state = wf._init_state(o, d, 5, pix)
+    for b in range(bounce):
+        state = wf._bounce_step(scene, 3, spp, 5, b, state, kernels=False)
+    hit = intersect_scene(scene, state[0], state[1])
+    args = (scene, state[1], hit, state[2], state[5], state[6], state[10],
+            spp, 3, bounce, 5)
+    before = sk.KERNEL.launches
+    got = sk.fused_shade(*args)
+    assert sk.KERNEL.launches == before + 1
+    ref = sk.fused_shade_reference(*args)
+    for key, val in ref.items():
+        if val.dtype == torch.float32:
+            assert torch.allclose(got[key], val, rtol=1e-5, atol=1e-5), key
+        else:
+            assert torch.equal(got[key], val), key
+
+
+@pytest.mark.parametrize("depth", [0, 2, 5])
+def test_shade_route_matches_plain_pass(cuda, depth):
+    """trace_paths through K3 -> K2 -> K4 (with the ray_key sorts) against
+    the plain trace_paths: phase 8 of chip_smoke.py at 32x32."""
+    scene, _, _, pix, o, d = _mesh(cuda)
+    Lk, gk, mk = wf.trace_paths(scene, o, d, 3, pix, 1, depth,
+                                with_metrics=True, fast_shade="shade")
+    Lp, gp, mp = wf.trace_paths(scene, o, d, 3, pix, 1, depth,
+                                with_metrics=True)
+    same = gk == gp
+    close = ((Lk - Lp).abs() <= 1e-4 + 1e-4 * Lp.abs()).all(dim=1)
+    assert (same & close).double().mean().item() >= 0.999
+    for key in ("rays", "shadow_rays"):
+        assert int(mk[key]) == int(mp[key])
+
+
+def test_slice_b_wrappers_refuse_bad_inputs(cuda):
+    """The wrappers check device, dtype, shape and contiguity before the
+    foreign call, and no CUDA input is traced on the CPU."""
+    scene, _, _, pix, o, d = _mesh(cuda)
+    bvh = scene.tri_bvh
+    before = (bk.CLOSEST.launches, bk.ANY.launches, sk.KERNEL.launches)
+    with pytest.raises(ValueError):
+        bk.bvh4_closest_hit_kernel(bvh, o.t().contiguous().t(), d)
+    with pytest.raises(ValueError):
+        bk.bvh4_closest_hit_kernel(bvh, o.double(), d.double())
+    with pytest.raises(ValueError):
+        bk.bvh4_any_hit_kernel(bvh, o, d, torch.ones(3, device=cuda))
+    with pytest.raises(ValueError):
+        bk.bvh4_closest_hit_kernel(bvh, o.cpu(), d.cpu())
+    hit = intersect_scene(scene, o, d)
+    with pytest.raises(ValueError):
+        sk.fused_shade(scene, d, hit, torch.ones_like(o).double(),
+                       torch.ones_like(pix, dtype=torch.bool),
+                       torch.zeros_like(pix, dtype=torch.bool), pix, 0, 3,
+                       0, 5)
+    assert (bk.CLOSEST.launches, bk.ANY.launches,
+            sk.KERNEL.launches) == before

@@ -26,7 +26,7 @@ CORNELL = os.path.join(REPO, "scenes", "parity_cornell.txt")
 @pytest.fixture(scope="module")
 def scenes():
     js, _, _ = j_load(CORNELL)
-    ts, tc, tf = load_scene_file(CORNELL)
+    ts, tc, tf = load_scene_file(CORNELL, device="cpu")
     return js, ts, tc, tf
 
 

@@ -72,7 +72,8 @@ def k1_host(tmp_path_factory):
     lib = d / "libk1_host.so"
     subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
                     "-fno-fast-math", "-shared", "-fPIC", "-I", str(d),
-                    "-o", str(lib), str(d / "k1_host.cpp")], check=True,
+                    "-I", str(pk.SOURCE.parent), "-o", str(lib),
+                    str(d / "k1_host.cpp")], check=True,
                    capture_output=True, timeout=300)
     so = ctypes.CDLL(str(lib))
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -100,7 +101,7 @@ def _run_host(so, scene, cam, film, pix, spp, seed, depth, raygen):
 @pytest.mark.parametrize("raygen", ["strat", "plain"])
 @pytest.mark.parametrize("depth", [0, 2, 5])
 def test_k1_source_matches_plain_version(k1_host, depth, raygen):
-    scene, cam, film = load_scene_file(CORNELL)
+    scene, cam, film = load_scene_file(CORNELL, device="cpu")
     film = Film(fov=film.fov, width=40, height=32)
     n = film.num_pixels
     pix = torch.arange(n, dtype=torch.int32).repeat(2)

@@ -43,7 +43,7 @@ SEED = 7
 @pytest.fixture(scope="module")
 def scenes():
     js, jc, jf = j_load(CORNELL)
-    ts, tc, tf = load_scene_file(CORNELL)
+    ts, tc, tf = load_scene_file(CORNELL, device="cpu")
     jf = jf.replace(width=SIZE, height=SIZE)
     tf = Film(fov=tf.fov, width=SIZE, height=SIZE)
     n = SIZE * SIZE

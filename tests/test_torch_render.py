@@ -40,7 +40,7 @@ def _block_means(img, blocks=8):
 
 
 def test_renderer_matches_reference_golden():
-    scene, cam, film = load_scene_file(CORNELL)
+    scene, cam, film = load_scene_file(CORNELL, device="cpu")
     film = Film(fov=film.fov, width=128, height=128)
     r = Renderer(scene, cam, film,
                  RenderConfig(num_samples=64, max_depth=5,
@@ -64,7 +64,7 @@ def test_spp_batching_and_morton_order_do_not_change_the_image():
     raster-order render_sample passes."""
     from craytracer_tpu_torch.integrator.wavefront import render_sample
 
-    scene, cam, film = load_scene_file(CORNELL)
+    scene, cam, film = load_scene_file(CORNELL, device="cpu")
     film = Film(fov=film.fov, width=16, height=12)
     r = Renderer(scene, cam, film, RenderConfig(num_samples=3, max_depth=3,
                                                 seed=5, spp_batch=3))
@@ -78,7 +78,12 @@ def test_spp_batching_and_morton_order_do_not_change_the_image():
 
 def test_import_leaves_jax_out():
     code = ("import sys, craytracer_tpu_torch.integrator.render, "
-            "craytracer_tpu_torch.interop, craytracer_tpu_torch.__main__; "
+            "craytracer_tpu_torch.interop, craytracer_tpu_torch.__main__, "
+            "craytracer_tpu_torch.io.scenefile, "
+            "craytracer_tpu_torch.accel.bvh4_kernel, "
+            "craytracer_tpu_torch.integrator.shade_kernel, "
+            "craytracer_tpu_torch.integrator.pass_kernel, "
+            "craytracer_tpu_torch.profile_render; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'craytracer_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -115,7 +120,7 @@ def test_cli_writes_a_ppm(tmp_path):
 
 
 def test_renderer_refuses_scenes_outside_the_gate():
-    scene, cam, film = load_scene_file(CORNELL)
+    scene, cam, film = load_scene_file(CORNELL, device="cpu")
     r = Renderer(scene, cam, Film(fov=film.fov, width=8, height=8),
                  RenderConfig(num_samples=1, estimator="mis"))
     with pytest.raises(NotImplementedError, match="slice F"):

@@ -31,7 +31,7 @@ CORNELL = os.path.join(REPO, "scenes", "parity_cornell.txt")
 
 @pytest.fixture(scope="module")
 def both():
-    return j_load(CORNELL), load_scene_file(CORNELL)
+    return j_load(CORNELL), load_scene_file(CORNELL, device="cpu")
 
 
 def _assert_tree_equal(ours, ref, path=""):
@@ -106,7 +106,7 @@ def test_generate_rays_agree(both, size):
 UNPORTED = {
     "sphere": "OBJECT SPHERE\nRADIUS 1\nCENTER 0 0 0\nMATERIAL m\n",
     "mirror": "MATERIAL MIRROR\nNAME m\nCOLOR 1 1 1\nEND\n",
-    "mesh": "OBJECT MESH\nFILE x.obj\nMATERIAL m\n",
+    "mesh": "OBJECT MESH\nFILE x.obj\nMATERIAL FROM_MTL\n",
     "texture env": "ENV_LIGHT\nTYPE TEXTURE\nCOLOR x.exr\nINTENSITY 1\n",
 }
 
@@ -116,15 +116,16 @@ def test_unported_features_raise(tmp_path, feature):
     p = tmp_path / "scene.txt"
     p.write_text(UNPORTED[feature])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_scene_file(str(p))
+        load_scene_file(str(p), device="cpu")
 
 
 def test_gate_admits_cornell_and_refuses_the_rest(both):
     _, (ts, tc, tf) = both
     assert production_fast_shade(ts, tc, tf) == "bounce"
-    for kw in ({"estimator": "mis"}, {"max_depth": 31}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            production_fast_shade(ts, tc, tf, **kw)
+    # depth 31 leaves K1's 32-bit alive bitmask: the per-bounce route
+    assert production_fast_shade(ts, tc, tf, max_depth=31) == "shade"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        production_fast_shade(ts, tc, tf, estimator="mis")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         production_fast_shade(ts, dataclasses.replace(tc, camera_type=1), tf)
     oren = dataclasses.replace(ts, matte_lambertian=False)
@@ -140,9 +141,16 @@ ENTRIES = ["render_sample", "fused_pass", "fused_pass_reference"]
     *[(e, r) for e in ENTRIES for r in ("thin-lens", "oren-nayar", "depth")]])
 def test_every_entry_refuses_outside_the_gate(both, entry, refused):
     """Each entry point asks the gate (integrator/gate.py) before it traces
-    anything: a refused scene raises and never reaches the plain tracer."""
+    anything: a refused scene raises and never reaches the plain tracer.
+    Depth 31 is outside K1's gate only: K1's entries refuse it, while
+    render_sample traces it per bounce (the "shade" route)."""
     _, (ts, tc, tf) = both
     depth, est = 2, "reference"
+    if (entry, refused) == ("render_sample", "depth"):
+        pix = torch.arange(16, dtype=torch.int32)
+        out = render_sample(ts, tc, tf, pix, 0, 0, 31, est)
+        assert out.shape == (16, 3) and bool(torch.isfinite(out).all())
+        return
     if refused == "estimator":
         est = "mis"
     elif refused == "thin-lens":
