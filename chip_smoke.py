@@ -11,8 +11,10 @@ never JAX or the JAX package. Phases, each printing its own lines:
 2. build: compiles K1 (csrc/pass_kernel.cu), K2 (csrc/shade_kernel.cu)
    and K3/K4 (csrc/bvh4_traverse.cu) from the checkout with one nvcc each,
    all started together (sm_90a), into craytracer_tpu_torch/_build/;
-   prints each build's seconds and ptxas' registers and spills; then
-   builds the native scene runtime (native/craynative.cpp, g++).
+   prints each build's seconds and ptxas' registers and spills for every
+   kernel and instantiation (K1 and K2 each as the matte-only core,
+   `<0>`, and the full core, `<127>`); then builds the native scene
+   runtime (native/craynative.cpp, g++).
 3. K1 vs plain: K1 against its plain PyTorch version on the card, on
    scenes/parity_cornell.txt at 64x64, depth 0, 2 and 5, scalar and
    per-lane spp, both raygen variants; then at the Cornell main path's own
@@ -57,15 +59,39 @@ never JAX or the JAX package. Phases, each printing its own lines:
    with add_triangles_array: its build seconds, 256x256 depth 4 rays/s,
    and bare K3 per launch on camera and bounce-1 rays, each with and
    without the ray_key sort.
+11. K1's full core vs plain: scenes/parity_mix.txt (4 spheres, 3 rects;
+   matte, Oren-Nayar, plastic, mirror, gold) at 512x512 Morton lanes,
+   depth 0, 2, 5 (spp 0) and 5 (spp 63); then the four sphere scenes of
+   tests/torch_sphere_scenes.py (mirror and clipped sphere, sphere light, Oren-Nayar /
+   plastic / metal, glass / transparent) at 512x512, depth 0 and their
+   own depth; phase 3's bars.
+12. K2's full core vs plain on the bounce 0, 1 and 4 hit records of a
+   plain 512x512 pass over parity_mix and over glass_spheres; phase 7's
+   bars.
+13. parity_mix through trace_paths(fast_shade="shade") (K2 with the plain
+   sphere and rect intersection, K2 launched once per bounce and nothing
+   else) against the plain trace_paths at depth 0, 2 and 5; phase 3's
+   bars.
+14. parity_mix main path: the Renderer at 512x512, depth 5, 64 spp,
+   reference estimator; counts set to 0 just before and read just after:
+   one K1 launch per pass and nothing else, no NaN; the image against
+   tests/goldens/golden_mix.is.
+15. parity_mix time (as phase 5): bare K1, K1 through fused_pass and the
+   plain version per pass, rays/s and K1's bound (the operations of one
+   plain pass's live lanes: prim tests, shading and each hit material's
+   lobe, and each shadow ray's prim tests); Cornell's bare K1 on the
+   matte-only and the full core in turns; bare K2's full core on the six
+   bounces of a parity_mix pass against its plain version and bound.
 
-Then one JSON line describing the kernels (each with its launches on the
-main path, max_abs_err over its checks, ms per bare launch, the plain
-version's ms, and bound_ms: the larger of the bytes it must move over
-3.35 TB/s and the operations this run's inputs need over 67 TFLOP/s f32,
-counted from the CUDA sources; for K3/K4 both are counted from the rows
-the plain traversal pops: each visited row read once, and per pop the
-slab tests of its internal children and the triangle tests of its filled
-slots; library_ms is null, since no single
+Then one JSON line describing the kernels (each with its launches on its
+main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's;
+max_abs_err over its checks, ms per bare launch, the plain version's ms,
+and bound_ms: the larger of the bytes it must move over 3.35 TB/s and
+the operations this run's inputs need over 67 TFLOP/s f32, counted from
+the CUDA sources; for K3/K4 both are counted from the rows the plain
+traversal pops: each visited row read once, and per pop the slab tests
+of its internal children and the triangle tests of its filled slots;
+library_ms is null, since no single
 PyTorch call computes any of these functions), the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero without them.
@@ -89,6 +115,8 @@ SCENE = os.path.join(REPO, "scenes", "parity_cornell.txt")
 GOLDEN = os.path.join(REPO, "tests", "goldens", "golden_cornell.is")
 MESH_MID = os.path.join(REPO, "scenes", "parity_mesh_mid.txt")
 MESH = os.path.join(REPO, "scenes", "parity_mesh.txt")
+MIX = os.path.join(REPO, "scenes", "parity_mix.txt")
+GOLDEN_MIX = os.path.join(REPO, "tests", "goldens", "golden_mix.is")
 L_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
@@ -100,7 +128,16 @@ SLOT_OPS = 53  # K3/K4: one triangle slot's Moller-Trumbore test
 SORT_OPS = 16  # K3/K4: the sorting network and the push, once per pop
 RECT_OPS = 52  # K1 rect_t
 TRI_OPS = 50  # K1 tri_t
+SPHERE_OPS = 80  # K1 sphere_t: the quadratic and two window tests
 SHADE_OPS = 330  # shade_core.cuh, one lane and bounce
+# what shade_core<true> adds to SHADE_OPS for a lane of each material
+# type: MATTE's two Oren-Nayar scales (only with F_OREN), the mirror
+# reflection, PLASTIC's remapped lobes, both pdfs and the FresnelBlend f,
+# METAL's half-vector, D twice, Lambda twice and three conductor Fresnels,
+# TRANSPARENT's dielectric Fresnel, GLASS's half-vector, Fresnel and one
+# branch
+OREN_OPS, MIRROR_OPS, PLASTIC_OPS, METAL_OPS = 90, 10, 170, 250
+TRANSPARENT_OPS, GLASS_OPS = 45, 330
 K2_LANE_BYTES = 15 * 4 + 4 + 4 + 1 + 1 + 4 + 4 + 23 * 4 + 4 * 4
 ROW_BYTES = 108 * 4  # the columns K3/K4 load of a row: boxes, children, slots
 
@@ -274,11 +311,12 @@ def main() -> int:
 
     # ---- 3. K1 vs plain
     def check(label, film, pix, spp, seed, depth, raygen, out_k=None,
-              out_p=None):
+              out_p=None, scn=None, camera=None):
         """Hold K1 against the plain version on one batch (running both
-        unless their outputs are given) and record any failure."""
+        unless their outputs are given; the Cornell scene unless another is
+        given) and record any failure."""
         if out_k is None:
-            args = (scene, cam, film, pix, spp, seed, depth)
+            args = (scn or scene, camera or cam, film, pix, spp, seed, depth)
             out_k = pk.fused_pass(*args, raygen=raygen)
             out_p = pk.fused_pass_reference(*args, raygen=raygen)
         torch.cuda.synchronize()
@@ -351,23 +389,22 @@ def main() -> int:
     pix = torch.arange(size * size, dtype=torch.int32, device=dev)
     passes = 16
 
-    def timed_passes(fn, spp0):
+    def timed_passes(fn, spp0, scn=scene, camera=cam, fm=film):
         """`passes` wrapper calls (tables, launch, counter sums) in a row;
         returns the time and the last pass's output."""
-        return _timed(lambda: [fn(scene, cam, film, pix, spp0 + s, 0, 5,
+        return _timed(lambda: [fn(scn, camera, fm, pix, spp0 + s, 0, 5,
                                   raygen="plain") for s in range(passes)][-1])
 
-    tab = pk.kernel_tables(scene, cam, film)
-    k1_counts = (scene.materials.mat_type.shape[0],
-                 scene.lights.light_type.shape[0],
-                 scene.rects.mat_id.shape[0], scene.triangles.mat_id.shape[0])
-
-    def timed_kernel(spp0):
-        """`passes` bare K1 launches on prebuilt inputs; returns the time
-        and the (rays, shadow rays) they traced."""
+    def timed_kernel(spp0, scn=scene, camera=cam, fm=film, full=None):
+        """`passes` bare K1 launches on prebuilt inputs (the scene's own
+        core unless `full` picks one); returns the time and the (rays,
+        shadow rays) they traced."""
+        tab = pk.kernel_tables(scn, camera, fm)
         spps = [torch.full_like(pix, spp0 + s) for s in range(passes)]
+        f = pk.shade_features(scn) != 0 if full is None else full
         ms, outs = _timed(lambda: [
-            pk.KERNEL.launch(tab, *k1_counts, pix, sp, 0, 5, False, size)
+            pk.KERNEL.launch(tab, *pk.table_counts(scn), pix, sp, 0, 5,
+                             False, size, f)
             for sp in spps])
         return ms, (sum(int(g[1].sum()) for _, g in outs),
                     sum(int(g[2].sum()) for _, g in outs))
@@ -392,6 +429,7 @@ def main() -> int:
     n_rays, n_shadow = rays_k[t_k.index(med_k)]
     rays_med = n_rays + n_shadow
     prim_ops = 8 * RECT_OPS + 20 * TRI_OPS
+    tab = pk.kernel_tables(scene, cam, film)
     k1_bound = _bound(
         (tab.numel() * 4 + size * size * (8 + 28)),
         (n_rays * (prim_ops + SHADE_OPS) + n_shadow * prim_ops) / passes)
@@ -512,24 +550,31 @@ def main() -> int:
     float_keys = ("L_add", "shadow_o", "shadow_d", "dist_adj", "dist_adj_t",
                   "contrib_cand", "new_o", "new_d", "new_beta")
     int_keys = ("good_inc", "want_shadow", "new_alive", "new_prev_sg")
-    for b in (0, 1, 4):
-        state, hit, ref = recs[b]
-        got = sk.fused_shade(mesh, state[1], hit, state[2], state[5],
-                             state[6], state[10], mspp, cfg.seed, b, 5)
-        torch.cuda.synchronize()
-        e = max((got[k] - ref[k]).abs().max().item() for k in float_keys)
-        close = all(bool(torch.allclose(got[k], ref[k], rtol=1e-5, atol=1e-5))
-                    for k in float_keys)
-        ints = min((got[k] == ref[k]).double().mean().item()
-                   for k in int_keys)
-        err["k2_shade"] = max(err["k2_shade"], e)
-        bad = not close or ints < 0.999
-        print(f"[k2-vs-plain] bounce {b}: lanes {state[1].shape[0]}, alive "
-              f"{int(state[5].sum())}, max|d| floats {e:.3g}, int rows "
-              f"equal on >= {ints:.6f}" + (" FAIL" if bad else ""),
-              flush=True)
-        if bad:
-            fails.append(f"K2 bounce {b}")
+
+    def check_k2(label, scn, recs_, spp, bounces=(0, 1, 4)):
+        """K2 against the plain shade on a plain pass's hit records: floats
+        within 1e-5 (absolute + relative), int outputs on >= 99.9% of
+        lanes."""
+        for b in bounces:
+            state, hit, ref = recs_[b]
+            got = sk.fused_shade(scn, state[1], hit, state[2], state[5],
+                                 state[6], state[10], spp, cfg.seed, b, 5)
+            torch.cuda.synchronize()
+            e = max((got[k] - ref[k]).abs().max().item() for k in float_keys)
+            close = all(bool(torch.allclose(got[k], ref[k], rtol=1e-5,
+                                            atol=1e-5)) for k in float_keys)
+            ints = min((got[k] == ref[k]).double().mean().item()
+                       for k in int_keys)
+            err["k2_shade"] = max(err["k2_shade"], e)
+            bad = not close or ints < 0.999
+            print(f"[k2-vs-plain] {label} bounce {b}: lanes "
+                  f"{state[1].shape[0]}, alive {int(state[5].sum())}, max|d| "
+                  f"floats {e:.3g}, int rows equal on >= {ints:.6f}"
+                  + (" FAIL" if bad else ""), flush=True)
+            if bad:
+                fails.append(f"K2 {label} bounce {b}")
+
+    check_k2("mesh_mid", mesh, recs, mspp)
 
     # ---- 8. whole mesh pass vs plain
     for depth, s in ((0, 0), (2, 0), (5, 0), (5, cfg.num_samples - 1)):
@@ -648,7 +693,7 @@ def main() -> int:
                  hit.dpdu.data_ptr(), beta.data_ptr(), hit.t.data_ptr(),
                  hit.mat_id.data_ptr(), al.data_ptr(), psg.data_ptr(),
                  px.data_ptr(), sp.data_ptr(), 0, d.shape[0], seed, bo, dp,
-                 sk.RR_START, empty(7, d.shape[0], 3), empty(2, d.shape[0]),
+                 sk.RR_START, 0, empty(7, d.shape[0], 3), empty(2, d.shape[0]),
                  empty(4, d.shape[0], dtype=torch.int32), stream)
                 for d, hit, beta, al, psg, px, sp, seed, bo, dp in k2_in]
     bare = {
@@ -778,6 +823,189 @@ def main() -> int:
               f"ray_key-sorted; bound {cb[0]:.4f} ms ({cb[1]}); pops per "
               f"lane mean {pops.double().mean().item():.3f} max "
               f"{int(pops.max())}", flush=True)
+
+    # ---- 11. parity_mix: K1's full core vs plain
+    from craytracer_tpu_torch.integrator.gate import F_OREN
+    from craytracer_tpu_torch.scene import types as T
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_sphere_scenes as sphere_scenes
+
+    mix, xcam, xfilm0 = load_scene_file(MIX, device=dev)
+    xfilm = Film(fov=xfilm0.fov, width=size, height=size)
+    print(f"[mix] parity_mix: {mix.spheres.mat_id.shape[0]} spheres, "
+          f"{mix.rects.mat_id.shape[0]} rects, material types "
+          f"{mix.mat_types_present}, feature mask {pk.shade_features(mix)}, "
+          f"route {wf.production_fast_shade(mix, xcam, xfilm)}", flush=True)
+    for depth, s in ((0, 0), (2, 0), (5, 0), (5, cfg.num_samples - 1)):
+        check(f"parity_mix 512x512 Morton spp {s}", xfilm, morton,
+              torch.full_like(morton, s), cfg.seed, depth, "strat", scn=mix,
+              camera=xcam)
+    lib_scenes = {}
+    for name, build in sphere_scenes.SCENES.items():
+        b = SceneBuilder()
+        eye, look, fov, depth = build(b)
+        lib_scenes[name] = (b.build(device=dev),
+                            make_camera(eye, look, device=dev),
+                            Film(fov=torch.tensor(fov, device=dev),
+                                 width=size, height=size))
+        for dp in (0, depth):
+            check(f"{name} 512x512 Morton spp 0", lib_scenes[name][2],
+                  morton, torch.zeros_like(morton), cfg.seed, dp, "strat",
+                  scn=lib_scenes[name][0], camera=lib_scenes[name][1])
+
+    # ---- 12. K2's full core vs plain on parity_mix and glass bounce states
+    zspp = torch.zeros_like(morton)
+    xrecs = {}
+    for name, (scn, c, fm) in (("parity_mix", (mix, xcam, xfilm)),
+                               ("glass_spheres",
+                                lib_scenes["glass_spheres"])):
+        o, d = generate_rays(c, fm, morton,
+                             stratified_jitter(cfg.seed, morton, zspp))
+        xrecs[name] = plain_records(scn, o, d, morton, zspp, 5)
+        check_k2(name, scn, xrecs[name], zspp)
+
+    # ---- 13. parity_mix per bounce (K2, plain sphere/rect intersection)
+    for depth, s in ((0, 0), (2, 0), (5, 0)):
+        spp = torch.full_like(morton, s)
+        o, d = generate_rays(xcam, xfilm, morton,
+                             stratified_jitter(cfg.seed, morton, spp))
+        reset_counts()
+        out_k = wf.trace_paths(mix, o, d, cfg.seed, morton, spp, depth,
+                               with_metrics=True, fast_shade="shade")
+        got = counts()
+        out_p = wf.trace_paths(mix, o, d, cfg.seed, morton, spp, depth,
+                               with_metrics=True)
+        torch.cuda.synchronize()
+        bad, err_same, err_all, f = _compare(out_k, out_p, depth)
+        if got != {"k1_pass": 0, "k2_shade": depth + 1,
+                   "k3_bvh4_closest": 0, "k4_bvh4_any": 0}:
+            f.append(f"launches {got}, want {depth + 1} of K2 only")
+        print(f"[pass-vs-plain] parity_mix shade route 512x512 Morton spp {s}"
+              f" depth {depth}: launches {got}, good differs on {bad:.5f}, "
+              f"max|dL| {err_same:.3g} (agreeing lanes) {err_all:.3g} (all), "
+              f"rays {int(out_k[2]['rays'])}/{int(out_p[2]['rays'])}, "
+              f"shadow_rays {int(out_k[2]['shadow_rays'])}/"
+              f"{int(out_p[2]['shadow_rays'])}"
+              + (" FAIL " + "; ".join(f) if f else ""), flush=True)
+        fails.extend(f"parity_mix shade route depth {depth}: {x}" for x in f)
+
+    # ---- 14. parity_mix main path
+    r = Renderer(mix, xcam, xfilm, cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_mix = counts()
+    ours = r.raw_mean()
+    full_o, full_r, dev_max, share, f = _golden(ours, GOLDEN_MIX)
+    ppm = str(cuda_build.BUILD_DIR / "parity_mix_512.ppm")
+    write_ppm(ppm, r.image())
+    print(f"[main-path] Renderer parity_mix 512x512 64 spp depth 5: {dt:.2f} "
+          f"s, {r.passes} passes, launches {launches_mix}, {r.nan_count} NaN;"
+          f" tone-mapped mean {full_o:.4f} vs golden {full_r:.4f}, block dev "
+          f"max {dev_max:.4f}, share < 0.02 {share:.3f}; wrote "
+          f"{os.path.relpath(ppm, REPO)}", flush=True)
+    if (launches_mix["k1_pass"] != r.passes or r.passes == 0
+            or sum(launches_mix.values()) != r.passes):
+        fails.append(f"parity_mix launches {launches_mix} for {r.passes} "
+                     "passes")
+    if r.nan_count:
+        fails.append(f"parity_mix: {r.nan_count} NaN samples substituted")
+    if ours.shape != (size, size, 3):
+        fails.append("parity_mix image is not [512, 512, 3]")
+    fails.extend(f"parity_mix golden: {x}" for x in f)
+
+    # ---- 15. parity_mix time, Cornell on the full core, K2's full core
+    xfeat = pk.shade_features(mix)
+    timed_passes(pk.fused_pass, 1000, mix, xcam, xfilm)
+    timed_passes(pk.fused_pass_reference, 1000, mix, xcam, xfilm)
+    timed_kernel(1000, mix, xcam, xfilm)
+    tx_k, tx_w, tx_p, rays_x = [], [], [], []
+    for rep_ in range(5):
+        spp0 = 2000 + passes * rep_
+        ms, rays = timed_kernel(spp0, mix, xcam, xfilm)
+        tx_k.append(ms)
+        rays_x.append(rays)
+        ms, out_k = timed_passes(pk.fused_pass, spp0, mix, xcam, xfilm)
+        tx_w.append(ms)
+        ms, out_p = timed_passes(pk.fused_pass_reference, spp0, mix, xcam,
+                                 xfilm)
+        tx_p.append(ms)
+    check(f"parity_mix 512x512 raster spp {spp0 + passes - 1} (timed)",
+          xfilm, pix, spp0 + passes - 1, 0, 5, "plain", out_k, out_p)
+    mxk, mxw, mxp = (statistics.median(t) for t in (tx_k, tx_w, tx_p))
+    nx_rays, nx_shadow = rays_x[tx_k.index(mxk)]
+    # the operations one pass needs, from the plain pass of phase 12
+    # (Morton, spp 0): per bounce, every live lane's prim tests and
+    # shading, each hit lane's material lobe, each shadow ray's prim tests
+    counts_x = pk.table_counts(mix)
+    prim_x = (SPHERE_OPS * counts_x[2] + RECT_OPS * counts_x[3]
+              + TRI_OPS * counts_x[4])
+    extra = {T.MAT_MATTE: OREN_OPS if xfeat & F_OREN else 0,
+             T.MAT_MIRROR: MIRROR_OPS, T.MAT_PLASTIC: PLASTIC_OPS,
+             T.MAT_METAL: METAL_OPS, T.MAT_TRANSPARENT: TRANSPARENT_OPS,
+             T.MAT_GLASS: GLASS_OPS}
+    ops_x = 0
+    for st, hit, out in xrecs["parity_mix"]:
+        live = st[5] & (hit.t < TMAX)
+        mt = mix.materials.mat_type[hit.mat_id.long()][live]
+        ops_x += int(st[5].sum()) * (prim_x + SHADE_OPS)
+        ops_x += sum(int((mt == m).sum()) * v for m, v in extra.items())
+        ops_x += int(out["want_shadow"].sum()) * prim_x
+    tab_x = pk.kernel_tables(mix, xcam, xfilm)
+    kx_bound = _bound(tab_x.numel() * 4 + size * size * (8 + 28), ops_x)
+    print(f"[time] {card}, parity_mix 512x512 depth 5, {passes} passes per "
+          f"run, median of 5: K1 launch {mxk / passes:.4f} ms/pass "
+          f"({(nx_rays + nx_shadow) / (mxk / 1e3):.6g} rays/s; runs "
+          f"{_runs(tx_k)} ms); K1 through fused_pass {mxw / passes:.4f} "
+          f"ms/pass ({(nx_rays + nx_shadow) / (mxw / 1e3):.6g} rays/s; runs "
+          f"{_runs(tx_w)} ms); plain PyTorch {mxp / passes:.4f} ms/pass (runs "
+          f"{_runs(tx_p)} ms); {nx_rays} rays + {nx_shadow} shadow rays per "
+          f"run; K1 bound {kx_bound[0]:.4f} ms/pass ({kx_bound[1]}, "
+          f"{ops_x} operations per pass)", flush=True)
+    # Cornell on the full core against the matte-only core, in turns
+    t_c0, t_cf = [], []
+    for rep_ in range(5):
+        for full, ts_ in ((False, t_c0), (True, t_cf)):
+            ts_.append(timed_kernel(3000 + passes * rep_, full=full)[0])
+    print(f"[time] {card}, cornell 512x512 depth 5, bare K1 in turns, median "
+          f"of 5: matte-only core {statistics.median(t_c0) / passes:.4f} "
+          f"ms/pass (runs {_runs(t_c0)} ms), full core "
+          f"{statistics.median(t_cf) / passes:.4f} ms/pass (runs "
+          f"{_runs(t_cf)} ms)", flush=True)
+    # bare K2 (full core) on the six bounces of parity_mix's plain pass
+    tab2x = sk.shade_tables(mix)
+    k2x_calls = [(tab2x.data_ptr(), tab2x.numel(),
+                  mix.materials.mat_type.shape[0],
+                  mix.lights.light_type.shape[0], st[1].data_ptr(),
+                  hit.point.data_ptr(), hit.normal.data_ptr(),
+                  hit.dpdu.data_ptr(), st[2].data_ptr(), hit.t.data_ptr(),
+                  hit.mat_id.data_ptr(), st[5].data_ptr(), st[6].data_ptr(),
+                  st[10].data_ptr(), zspp.data_ptr(), 0, st[1].shape[0],
+                  cfg.seed, b, 5, sk.RR_START, int(xfeat != 0),
+                  empty(7, st[1].shape[0], 3), empty(2, st[1].shape[0]),
+                  empty(4, st[1].shape[0], dtype=torch.int32), stream)
+                 for b, (st, hit, _) in enumerate(xrecs["parity_mix"])]
+    med2x, ts2x = _median5(lambda: [lib2.k2_shade_launch(*a)
+                                    for a in k2x_calls])
+    ms2x_plain = _timed(lambda: [
+        sk.fused_shade_reference(mix, st[1], hit, st[2], st[5], st[6],
+                                 st[10], zspp, cfg.seed, b, 5)
+        for b, (st, hit, _) in enumerate(xrecs["parity_mix"])])[0] / 6
+    ops2x = sum(int(st[5].sum()) * SHADE_OPS + sum(
+        int((mix.materials.mat_type[hit.mat_id.long()][st[5] & (hit.t < TMAX)]
+             == m).sum()) * v for m, v in extra.items())
+        for st, hit, _ in xrecs["parity_mix"])
+    b2x = _bound(6 * size * size * K2_LANE_BYTES, ops2x)
+    print(f"[time] {card}, k2_shade (full core) on the 6 bounces of one "
+          f"parity_mix 512x512 pass: bare {med2x / 6:.4f} ms/launch (runs of "
+          f"6 {_runs(ts2x)} ms), plain {ms2x_plain:.4f} ms/launch (timed "
+          f"once), bound {b2x[0] / 6:.4f} ms/launch ({b2x[1]})", flush=True)
+    kernels["k1_pass"].update(
+        launches=launches_mix["k1_pass"], ms=mxk / passes,
+        plain_ms=mxp / passes, bound_ms=kx_bound[0], bound_by=kx_bound[1])
 
     if fails:
         for f in fails:

@@ -5,18 +5,25 @@ against; every module here names its JAX counterpart by file:line. The
 port imports torch and numpy only (never jax, flax or craytracer_tpu).
 
 Layout (same module names as the JAX package where that helps):
-  constants.py, core/math.py      numeric constants, [..., 3] vector ops
+  constants.py, core/             numeric constants, [..., 3] vector ops,
+                                  the quadratic solver
   sampling/                       counter RNG, stratified jitter, warps
-  scene/                          tensor dataclasses + SceneBuilder
-  io/                             tokenizer, scene-file parser, PPM, .is
+  scene/                          tensor dataclasses, SceneBuilder
+  io/                             tokenizer, scene-file parser, OBJ, PPM, .is
   camera.py                       pinhole camera + film, raygen
-  ops/intersect.py                brute-force rect/triangle intersection
-  bsdf/, lights/                  Lambertian/emissive BSDF, rect area lights
+  ops/                            brute-force sphere/rect/triangle
+                                  intersection, the ray_key sort
+  accel/                          SAH BVH4, its plain traversal, K3/K4
+  bsdf/                           Beckmann, Oren-Nayar, FresnelBlend and
+                                  Fresnel helpers of the shading
   integrator/wavefront.py         torch-op path tracer (plain version)
-  integrator/gate.py              which scenes K1 (and the port) covers
-  integrator/pass_kernel.py       K1: the whole-pass CUDA kernel wrapper
+  integrator/gate.py              which scenes the port covers, by which
+                                  kernels, and the shading feature mask
+  integrator/pass_kernel.py       K1: the whole-pass kernel wrapper
+  integrator/shade_kernel.py      K2: the per-bounce shading (plain + wrapper)
   integrator/render.py            progressive Renderer
-  csrc/pass_kernel.cu             K1's CUDA C++ source (sm_90a)
+  csrc/                           K1-K4 CUDA C++ sources (sm_90a)
+  cuda_build.py, native.py        nvcc / g++ builds at first use, ctypes
   interop.py                      numpy leaves -> port objects
   profile_render.py               torch.profiler pass over the Renderer
 """

@@ -7,7 +7,8 @@ port's counterpart of the repo-root render.py, for the slices' options).
 
 It runs on the CUDA card, and raises when there is none, unless asked for
 the CPU (--device cpu). On the card every pass runs through the kernels
-(K1 for Cornell-class scenes, K3 -> K2 -> K4 per bounce for meshes); on
+(K1 for scenes of at most 64 spheres, rects and flat triangles, such as
+parity_cornell and parity_mix; K3 -> K2 -> K4 per bounce for meshes); on
 the CPU the plain PyTorch versions run instead. Prints one summary line
 with each kernel's launches.
 """

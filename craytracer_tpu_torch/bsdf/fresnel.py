@@ -1,0 +1,48 @@
+"""Fresnel terms on per-lane scalars, in the component form the kernels use
+(counterpart of craytracer_tpu/integrator/pallas_shade.py `_fr_dielectric`
+:204 and `_fr_conductor_c` :221, the per-channel forms of
+craytracer_tpu/bsdf/fresnel.py `fr_dielectric` :12 and `fr_conductor`
+:32 with eta_i = 1). Same expression trees and epsilons as the JAX
+helpers and csrc/shade_core.cuh."""
+
+from __future__ import annotations
+
+import torch
+
+
+def fr_dielectric(cos_theta_i, eta_t, eta_i):
+    """Unpolarized dielectric reflectance (calcFresnelDielectric,
+    reflection.cpp:52-76): the IORs swap when the ray arrives from inside
+    (cos < 0); total internal reflection gives 1."""
+    flip = cos_theta_i < 0.0
+    ei = torch.where(flip, eta_t, eta_i)
+    et = torch.where(flip, eta_i, eta_t)
+    ci = torch.abs(cos_theta_i)
+    sin_i = torch.sqrt(torch.clamp(1.0 - ci * ci, min=1e-12))
+    sin_t = ei / et * sin_i
+    tir = sin_t >= 1.0
+    ct = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=1e-12))
+    r_parl = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-12)
+    r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-12)
+    fr = 0.5 * (r_parl * r_parl + r_perp * r_perp)
+    return torch.where(tir, 1.0, fr)
+
+
+def fr_conductor(c, eta, k):
+    """Conductor reflectance of one channel (calcFresnelConductor,
+    reflection.cpp:78-157, PBRT form) with eta_i = 1."""
+    cc = torch.clamp(c, -1.0, 1.0)
+    c2 = cc * cc
+    s2 = 1.0 - c2
+    eta2 = eta * eta
+    etak2 = k * k
+    t0 = eta2 - etak2 - s2
+    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * eta2 * etak2, min=1e-12))
+    t1 = a2b2 + c2
+    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=1e-12))
+    t2 = 2.0 * cc * a
+    rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-12)
+    t3 = c2 * a2b2 + s2 * s2
+    t4 = t2 * s2
+    rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-12)
+    return 0.5 * (rp + rs)

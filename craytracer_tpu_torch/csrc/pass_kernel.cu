@@ -2,18 +2,21 @@
 //
 // Replaces craytracer_tpu/integrator/pallas_shade.py:781 `_pass_kernel`
 // (with `_camera_raygen` :696, `_brute_hit` :533, `_brute_closest` :471,
-// `_brute_any` :509 and `_shade_core` :874) for the scenes the port's gate
-// admits: rects and flat triangles in intersect_scene's group order,
-// Lambertian MATTE and EMISSIVE materials, rect area lights (<= 16 rows),
-// a constant or black env light, a pinhole camera with the stratified or
-// the plain CAMERA_BOUNCE film jitter, depth < 31, the reference and the
+// `_brute_any` :509, `_sphere_t` :363, `_rect_t` :293, `_tri_t` :341 and
+// `_shade_core` :874) for the scenes the port's gate admits: spheres
+// (with the phi/theta clip window), rects and flat triangles, <= 64 in
+// all, in intersect_scene's group order; all seven material types with
+// isotropic Beckmann lobes; rect and sphere area lights (<= 16 rows); a
+// constant or black env light; a pinhole camera with the stratified or
+// the plain CAMERA_BOUNCE film jitter; depth < 31; the reference and the
 // physical estimators (the wrapper normalizes).
 //
 // What bounds it on an H100: arithmetic and divergence, not memory. A lane
-// reads two ints and writes seven words; everything else is ~60 flops per
-// prim test over <= 64 prims, twice per bounce (closest hit, then the
-// shadow any-hit), with lanes of a warp retiring at different bounces.
-// The design:
+// reads two ints and writes seven words; everything else is ~50-70 flops
+// per prim test over <= 64 prims, twice per bounce (closest hit, then the
+// shadow any-hit), plus the shading, with lanes of a warp retiring at
+// different bounces and, in a scene of several materials, taking
+// different lobes. The design:
 //   * one thread per path, the whole bounce loop in registers (the TPU
 //     kernel carried the same state in VMEM across a fori_loop);
 //   * the camera, env, material, light and prim tables (<= ~10 KB) are
@@ -27,7 +30,13 @@
 //     trick at pallas_shade.py:708-721 only worked around Mosaic);
 //   * each lane writes its own good / rays / shadow_rays / alive-bitmask
 //     words; the wrapper sums them, so counts are deterministic (no
-//     atomics).
+//     atomics);
+//   * the kernel is a template on the shading core: `k1<false>` (the
+//     matte-only core: Cornell) keeps the registers it had, `k1<true>`
+//     carries every lobe and the sphere light; the launcher picks one;
+//   * the sphere clip window is tested in cosine space, as the TPU kernel
+//     does (no atan2/acos): equal to the atan2/acos window on the gate's
+//     domain (phi <= pi, thetas in [0, pi]) up to boundary lanes.
 // Numerics: built with --fmad=false, -prec-div=true, -prec-sqrt=true and
 // without --use_fast_math, so each multiply and add rounds on its own, as
 // in the op-by-op plain PyTorch version and the JAX reference (on the TPU,
@@ -52,6 +61,48 @@ constexpr int CAM = 0;   // 0-2 position, 3-5 x, 6-8 y, 9-11 z, 12 focal_dist,
 constexpr int ENV = 18;  // constant env radiance (color * intensity)
 constexpr int MATS = 24; // then n_mats x 19, n_lights x 19, n_prims x 16
 constexpr int PT_COLS = 16;
+
+// sphere_ts (ops/intersect.py:61-99) in the TPU kernel's cosine-space
+// form (_sphere_t :363-410): the stable quadratic (core/solvers.py), then
+// each root inside |atan2(x, z)| <= phi  <=>  z / |xz| >= cos(phi), and
+// theta in [mn, mx]  <=>  cos in [cos mx, cos mn], with the unclamped-acos
+// rejection |cos| > 1. Row: center (0-2), radius (3), cos(phi) (4),
+// cos(min_theta) (5), cos(max_theta) (6).
+__device__ __forceinline__ float sphere_accept(const float* r, float t,
+                                               float ox, float oy, float oz,
+                                               float wx, float wy, float wz) {
+  const float hx = ox + t * wx - r[0];
+  const float hy = oy + t * wy - r[1];
+  const float hz = oz + t * wz - r[2];
+  const float xz = sqrtf(fmaxf(hx * hx + hz * hz, 1e-30f));
+  const float cos_raw = hy / r[3];
+  const bool ok = (t > K_EPS) && (t < TMAXF) && (hz / xz >= r[4])
+                  && (cos_raw <= r[5]) && (cos_raw >= r[6])
+                  && (fabsf(cos_raw) <= 1.0f);
+  return ok ? t : TMAXF;
+}
+
+__device__ __forceinline__ float sphere_t(const float* r, float ox, float oy,
+                                          float oz, float wx, float wy,
+                                          float wz) {
+  const float ocx = ox - r[0], ocy = oy - r[1], ocz = oz - r[2];
+  const float a = wx * wx + wy * wy + wz * wz;
+  const float b = 2.0f * (ocx * wx + ocy * wy + ocz * wz);
+  const float c = (ocx * ocx + ocy * ocy + ocz * ocz) - r[3] * r[3];
+  const float disc = b * b - 4.0f * a * c;
+  if (!(disc >= 0.0f)) return TMAXF;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float q = -0.5f * (b + (b >= 0.0f ? sq : -sq));
+  float r0, r1;
+  if (a == 0.0f) {
+    r0 = r1 = -c / (b == 0.0f ? 1.0f : b);
+  } else {
+    r0 = q / a;
+    r1 = c / (q == 0.0f ? 1.0f : q);
+  }
+  return fminf(sphere_accept(r, fminf(r0, r1), ox, oy, oz, wx, wy, wz),
+               sphere_accept(r, fmaxf(r0, r1), ox, oy, oz, wx, wy, wz));
+}
 
 // rect_ts (ops/intersect.py:117-141) for one table row
 __device__ __forceinline__ float rect_t(const float* r, float ox, float oy,
@@ -96,12 +147,13 @@ __device__ __forceinline__ float tri_t(const float* r, float ox, float oy,
   return ok ? t : TMAXF;
 }
 
+template <bool FULL>
 __global__ void __launch_bounds__(128)
 k1_pass_kernel(const float* __restrict__ tables, int n_floats,
                const int* __restrict__ pix_in, const int* __restrict__ spp_in,
-               int n, int n_mats, int n_lights, int n_rects, int n_tris,
-               uint32_t seed, int max_depth, int rr_start, int strat,
-               int width, float* __restrict__ L_out,
+               int n, int n_mats, int n_lights, int n_sph, int n_rects,
+               int n_tris, uint32_t seed, int max_depth, int rr_start,
+               int strat, int width, float* __restrict__ L_out,
                int* __restrict__ g_out) {
   extern __shared__ float tab[];
   for (int i = threadIdx.x; i < n_floats; i += blockDim.x) tab[i] = tables[i];
@@ -114,7 +166,8 @@ k1_pass_kernel(const float* __restrict__ tables, int n_floats,
   const float* mt = tab + MATS;
   const float* lt = mt + n_mats * MT_COLS;
   const float* pt = lt + n_lights * LT_COLS;
-  const int n_tot = n_rects + n_tris;
+  const int n_sr = n_sph + n_rects;
+  const int n_tot = n_sr + n_tris;
 
   const int ipix = pix_in[lane];
   const uint32_t pix = (uint32_t)ipix;
@@ -162,30 +215,53 @@ k1_pass_kernel(const float* __restrict__ tables, int n_floats,
     // ---- closest hit (_brute_closest): strict < keeps the first minimum
     float best_t = TMAXF;
     int best_k = 0;
-    for (int k = 0; k < n_rects; ++k) {
+    for (int k = 0; k < n_sph; ++k) {
+      const float t = sphere_t(pt + k * PT_COLS, ox, oy, oz, dx, dy, dz);
+      if (t < best_t) { best_t = t; best_k = k; }
+    }
+    for (int k = n_sph; k < n_sr; ++k) {
       const float t = rect_t(pt + k * PT_COLS, ox, oy, oz, dx, dy, dz);
       if (t < best_t) { best_t = t; best_k = k; }
     }
-    for (int k = n_rects; k < n_tot; ++k) {
+    for (int k = n_sr; k < n_tot; ++k) {
       const float t = tri_t(pt + k * PT_COLS, ox, oy, oz, dx, dy, dz);
       if (t < best_t) { best_t = t; best_k = k; }
     }
     const bool hitm = best_t < TMAXF;
 
-    // ---- fill (_brute_hit): winner's row, facing rules, dpdu. Rects
-    // always face the ray and flip dpdu with the normal; flat triangles
-    // flip only when double-sided and keep dpdu. A miss carries the
-    // intersect_scene defaults.
+    // ---- fill (_brute_hit): winner's row, facing rules, dpdu. Spheres
+    // refine t by one Newton step on |o + t d - c|^2 - r^2 and never flip;
+    // rects always face the ray and flip dpdu with the normal; flat
+    // triangles flip only when double-sided and keep dpdu. A miss carries
+    // the intersect_scene defaults.
     float fnx = 0.0f, fny = 0.0f, fnz = 1.0f;
     float ndx = 1.0f, ndy = 0.0f, ndz = 0.0f;
     float px = 0.0f, py = 0.0f, pz = 0.0f;
     int mat_id = 0;
-    if (hitm) {
+    if (hitm && best_k < n_sph) {
+      const float* r = pt + best_k * PT_COLS;
+      mat_id = min(max((int)r[12], 0), n_mats - 1);
+      const float socx = ox + best_t * dx - r[0];
+      const float socy = oy + best_t * dy - r[1];
+      const float socz = oz + best_t * dz - r[2];
+      const float Fv = socx * socx + socy * socy + socz * socz - r[3] * r[3];
+      const float Fp = 2.0f * (socx * dx + socy * dy + socz * dz);
+      const float t_n = best_t - Fv / safe_div(Fp);
+      fnx = ox + t_n * dx - r[0];
+      fny = oy + t_n * dy - r[1];
+      fnz = oz + t_n * dz - r[2];
+      ndx = -fnz; ndy = 0.0f; ndz = fnx;
+      normalize3(fnx, fny, fnz);
+      normalize3(ndx, ndy, ndz);
+      px = ox + t_n * dx;
+      py = oy + t_n * dy;
+      pz = oz + t_n * dz;
+    } else if (hitm) {
       const float* r = pt + best_k * PT_COLS;
       fnx = r[9]; fny = r[10]; fnz = r[11];
       mat_id = min(max((int)r[12], 0), n_mats - 1);
-      const bool is_rect = best_k < n_rects;
-      const bool is_tri = best_k >= n_rects && best_k < n_tot;
+      const bool is_rect = best_k < n_sr;
+      const bool is_tri = best_k >= n_sr && best_k < n_tot;
       const bool flip = (-dx * fnx - dy * fny - dz * fnz) < 0.0f;
       const bool do_flip = flip && (is_rect || (is_tri && r[13] != 0.0f));
       const float sgn = do_flip ? -1.0f : 1.0f;
@@ -199,9 +275,10 @@ k1_pass_kernel(const float* __restrict__ tables, int n_floats,
     }
 
     ShadeOut s;
-    shade_core(seed, b, max_depth, rr_start, env, mt, n_mats, lt, n_lights,
-               h_lane, dx, dy, dz, px, py, pz, fnx, fny, fnz, ndx, ndy, ndz,
-               bx, by, bz, mat_id, hitm, true, prev_sg, s);
+    shade_core<FULL>(seed, b, max_depth, rr_start, env, mt, n_mats, lt,
+                     n_lights, h_lane, dx, dy, dz, px, py, pz, fnx, fny, fnz,
+                     ndx, ndy, ndz, bx, by, bz, mat_id, hitm, true, prev_sg,
+                     s);
     lr = lr + s.l_add[0];
     lg = lg + s.l_add[1];
     lb = lb + s.l_add[2];
@@ -211,10 +288,13 @@ k1_pass_kernel(const float* __restrict__ tables, int n_floats,
       shadows += 1;
       // shadow any-hit (_brute_any): min t over every prim
       float t_sh = TMAXF;
-      for (int k = 0; k < n_rects; ++k)
+      for (int k = 0; k < n_sph; ++k)
+        t_sh = fminf(t_sh, sphere_t(pt + k * PT_COLS, s.sho[0], s.sho[1],
+                                    s.sho[2], s.wi[0], s.wi[1], s.wi[2]));
+      for (int k = n_sph; k < n_sr; ++k)
         t_sh = fminf(t_sh, rect_t(pt + k * PT_COLS, s.sho[0], s.sho[1],
                                   s.sho[2], s.wi[0], s.wi[1], s.wi[2]));
-      for (int k = n_rects; k < n_tot; ++k)
+      for (int k = n_sr; k < n_tot; ++k)
         t_sh = fminf(t_sh, tri_t(pt + k * PT_COLS, s.sho[0], s.sho[1],
                                  s.sho[2], s.wi[0], s.wi[1], s.wi[2]));
       const float dadj = s.dist_adj;
@@ -242,22 +322,35 @@ k1_pass_kernel(const float* __restrict__ tables, int n_floats,
   g_out[3 * n + lane] = (int)hist;
 }
 
-}  // namespace
-
-extern "C" int k1_pass_launch(const float* tables, int n_floats,
-                              const int* pix, const int* spp, int n,
-                              int n_mats, int n_lights, int n_rects,
-                              int n_tris, unsigned int seed, int max_depth,
-                              int rr_start, int strat, int width,
-                              float* L_out, int* g_out, void* stream) {
-  if (n <= 0) return 0;
+template <bool FULL>
+int launch(const float* tables, int n_floats, const int* pix, const int* spp,
+           int n, int n_mats, int n_lights, int n_sph, int n_rects,
+           int n_tris, unsigned int seed, int max_depth, int rr_start,
+           int strat, int width, float* L_out, int* g_out, void* stream) {
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   const size_t smem = (size_t)n_floats * sizeof(float);
-  k1_pass_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      tables, n_floats, pix, spp, n, n_mats, n_lights, n_rects, n_tris, seed,
-      max_depth, rr_start, strat, width, L_out, g_out);
+  k1_pass_kernel<FULL><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      tables, n_floats, pix, spp, n, n_mats, n_lights, n_sph, n_rects, n_tris,
+      seed, max_depth, rr_start, strat, width, L_out, g_out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// `full` is 0 for the matte-only core (a scene whose feature mask,
+// integrator/gate.py shade_features, is 0), else 1 for every lobe
+extern "C" int k1_pass_launch(const float* tables, int n_floats,
+                              const int* pix, const int* spp, int n,
+                              int n_mats, int n_lights, int n_sph,
+                              int n_rects, int n_tris, unsigned int seed,
+                              int max_depth, int rr_start, int strat,
+                              int width, int full, float* L_out,
+                              int* g_out, void* stream) {
+  if (n <= 0) return 0;
+  return (full ? launch<true> : launch<false>)(
+      tables, n_floats, pix, spp, n, n_mats, n_lights, n_sph, n_rects,
+      n_tris, seed, max_depth, rr_start, strat, width, L_out, g_out, stream);
 }
 
 extern "C" const char* cray_error_string(int code) {

@@ -3,15 +3,18 @@
 //
 // Replaces craytracer_tpu/integrator/pallas_shade.py:240 `_shade_kernel`
 // (through `_shade_core` :874, launched by `fused_shade` :1846) for the
-// materials and lights the port's gate admits: Lambertian MATTE, EMISSIVE,
-// rect area lights (<= 16 rows), a constant or black env light. The
-// shading itself is shade_core.cuh, the same code K1 runs per bounce.
+// materials and lights the port's gate admits: all seven material types
+// with isotropic Beckmann lobes, rect and sphere area lights (<= 16 rows),
+// a constant or black env light. The shading itself is shade_core.cuh, the
+// same code K1 runs per bounce, instantiated as the matte-only core and
+// as the full core; the launcher picks one.
 //
 // What bounds it on an H100: bytes. A lane reads its ray direction, hit
 // point, normal, dpdu and throughput (15 floats), hit t, material id, two
 // flags, pixel and spp, and writes 23 floats and 4 ints; the arithmetic in
-// between is ~300 flops, about 1.5 flops per byte moved, far below the
-// card's ~20 flops per byte of f32 balance. The design:
+// between is ~300 flops for a matte lane and up to ~1,000 for a glass or
+// plastic one, at most about 5 flops per byte moved, below the card's
+// ~20 flops per byte of f32 balance. The design:
 //   * one thread per lane, no shared state between lanes;
 //   * the material and light rows (<= ~6 KB) are copied once per block
 //     into shared memory; the threads of a warp read the same few rows;
@@ -48,6 +51,7 @@ __device__ __forceinline__ void store3(float* dst, const float (&v)[3]) {
   dst[2] = v[2];
 }
 
+template <bool FULL>
 __global__ void __launch_bounds__(128)
 k2_shade_kernel(const float* __restrict__ tables, int n_floats, int n_mats,
                 int n_lights, const float* __restrict__ d,
@@ -74,15 +78,15 @@ k2_shade_kernel(const float* __restrict__ tables, int n_floats, int n_mats,
   const int i3 = 3 * lane;
   const uint32_t s = (uint32_t)(spp != nullptr ? spp[lane] : spp_const);
   ShadeOut o;
-  shade_core(seed, bounce, max_depth, rr_start, tab, mt, n_mats, lt,
-             n_lights, lane_hash((uint32_t)pix[lane], s),
-             d[i3], d[i3 + 1], d[i3 + 2],
-             point[i3], point[i3 + 1], point[i3 + 2],
-             normal[i3], normal[i3 + 1], normal[i3 + 2],
-             dpdu[i3], dpdu[i3 + 1], dpdu[i3 + 2],
-             beta[i3], beta[i3 + 1], beta[i3 + 2],
-             mat_id[lane], hit_t[lane] < TMAXF, alive[lane], prev_sg[lane],
-             o);
+  shade_core<FULL>(seed, bounce, max_depth, rr_start, tab, mt, n_mats, lt,
+                   n_lights, lane_hash((uint32_t)pix[lane], s),
+                   d[i3], d[i3 + 1], d[i3 + 2],
+                   point[i3], point[i3 + 1], point[i3 + 2],
+                   normal[i3], normal[i3 + 1], normal[i3 + 2],
+                   dpdu[i3], dpdu[i3 + 1], dpdu[i3 + 2],
+                   beta[i3], beta[i3 + 1], beta[i3 + 2],
+                   mat_id[lane], hit_t[lane] < TMAXF, alive[lane],
+                   prev_sg[lane], o);
 
   const size_t blk = 3 * (size_t)n;
   store3(f3 + F3_LADD * blk + i3, o.l_add);
@@ -100,8 +104,28 @@ k2_shade_kernel(const float* __restrict__ tables, int n_floats, int n_mats,
   io[IO_PSG * n + lane] = o.new_prev_sg ? 1 : 0;
 }
 
+template <bool FULL>
+int launch(const float* tables, int n_floats, int n_mats, int n_lights,
+           const float* d, const float* point, const float* normal,
+           const float* dpdu, const float* beta, const float* hit_t,
+           const int* mat_id, const bool* alive, const bool* prev_sg,
+           const int* pix, const int* spp, int spp_const, int n,
+           unsigned int seed, int bounce, int max_depth, int rr_start,
+           float* f3, float* f1, int* io, void* stream) {
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  const size_t smem = (size_t)n_floats * sizeof(float);
+  k2_shade_kernel<FULL><<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      tables, n_floats, n_mats, n_lights, d, point, normal, dpdu, beta, hit_t,
+      mat_id, alive, prev_sg, pix, spp, spp_const, n, seed, bounce, max_depth,
+      rr_start, f3, f1, io);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// `full` is 0 for the matte-only core (a scene whose feature mask,
+// integrator/gate.py shade_features, is 0), else 1 for every lobe
 extern "C" int k2_shade_launch(const float* tables, int n_floats, int n_mats,
                                int n_lights, const float* d,
                                const float* point, const float* normal,
@@ -110,17 +134,13 @@ extern "C" int k2_shade_launch(const float* tables, int n_floats, int n_mats,
                                const bool* alive, const bool* prev_sg,
                                const int* pix, const int* spp, int spp_const,
                                int n, unsigned int seed, int bounce,
-                               int max_depth, int rr_start, float* f3,
-                               float* f1, int* io, void* stream) {
+                               int max_depth, int rr_start, int full,
+                               float* f3, float* f1, int* io, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  const size_t smem = (size_t)n_floats * sizeof(float);
-  k2_shade_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  return (full ? launch<true> : launch<false>)(
       tables, n_floats, n_mats, n_lights, d, point, normal, dpdu, beta, hit_t,
       mat_id, alive, prev_sg, pix, spp, spp_const, n, seed, bounce, max_depth,
-      rr_start, f3, f1, io);
-  return (int)cudaGetLastError();
+      rr_start, f3, f1, io, stream);
 }
 
 extern "C" const char* cray_error_string(int code) {

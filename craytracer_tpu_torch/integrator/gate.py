@@ -7,14 +7,25 @@ cover).
 `production_fast_shade` returns "bounce" (the whole pass is one K1
 launch, integrator/pass_kernel.py) or "shade" (per bounce: closest hit,
 through K3 for a bvh4 scene, then K2 shading, then the shadow any hit,
-through K4 for a bvh4 scene; integrator/wavefront.py). A scene leaves
-K1's gate for "shade" by its geometry only: a bvh4 accelerator, more
-than 64 primitives, smooth triangles, or depth 31 and over. Materials,
-lights, the env light and the camera are restricted to what K1 and K2
-both cover; anything else raises NotImplementedError naming its ROADMAP
-item. The plain versions ask the same gate, so they cover the same
-scenes. The gate reads only static fields and table shapes, so asking
-costs no device sync.
+through K4 for a bvh4 scene; integrator/wavefront.py). K1 and K2 both
+cover spheres, rects and triangles, all seven material types (MATTE
+with or without Oren-Nayar, MIRROR, PLASTIC, METAL, GLASS, TRANSPARENT,
+EMISSIVE; the microfacet lobes isotropic Beckmann), rect and sphere area
+lights and a constant or black env light. A scene leaves K1's gate for
+"shade" by its geometry only: a bvh4 accelerator, more than 64
+primitives, smooth triangles, a sphere clip outside the domain where the
+kernel's cosine-space window equals the atan2/acos one
+(pallas_shade.py:1541-1553), or depth 31 and over. Planes, disks,
+instanced shapes, thin-lens, textures, other lights and other
+accelerators raise NotImplementedError naming their ROADMAP item. The
+plain versions ask the same gate, so they cover the same scenes. The
+gate reads only static fields and table shapes, so asking costs no
+device sync.
+
+`shade_features` is the scene's feature mask (pallas_shade.py:1793-1802):
+which of the material and light branches the shading core needs. The
+plain version skips the branches it lacks; the kernels take their
+matte-only core when it is 0 and their full core otherwise.
 """
 
 from __future__ import annotations
@@ -30,6 +41,28 @@ ESTIMATORS = ("reference", "physical")
 
 _KERNEL_TODO = "ROADMAP queue 2, K1/K2 remaining gate features"
 _TABLES_TODO = "ROADMAP queue 2, K1/K2 table limits"
+_XLA_TODO = "ROADMAP queue 2, scenes the JAX package renders on XLA only"
+
+# the shading core's feature mask (the has_* flags of pallas_shade.py
+# :1793-1802)
+F_MIRROR, F_SPHERE_LIGHT, F_OREN, F_PLASTIC, F_METAL, F_GLASS, \
+    F_TRANSPARENT = (1 << i for i in range(7))
+_MAT_FEATURE = ((T.MAT_MIRROR, F_MIRROR), (T.MAT_PLASTIC, F_PLASTIC),
+                (T.MAT_METAL, F_METAL), (T.MAT_GLASS, F_GLASS),
+                (T.MAT_TRANSPARENT, F_TRANSPARENT))
+_MATERIALS = {T.MAT_MATTE, T.MAT_EMISSIVE, T.MAT_MIRROR, T.MAT_PLASTIC,
+              T.MAT_METAL, T.MAT_GLASS, T.MAT_TRANSPARENT}
+
+
+def shade_features(scene: T.Scene) -> int:
+    """The branches of the shading core this scene needs, as F_* bits."""
+    mats = scene.mat_types_present
+    f = sum(bit for mt, bit in _MAT_FEATURE if mt in mats)
+    if T.LIGHT_AREA_SPHERE in scene.light_types_present:
+        f |= F_SPHERE_LIGHT
+    if T.MAT_MATTE in mats and not scene.matte_lambertian:
+        f |= F_OREN
+    return f
 
 
 def _refuse(reason: str):
@@ -45,14 +78,15 @@ def check_estimator(estimator: str):
 
 def shading_refusal(scene: T.Scene):
     """Why neither K1 nor K2 can shade this scene, or None. A light table
-    holding any type but rect area lights is refused outright (the JAX
-    gate looks at per-row powers; the port's builder emits a non-rect row
-    only with nonzero power)."""
+    holding any type but rect and sphere area lights is refused outright
+    (the JAX gate looks at per-row powers; the port's builder emits such
+    a row only with nonzero power)."""
     mats = set(scene.mat_types_present)
-    if not mats <= {T.MAT_MATTE, T.MAT_EMISSIVE}:
-        return f"materials other than matte and emissive ({_KERNEL_TODO})"
-    if T.MAT_MATTE in mats and not scene.matte_lambertian:
-        return f"Oren-Nayar matte with sigma != 0 ({_KERNEL_TODO})"
+    if not mats <= _MATERIALS:
+        return f"material types {sorted(mats - _MATERIALS)} ({_XLA_TODO})"
+    if not scene.microfacet_iso_beckmann:
+        return ("anisotropic or non-Beckmann microfacet materials "
+                f"({_XLA_TODO})")
     if scene.textures.texels.shape[0] > 1:
         return "textures (ROADMAP queue 1, slice E)"
     if scene.env.kind not in (0, 1) or scene.env.importance:
@@ -60,11 +94,13 @@ def shading_refusal(scene: T.Scene):
     n_lights = scene.lights.light_type.shape[0]
     if n_lights == 0 or n_lights > MAX_LIGHTS:
         return f"{n_lights} lights, outside 1..{MAX_LIGHTS} ({_TABLES_TODO})"
-    if not set(scene.light_types_present) <= {T.LIGHT_AREA_RECT}:
-        return f"lights other than rect area lights ({_KERNEL_TODO})"
+    if not set(scene.light_types_present) <= {T.LIGHT_AREA_RECT,
+                                              T.LIGHT_AREA_SPHERE}:
+        return ("light rows other than rect and sphere area lights "
+                f"({_XLA_TODO})")
     if scene.materials.mat_type.shape[0] > MAX_MATS:
         return f"more than {MAX_MATS} materials ({_TABLES_TODO})"
-    for name in ("spheres", "planes", "disks", "instanced"):
+    for name in ("planes", "disks", "instanced"):
         if getattr(scene, name).mat_id.shape[0]:
             return f"{name} ({_KERNEL_TODO})"
     if scene.accel not in ("none", "bvh4"):
@@ -75,9 +111,11 @@ def shading_refusal(scene: T.Scene):
 def fast_shade_mode(scene: T.Scene, max_depth: int = 5) -> str:
     """"bounce" when K1 takes the whole pass, "shade" when the scene
     leaves K1's gate by geometry only (fast_shade_mode :1521-1563)."""
-    n_prims = scene.rects.mat_id.shape[0] + scene.triangles.mat_id.shape[0]
+    n_prims = (scene.spheres.mat_id.shape[0] + scene.rects.mat_id.shape[0]
+               + scene.triangles.mat_id.shape[0])
     if (scene.tri_bvh is not None or n_prims > MAX_PRIMS
-            or scene.smooth_triangles or max_depth > MAX_DEPTH):
+            or scene.smooth_triangles or not scene.sphere_clips_in_domain
+            or max_depth > MAX_DEPTH):
         return "shade"
     return "bounce"
 

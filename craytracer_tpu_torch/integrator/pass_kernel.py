@@ -1,15 +1,19 @@
 """K1, the whole-pass path-tracing kernel (counterpart of
 craytracer_tpu/integrator/pallas_shade.py: `_pass_kernel` :781 with
 `_camera_raygen` :696, `_brute_hit` :533, `_brute_closest` :471,
-`_brute_any` :509 and `_shade_core` :874, launched by `fused_pass`
-:1667). The gate that decides which scenes K1 takes is
-integrator/gate.py ("bounce" scenes).
+`_brute_any` :509, `_sphere_t` :363 and `_shade_core` :874, launched by
+`fused_pass` :1667). The gate that decides which scenes K1 takes is
+integrator/gate.py ("bounce" scenes): up to 64 spheres (clip windows in
+the kernel's domain), rects and flat triangles; all seven material types
+with isotropic Beckmann lobes; rect and sphere area lights; a constant or
+black env light; a pinhole camera; depth < 31.
 
 One launch runs a whole spp-pass: raygen, then for every bounce the
 closest hit over the prim table, shading, NEE with a shadow any-hit,
 throughput and Russian roulette. The CUDA C++ source is
 csrc/pass_kernel.cu, whose shading is csrc/shade_core.cuh (shared with
-K2); it is compiled with nvcc for sm_90a at first use into
+K2), instantiated as the matte-only core and as the full core; it
+is compiled with nvcc for sm_90a at first use into
 craytracer_tpu_torch/_build/ and bound through a plain C ABI with ctypes
 (cuda_build.py).
 
@@ -30,7 +34,8 @@ from craytracer_tpu_torch.camera import film_dims, generate_rays
 from craytracer_tpu_torch.cuda_build import CudaLibrary, LaunchCount
 from craytracer_tpu_torch.integrator.gate import (MAX_DEPTH, MAX_LIGHTS,
                                                   MAX_MATS, MAX_PRIMS,
-                                                  production_fast_shade)
+                                                  production_fast_shade,
+                                                  shade_features)
 from craytracer_tpu_torch.integrator.shade_kernel import (RR_START,
                                                           material_light_rows)
 from craytracer_tpu_torch.integrator.wavefront import _trace
@@ -53,8 +58,9 @@ def _k1_gate(scene, camera, film, max_depth):
                              max_depth=max_depth) != "bounce":
         raise NotImplementedError(
             "outside K1's gate (a bvh4 accel, more than 64 prims, smooth "
-            "triangles or depth > 30): render_sample traces it per bounce "
-            "(fast_shade='shade'); ROADMAP queue 2, K1")
+            "triangles, a sphere clip outside the kernel's domain or depth "
+            "> 30): render_sample traces it per bounce (fast_shade='shade'); "
+            "ROADMAP queue 2, K1")
 
 
 # ---------------------------------------------------------------------------
@@ -93,8 +99,9 @@ def _pass_reference(scene, camera, film, pixel_ids, spp_index, seed,
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.k1_pass_launch.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci,
-                                   ctypes.c_uint, ci, ci, ci, ci, vp, vp, vp]
+    lib.k1_pass_launch.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, ci,
+                                   ctypes.c_uint, ci, ci, ci, ci, ci, vp, vp,
+                                   vp]
     lib.k1_pass_launch.restype = ci
 
 
@@ -106,13 +113,16 @@ class PassKernel(LaunchCount):
     """K1's launcher on PyTorch's current stream. `launches` counts the
     launches made through `launch`."""
 
-    def launch(self, tables, n_mats, n_lights, n_rects, n_tris, pix, spp,
-               seed: int, max_depth: int, strat: bool, width: int):
-        """One K1 launch over len(pix) lanes. Returns (L [N,3] f32,
-        counters [4,N] i32: good, rays, shadow_rays, alive bitmask)."""
+    def launch(self, tables, n_mats, n_lights, n_sph, n_rects, n_tris, pix,
+               spp, seed: int, max_depth: int, strat: bool, width: int,
+               full: bool):
+        """One K1 launch over len(pix) lanes with the full shading core
+        (every lobe) if `full`, else the matte-only one. Returns (L [N,3]
+        f32, counters [4,N] i32: good, rays, shadow_rays, alive bitmask)."""
         n = pix.shape[0]
         dev = pix.device
-        n_floats = _MATS + 19 * (n_mats + n_lights) + 16 * (n_rects + n_tris)
+        n_prims = n_sph + n_rects + n_tris
+        n_floats = _MATS + 19 * (n_mats + n_lights) + 16 * n_prims
         if (dev.type != "cuda" or tables.device != dev or spp.device != dev
                 or tables.dtype != torch.float32 or pix.dtype != torch.int32
                 or spp.dtype != torch.int32 or pix.dim() != 1
@@ -122,7 +132,7 @@ class PassKernel(LaunchCount):
             raise ValueError("K1 takes contiguous CUDA tensors: f32 tables "
                              f"[{n_floats}], i32 pix [N], i32 spp [N]")
         if not (1 <= n_lights <= MAX_LIGHTS and 1 <= n_mats <= MAX_MATS
-                and n_rects + n_tris <= MAX_PRIMS
+                and n_prims <= MAX_PRIMS
                 and 0 <= max_depth <= MAX_DEPTH and width > 0):
             raise ValueError("K1 table sizes or depth out of range")
         lib = LIBRARY.load()
@@ -130,9 +140,10 @@ class PassKernel(LaunchCount):
         g = torch.empty((4, n), dtype=torch.int32, device=dev)
         err = lib.k1_pass_launch(
             tables.data_ptr(), tables.numel(), pix.data_ptr(), spp.data_ptr(),
-            n, n_mats, n_lights, n_rects, n_tris, int(seed) & MASK32,
-            max_depth, RR_START, int(strat), width, L.data_ptr(),
-            g.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            n, n_mats, n_lights, n_sph, n_rects, n_tris, int(seed) & MASK32,
+            max_depth, RR_START, int(strat), width, int(full),
+            L.data_ptr(), g.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
         LIBRARY.check(err, "K1")
         self.launches += 1
         return L, g
@@ -144,7 +155,10 @@ KERNEL = PassKernel()
 def kernel_tables(scene: T.Scene, camera, film):
     """Pack camera, env radiance, material, light and prim rows into one
     f32 tensor on the scene's device (layouts as _meta_operands :1613 and
-    fused_pass :1707-1750; prims in intersect_scene group order)."""
+    fused_pass :1707-1750; prims in intersect_scene group order: spheres,
+    rects, triangles). A sphere row holds the center, the radius and
+    cos(phi), cos(min_theta), cos(max_theta), computed in f64 and rounded
+    once."""
     dev = scene.device
     f32 = torch.float32
     fl, fh, pxl = film_dims(film, camera)
@@ -153,6 +167,14 @@ def kernel_tables(scene: T.Scene, camera, film):
                      torch.stack([camera.focal_dist, fl, fh, pxl,
                                   camera.focal_length, camera.lens_radius])])
     env_li, mt, lt = material_light_rows(scene)
+    s = scene.spheres
+    n_sph = s.mat_id.shape[0]
+    clip = torch.stack([s.phi, s.min_theta, s.max_theta], dim=-1)
+    zs = torch.zeros((n_sph, 1), dtype=f32, device=dev)
+    pt_sph = torch.cat([s.center, s.radius[:, None],
+                        torch.cos(clip.double()).to(f32), zs, zs,
+                        torch.zeros((n_sph, 3), dtype=f32, device=dev),
+                        s.mat_id[:, None].to(f32), zs, zs, zs], dim=-1)
     r = scene.rects
     zr = torch.zeros((r.mat_id.shape[0], 1), dtype=f32, device=dev)
     pt_rect = torch.cat([r.point, r.width, r.height, r.normal,
@@ -164,8 +186,16 @@ def kernel_tables(scene: T.Scene, camera, film):
                         tr.double_sided[:, None].to(f32), zt, zt], dim=-1)
     pad = torch.zeros(_MATS - _ENV - 3, dtype=f32, device=dev)
     return torch.cat([cam.to(f32), env_li, pad, mt.reshape(-1),
-                      lt.reshape(-1), pt_rect.reshape(-1),
+                      lt.reshape(-1), pt_sph.reshape(-1), pt_rect.reshape(-1),
                       pt_tri.reshape(-1)]).contiguous()
+
+
+def table_counts(scene: T.Scene):
+    """(n_mats, n_lights, n_sph, n_rects, n_tris): the row counts of
+    `kernel_tables`, as K1's launch takes them."""
+    return (scene.materials.mat_type.shape[0],
+            scene.lights.light_type.shape[0], scene.spheres.mat_id.shape[0],
+            scene.rects.mat_id.shape[0], scene.triangles.mat_id.shape[0])
 
 
 def _leaves(obj):
@@ -220,10 +250,9 @@ def _admitted_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
         spp = torch.full((n,), int(spp_index), dtype=torch.int32,
                          device=pix.device)
     L, g = KERNEL.launch(
-        kernel_tables(scene, camera, film),
-        scene.materials.mat_type.shape[0], scene.lights.light_type.shape[0],
-        scene.rects.mat_id.shape[0], scene.triangles.mat_id.shape[0],
-        pix, spp, seed, max_depth, raygen == "strat", int(film.width))
+        kernel_tables(scene, camera, film), *table_counts(scene), pix, spp,
+        seed, max_depth, raygen == "strat", int(film.width),
+        shade_features(scene) != 0)
     bits = torch.arange(max_depth + 1, dtype=torch.int32, device=pix.device)
     bounce_live = ((g[3][:, None] >> bits) & 1).sum(dim=0)
     metrics = {"rays": g[1].sum(), "shadow_rays": g[2].sum(),

@@ -4,10 +4,11 @@ with the Morton pixel order :150-168, spp batching :98-116 and NaN
 substitution :241-255).
 
 Each pass traces one sample per pixel for the whole image through
-`render_sample` (one K1 launch on the card for a Cornell-class scene; a
-K3, K2 and K4 launch per bounce for a mesh scene) and accumulates into
-an f32 buffer on the scene's device. With `spp_batch` B > 1 one pass
-carries B samples per pixel (lanes = B * pixels) with the same launches.
+`render_sample` (one K1 launch on the card for a scene of at most 64
+spheres, rects and flat triangles; a K3, K2 and K4 launch per bounce for
+a mesh scene) and accumulates into an f32 buffer on the scene's device.
+With `spp_batch` B > 1 one pass carries B samples per pixel (lanes = B *
+pixels) with the same launches.
 Pixels go out in Morton order, a pure reorder (the RNG keys off pixel
 id) that keeps each warp's rays coherent. A NaN sample is replaced by the
 running mean (main.cpp:127-136); the JAX Renderer's NaN-log retrace

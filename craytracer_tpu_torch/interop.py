@@ -74,6 +74,11 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     kw["light_types_present"] = tuple(kw["light_types_present"])
     kw["smooth_triangles"] = bool(np.asarray(
         leaves["triangles"]["smooth"]).any())
+    m, s = leaves["materials"], leaves["spheres"]
+    kw["microfacet_iso_beckmann"] = T.microfacet_iso_beckmann(
+        m["mat_type"], m["alphax"], m["alphay"], m["distrib"])
+    kw["sphere_clips_in_domain"] = T.sphere_clips_in_domain(
+        s["phi"], s["min_theta"], s["max_theta"])
     return T.Scene(**kw)
 
 

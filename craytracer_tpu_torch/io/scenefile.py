@@ -1,19 +1,20 @@
 """Reference-compatible scene-file parser (counterpart of
-craytracer_tpu/io/scenefile.py; `_parse_mesh` :313, `load_scene_file`
-:347).
+craytracer_tpu/io/scenefile.py; `_parse_material` :135, `_parse_object`
+:210, `_parse_mesh` :313, `load_scene_file` :347).
 
 The same keyword-driven, tolerant reading of the positional grammar
 (scene/scenefile.h:92-791): block collection, preset colors, legacy
-material keys, C-`atof` floats, film/camera header defaults, and OBJECT
-MESH (FILE/FILE_NAME, SMOOTH, SCALING, LOCATION, ORIENTATION; the file is
-looked up beside the scene file, then in the working directory).
-Materials, primitives and lights outside slices A and B raise
-NotImplementedError naming the ROADMAP item that will port them; a shape
-the parser does not know is skipped, as in the JAX parser.
-
-Deviation on purpose: a mesh file that cannot be found raises
-FileNotFoundError, where the JAX parser skips the object silently
-(:323-324) and renders a scene without it.
+material keys, C-`atof` floats, film/camera header defaults; every
+material type (MATTE, MIRROR, TRANSPARENT, EMISSIVE, PLASTIC, GLASS,
+METAL with its TYPE preset, and the legacy REFLECTIVE as plastic);
+OBJECT SPHERE (with the PHI / MIN_THETA / MAX_THETA clip defaults),
+RECTANGLE, TRIANGLE and MESH (FILE/FILE_NAME, SMOOTH, SCALING, LOCATION,
+ORIENTATION; the file is looked up beside the scene file, then in the
+working directory, and a mesh file that cannot be found is skipped, as
+the JAX parser skips it, :323-324). Planes, disks, instanced shapes,
+textures and point/directional lights raise NotImplementedError naming
+the ROADMAP item that will port them; a shape the parser does not know
+is skipped, as in the JAX parser.
 
 Returns (Scene, Camera, Film) on the CUDA card unless the caller asks
 for another device.
@@ -27,7 +28,7 @@ import os
 import torch
 
 from craytracer_tpu_torch.camera import Film, make_camera
-from craytracer_tpu_torch.constants import PRESET_COLORS
+from craytracer_tpu_torch.constants import PI, PRESET_COLORS
 from craytracer_tpu_torch.io.objloader import compute_vertex_normals, load_obj
 from craytracer_tpu_torch.io.tokenizer import TokenStream, atof, tokenize
 from craytracer_tpu_torch.scene.build import SceneBuilder, not_ported
@@ -54,11 +55,8 @@ _KNOWN_KEYS = {
     "SWEPT_RADIUS", "TUBE_RADIUS", "FILE", "FILE_NAME", "SMOOTH", "SCALING",
     "DIST_ATTEN", "DIRECTION",
 }
-# material / object keywords -> the feature name NotImplementedError cites
-_MAT_FEATURE = {"MIRROR": "mirror", "TRANSPARENT": "transparent",
-                "PLASTIC": "plastic", "GLASS": "glass", "METAL": "metal",
-                "REFLECTIVE": "plastic"}
-_OBJ_FEATURE = {"SPHERE": "sphere", "PLANE": "plane", "DISK": "disk",
+# object keywords -> the feature name NotImplementedError cites
+_OBJ_FEATURE = {"PLANE": "plane", "DISK": "disk",
                 "BOX": "box", "OPENCYLINDER": "cylinder",
                 "SOLIDCYLINDER": "cylinder", "TORUS": "torus"}
 
@@ -120,35 +118,62 @@ def _f(vals, default=0.0):
 
 
 def _parse_material(builder: SceneBuilder, mat_type: str, kv: dict):
+    """One MATERIAL block (scenefile.py:135-195)."""
     name = (kv.get("NAME") or ["unnamed"])[0]
     cvals = kv.get("COLOR")
     if ("TEXTURE" in kv or "KD_TEXTURE" in kv
             or (cvals and cvals[0] == "TEXTURE") or kv.get("NORMAL_MAP")):
         raise not_ported("texture")
-    if mat_type in _MAT_FEATURE:
-        raise not_ported(_MAT_FEATURE[mat_type])
     if mat_type == "MATTE":
         builder.add_matte(name, _color_from(cvals or kv.get("DIFF_COLOR"),
                                             (0.5, 0.5, 0.5)),
                           _f(kv.get("SIGMA"), 0.0))
+    elif mat_type == "MIRROR":
+        builder.add_mirror(name, _color_from(cvals, (1, 1, 1)))
+    elif mat_type == "TRANSPARENT":
+        builder.add_transparent(
+            name, ior_in=_f(kv.get("IOR_IN"), 1.5),
+            ior_out=_f(kv.get("IOR_OUT"), 1.0),
+            cf_in=_color_from(kv.get("CF_IN"), (1, 1, 1)),
+            cf_out=_color_from(kv.get("CF_OUT"), (1, 1, 1)))
     elif mat_type == "EMISSIVE":
         builder.add_emissive(name, _color_from(cvals, (1, 1, 1)),
                              _f(kv.get("INTENSITY"), 1.0))
+    elif mat_type == "PLASTIC":
+        builder.add_plastic(name, kd=_color_from(kv.get("KD"),
+                                                 (0.5, 0.5, 0.5)),
+                            ks=_color_from(kv.get("KS"), (0.5, 0.5, 0.5)),
+                            roughness=_f(kv.get("ROUGHNESS"), 0.1))
+    elif mat_type == "GLASS":
+        builder.add_glass(name, roughness=_f(kv.get("ROUGHNESS"), 0.0))
+    elif mat_type == "METAL":
+        builder.add_metal(name, preset=(kv.get("TYPE") or ["GOLD"])[0],
+                          roughness=_f(kv.get("ROUGHNESS"), 0.05))
+    elif mat_type == "REFLECTIVE":
+        # the legacy grammar (example_scene.txt) maps to plastic with the
+        # listed diffuse/specular colors scaled by their constants
+        kd = _color_from(kv.get("DIFF_COLOR"), (0.5, 0.5, 0.5))
+        ks = _color_from(kv.get("SPEC_COLOR"), (0.5, 0.5, 0.5))
+        kd_c = _f(kv.get("DIFF_CONSTANT"), 1.0)
+        ks_c = _f(kv.get("SPEC_CONSTANT"), 1.0)
+        builder.add_plastic(name, kd=tuple(c * kd_c for c in kd),
+                            ks=tuple(c * ks_c for c in ks), roughness=0.05)
     else:
         builder.add_matte(name, (0.5, 0.5, 0.5))
 
 
 def _parse_mesh(builder: SceneBuilder, kv: dict, mat: str, search_dirs):
     """OBJECT MESH (scenefile.py:313-344): every OBJ group becomes one
-    baked mesh with the object's material."""
+    baked mesh with the object's material. A mesh file that cannot be
+    found is skipped (the reference errors out; the JAX parser skips
+    it, :323-324)."""
     if mat == "FROM_MTL":
         raise not_ported("MATERIAL FROM_MTL")
     file_name = (kv.get("FILE") or kv.get("FILE_NAME") or [""])[0]
     path = next((p for p in (os.path.join(d, file_name) for d in search_dirs)
                  if file_name and os.path.isfile(p)), None)
     if path is None:
-        raise FileNotFoundError(
-            f"mesh file {file_name!r} not found in {search_dirs}")
+        return
     smooth = (kv.get("SMOOTH") or ["no"])[0] == "yes"
     for shape in load_obj(path):
         normals = shape.normals
@@ -168,7 +193,13 @@ def _parse_object(builder: SceneBuilder, obj_type: str, kv: dict,
         raise not_ported(_OBJ_FEATURE[obj_type])
     if obj_type == "MESH":
         _parse_mesh(builder, kv, mat, search_dirs)
-    if obj_type == "RECTANGLE":
+    elif obj_type == "SPHERE":
+        builder.add_sphere(center=_vec3_from(kv.get("CENTER")),
+                           radius=_f(kv.get("RADIUS"), 1.0), mat=mat,
+                           phi=_f(kv.get("PHI"), PI),
+                           min_theta=_f(kv.get("MIN_THETA"), 0.0),
+                           max_theta=_f(kv.get("MAX_THETA"), PI))
+    elif obj_type == "RECTANGLE":
         builder.add_rect(_vec3_from(kv.get("POINT")),
                          _vec3_from(kv.get("WIDTH"), (1, 0, 0)),
                          _vec3_from(kv.get("HEIGHT"), (0, 1, 0)), mat)

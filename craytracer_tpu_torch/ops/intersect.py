@@ -1,20 +1,24 @@
 """Batched ray-primitive intersection (counterpart of
-craytracer_tpu/ops/intersect.py: `rect_ts` :117, `triangle_ts` :163,
-`_fill_rect` :355, `_fill_triangle` :380, `intersect_scene` :518,
-`shadow_distance` :685).
+craytracer_tpu/ops/intersect.py: `sphere_ts` :61, `rect_ts` :117,
+`triangle_ts` :163, `_newton_t` :318, `_fill_sphere` :325, `_fill_rect`
+:355, `_fill_triangle` :380, `intersect_scene` :518, `shadow_distance`
+:685).
 
 Two phases over [N] ray batches, as in the JAX package: a search that
 finds the closest primitive per group and keeps the earlier group on a
-tie (strict < across groups), and a fill that re-derives t, normal (flat
-or smooth), dpdu and uv for the winning primitive only. Rects are always
-brute force over [N, M] (ray, primitive) pairs. Triangles are brute
-force too in an accel="none" scene; in an accel="bvh4" scene they go
-through the fat-row BVH4 (accel/bvh4.py): with `kernels=True`, K3 for the
-closest hit inside the ray_key coherence sort (ops/raysort.py), as
-intersect.py:609-620 runs the Pallas kernel, and K4 for the shadow any
-hit behind a ray_key argsort (:737-747); with `kernels=False`, the plain
-traversal. The tracer (integrator/wavefront.py) asks for the kernels only
-for rays on the card.
+tie (strict < across groups, in the group order spheres, rects,
+triangles), and a fill that re-derives t (one Newton step for spheres),
+normal (flat or smooth), dpdu and uv for the winning primitive only.
+Spheres (with their phi/theta clip window in the atan2/acos form) and
+rects are always brute force over [N, M] (ray, primitive) pairs.
+Triangles are brute force too in an accel="none" scene; in an
+accel="bvh4" scene they go through the fat-row BVH4 (accel/bvh4.py):
+with `kernels=True`, K3 for the closest hit inside the ray_key coherence
+sort (ops/raysort.py), as intersect.py:609-620 runs the Pallas kernel,
+and K4 for the shadow any hit behind a ray_key argsort (:737-747); with
+`kernels=False`, the plain traversal. The tracer
+(integrator/wavefront.py) asks for the kernels only for rays on the
+card.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 
 from craytracer_tpu_torch.accel import bvh4_kernel
 from craytracer_tpu_torch.accel.bvh4 import bvh4_any_hit, bvh4_closest_hit
-from craytracer_tpu_torch.constants import K_EPSILON, TMAX
+from craytracer_tpu_torch.constants import K_EPSILON, PI, TMAX, TWO_PI
 from craytracer_tpu_torch.core import math as vm
+from craytracer_tpu_torch.core.solvers import solve_quadratic
 from craytracer_tpu_torch.ops.raysort import sorted_traversal
 from craytracer_tpu_torch.scene import types as T
 
@@ -52,6 +57,38 @@ class Hit:
 def _cols(v):
     """[M, 3] -> three [1, M] rows."""
     return v[None, :, 0], v[None, :, 1], v[None, :, 2]
+
+
+def sphere_ts(o, d, s: T.Spheres):
+    """Partial-sphere hit distances (rayIntersectSphere,
+    shapes/sphere.cpp:33-86) over [N, M] pairs: the quadratic's roots, each
+    accepted only inside the clip window |atan2(x, z)| <= phi, theta in
+    [min_theta, max_theta]. As in the reference, acos((y - cy) / r) is
+    unclamped: |cos| > 1 misses."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    cx, cy, cz = _cols(s.center)
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    c = (ocx * ocx + ocy * ocy + ocz * ocz) - (s.radius * s.radius)[None, :]
+    _, t0, t1 = solve_quadratic(a, b, c)
+
+    def accept(t):
+        hx = ox + t * dx - cx
+        hy = oy + t * dy - cy
+        hz = oz + t * dz - cz
+        phi = torch.atan2(hx, hz)  # the reference's atan2(x, z)
+        cos_raw = hy / s.radius[None, :]
+        theta = torch.acos(torch.clamp(cos_raw, -1.0, 1.0))
+        ok = ((t > K_EPSILON) & (t < TMAX)
+              & (torch.abs(phi) <= s.phi[None, :])
+              & (theta >= s.min_theta[None, :])
+              & (theta <= s.max_theta[None, :])
+              & (torch.abs(cos_raw) <= 1.0))
+        return torch.where(ok, t, TMAX)
+
+    return torch.minimum(accept(t0), accept(t1))
 
 
 def rect_ts(o, d, r: T.Rects):
@@ -99,7 +136,31 @@ def triangle_ts(o, d, tr: T.Triangles):
     return torch.where(ok, t, TMAX)
 
 
-def _fill_rect(o, d, idx, r: T.Rects):
+def _fill_sphere(o, d, t, idx, s: T.Spheres):
+    """Sphere attributes (fillShadeRecSphere, shapes/sphere.cpp:4-31): one
+    Newton step on F(t) = |o + t d - c|^2 - r^2 (the JAX fill's
+    `_newton_t`, whose detached derivative changes no value), the normal
+    from the refined point, uv from atan2/acos, dpdu ~ (-(z-cz), 0,
+    x-cx)."""
+    c, r, mat_id = s.center[idx], s.radius[idx], s.mat_id[idx]
+    oc = o + t[:, None] * d - c
+    F = vm.dot(oc, oc) - r * r
+    Fp = 2.0 * vm.dot(oc, d)
+    t_diff = t - F / vm._safe(Fp)
+    hp = o + t_diff[:, None] * d
+    n = vm.normalize(hp - c)
+    rel = hp - c
+    phi = torch.atan2(rel[:, 0], rel[:, 2])
+    phi_w = torch.where(phi < 0, phi + TWO_PI, phi)
+    theta = torch.acos(torch.clamp(rel[:, 1] / vm._safe(r), -1.0 + 1e-6,
+                                   1.0 - 1e-6))
+    uv = torch.stack([phi_w / TWO_PI, theta / PI], dim=-1)
+    dpdu = vm.normalize(torch.stack([-rel[:, 2], torch.zeros_like(t),
+                                     rel[:, 0]], dim=-1))
+    return n, dpdu, uv, mat_id, t_diff
+
+
+def _fill_rect(o, d, t, idx, r: T.Rects):
     n, w, p0, mat_id = r.normal[idx], r.width[idx], r.point[idx], r.mat_id[idx]
     h = r.height[idx]
     t_diff = vm.dot(p0 - o, n) / vm._safe(vm.dot(d, n))
@@ -114,7 +175,7 @@ def _fill_rect(o, d, idx, r: T.Rects):
     return n, dpdu, torch.stack([u, v], dim=-1), mat_id, t_diff
 
 
-def _fill_triangle(o, d, idx, tr: T.Triangles):
+def _fill_triangle(o, d, t, idx, tr: T.Triangles):
     v0, v1, v2 = tr.v0[idx], tr.v1[idx], tr.v2[idx]
     e1 = v1 - v0
     e2 = v2 - v0
@@ -142,6 +203,7 @@ def _fill_triangle(o, d, idx, tr: T.Triangles):
 # intersect_scene's group order (intersect.py:504-511), restricted to the
 # groups the port's builder emits
 _GROUPS = (
+    (T.GROUP_SPHERE, "spheres", sphere_ts, _fill_sphere),
     (T.GROUP_RECT, "rects", rect_ts, _fill_rect),
     (T.GROUP_TRIANGLE, "triangles", triangle_ts, _fill_triangle),
 )
@@ -191,6 +253,8 @@ def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
     uv = torch.zeros((n, 2), dtype=o.dtype, device=o.device)
     mat_id = torch.zeros((n,), dtype=torch.int32, device=o.device)
     t_out = best_t
+    # fills see t = 1 on miss lanes (whose values are discarded), not TMAX
+    t_fill = torch.where(hit, best_t, 1.0)
     for gid, name, _, fill_fn in _GROUPS:
         group = getattr(scene, name)
         if group.mat_id.shape[0] == 0:
@@ -198,7 +262,7 @@ def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
         # clamp: lanes of other groups index this group's table too; their
         # values are discarded by the select below
         idx = torch.clamp(best_idx, max=group.mat_id.shape[0] - 1)
-        g_n, g_dpdu, g_uv, g_mat, g_t = fill_fn(o, d, idx, group)
+        g_n, g_dpdu, g_uv, g_mat, g_t = fill_fn(o, d, t_fill, idx, group)
         sel = best_group == gid
         normal = torch.where(sel[:, None], g_n, normal)
         dpdu = torch.where(sel[:, None], g_dpdu, dpdu)

@@ -1,16 +1,21 @@
 """Host-side scene builder: Python API -> scene tensors (counterpart of
-craytracer_tpu/scene/build.py; `SceneBuilder` :84, `add_triangle` :205,
-`add_triangles_array` :222, `add_mesh` :254, `build` :405,
-`_build_lights` :645).
+craytracer_tpu/scene/build.py; `beckmann_roughness_to_alpha` :31,
+`SceneBuilder` :84, the material adders :112-159, `add_sphere` :181,
+`add_triangle` :205, `add_triangles_array` :222, `add_mesh` :254,
+`build` :405, `_build_lights` :645).
 
 The accumulation runs in numpy with the JAX builder's exact arithmetic
 (same dtypes, same order), so both packages emit bit-identical tables:
-the area-light derivation from emissive rects, the reference's
-product-of-components light power, the normalized power CDF, the env
-world radius, mesh triangles baked to world space (flat or smooth) and
-the SAH fat-row BVH4 (accel/bvh4.py). Only what slices A and B need is
-ported; every other primitive, material, light and accelerator raises
-NotImplementedError naming the ROADMAP item that will port it.
+all seven material types (MATTE with its Oren-Nayar A/B, MIRROR,
+TRANSPARENT, EMISSIVE, PLASTIC, GLASS, METAL with its eta/k presets and
+the microfacet alphas), spheres with their phi/theta clip window, rects,
+triangles, the area lights derived from emissive rects and spheres, the
+reference's product-of-components light power, the normalized power CDF,
+the env world radius, mesh triangles baked to world space (flat or
+smooth) and the SAH fat-row BVH4 (accel/bvh4.py). Planes, disks,
+instanced shapes, textures, point/directional/mesh lights and the other
+accelerators (the sphere BVH4 included) raise NotImplementedError naming
+the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -22,20 +27,21 @@ from typing import Optional
 import numpy as np
 import torch
 
+from craytracer_tpu_torch.constants import METAL_PRESETS, PI
 from craytracer_tpu_torch.core.math import euler_to_mat3
 from craytracer_tpu_torch.scene import types as T
 
 _TODO_K1 = "ROADMAP queue 2, K1/K2 remaining gate features"
 _TODO = {
-    "sphere": _TODO_K1, "plane": _TODO_K1, "disk": _TODO_K1,
-    "box": _TODO_K1, "mirror": _TODO_K1, "plastic": _TODO_K1,
-    "metal": _TODO_K1, "glass": _TODO_K1, "transparent": _TODO_K1,
+    "plane": _TODO_K1, "disk": _TODO_K1, "box": _TODO_K1,
     "cylinder": "ROADMAP queue 1, slice D", "torus": "ROADMAP queue 1, slice D",
     "texture": "ROADMAP queue 1, slice E",
     "point/directional light": "ROADMAP queue 1, slice E",
     "mesh light": "ROADMAP queue 1, slice E",
     "MATERIAL FROM_MTL": "ROADMAP queue 1, slice E",
     "accelerator": "ROADMAP queue 1, slice I",
+    "sphere BVH4 (256 or more spheres with an accelerator)":
+        "ROADMAP queue 1, slice I",
 }
 
 
@@ -45,22 +51,45 @@ def not_ported(feature: str) -> NotImplementedError:
         f"({_TODO.get(feature, _TODO_K1)})")
 
 
+def beckmann_roughness_to_alpha(roughness: float) -> float:
+    """BeckmannRoughnessToAlpha (microfacet.h:26-32; build.py:31-41)."""
+    roughness = max(roughness, 1e-3)
+    x = math.log(roughness)
+    return (
+        1.62142
+        + 0.819955 * x
+        + 0.1734 * x * x
+        + 0.0171201 * x**3
+        + 0.000640711 * x**4
+    )
+
+
 @dataclass
 class _Mat:
     name: str
     mat_type: int
     color: tuple = (0.0, 0.0, 0.0)
+    ks: tuple = (0.0, 0.0, 0.0)
     sigma: float = 0.0
+    ior_in: float = 1.5
+    ior_out: float = 1.0
+    cf_in: tuple = (1.0, 1.0, 1.0)
+    cf_out: tuple = (1.0, 1.0, 1.0)
+    eta: tuple = (1.0, 1.0, 1.0)
+    k: tuple = (0.0, 0.0, 0.0)
+    alphax: float = 0.0
+    alphay: float = 0.0
     intensity: float = 0.0
 
 
 class SceneBuilder:
-    """Accumulates rects, triangles, meshes, matte/emissive materials and
-    the env light, then `build()`s the Scene (build.py:84-833)."""
+    """Accumulates spheres, rects, triangles, meshes, materials and the
+    env light, then `build()`s the Scene (build.py:84-833)."""
 
     def __init__(self):
         self._mats: list[_Mat] = []
         self._mat_index: dict[str, int] = {}
+        self._spheres = []
         self._rects = []
         self._triangles = []
         self._bulk_triangles = []  # [T]-row column blocks (13 columns)
@@ -81,10 +110,48 @@ class SceneBuilder:
         return self.add_material(_Mat(name=name, mat_type=T.MAT_MATTE,
                                       color=tuple(color), sigma=float(sigma)))
 
+    def add_mirror(self, name, color=(1.0, 1.0, 1.0)):
+        return self.add_material(_Mat(name=name, mat_type=T.MAT_MIRROR,
+                                      color=tuple(color)))
+
+    def add_transparent(self, name, ior_in=1.5, ior_out=1.0, cf_in=(1, 1, 1),
+                        cf_out=(1, 1, 1)):
+        return self.add_material(_Mat(
+            name=name, mat_type=T.MAT_TRANSPARENT, ior_in=float(ior_in),
+            ior_out=float(ior_out), cf_in=tuple(cf_in), cf_out=tuple(cf_out)))
+
     def add_emissive(self, name, color=(1.0, 1.0, 1.0), intensity=1.0):
         return self.add_material(_Mat(name=name, mat_type=T.MAT_EMISSIVE,
                                       color=tuple(color),
                                       intensity=float(intensity)))
+
+    def add_plastic(self, name, kd=(0.5, 0.5, 0.5), ks=(0.5, 0.5, 0.5),
+                    roughness=0.1):
+        """FresnelBlend: the raw roughness is the alpha
+        (BSDF_addFresnelBlendSpecular, reflection.cpp:945-963)."""
+        return self.add_material(_Mat(
+            name=name, mat_type=T.MAT_PLASTIC, color=tuple(kd), ks=tuple(ks),
+            alphax=float(roughness), alphay=float(roughness), ior_in=1.5,
+            ior_out=1.0))
+
+    def add_glass(self, name, roughness=0.0, ior_in=1.5, ior_out=1.0):
+        """Rough dielectric: roughness maps to alpha
+        (BSDF_addMicrofacetFresnel, reflection.cpp:916-929)."""
+        a = beckmann_roughness_to_alpha(float(roughness))
+        return self.add_material(_Mat(
+            name=name, mat_type=T.MAT_GLASS, alphax=a, alphay=a,
+            ior_in=float(ior_in), ior_out=float(ior_out)))
+
+    def add_metal(self, name, preset="GOLD", roughness=0.05, eta=None,
+                  k=None):
+        """Conductor microfacet: the raw roughness is the alpha
+        (BSDF_addMicrofacetReflectionMetal, reflection.cpp:886-907); an
+        unknown preset name is GOLD."""
+        if eta is None or k is None:
+            eta, k = METAL_PRESETS.get(preset.upper(), METAL_PRESETS["GOLD"])
+        return self.add_material(_Mat(
+            name=name, mat_type=T.MAT_METAL, eta=tuple(eta), k=tuple(k),
+            alphax=float(roughness), alphay=float(roughness)))
 
     def material_id(self, name) -> int:
         if isinstance(name, int):
@@ -92,6 +159,14 @@ class SceneBuilder:
         return self._mat_index.get(name, 0)
 
     # -- primitives --------------------------------------------------------
+
+    def add_sphere(self, center, radius, mat, phi=PI, min_theta=0.0,
+                   max_theta=PI):
+        """A sphere clipped to |atan2(x, z)| <= phi and theta in
+        [min_theta, max_theta] (shapes/sphere.cpp:33-86)."""
+        self._spheres.append((np.asarray(center, np.float32), float(radius),
+                              float(phi), float(min_theta), float(max_theta),
+                              self.material_id(mat)))
 
     def add_rect(self, point, width, height, mat):
         w = np.asarray(width, np.float64)
@@ -213,6 +288,9 @@ class SceneBuilder:
             mins = np.minimum(mins, p)
             maxs = np.maximum(maxs, p)
 
+        for c, r, *_ in self._spheres:
+            cover(c - r)
+            cover(c + r)
         for p, w, h, n, m in self._rects:
             for q in (p, p + w, p + h, p + w + h):
                 cover(q)
@@ -238,6 +316,11 @@ class SceneBuilder:
         device = T.resolve_device(device)
         f32 = np.float32
         n_tris = self.num_triangles()
+        if accel != "none" and len(self._spheres) >= 256:
+            # the JAX builder indexes such spheres with a sphere BVH4
+            # (build.py:578-590); the port never brute-forces them quietly
+            raise not_ported(
+                "sphere BVH4 (256 or more spheres with an accelerator)")
         if accel == "auto":
             accel = "bvh4" if n_tris >= 64 else "none"
         if n_tris == 0:
@@ -258,7 +341,8 @@ class SceneBuilder:
             return cls(*(torch.from_numpy(np.ascontiguousarray(a))
                          for a in arrays))
 
-        spheres = tensors(T.Spheres, soa([], [((3,), f32)] + [((), f32)] * 4
+        spheres = tensors(T.Spheres, soa(self._spheres, [((3,), f32)]
+                                         + [((), f32)] * 4
                                          + [((), np.int32)]))
         planes = tensors(T.Planes, soa([], [((3,), f32), ((3,), f32),
                                             ((), np.int32)]))
@@ -284,26 +368,19 @@ class SceneBuilder:
                  ((), np.int32), ((), np.int32)]))
 
         mats = self._mats
-        zeros3 = [(0.0, 0.0, 0.0)] * len(mats)
-        ones3 = [(1.0, 1.0, 1.0)] * len(mats)
 
-        def col(values, dtype=f32):
-            return np.asarray(values, dtype)
+        def col(field, dtype=f32):
+            return np.asarray([getattr(m, field) for m in mats], dtype)
 
         materials = tensors(T.Materials, [
-            col([m.mat_type for m in mats], np.int32),
-            col([m.color for m in mats]),
-            col(zeros3),                                   # ks
-            col([m.sigma for m in mats]),
-            col([self._on_a(m.sigma) for m in mats]),
-            col([self._on_b(m.sigma) for m in mats]),
-            col([1.5] * len(mats)), col([1.0] * len(mats)),  # ior in/out
-            col(ones3), col(ones3),                        # cf in/out
-            col(ones3), col(zeros3),                       # eta, k
-            col([0.0] * len(mats)), col([0.0] * len(mats)),  # alphax/y
-            col([T.DIST_BECKMANN] * len(mats), np.int32),
-            col([m.intensity for m in mats]),
-            col([-1] * len(mats), np.int32), col([-1] * len(mats), np.int32),
+            col("mat_type", np.int32), col("color"), col("ks"), col("sigma"),
+            np.asarray([self._on_a(m.sigma) for m in mats], f32),
+            np.asarray([self._on_b(m.sigma) for m in mats], f32),
+            col("ior_in"), col("ior_out"), col("cf_in"), col("cf_out"),
+            col("eta"), col("k"), col("alphax"), col("alphay"),
+            np.full(len(mats), T.DIST_BECKMANN, np.int32),
+            col("intensity"),
+            np.full(len(mats), -1, np.int32), np.full(len(mats), -1, np.int32),
         ])
         lights, mesh_lights, env = self._build_lights(mats)
         mat_type = materials.mat_type.numpy()
@@ -320,6 +397,12 @@ class SceneBuilder:
             matte_lambertian=bool(np.all(
                 materials.on_b.numpy()[mat_type == T.MAT_MATTE] == 0.0)),
             smooth_triangles=bool(tv[10].any()),
+            microfacet_iso_beckmann=T.microfacet_iso_beckmann(
+                mat_type, materials.alphax.numpy(),
+                materials.alphay.numpy(), materials.distrib.numpy()),
+            sphere_clips_in_domain=T.sphere_clips_in_domain(
+                spheres.phi.numpy(), spheres.min_theta.numpy(),
+                spheres.max_theta.numpy()),
         )
         return scene.to(device)
 
@@ -336,8 +419,9 @@ class SceneBuilder:
         return 0.45 * s2 / (s2 + 0.09)
 
     def _build_lights(self, mats):
-        """Area lights from emissive rects, the env light row, the
-        reference power rule and the normalized CDF (build.py:645-833)."""
+        """Area lights from emissive rects and spheres, the env light row,
+        the reference power rule and the normalized CDF
+        (build.py:645-833)."""
         f32 = np.float32
         rows = []  # (type, p0, v1, v2, normal, radius, color, intensity,
         #              area, mesh_id, src_group, src_prim)
@@ -347,6 +431,13 @@ class SceneBuilder:
                 area = float(np.linalg.norm(w) * np.linalg.norm(h))
                 rows.append((T.LIGHT_AREA_RECT, p, w, h, n, 0.0, m.color,
                              m.intensity, area, -1, T.GROUP_RECT, i))
+        for i, (c, r, phi, mn, mx, mat_id) in enumerate(self._spheres):
+            m = mats[mat_id]
+            if m.mat_type == T.MAT_EMISSIVE:
+                area = float(4.0 * PI * r * r)
+                rows.append((T.LIGHT_AREA_SPHERE, c, np.zeros(3, f32),
+                             np.zeros(3, f32), np.zeros(3, f32), r, m.color,
+                             m.intensity, area, -1, T.GROUP_SPHERE, i))
 
         env_cfg = self._env
         mins, maxs = self._scene_bounds()

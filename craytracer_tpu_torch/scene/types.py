@@ -9,8 +9,10 @@ them for a scene without such primitives. The static fields `accel`,
 `mat_types_present`, `light_types_present` and `matte_lambertian` stay
 plain Python values, as do BVH4Arrays' `n_tris`, `leaf_size` and
 `stack_size` (accel/bvh4.py:56-72). `smooth_triangles` (not in the JAX
-Scene) records whether any triangle is smooth, so the route gate reads it
-without a device sync.
+Scene) records whether any triangle is smooth, and `microfacet_iso_beckmann`
+and `sphere_clips_in_domain` (not in the JAX Scene either) record what
+the JAX gate reads from table values (pallas_shade.py:1541-1553,
+:1580-1589), so the route gate reads them without a device sync.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 # Material type codes (types.py:18-25).
@@ -74,6 +77,26 @@ def to_device(obj, device):
             f.name: to_device(getattr(obj, f.name), device)
             for f in dataclasses.fields(obj)})
     return obj
+
+
+def microfacet_iso_beckmann(mat_type, alphax, alphay, distrib) -> bool:
+    """Every PLASTIC, METAL and GLASS row is isotropic Beckmann
+    (alphax == alphay, DIST_BECKMANN): the only microfacet form the
+    kernels port (fast_shade_ok, pallas_shade.py:1576-1589)."""
+    mf = np.isin(np.asarray(mat_type), [MAT_PLASTIC, MAT_METAL, MAT_GLASS])
+    return bool((np.asarray(alphax)[mf] == np.asarray(alphay)[mf]).all()
+                and (np.asarray(distrib)[mf] == DIST_BECKMANN).all())
+
+
+def sphere_clips_in_domain(phi, min_theta, max_theta) -> bool:
+    """Every sphere clip lies where K1's cosine-space window equals the
+    atan2/acos window: phi <= pi, thetas in [0, pi], with 1e-5 slack
+    (fast_shade_mode, pallas_shade.py:1541-1553)."""
+    sp, mn, mx = (np.asarray(x) for x in (phi, min_theta, max_theta))
+    eps = 1e-5
+    return bool((sp <= np.pi + eps).all()
+                and (mn >= -eps).all() and (mn <= np.pi + eps).all()
+                and (mx >= -eps).all() and (mx <= np.pi + eps).all())
 
 
 @dataclass(frozen=True)
@@ -256,6 +279,8 @@ class Scene:
     light_types_present: tuple = ()
     matte_lambertian: bool = False
     smooth_triangles: bool = False  # any triangle interpolates normals
+    microfacet_iso_beckmann: bool = True
+    sphere_clips_in_domain: bool = True
 
     @property
     def device(self) -> torch.device:

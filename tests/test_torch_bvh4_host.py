@@ -81,7 +81,7 @@ def _host_build(tmp_path_factory, stem, n_launches):
         pytest.skip("no host C++ compiler to build the kernel sources")
     d = tmp_path_factory.mktemp(f"{stem}_host")
     (d / "cuda_runtime.h").write_text(STUB)
-    src, n = re.subn(r"(\w+)<<<\s*(\w+),\s*(\w+)[^>]*>>>\(",
+    src, n = re.subn(r"(\w+(?:<\w+>)?)<<<\s*(\w+),\s*(\w+)[^>]*>>>\(",
                      r"HOST_LAUNCH(\2, \3) \1(",
                      (CSRC / f"{stem}.cu").read_text())
     assert n == n_launches
@@ -217,7 +217,7 @@ def test_k2_source_matches_plain_shade(host_libs, mesh, bounce):
     assert shade.k2_shade_launch(
         tab.data_ptr(), tab.numel(), scene.materials.mat_type.shape[0],
         scene.lights.light_type.shape[0], *[a.data_ptr() for a in args],
-        0, n, SEED, bounce, 5, sk.RR_START, f3.data_ptr(), f1.data_ptr(),
+        0, n, SEED, bounce, 5, sk.RR_START, 0, f3.data_ptr(), f1.data_ptr(),
         io.data_ptr(), None) == 0
     got = dict(zip(sk._F3, f3.unbind(0)))
     got.update(dist_adj=f1[0], dist_adj_t=f1[1])

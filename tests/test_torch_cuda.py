@@ -24,6 +24,9 @@ from craytracer_tpu_torch.integrator import wavefront as wf
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.ops.intersect import intersect_scene
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
+from craytracer_tpu_torch.scene import types as T
+
+import torch_sphere_scenes as sphere_scenes
 
 pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,10 +72,13 @@ def test_k1_matches_plain_version(cuda, depth, raygen):
 def test_k1_refuses_scenes_outside_its_gate(cuda):
     scene, cam, film = _cornell(cuda, 8)
     pix = torch.arange(64, dtype=torch.int32, device=cuda)
-    oren = dataclasses.replace(scene, matte_lambertian=False)
+    plane = dataclasses.replace(scene, planes=T.Planes(
+        point=torch.zeros((1, 3), device=cuda),
+        normal=torch.tensor([[0.0, 1.0, 0.0]], device=cuda),
+        mat_id=torch.zeros(1, dtype=torch.int32, device=cuda)))
     before = pk.KERNEL.launches
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pk.fused_pass(oren, cam, film, pix, 0, 0, 5)
+        pk.fused_pass(plane, cam, film, pix, 0, 0, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pk.fused_pass(scene, cam, film, pix, 0, 0, 31)
     assert pk.KERNEL.launches == before
@@ -178,3 +184,76 @@ def test_slice_b_wrappers_refuse_bad_inputs(cuda):
                        0, 5)
     assert (bk.CLOSEST.launches, bk.ANY.launches,
             sk.KERNEL.launches) == before
+
+
+# ---- slice C2: spheres and every material through K1 and K2
+
+MIX = os.path.join(REPO, "scenes", "parity_mix.txt")
+
+
+def _sphere_scene(dev, name, size=48):
+    """(scene, camera, film, depth): parity_mix or a scene of
+    torch_sphere_scenes.py."""
+    if name == "parity_mix":
+        scene, cam, film = load_scene_file(MIX, device=dev)
+        return scene, cam, Film(fov=film.fov, width=size, height=size), 5
+    from craytracer_tpu_torch.camera import make_camera
+    from craytracer_tpu_torch.scene.build import SceneBuilder
+
+    b = SceneBuilder()
+    eye, look, fov, depth = sphere_scenes.SCENES[name](b)
+    return (b.build(device=dev), make_camera(eye, look, device=dev),
+            Film(fov=torch.tensor(fov, device=dev), width=size, height=size),
+            depth)
+
+
+@pytest.mark.parametrize("name", ["parity_mix", "mirror_spheres",
+                                  "sphere_light", "glossy_spheres",
+                                  "glass_spheres"])
+def test_k1_full_core_matches_plain_version(cuda, name):
+    """K1's full core (spheres with the cosine-space clip window, every
+    lobe, sphere lights) against the plain version, with the bars of
+    test_k1_matches_plain_version, at depth 0 and the scene's depth."""
+    scene, cam, film, depth = _sphere_scene(cuda, name)
+    n = film.num_pixels
+    pix = torch.arange(n, dtype=torch.int32, device=cuda).repeat(2)
+    spp = 3 + torch.arange(2, dtype=torch.int32,
+                           device=cuda).repeat_interleave(n)
+    for dp in (0, depth):
+        before = pk.KERNEL.launches
+        L, good, m = pk.fused_pass(scene, cam, film, pix, spp, 7, dp)
+        assert pk.KERNEL.launches == before + 1
+        Lr, goodr, mr = pk.fused_pass_reference(scene, cam, film, pix, spp,
+                                                7, dp)
+        same = good == goodr
+        close = ((L - Lr).abs() <= 1e-4 + 1e-4 * Lr.abs()).all(dim=1)
+        assert (same & close).double().mean().item() >= 0.999
+        for key in ("rays", "shadow_rays"):
+            a, b = int(m[key]), int(mr[key])
+            assert a == b if dp == 0 else abs(a - b) <= 1e-3 * max(b, 1)
+
+
+@pytest.mark.parametrize("name", ["parity_mix", "glass_spheres"])
+def test_k2_full_core_matches_plain_shade(cuda, name):
+    """K2's full core on bounce 0, 1 and 4 hit records of a plain pass:
+    floats within 1e-5, ints equal on >= 99.9% of lanes."""
+    scene, cam, film, _ = _sphere_scene(cuda, name, 64)
+    pix = torch.arange(film.num_pixels, dtype=torch.int32, device=cuda)
+    spp = torch.full_like(pix, 1)
+    o, d = generate_rays(cam, film, pix, stratified_jitter(3, pix, spp))
+    state = wf._init_state(o, d, 5, pix)
+    for b in range(5):
+        hit = intersect_scene(scene, state[0], state[1])
+        if b in (0, 1, 4):
+            args = (scene, state[1], hit, state[2], state[5], state[6],
+                    state[10], spp, 3, b, 5)
+            got = sk.fused_shade(*args)
+            ref = sk.fused_shade_reference(*args)
+            for key, val in ref.items():
+                if val.dtype == torch.float32:
+                    assert torch.allclose(got[key], val, rtol=1e-5,
+                                          atol=1e-5), (b, key)
+                else:
+                    agree = (got[key] == val).double().mean().item()
+                    assert agree >= 0.999, (b, key)
+        state = wf._bounce_step(scene, 3, spp, 5, b, state, kernels=False)

@@ -4,9 +4,9 @@ scenes/parity_mesh_mid.txt (16 icospheres, 20,480 triangles), flat and
 smooth. Every triangle leaf, light, material and static field is equal,
 the BVH4 fat table is bit-equal with the same stack bound, triangle
 count and leaf size, and the interop carry-over of the JAX scene equals
-the port's own parse. Also the port's refusals and its deviation: a
-missing mesh file raises (the JAX parser skips it), and the entry points
-run on the card unless asked for the CPU."""
+the port's own parse. Also the port's refusals, a missing mesh file
+(skipped by both parsers), and the entry points running on the card
+unless asked for the CPU."""
 
 import os
 
@@ -96,14 +96,16 @@ def test_mesh_statics_and_interop(both):
 
 
 def test_missing_mesh_file_raises(tmp_path):
-    """Deviation on purpose: the JAX parser skips a mesh it cannot find
-    and renders the scene without it; the port raises."""
+    """A mesh file that cannot be found no longer raises: the port skips
+    the object, as the JAX parser does (scenefile.py:323-324), and both
+    build a scene without it."""
     p = tmp_path / "scene.txt"
-    p.write_text("OBJECT MESH\nFILE_NAME no_such_mesh.obj\nMATERIAL m\n")
-    with pytest.raises(FileNotFoundError, match="no_such_mesh.obj"):
-        load_scene_file(str(p), device="cpu")
+    p.write_text("OBJECT MESH\nFILE_NAME no_such_mesh.obj\nMATERIAL m\n"
+                 "OBJECT RECTANGLE\nPOINT 0 0 0\nMATERIAL m\n")
+    ts, _, _ = load_scene_file(str(p), device="cpu")
     js, _, _ = j_load(str(p))
-    assert js.triangles.mat_id.shape[0] == 0
+    assert ts.triangles.mat_id.shape[0] == js.triangles.mat_id.shape[0] == 0
+    assert ts.rects.mat_id.shape[0] == js.rects.mat_id.shape[0] == 1
 
 
 def test_mesh_refusals():

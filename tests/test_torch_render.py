@@ -1,12 +1,13 @@
 """The port's Renderer end to end on the CPU, against the reference
-binary's golden (tests/goldens/golden_cornell.is, 256x256 @ 256 spp) by
-tone-mapped 8x8 block means with the thresholds of
-tests/test_reference_parity.py; plus the package's import hygiene and
-its command line.
+binary's goldens (tests/goldens/golden_cornell.is and golden_mix.is,
+256x256 @ 256 spp) by tone-mapped 8x8 block means with the thresholds of
+tests/test_reference_parity.py:143-154; plus the package's import hygiene
+and its command line.
 
-The golden render runs 128x128 @ 64 spp with spp_batch=16, i.e. four
-passes of 262,144 lanes through the plain version: about 25 s with two
-torch threads on an x86 CPU."""
+Each golden render runs 128x128 @ 64 spp, depth 5, with spp_batch=16,
+i.e. four passes of 262,144 lanes through the plain version: about 25 s
+(Cornell) and 20 s (parity_mix: spheres, Oren-Nayar, plastic, mirror,
+gold) with two torch threads on an x86 CPU."""
 
 import os
 import subprocess
@@ -26,6 +27,8 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(REPO, "scenes", "parity_cornell.txt")
 GOLDEN = os.path.join(REPO, "tests", "goldens", "golden_cornell.is")
+MIX = os.path.join(REPO, "scenes", "parity_mix.txt")
+GOLDEN_MIX = os.path.join(REPO, "tests", "goldens", "golden_mix.is")
 
 
 def _tonemapped(img):
@@ -39,8 +42,8 @@ def _block_means(img, blocks=8):
         axis=(1, 3))
 
 
-def test_renderer_matches_reference_golden():
-    scene, cam, film = load_scene_file(CORNELL, device="cpu")
+def _render_against_golden(scene_path, golden_path):
+    scene, cam, film = load_scene_file(scene_path, device="cpu")
     film = Film(fov=film.fov, width=128, height=128)
     r = Renderer(scene, cam, film,
                  RenderConfig(num_samples=64, max_depth=5,
@@ -49,13 +52,23 @@ def test_renderer_matches_reference_golden():
     assert r.passes == 4 and r.nan_count == 0
     assert img.shape == (128, 128, 3) and np.isfinite(img).all()
     ours = r.raw_mean()
-    accum, spp, w, h = read_reference_is(GOLDEN)
+    accum, spp, w, h = read_reference_is(golden_path)
     ref = (accum / spp).reshape(h, w, 3)
     full_r, full_o = _tonemapped(ref).mean(), _tonemapped(ours).mean()
     assert abs(full_o - full_r) < 0.02 * max(full_r, 0.05), (full_o, full_r)
     dev = np.abs(_block_means(ours) - _block_means(ref))
     assert dev.max() < 0.05, dev.max()
     assert (dev < 0.02).mean() > 0.9, dev
+
+
+def test_renderer_matches_reference_golden():
+    _render_against_golden(CORNELL, GOLDEN)
+
+
+def test_renderer_matches_golden_mix():
+    """parity_mix goes through the "bounce" route: the whole pass in K1's
+    plain version on the CPU."""
+    _render_against_golden(MIX, GOLDEN_MIX)
 
 
 def test_spp_batching_and_morton_order_do_not_change_the_image():

@@ -23,6 +23,7 @@ from craytracer_tpu_torch.interop import (camera_from_numpy, film_from_numpy,
                                           numpy_leaves, scene_from_numpy)
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
+from craytracer_tpu_torch.scene import types as T
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,9 +104,18 @@ def test_generate_rays_agree(both, size):
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
 
 
+# a sphere is refused only where the JAX builder would index it with a
+# sphere BVH4 (256 or more with an accelerator), a mirror only with a
+# texture; planes, disks, boxes and tori are refused outright
 UNPORTED = {
-    "sphere": "OBJECT SPHERE\nRADIUS 1\nCENTER 0 0 0\nMATERIAL m\n",
-    "mirror": "MATERIAL MIRROR\nNAME m\nCOLOR 1 1 1\nEND\n",
+    "sphere": "OBJECT SPHERE\nRADIUS 0.1\nCENTER 0 0 0\nMATERIAL m\n"
+              * 256,
+    "mirror": "MATERIAL MIRROR\nNAME m\nTEXTURE x.png\nEND\n",
+    "plane": "OBJECT PLANE\nPOINT 0 0 0\nNORMAL 0 1 0\nMATERIAL m\n",
+    "disk": "OBJECT DISK\nCENTER 0 0 0\nNORMAL 0 1 0\nRADIUS 1\n"
+            "MATERIAL m\n",
+    "box": "OBJECT BOX\nLENGTH 1\nHEIGHT 1\nWIDTH 1\nMATERIAL m\n",
+    "torus": "OBJECT TORUS\nSWEPT_RADIUS 1\nTUBE_RADIUS 0.2\nMATERIAL m\n",
     "mesh": "OBJECT MESH\nFILE x.obj\nMATERIAL FROM_MTL\n",
     "texture env": "ENV_LIGHT\nTYPE TEXTURE\nCOLOR x.exr\nINTENSITY 1\n",
 }
@@ -128,9 +138,16 @@ def test_gate_admits_cornell_and_refuses_the_rest(both):
         production_fast_shade(ts, tc, tf, estimator="mis")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         production_fast_shade(ts, dataclasses.replace(tc, camera_type=1), tf)
-    oren = dataclasses.replace(ts, matte_lambertian=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        production_fast_shade(oren, tc, tf)
+        production_fast_shade(_with_plane(ts), tc, tf)
+
+
+def _with_plane(scene):
+    """The scene plus one plane: planes wait for the next K1/K2 gate
+    item."""
+    return dataclasses.replace(scene, planes=T.Planes(
+        point=torch.zeros((1, 3)), normal=torch.tensor([[0.0, 1.0, 0.0]]),
+        mat_id=torch.zeros(1, dtype=torch.int32)))
 
 
 ENTRIES = ["render_sample", "fused_pass", "fused_pass_reference"]
@@ -138,7 +155,7 @@ ENTRIES = ["render_sample", "fused_pass", "fused_pass_reference"]
 
 @pytest.mark.parametrize("entry,refused", [
     ("render_sample", "estimator"),
-    *[(e, r) for e in ENTRIES for r in ("thin-lens", "oren-nayar", "depth")]])
+    *[(e, r) for e in ENTRIES for r in ("thin-lens", "plane", "depth")]])
 def test_every_entry_refuses_outside_the_gate(both, entry, refused):
     """Each entry point asks the gate (integrator/gate.py) before it traces
     anything: a refused scene raises and never reaches the plain tracer.
@@ -155,8 +172,8 @@ def test_every_entry_refuses_outside_the_gate(both, entry, refused):
         est = "mis"
     elif refused == "thin-lens":
         tc = dataclasses.replace(tc, camera_type=1)
-    elif refused == "oren-nayar":
-        ts = dataclasses.replace(ts, matte_lambertian=False)
+    elif refused == "plane":
+        ts = _with_plane(ts)
     else:
         depth = 31
     pix = torch.arange(16, dtype=torch.int32)
