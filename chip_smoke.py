@@ -13,7 +13,7 @@ never JAX or the JAX package. Phases, each printing its own lines:
    all started together (sm_90a), into craytracer_tpu_torch/_build/;
    prints each build's seconds and ptxas' registers and spills for every
    kernel and instantiation (K1 and K2 each as the matte-only core,
-   `<0>`, and the full core, `<127>`); then builds the native scene
+   `<false>`, and the full core, `<true>`); then builds the native scene
    runtime (native/craynative.cpp, g++).
 3. K1 vs plain: K1 against its plain PyTorch version on the card, on
    scenes/parity_cornell.txt at 64x64, depth 0, 2 and 5, scalar and
@@ -82,6 +82,25 @@ never JAX or the JAX package. Phases, each printing its own lines:
    lobe, and each shadow ray's prim tests); Cornell's bare K1 on the
    matte-only and the full core in turns; bare K2's full core on the six
    bounces of a parity_mix pass against its plain version and bound.
+16. K1 vs plain on planes, disks, boxes and the thin lens: the plane/disk
+   and the AABOX scenes of tests/torch_prim_scenes.py and parity_cornell
+   with a thin-lens camera (lens_radius 0.2, focal_length 3.0; both
+   jitter variants) at 512x512 Morton lanes, depth 0, 2, 5 (spp 0) and 5
+   (spp 63); phase 3's bars.
+17. scenes/parity_prims.txt (a torus and a box behind their affines, a
+   disk, rects) through trace_paths(fast_shade="shade") (K2 with the
+   plain intersection of every group, one K2 launch per bounce and
+   nothing else) against the plain trace_paths at depth 0, 2 and 5,
+   phase 3's bars; then K2 vs plain on the bounce 0, 1 and 4 hit records,
+   phase 7's bars.
+18. parity_prims main path: the Renderer at 512x512, depth 5, 64 spp,
+   reference estimator; counts set to 0 just before and read just after:
+   K2 passes x 6 times and nothing else, no NaN; the image against
+   tests/goldens/golden_prims.is. Then the AABOX scene through the
+   Renderer (64 spp): one K1 launch per pass and nothing else, no NaN.
+19. times (as phase 5): bare K1 per pass on the plane/disk, AABOX and
+   thin-lens Cornell scenes with its bound, the plain version timed once;
+   parity_prims ms/pass and rays/s through render_sample.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's;
@@ -117,6 +136,8 @@ MESH_MID = os.path.join(REPO, "scenes", "parity_mesh_mid.txt")
 MESH = os.path.join(REPO, "scenes", "parity_mesh.txt")
 MIX = os.path.join(REPO, "scenes", "parity_mix.txt")
 GOLDEN_MIX = os.path.join(REPO, "tests", "goldens", "golden_mix.is")
+PRIMS = os.path.join(REPO, "scenes", "parity_prims.txt")
+GOLDEN_PRIMS = os.path.join(REPO, "tests", "goldens", "golden_prims.is")
 L_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
@@ -129,7 +150,14 @@ SORT_OPS = 16  # K3/K4: the sorting network and the push, once per pop
 RECT_OPS = 52  # K1 rect_t
 TRI_OPS = 50  # K1 tri_t
 SPHERE_OPS = 80  # K1 sphere_t: the quadratic and two window tests
+PLANE_OPS = 17  # K1 plane_t
+DISK_OPS = 33  # K1 disk_t: plane_t and the radius test
+AABOX_OPS = 70  # K1 box_t: the affine ray, three divisions, the slabs
+LENS_OPS = 58  # K1's thin-lens raygen, once per lane (pinhole's left out)
 SHADE_OPS = 330  # shade_core.cuh, one lane and bounce
+# K1's prim test per row, in table_counts' order after materials and
+# lights: spheres, planes, rects, disks, triangles, boxes
+ROW_OPS = (SPHERE_OPS, PLANE_OPS, RECT_OPS, DISK_OPS, TRI_OPS, AABOX_OPS)
 # what shade_core<true> adds to SHADE_OPS for a lane of each material
 # type: MATTE's two Oren-Nayar scales (only with F_OREN), the mirror
 # reflection, PLASTIC's remapped lobes, both pdfs and the FresnelBlend f,
@@ -251,7 +279,8 @@ def main() -> int:
     from craytracer_tpu_torch.accel import bvh4_kernel as bk
     from craytracer_tpu_torch.accel.bvh4 import (bvh4_any_hit_stats,
                                                  bvh4_closest_hit_stats)
-    from craytracer_tpu_torch.camera import Film, generate_rays, make_camera
+    from craytracer_tpu_torch.camera import (THINLENS, Film, generate_rays,
+                                             make_camera)
     from craytracer_tpu_torch.constants import K_EPSILON, TMAX
     from craytracer_tpu_torch.integrator import pass_kernel as pk
     from craytracer_tpu_torch.integrator import shade_kernel as sk
@@ -331,6 +360,49 @@ def main() -> int:
               + (" FAIL " + "; ".join(f) if f else ""), flush=True)
         fails.extend(f"{label} depth {depth} {raygen}: {x}" for x in f)
 
+    def expect(label, got, **want):
+        """Fail unless the launch counts are `want` (0 where not named)."""
+        w = {k: want.get(k, 0) for k in counters}
+        if got != w:
+            fails.append(f"{label} launches {got}, want {w}")
+
+    def main_path(label, scn, c, fm, golden=None):
+        """The Renderer on `scn` at cfg's spp and depth, every count set to
+        0 just before it and read just after; prints its line, writes its
+        PPM, records NaN, image and golden failures. Returns (passes,
+        launches)."""
+        r = Renderer(scn, c, fm, cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        ours = r.raw_mean()
+        ppm = str(cuda_build.BUILD_DIR / f"{label}_512.ppm")
+        write_ppm(ppm, r.image())
+        if golden is None:
+            what = f"mean {ours.mean():.4f}"
+            if not ours.mean() > 0.01:
+                fails.append(f"{label}: image mean {ours.mean()}")
+        else:
+            full_o, full_r, dev_max, share, f = _golden(ours, golden)
+            what = (f"tone-mapped mean {full_o:.4f} vs golden {full_r:.4f}, "
+                    f"block dev max {dev_max:.4f}, share < 0.02 {share:.3f}")
+            fails.extend(f"{label} golden: {x}" for x in f)
+        print(f"[main-path] Renderer {label} {fm.width}x{fm.height} "
+              f"{cfg.num_samples} spp depth {cfg.max_depth}: {dt:.2f} s, "
+              f"{r.passes} passes, launches {got}, {r.nan_count} NaN; {what};"
+              f" wrote {os.path.relpath(ppm, REPO)}", flush=True)
+        if r.passes == 0:
+            fails.append(f"{label}: no pass")
+        if r.nan_count:
+            fails.append(f"{label}: {r.nan_count} NaN samples substituted")
+        if ours.shape != (fm.height, fm.width, 3) or not np.isfinite(
+                ours).all():
+            fails.append(f"{label}: the image is not finite [H, W, 3]")
+        return r.passes, got
+
     size = 64
     film = Film(fov=film0.fov, width=size, height=size)
     n = film.num_pixels
@@ -359,31 +431,8 @@ def main() -> int:
 
     # ---- 4. Cornell main path
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    r = Renderer(scene, cam, film, cfg)
-    reset_counts()
-    t0 = time.perf_counter()
-    r.render()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches_cornell = counts()
-    ours = r.raw_mean()
-    full_o, full_r, dev_max, share, f = _golden(ours, GOLDEN)
-    ppm = str(cuda_build.BUILD_DIR / "cornell_512.ppm")
-    write_ppm(ppm, r.image())
-    print(f"[main-path] Renderer cornell 512x512 64 spp depth 5: {dt:.2f} s, "
-          f"{r.passes} passes, launches {launches_cornell}, {r.nan_count} "
-          f"NaN; tone-mapped mean {full_o:.4f} vs golden {full_r:.4f}, "
-          f"block dev max {dev_max:.4f}, share < 0.02 {share:.3f}; wrote "
-          f"{os.path.relpath(ppm, REPO)}", flush=True)
-    if (launches_cornell["k1_pass"] != r.passes or r.passes == 0
-            or sum(launches_cornell.values()) != r.passes):
-        fails.append(f"cornell launches {launches_cornell} for {r.passes} "
-                     "passes")
-    if r.nan_count:
-        fails.append(f"{r.nan_count} NaN samples substituted")
-    if ours.shape != (size, size, 3):
-        fails.append("cornell image is not [512, 512, 3]")
-    fails.extend(f"cornell golden: {x}" for x in f)
+    n_p, launches_cornell = main_path("cornell", scene, cam, film, GOLDEN)
+    expect("cornell", launches_cornell, k1_pass=n_p)
 
     # ---- 5. Cornell time
     pix = torch.arange(size * size, dtype=torch.int32, device=dev)
@@ -402,9 +451,10 @@ def main() -> int:
         tab = pk.kernel_tables(scn, camera, fm)
         spps = [torch.full_like(pix, spp0 + s) for s in range(passes)]
         f = pk.shade_features(scn) != 0 if full is None else full
+        thin = camera.camera_type == THINLENS
         ms, outs = _timed(lambda: [
-            pk.KERNEL.launch(tab, *pk.table_counts(scn), pix, sp, 0, 5,
-                             False, size, f)
+            pk.KERNEL.launch(tab, pk.table_counts(scn), pix, sp, 0, 5,
+                             False, size, f, thin)
             for sp in spps])
         return ms, (sum(int(g[1].sum()) for _, g in outs),
                     sum(int(g[2].sum()) for _, g in outs))
@@ -601,36 +651,13 @@ def main() -> int:
             ("parity_mesh_mid", MESH_MID, "golden_mesh_mid.is"),
             ("parity_mesh", MESH, "golden_mesh.is")):
         scn, c, f0 = load_scene_file(path, device=dev)
-        fm = Film(fov=f0.fov, width=size, height=size)
-        r = Renderer(scn, c, fm, cfg)
-        reset_counts()
-        t0 = time.perf_counter()
-        r.render()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        got = counts()
+        n_p, got = main_path(name, scn, c,
+                             Film(fov=f0.fov, width=size, height=size),
+                             os.path.join(REPO, "tests", "goldens", gold))
         if name == "parity_mesh_mid":
             launches_mesh = got
-        ours = r.raw_mean()
-        full_o, full_r, dev_max, share, f = _golden(
-            ours, os.path.join(REPO, "tests", "goldens", gold))
-        ppm = str(cuda_build.BUILD_DIR / f"{name}_512.ppm")
-        write_ppm(ppm, r.image())
-        print(f"[main-path] Renderer {name} 512x512 64 spp depth 5: "
-              f"{dt:.2f} s, {r.passes} passes, launches {got}, "
-              f"{r.nan_count} NaN; tone-mapped mean {full_o:.4f} vs golden "
-              f"{full_r:.4f}, block dev max {dev_max:.4f}, share < 0.02 "
-              f"{share:.3f}; wrote {os.path.relpath(ppm, REPO)}", flush=True)
-        want = 6 * r.passes
-        if (r.passes == 0 or got["k1_pass"] != 0
-                or any(got[k] != want for k in ("k2_shade",
-                                                "k3_bvh4_closest",
-                                                "k4_bvh4_any"))):
-            fails.append(f"{name} launches {got}, want {want} each of "
-                         "K2/K3/K4 and no K1")
-        if r.nan_count:
-            fails.append(f"{name}: {r.nan_count} NaN samples substituted")
-        fails.extend(f"{name} golden: {x}" for x in f)
+        expect(name, got, k2_shade=6 * n_p, k3_bvh4_closest=6 * n_p,
+               k4_bvh4_any=6 * n_p)
 
     # ---- 10. mesh time
     mpasses = 16
@@ -866,56 +893,39 @@ def main() -> int:
         check_k2(name, scn, xrecs[name], zspp)
 
     # ---- 13. parity_mix per bounce (K2, plain sphere/rect intersection)
-    for depth, s in ((0, 0), (2, 0), (5, 0)):
-        spp = torch.full_like(morton, s)
-        o, d = generate_rays(xcam, xfilm, morton,
-                             stratified_jitter(cfg.seed, morton, spp))
-        reset_counts()
-        out_k = wf.trace_paths(mix, o, d, cfg.seed, morton, spp, depth,
-                               with_metrics=True, fast_shade="shade")
-        got = counts()
-        out_p = wf.trace_paths(mix, o, d, cfg.seed, morton, spp, depth,
-                               with_metrics=True)
-        torch.cuda.synchronize()
-        bad, err_same, err_all, f = _compare(out_k, out_p, depth)
-        if got != {"k1_pass": 0, "k2_shade": depth + 1,
-                   "k3_bvh4_closest": 0, "k4_bvh4_any": 0}:
-            f.append(f"launches {got}, want {depth + 1} of K2 only")
-        print(f"[pass-vs-plain] parity_mix shade route 512x512 Morton spp {s}"
-              f" depth {depth}: launches {got}, good differs on {bad:.5f}, "
-              f"max|dL| {err_same:.3g} (agreeing lanes) {err_all:.3g} (all), "
-              f"rays {int(out_k[2]['rays'])}/{int(out_p[2]['rays'])}, "
-              f"shadow_rays {int(out_k[2]['shadow_rays'])}/"
-              f"{int(out_p[2]['shadow_rays'])}"
-              + (" FAIL " + "; ".join(f) if f else ""), flush=True)
-        fails.extend(f"parity_mix shade route depth {depth}: {x}" for x in f)
+    def check_shade_route(label, scn, c, fm):
+        """trace_paths through K2 (one launch per bounce, nothing else)
+        against the plain trace_paths at 512x512 Morton lanes, spp 0,
+        depth 0, 2 and 5; phase 3's bars."""
+        o, d = generate_rays(c, fm, morton,
+                             stratified_jitter(cfg.seed, morton, zspp))
+        for depth in (0, 2, 5):
+            reset_counts()
+            out_k = wf.trace_paths(scn, o, d, cfg.seed, morton, zspp, depth,
+                                   with_metrics=True, fast_shade="shade")
+            got = counts()
+            out_p = wf.trace_paths(scn, o, d, cfg.seed, morton, zspp, depth,
+                                   with_metrics=True)
+            torch.cuda.synchronize()
+            bad, err_same, err_all, f = _compare(out_k, out_p, depth)
+            print(f"[pass-vs-plain] {label} shade route 512x512 Morton spp 0 "
+                  f"depth {depth}: launches {got}, good differs on "
+                  f"{bad:.5f}, max|dL| {err_same:.3g} (agreeing lanes) "
+                  f"{err_all:.3g} (all), rays {int(out_k[2]['rays'])}/"
+                  f"{int(out_p[2]['rays'])}, shadow_rays "
+                  f"{int(out_k[2]['shadow_rays'])}/"
+                  f"{int(out_p[2]['shadow_rays'])}"
+                  + (" FAIL " + "; ".join(f) if f else ""), flush=True)
+            fails.extend(f"{label} shade route depth {depth}: {x}"
+                         for x in f)
+            expect(f"{label} shade route depth {depth}", got,
+                   k2_shade=depth + 1)
+
+    check_shade_route("parity_mix", mix, xcam, xfilm)
 
     # ---- 14. parity_mix main path
-    r = Renderer(mix, xcam, xfilm, cfg)
-    reset_counts()
-    t0 = time.perf_counter()
-    r.render()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches_mix = counts()
-    ours = r.raw_mean()
-    full_o, full_r, dev_max, share, f = _golden(ours, GOLDEN_MIX)
-    ppm = str(cuda_build.BUILD_DIR / "parity_mix_512.ppm")
-    write_ppm(ppm, r.image())
-    print(f"[main-path] Renderer parity_mix 512x512 64 spp depth 5: {dt:.2f} "
-          f"s, {r.passes} passes, launches {launches_mix}, {r.nan_count} NaN;"
-          f" tone-mapped mean {full_o:.4f} vs golden {full_r:.4f}, block dev "
-          f"max {dev_max:.4f}, share < 0.02 {share:.3f}; wrote "
-          f"{os.path.relpath(ppm, REPO)}", flush=True)
-    if (launches_mix["k1_pass"] != r.passes or r.passes == 0
-            or sum(launches_mix.values()) != r.passes):
-        fails.append(f"parity_mix launches {launches_mix} for {r.passes} "
-                     "passes")
-    if r.nan_count:
-        fails.append(f"parity_mix: {r.nan_count} NaN samples substituted")
-    if ours.shape != (size, size, 3):
-        fails.append("parity_mix image is not [512, 512, 3]")
-    fails.extend(f"parity_mix golden: {x}" for x in f)
+    n_p, launches_mix = main_path("parity_mix", mix, xcam, xfilm, GOLDEN_MIX)
+    expect("parity_mix", launches_mix, k1_pass=n_p)
 
     # ---- 15. parity_mix time, Cornell on the full core, K2's full core
     xfeat = pk.shade_features(mix)
@@ -937,23 +947,32 @@ def main() -> int:
           xfilm, pix, spp0 + passes - 1, 0, 5, "plain", out_k, out_p)
     mxk, mxw, mxp = (statistics.median(t) for t in (tx_k, tx_w, tx_p))
     nx_rays, nx_shadow = rays_x[tx_k.index(mxk)]
-    # the operations one pass needs, from the plain pass of phase 12
-    # (Morton, spp 0): per bounce, every live lane's prim tests and
-    # shading, each hit lane's material lobe, each shadow ray's prim tests
-    counts_x = pk.table_counts(mix)
-    prim_x = (SPHERE_OPS * counts_x[2] + RECT_OPS * counts_x[3]
-              + TRI_OPS * counts_x[4])
-    extra = {T.MAT_MATTE: OREN_OPS if xfeat & F_OREN else 0,
-             T.MAT_MIRROR: MIRROR_OPS, T.MAT_PLASTIC: PLASTIC_OPS,
-             T.MAT_METAL: METAL_OPS, T.MAT_TRANSPARENT: TRANSPARENT_OPS,
-             T.MAT_GLASS: GLASS_OPS}
-    ops_x = 0
-    for st, hit, out in xrecs["parity_mix"]:
-        live = st[5] & (hit.t < TMAX)
-        mt = mix.materials.mat_type[hit.mat_id.long()][live]
-        ops_x += int(st[5].sum()) * (prim_x + SHADE_OPS)
-        ops_x += sum(int((mt == m).sum()) * v for m, v in extra.items())
-        ops_x += int(out["want_shadow"].sum()) * prim_x
+    def lobe_ops(scn):
+        """What shade_core<true> adds per hit lane of each material."""
+        return {T.MAT_MATTE: OREN_OPS if pk.shade_features(scn) & F_OREN
+                else 0,
+                T.MAT_MIRROR: MIRROR_OPS, T.MAT_PLASTIC: PLASTIC_OPS,
+                T.MAT_METAL: METAL_OPS, T.MAT_TRANSPARENT: TRANSPARENT_OPS,
+                T.MAT_GLASS: GLASS_OPS}
+
+    def k1_pass_ops(scn, recs_, lens=False):
+        """The operations one K1 pass needs, from a plain pass's records
+        (Morton, spp 0): per bounce, every live lane's prim tests and
+        shading, each hit lane's material lobe, each shadow ray's prim
+        tests; the thin-lens raygen once per lane."""
+        prim = sum(k * c for k, c in zip(ROW_OPS, pk.table_counts(scn)[2:]))
+        extra = lobe_ops(scn)
+        ops = LENS_OPS * recs_[0][0][0].shape[0] if lens else 0
+        for st, hit, out in recs_:
+            live = st[5] & (hit.t < TMAX)
+            mt = scn.materials.mat_type[hit.mat_id.long()][live]
+            ops += int(st[5].sum()) * (prim + SHADE_OPS)
+            ops += sum(int((mt == m).sum()) * v for m, v in extra.items())
+            ops += int(out["want_shadow"].sum()) * prim
+        return ops
+
+    ops_x = k1_pass_ops(mix, xrecs["parity_mix"])
+    extra = lobe_ops(mix)
     tab_x = pk.kernel_tables(mix, xcam, xfilm)
     kx_bound = _bound(tab_x.numel() * 4 + size * size * (8 + 28), ops_x)
     print(f"[time] {card}, parity_mix 512x512 depth 5, {passes} passes per "
@@ -1006,6 +1025,93 @@ def main() -> int:
     kernels["k1_pass"].update(
         launches=launches_mix["k1_pass"], ms=mxk / passes,
         plain_ms=mxp / passes, bound_ms=kx_bound[0], bound_by=kx_bound[1])
+
+    # ---- 16. K1 vs plain: planes, disks, boxes, thin lens
+    import torch_prim_scenes as prim_scenes
+
+    bounce_scenes = {}
+    for name, build in prim_scenes.SCENES.items():
+        b = SceneBuilder()
+        eye, look, fov, _ = build(b)
+        bounce_scenes[name] = (b.build(device=dev),
+                               make_camera(eye, look, device=dev),
+                               Film(fov=torch.tensor(fov, device=dev),
+                                    width=size, height=size))
+    bounce_scenes["thinlens_cornell"] = (scene, prim_scenes.thinlens(cam),
+                                         film)
+    for name, (scn, c, fm) in bounce_scenes.items():
+        c_ = pk.table_counts(scn)
+        print(f"[prims] {name}: rows (sph, pl, rect, dsk, tri, box) "
+              f"{tuple(c_[2:])}, camera type {c.camera_type}, feature mask "
+              f"{pk.shade_features(scn)}, route "
+              f"{wf.production_fast_shade(scn, c, fm)}", flush=True)
+        if wf.production_fast_shade(scn, c, fm) != "bounce":
+            fails.append(f"{name} is not on K1's route")
+        for raygen in (("strat", "plain") if name == "thinlens_cornell"
+                       else ("strat",)):
+            for depth, s in ((0, 0), (2, 0), (5, 0), (5, cfg.num_samples - 1)):
+                check(f"{name} 512x512 Morton spp {s}", fm, morton,
+                      torch.full_like(morton, s), cfg.seed, depth, raygen,
+                      scn=scn, camera=c)
+
+    # ---- 17. parity_prims through the "shade" route, K2 on its hits
+    prims, pcam, pfilm0 = load_scene_file(PRIMS, device=dev)
+    pfilm = Film(fov=pfilm0.fov, width=size, height=size)
+    print(f"[prims] parity_prims: instanced kinds "
+          f"{prims.instanced.kind.tolist()}, {prims.disks.mat_id.shape[0]} "
+          f"disks, {prims.rects.mat_id.shape[0]} rects, route "
+          f"{wf.production_fast_shade(prims, pcam, pfilm)}", flush=True)
+    if wf.production_fast_shade(prims, pcam, pfilm) != "shade":
+        fails.append("parity_prims is not on the shade route")
+    check_shade_route("parity_prims", prims, pcam, pfilm)
+    o, d = generate_rays(pcam, pfilm, morton,
+                         stratified_jitter(cfg.seed, morton, zspp))
+    check_k2("parity_prims", prims, plain_records(prims, o, d, morton, zspp,
+                                                  5), zspp)
+
+    # ---- 18. parity_prims main path; the AABOX scene's main path
+    n_p, got = main_path("parity_prims", prims, pcam, pfilm, GOLDEN_PRIMS)
+    expect("parity_prims", got, k2_shade=6 * n_p)
+    n_p, got = main_path("aabox", *bounce_scenes["aabox"])
+    expect("aabox", got, k1_pass=n_p)
+
+    # ---- 19. times: bare K1 on the new scenes, parity_prims per pass
+    for name, (scn, c, fm) in bounce_scenes.items():
+        lens = c.camera_type == THINLENS
+        o, d = wf.camera_rays(c, fm, morton, cfg.seed, zspp,
+                              stratified_jitter(cfg.seed, morton, zspp))
+        ops_ = k1_pass_ops(scn, plain_records(scn, o, d, morton, zspp, 5),
+                           lens)
+        bnd = _bound(pk.kernel_tables(scn, c, fm).numel() * 4
+                     + size * size * (8 + 28), ops_)
+        timed_kernel(1000, scn, c, fm)
+        tk, rays_ = [], []
+        for rep_ in range(5):
+            ms, rays = timed_kernel(2000 + passes * rep_, scn, c, fm)
+            tk.append(ms)
+            rays_.append(rays)
+        med = statistics.median(tk)
+        nr_, ns_ = rays_[tk.index(med)]
+        ms_plain = timed_passes(pk.fused_pass_reference, 2000, scn, c, fm)[0]
+        print(f"[time] {card}, {name} 512x512 depth 5, {passes} passes per "
+              f"run, median of 5: K1 launch {med / passes:.4f} ms/pass "
+              f"({(nr_ + ns_) / (med / 1e3):.6g} rays/s; runs {_runs(tk)} "
+              f"ms); plain PyTorch {ms_plain / passes:.4f} ms/pass (timed "
+              f"once); {nr_} rays + {ns_} shadow rays per run; K1 bound "
+              f"{bnd[0]:.4f} ms/pass ({bnd[1]}, {ops_} operations per pass)",
+              flush=True)
+
+    def prims_passes(s0):
+        return [wf.render_sample(prims, pcam, pfilm, morton, cfg.seed, s0 + s,
+                                 5) for s in range(passes)][-1]
+
+    med_pr, t_pr = _median5(lambda: prims_passes(3000))
+    rays_pr = pass_rays(prims, pcam, pfilm, morton, 3000, passes, 5)
+    print(f"[time] {card}, parity_prims 512x512 depth 5, {passes} passes "
+          f"through render_sample per run, median of 5: "
+          f"{med_pr / passes:.4f} ms/pass, {rays_pr / (med_pr / 1e3):.6g} "
+          f"rays/s ({rays_pr} rays + shadow rays per run; runs "
+          f"{_runs(t_pr)} ms)", flush=True)
 
     if fails:
         for f in fails:

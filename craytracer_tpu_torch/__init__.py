@@ -6,13 +6,15 @@ port imports torch and numpy only (never jax, flax or craytracer_tpu).
 
 Layout (same module names as the JAX package where that helps):
   constants.py, core/             numeric constants, [..., 3] vector ops,
-                                  the quadratic solver
+                                  the quadratic and quartic solvers, the
+                                  slab test
   sampling/                       counter RNG, stratified jitter, warps
   scene/                          tensor dataclasses, SceneBuilder
   io/                             tokenizer, scene-file parser, OBJ, PPM, .is
-  camera.py                       pinhole camera + film, raygen
-  ops/                            brute-force sphere/rect/triangle
-                                  intersection, the ray_key sort
+  camera.py                       pinhole and thin-lens camera + film,
+                                  raygen
+  ops/                            brute-force intersection of every
+                                  primitive group, the ray_key sort
   accel/                          SAH BVH4, its plain traversal, K3/K4
   bsdf/                           Beckmann, Oren-Nayar, FresnelBlend and
                                   Fresnel helpers of the shading

@@ -7,10 +7,13 @@ port's counterpart of the repo-root render.py, for the slices' options).
 
 It runs on the CUDA card, and raises when there is none, unless asked for
 the CPU (--device cpu). On the card every pass runs through the kernels
-(K1 for scenes of at most 64 spheres, rects and flat triangles, such as
-parity_cornell and parity_mix; K3 -> K2 -> K4 per bounce for meshes); on
-the CPU the plain PyTorch versions run instead. Prints one summary line
-with each kernel's launches.
+(K1 for scenes of at most 64 rows of spheres, planes, rects, disks, flat
+triangles and boxes, such as parity_cornell and parity_mix; K3 -> K2 ->
+K4 per bounce for meshes; K2 per bounce for scenes with a torus or a
+cylinder, such as parity_prims); on the CPU the plain PyTorch versions
+run instead. `--thin-lens` swaps the scene file's pinhole for a thin-lens
+camera (make_camera's lens radius 0.2 and focal length 3.0). Prints one
+summary line with each kernel's launches.
 """
 
 from __future__ import annotations
@@ -21,7 +24,9 @@ import time
 
 def main(argv=None):
     from craytracer_tpu_torch.accel import bvh4_kernel
-    from craytracer_tpu_torch.camera import Film
+    import dataclasses
+
+    from craytracer_tpu_torch.camera import THINLENS, Film
     from craytracer_tpu_torch.integrator import pass_kernel, shade_kernel
     from craytracer_tpu_torch.integrator.render import RenderConfig, Renderer
     from craytracer_tpu_torch.io.image import write_ppm
@@ -37,6 +42,9 @@ def main(argv=None):
     ap.add_argument("--estimator", default="reference",
                     choices=("reference", "physical"))
     ap.add_argument("--spp-batch", type=int, default=1)
+    ap.add_argument("--thin-lens", action="store_true",
+                    help="render through a thin lens (depth of field): "
+                    "lens radius 0.2, in focus at 3.0, the camera's defaults")
     ap.add_argument("-o", "--output", default="out_torch.ppm")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
@@ -45,6 +53,8 @@ def main(argv=None):
     scene, camera, film = load_scene_file(args.scene, device=args.device)
     if args.size:
         film = Film(fov=film.fov, width=args.size, height=args.size)
+    if args.thin_lens:
+        camera = dataclasses.replace(camera, camera_type=THINLENS)
     r = Renderer(scene, camera, film,
                  RenderConfig(num_samples=args.spp, max_depth=args.depth,
                               seed=args.seed, spp_batch=args.spp_batch,

@@ -1,13 +1,15 @@
 """Camera + film: batched primary-ray generation (counterpart of
-craytracer_tpu/camera.py: `make_camera` :60, `film_dims` :110, pinhole
-`generate_rays` :118).
+craytracer_tpu/camera.py: `make_camera` :60, `film_dims` :110,
+`generate_rays` :118 with its pinhole :127-144 and thin-lens :146-169
+branches).
 
 Conventions are the JAX package's (and the reference's): lookAt basis
 z = -normalize(look - pos), x = normalize(up x z), y = z x x; film
 length 2 sin(fov/2) focal_dist; image-plane x = -L/2 + px (col + jx),
-y = H/2 - px (row + jy); the pinhole ray starts on the view plane and
-points away from the focal point. Thin-lens raygen waits for K1's next
-gate items (ROADMAP queue 2).
+y = H/2 - px (row + jy). The pinhole ray starts on the view plane and
+points away from the focal point; the thin-lens ray starts on the lens
+disk (polar warp of the lens samples, scaled by lens_radius) and aims at
+the focal-plane point (calcRayThinLens, camera.cpp:94-127).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from craytracer_tpu_torch.core import math as vm
+from craytracer_tpu_torch.sampling.mappings import map_to_disk_polar
 from craytracer_tpu_torch.scene.types import to_device
 
 PINHOLE = 0
@@ -85,13 +88,14 @@ def film_dims(film: Film, camera: Camera):
     return frame_length, frame_height, pixel_length
 
 
-def generate_rays(camera: Camera, film: Film, pixel_ids, jitter):
-    """Pinhole primary rays for `pixel_ids` ([N] int) with film jitter
-    ([N, 2] in [0, 1)). Returns (origin[N,3], direction[N,3])."""
-    if camera.camera_type != PINHOLE:
-        raise NotImplementedError(
-            "thin-lens raygen is not ported to craytracer_tpu_torch yet "
-            "(ROADMAP queue 2, K1/K2 remaining gate features)")
+def generate_rays(camera: Camera, film: Film, pixel_ids, jitter,
+                  lens_u=None):
+    """Primary rays for `pixel_ids` ([N] int) with film jitter ([N, 2] in
+    [0, 1)); a thin-lens camera also takes the lens samples `lens_u`
+    ([N, 2]). Returns (origin[N,3], direction[N,3])."""
+    if camera.camera_type not in (PINHOLE, THINLENS):
+        raise ValueError(f"camera_type {camera.camera_type} is neither "
+                         "PINHOLE nor THINLENS")
     frame_length, frame_height, pixel_length = film_dims(film, camera)
     pixel_ids = torch.as_tensor(pixel_ids)
     col = (pixel_ids % film.width).to(torch.float32)
@@ -99,10 +103,26 @@ def generate_rays(camera: Camera, film: Film, pixel_ids, jitter):
                     ).to(torch.float32)
     ix = -frame_length / 2.0 + pixel_length * (col + jitter[..., 0])
     iy = frame_height / 2.0 - pixel_length * (row + jitter[..., 1])
-    fd = -camera.focal_dist.expand(ix.shape)
-    direction = vm.normalize(ix[..., None] * camera.x_axis
-                             + iy[..., None] * camera.y_axis
-                             + fd[..., None] * camera.z_axis)
-    origin = (ix[..., None] * camera.x_axis + iy[..., None] * camera.y_axis
-              + camera.position)
+    if camera.camera_type == PINHOLE:
+        fd = -camera.focal_dist.expand(ix.shape)
+        direction = vm.normalize(ix[..., None] * camera.x_axis
+                                 + iy[..., None] * camera.y_axis
+                                 + fd[..., None] * camera.z_axis)
+        origin = (ix[..., None] * camera.x_axis
+                  + iy[..., None] * camera.y_axis + camera.position)
+        return origin, direction
+    if lens_u is None:
+        raise ValueError("a thin-lens camera needs the lens samples lens_u")
+    disk = map_to_disk_polar(lens_u) * camera.lens_radius
+    scale = camera.focal_length / camera.focal_dist
+    fp = torch.stack([ix * scale, iy * scale,
+                      -camera.focal_length.expand(ix.shape)], dim=-1)
+    o_cam = torch.stack([disk[..., 0], disk[..., 1],
+                         camera.focal_dist.expand(ix.shape)], dim=-1)
+    d_cam = vm.normalize(fp - o_cam)
+    direction = (d_cam[..., 0:1] * camera.x_axis
+                 + d_cam[..., 1:2] * camera.y_axis
+                 + d_cam[..., 2:3] * camera.z_axis)
+    origin = (o_cam[..., 0:1] * camera.x_axis + o_cam[..., 1:2] * camera.y_axis
+              + o_cam[..., 2:3] * camera.z_axis + camera.position)
     return origin, direction

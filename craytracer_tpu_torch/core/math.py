@@ -5,8 +5,8 @@ port's torch code uses (the shading math lives in
 integrator/shade_kernel.py, formula for formula with the kernels). Each
 function keeps the JAX expression tree (same operand order, same
 epsilons) so the two packages round alike: `dot` :16, `cross` :30,
-`normalize` :55, `_safe` :199, and the host-side `euler_to_mat3` :246
-for mesh placement.
+`normalize` :55, `orthonormal_basis` :86, `_safe` :199, and the
+host-side `euler_to_mat3` :246 for mesh and instance placement.
 """
 
 from __future__ import annotations
@@ -33,6 +33,19 @@ def normalize(a, eps: float = 1e-20):
     inv = torch.where(n2 > eps, 1.0 / torch.sqrt(torch.clamp(n2, min=eps)),
                       torch.zeros_like(n2))
     return a * inv
+
+
+def orthonormal_basis(n):
+    """The branchless (t, b, n) frame of unit normals (Duff et al.), the
+    tangent that plane, disk and instanced fills give as dpdu."""
+    s = torch.where(n[..., 2:3] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + n[..., 2:3])
+    b = n[..., 0:1] * n[..., 1:2] * a
+    t = torch.stack([1.0 + s[..., 0] * n[..., 0] * n[..., 0] * a[..., 0],
+                     s[..., 0] * b[..., 0], -s[..., 0] * n[..., 0]], dim=-1)
+    bt = torch.stack([b[..., 0], s[..., 0] + n[..., 1] * n[..., 1] * a[..., 0],
+                      -n[..., 1]], dim=-1)
+    return t, bt, n
 
 
 def _safe(x, eps: float = 1e-12):

@@ -7,16 +7,20 @@ cover).
 `production_fast_shade` returns "bounce" (the whole pass is one K1
 launch, integrator/pass_kernel.py) or "shade" (per bounce: closest hit,
 through K3 for a bvh4 scene, then K2 shading, then the shadow any hit,
-through K4 for a bvh4 scene; integrator/wavefront.py). K1 and K2 both
-cover spheres, rects and triangles, all seven material types (MATTE
-with or without Oren-Nayar, MIRROR, PLASTIC, METAL, GLASS, TRANSPARENT,
-EMISSIVE; the microfacet lobes isotropic Beckmann), rect and sphere area
-lights and a constant or black env light. A scene leaves K1's gate for
-"shade" by its geometry only: a bvh4 accelerator, more than 64
-primitives, smooth triangles, a sphere clip outside the domain where the
-kernel's cosine-space window equals the atan2/acos one
-(pallas_shade.py:1541-1553), or depth 31 and over. Planes, disks,
-instanced shapes, thin-lens, textures, other lights and other
+through K4 for a bvh4 scene; integrator/wavefront.py). Together they
+cover spheres, planes, rects, disks, triangles and the instanced boxes,
+cylinders and tori, all seven material types (MATTE with or without
+Oren-Nayar, MIRROR, PLASTIC, METAL, GLASS, TRANSPARENT, EMISSIVE; the
+microfacet lobes isotropic Beckmann), rect and sphere area lights, a
+constant or black env light, and pinhole and thin-lens cameras. A scene
+leaves K1's gate for "shade" by its geometry only: an instanced row that
+is not a box (a torus, an open cylinder, a solid cylinder's caps: no
+kernel intersects them, pallas_shade.py:1535-1540), more than 64 rows of
+spheres, planes, rects, disks, triangles and boxes together, a bvh4
+accelerator, smooth triangles, a sphere clip outside the domain where
+the kernel's cosine-space window equals the atan2/acos one
+(pallas_shade.py:1541-1553), or depth 31 and over. Textures, disk,
+point, directional and mesh lights, other camera types and other
 accelerators raise NotImplementedError naming their ROADMAP item. The
 plain versions ask the same gate, so they cover the same scenes. The
 gate reads only static fields and table shapes, so asking costs no
@@ -39,7 +43,6 @@ MAX_MATS = 64
 MAX_DEPTH = 30  # K1's alive-per-bounce bitmask is one 32-bit word
 ESTIMATORS = ("reference", "physical")
 
-_KERNEL_TODO = "ROADMAP queue 2, K1/K2 remaining gate features"
 _TABLES_TODO = "ROADMAP queue 2, K1/K2 table limits"
 _XLA_TODO = "ROADMAP queue 2, scenes the JAX package renders on XLA only"
 
@@ -100,22 +103,23 @@ def shading_refusal(scene: T.Scene):
                 f"({_XLA_TODO})")
     if scene.materials.mat_type.shape[0] > MAX_MATS:
         return f"more than {MAX_MATS} materials ({_TABLES_TODO})"
-    for name in ("planes", "disks", "instanced"):
-        if getattr(scene, name).mat_id.shape[0]:
-            return f"{name} ({_KERNEL_TODO})"
     if scene.accel not in ("none", "bvh4"):
         return f"accel={scene.accel!r} (ROADMAP queue 1, slice I)"
     return None
 
 
+_GEOMETRY = ("spheres", "planes", "rects", "disks", "triangles",
+             "instanced")
+
+
 def fast_shade_mode(scene: T.Scene, max_depth: int = 5) -> str:
     """"bounce" when K1 takes the whole pass, "shade" when the scene
-    leaves K1's gate by geometry only (fast_shade_mode :1521-1563)."""
-    n_prims = (scene.spheres.mat_id.shape[0] + scene.rects.mat_id.shape[0]
-               + scene.triangles.mat_id.shape[0])
-    if (scene.tri_bvh is not None or n_prims > MAX_PRIMS
-            or scene.smooth_triangles or not scene.sphere_clips_in_domain
-            or max_depth > MAX_DEPTH):
+    leaves K1's gate by geometry only (fast_shade_mode :1521-1563): the
+    box table joins K1's rows only when every instanced row is a box."""
+    n_rows = sum(getattr(scene, g).mat_id.shape[0] for g in _GEOMETRY)
+    if (not scene.instanced_aabox_only or scene.tri_bvh is not None
+            or n_rows > MAX_PRIMS or scene.smooth_triangles
+            or not scene.sphere_clips_in_domain or max_depth > MAX_DEPTH):
         return "shade"
     return "bounce"
 
@@ -127,9 +131,9 @@ def production_fast_shade(scene: T.Scene, camera=None, film=None,
     cover the scene. The port has no other route, so nothing is quietly
     traced another way."""
     check_estimator(estimator)
-    if camera is not None and camera.camera_type != PINHOLE:
-        kind = "thin-lens" if camera.camera_type == THINLENS else "unknown"
-        _refuse(f"{kind} camera ({_KERNEL_TODO})")
+    if camera is not None and camera.camera_type not in (PINHOLE, THINLENS):
+        _refuse(f"camera type {camera.camera_type}, neither PINHOLE nor "
+                "THINLENS (ROADMAP queue 1, item 3)")
     reason = shading_refusal(scene)
     if reason is not None:
         _refuse(reason)

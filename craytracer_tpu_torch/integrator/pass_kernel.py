@@ -3,10 +3,11 @@ craytracer_tpu/integrator/pallas_shade.py: `_pass_kernel` :781 with
 `_camera_raygen` :696, `_brute_hit` :533, `_brute_closest` :471,
 `_brute_any` :509, `_sphere_t` :363 and `_shade_core` :874, launched by
 `fused_pass` :1667). The gate that decides which scenes K1 takes is
-integrator/gate.py ("bounce" scenes): up to 64 spheres (clip windows in
-the kernel's domain), rects and flat triangles; all seven material types
-with isotropic Beckmann lobes; rect and sphere area lights; a constant or
-black env light; a pinhole camera; depth < 31.
+integrator/gate.py ("bounce" scenes): up to 64 rows of spheres (clip
+windows in the kernel's domain), planes, rects, disks, flat triangles
+and instanced boxes (every instanced row a box); all seven material
+types with isotropic Beckmann lobes; rect and sphere area lights; a
+constant or black env light; a pinhole or thin-lens camera; depth < 31.
 
 One launch runs a whole spp-pass: raygen, then for every bounce the
 closest hit over the prim table, shading, NEE with a shadow any-hit,
@@ -30,7 +31,7 @@ import dataclasses
 
 import torch
 
-from craytracer_tpu_torch.camera import film_dims, generate_rays
+from craytracer_tpu_torch.camera import THINLENS, film_dims
 from craytracer_tpu_torch.cuda_build import CudaLibrary, LaunchCount
 from craytracer_tpu_torch.integrator.gate import (MAX_DEPTH, MAX_LIGHTS,
                                                   MAX_MATS, MAX_PRIMS,
@@ -38,7 +39,7 @@ from craytracer_tpu_torch.integrator.gate import (MAX_DEPTH, MAX_LIGHTS,
                                                   shade_features)
 from craytracer_tpu_torch.integrator.shade_kernel import (RR_START,
                                                           material_light_rows)
-from craytracer_tpu_torch.integrator.wavefront import _trace
+from craytracer_tpu_torch.integrator.wavefront import _trace, camera_rays
 from craytracer_tpu_torch.sampling.multijitter import (CAMERA_BOUNCE,
                                                        stratified_jitter)
 from craytracer_tpu_torch.sampling.rng import MASK32, uniforms
@@ -57,10 +58,10 @@ def _k1_gate(scene, camera, film, max_depth):
     if production_fast_shade(scene, camera, film,
                              max_depth=max_depth) != "bounce":
         raise NotImplementedError(
-            "outside K1's gate (a bvh4 accel, more than 64 prims, smooth "
-            "triangles, a sphere clip outside the kernel's domain or depth "
-            "> 30): render_sample traces it per bounce (fast_shade='shade'); "
-            "ROADMAP queue 2, K1")
+            "outside K1's gate (an instanced row that is not a box, a bvh4 "
+            "accel, more than 64 rows, smooth triangles, a sphere clip "
+            "outside the kernel's domain or depth > 30): render_sample "
+            "traces it per bounce (fast_shade='shade'); ROADMAP queue 2, K1")
 
 
 # ---------------------------------------------------------------------------
@@ -71,9 +72,10 @@ def _k1_gate(scene, camera, film, max_depth):
 def fused_pass_reference(scene: T.Scene, camera, film, pixel_ids, spp_index,
                          seed: int, max_depth: int, raygen: str = "strat"):
     """Plain PyTorch version of K1: the ported raygen (stratified_jitter
-    or the plain CAMERA_BOUNCE jitter, then generate_rays) followed by the
-    ported trace_paths in torch ops. Same contract as `fused_pass`; a
-    scene outside the K1 gate raises NotImplementedError."""
+    or the plain CAMERA_BOUNCE jitter, a thin-lens camera's lens samples,
+    then generate_rays) followed by the ported trace_paths in torch ops.
+    Same contract as `fused_pass`; a scene outside the K1 gate raises
+    NotImplementedError."""
     _k1_gate(scene, camera, film, max_depth)
     return _pass_reference(scene, camera, film, pixel_ids, spp_index, seed,
                            max_depth, raygen)
@@ -88,7 +90,7 @@ def _pass_reference(scene, camera, film, pixel_ids, spp_index, seed,
         jitter = uniforms(seed, pixel_ids, spp_index, CAMERA_BOUNCE, 2, 0)
     else:
         raise ValueError(f"raygen must be 'strat' or 'plain', not {raygen!r}")
-    o, d = generate_rays(camera, film, pixel_ids, jitter)
+    o, d = camera_rays(camera, film, pixel_ids, seed, spp_index, jitter)
     return _trace(scene, o, d, seed, pixel_ids, spp_index, max_depth,
                   kernels=False)
 
@@ -99,9 +101,9 @@ def _pass_reference(scene, camera, film, pixel_ids, spp_index, seed,
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.k1_pass_launch.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, ci, ci,
-                                   ctypes.c_uint, ci, ci, ci, ci, ci, vp, vp,
-                                   vp]
+    lib.k1_pass_launch.argtypes = [vp, ci, vp, vp, ci, ctypes.c_int * 8,
+                                   ctypes.c_uint, ci, ci, ci, ci, ci, ci, vp,
+                                   vp, vp]
     lib.k1_pass_launch.restype = ci
 
 
@@ -113,16 +115,19 @@ class PassKernel(LaunchCount):
     """K1's launcher on PyTorch's current stream. `launches` counts the
     launches made through `launch`."""
 
-    def launch(self, tables, n_mats, n_lights, n_sph, n_rects, n_tris, pix,
-               spp, seed: int, max_depth: int, strat: bool, width: int,
-               full: bool):
-        """One K1 launch over len(pix) lanes with the full shading core
-        (every lobe) if `full`, else the matte-only one. Returns (L [N,3]
-        f32, counters [4,N] i32: good, rays, shadow_rays, alive bitmask)."""
+    def launch(self, tables, counts, pix, spp, seed: int, max_depth: int,
+               strat: bool, width: int, full: bool, thinlens: bool = False):
+        """One K1 launch over len(pix) lanes on `tables` with the row
+        `counts` of `table_counts`, with the full shading core (every
+        lobe) if `full`, else the matte-only one, and the thin-lens raygen
+        if `thinlens`, else the pinhole. Returns (L [N,3] f32, counters
+        [4,N] i32: good, rays, shadow_rays, alive bitmask)."""
         n = pix.shape[0]
         dev = pix.device
-        n_prims = n_sph + n_rects + n_tris
-        n_floats = _MATS + 19 * (n_mats + n_lights) + 16 * n_prims
+        n_mats, n_lights, *n_rows = counts
+        n_prims = sum(n_rows)
+        n_floats = (_MATS + 19 * (n_mats + n_lights) + 16 * n_prims
+                    + 9 * n_rows[-1])
         if (dev.type != "cuda" or tables.device != dev or spp.device != dev
                 or tables.dtype != torch.float32 or pix.dtype != torch.int32
                 or spp.dtype != torch.int32 or pix.dim() != 1
@@ -140,8 +145,8 @@ class PassKernel(LaunchCount):
         g = torch.empty((4, n), dtype=torch.int32, device=dev)
         err = lib.k1_pass_launch(
             tables.data_ptr(), tables.numel(), pix.data_ptr(), spp.data_ptr(),
-            n, n_mats, n_lights, n_sph, n_rects, n_tris, int(seed) & MASK32,
-            max_depth, RR_START, int(strat), width, int(full),
+            n, (ctypes.c_int * 8)(*counts), int(seed) & MASK32, max_depth,
+            RR_START, int(strat), int(thinlens), width, int(full),
             L.data_ptr(), g.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         LIBRARY.check(err, "K1")
@@ -153,12 +158,20 @@ KERNEL = PassKernel()
 
 
 def kernel_tables(scene: T.Scene, camera, film):
-    """Pack camera, env radiance, material, light and prim rows into one
-    f32 tensor on the scene's device (layouts as _meta_operands :1613 and
-    fused_pass :1707-1750; prims in intersect_scene group order: spheres,
-    rects, triangles). A sphere row holds the center, the radius and
-    cos(phi), cos(min_theta), cos(max_theta), computed in f64 and rounded
-    once."""
+    """Pack camera, env radiance, material, light, prim and box rows into
+    one f32 tensor on the scene's device (layouts as _meta_operands :1613
+    and fused_pass :1694-1781). The camera row ends with focal_length and
+    lens_radius for the thin-lens raygen. Prim rows (16 columns) come in
+    intersect_scene group order: spheres (center, radius, then cos(phi),
+    cos(min_theta), cos(max_theta), computed in f64 and rounded once),
+    planes (point, normal), rects (point, width, height, normal), disks
+    (center, radius in column 6, normal) and triangles (v0, e1, e2, face
+    normal, double_sided in column 13), each with its mat_id in column
+    12. Planes and disks leave columns 3-5 zero: K1 takes their dpdu,
+    and a box's, as the Duff tangent of the faced normal, as their plain
+    fills do.
+    Box rows (25 columns) follow: inv_transform [3, 4] and normal_mat
+    [3, 3] row-major, the half extents, mat_id."""
     dev = scene.device
     f32 = torch.float32
     fl, fh, pxl = film_dims(film, camera)
@@ -167,35 +180,54 @@ def kernel_tables(scene: T.Scene, camera, film):
                      torch.stack([camera.focal_dist, fl, fh, pxl,
                                   camera.focal_length, camera.lens_radius])])
     env_li, mt, lt = material_light_rows(scene)
+
+    def z(rows, cols=1):
+        return torch.zeros((rows, cols), dtype=f32, device=dev)
+
+    def mat(g):
+        return g.mat_id[:, None].to(f32)
+
     s = scene.spheres
-    n_sph = s.mat_id.shape[0]
+    n = s.mat_id.shape[0]
     clip = torch.stack([s.phi, s.min_theta, s.max_theta], dim=-1)
-    zs = torch.zeros((n_sph, 1), dtype=f32, device=dev)
     pt_sph = torch.cat([s.center, s.radius[:, None],
-                        torch.cos(clip.double()).to(f32), zs, zs,
-                        torch.zeros((n_sph, 3), dtype=f32, device=dev),
-                        s.mat_id[:, None].to(f32), zs, zs, zs], dim=-1)
+                        torch.cos(clip.double()).to(f32), z(n, 5), mat(s),
+                        z(n, 3)], dim=-1)
+    p = scene.planes
+    n = p.mat_id.shape[0]
+    pt_pl = torch.cat([p.point, z(n, 6), p.normal, mat(p), z(n, 3)], dim=-1)
     r = scene.rects
-    zr = torch.zeros((r.mat_id.shape[0], 1), dtype=f32, device=dev)
-    pt_rect = torch.cat([r.point, r.width, r.height, r.normal,
-                         r.mat_id[:, None].to(f32), zr, zr, zr], dim=-1)
+    pt_rect = torch.cat([r.point, r.width, r.height, r.normal, mat(r),
+                         z(r.mat_id.shape[0], 3)], dim=-1)
+    k = scene.disks
+    n = k.mat_id.shape[0]
+    pt_dsk = torch.cat([k.center, z(n, 3), k.radius[:, None], z(n, 2),
+                        k.normal, mat(k), z(n, 3)], dim=-1)
     tr = scene.triangles
-    zt = torch.zeros((tr.mat_id.shape[0], 1), dtype=f32, device=dev)
+    n = tr.mat_id.shape[0]
     pt_tri = torch.cat([tr.v0, tr.v1 - tr.v0, tr.v2 - tr.v0, tr.face_normal,
-                        tr.mat_id[:, None].to(f32),
-                        tr.double_sided[:, None].to(f32), zt, zt], dim=-1)
+                        mat(tr), tr.double_sided[:, None].to(f32), z(n, 2)],
+                       dim=-1)
+    inst = scene.instanced
+    n = inst.mat_id.shape[0]
+    bt = torch.cat([inst.inv_transform.reshape(n, 12),
+                    inst.normal_mat.reshape(n, 9),
+                    inst.params[:, 0:3] * 0.5, mat(inst)], dim=-1)
     pad = torch.zeros(_MATS - _ENV - 3, dtype=f32, device=dev)
     return torch.cat([cam.to(f32), env_li, pad, mt.reshape(-1),
-                      lt.reshape(-1), pt_sph.reshape(-1), pt_rect.reshape(-1),
-                      pt_tri.reshape(-1)]).contiguous()
+                      lt.reshape(-1)] + [t.reshape(-1) for t in (
+                          pt_sph, pt_pl, pt_rect, pt_dsk, pt_tri, bt)]
+                     ).contiguous()
 
 
 def table_counts(scene: T.Scene):
-    """(n_mats, n_lights, n_sph, n_rects, n_tris): the row counts of
-    `kernel_tables`, as K1's launch takes them."""
+    """(n_mats, n_lights, n_sph, n_pl, n_rects, n_dsk, n_tris, n_box): the
+    row counts of `kernel_tables`, as K1's launch takes them."""
     return (scene.materials.mat_type.shape[0],
-            scene.lights.light_type.shape[0], scene.spheres.mat_id.shape[0],
-            scene.rects.mat_id.shape[0], scene.triangles.mat_id.shape[0])
+            scene.lights.light_type.shape[0],
+            *(getattr(scene, g).mat_id.shape[0] for g in (
+                "spheres", "planes", "rects", "disks", "triangles",
+                "instanced")))
 
 
 def _leaves(obj):
@@ -250,9 +282,9 @@ def _admitted_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
         spp = torch.full((n,), int(spp_index), dtype=torch.int32,
                          device=pix.device)
     L, g = KERNEL.launch(
-        kernel_tables(scene, camera, film), *table_counts(scene), pix, spp,
+        kernel_tables(scene, camera, film), table_counts(scene), pix, spp,
         seed, max_depth, raygen == "strat", int(film.width),
-        shade_features(scene) != 0)
+        shade_features(scene) != 0, camera.camera_type == THINLENS)
     bits = torch.arange(max_depth + 1, dtype=torch.int32, device=pix.device)
     bounce_live = ((g[3][:, None] >> bits) & 1).sum(dim=0)
     metrics = {"rays": g[1].sum(), "shadow_rays": g[2].sum(),

@@ -5,8 +5,10 @@ substitution :241-255).
 
 Each pass traces one sample per pixel for the whole image through
 `render_sample` (one K1 launch on the card for a scene of at most 64
-spheres, rects and flat triangles; a K3, K2 and K4 launch per bounce for
-a mesh scene) and accumulates into an f32 buffer on the scene's device.
+rows of spheres, planes, rects, disks, flat triangles and boxes; a K3,
+K2 and K4 launch per bounce for a mesh scene; a K2 launch per bounce for
+a scene with a torus or a cylinder) and accumulates into an f32 buffer
+on the scene's device.
 With `spp_batch` B > 1 one pass carries B samples per pixel (lanes = B *
 pixels) with the same launches.
 Pixels go out in Morton order, a pure reorder (the RNG keys off pixel

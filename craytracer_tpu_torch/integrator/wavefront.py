@@ -20,23 +20,34 @@ those wait for ROADMAP slices F and G.
 `render_sample` is the production entry: it asks the gate
 (integrator/gate.py) once per pass and runs the whole pass through K1
 (integrator/pass_kernel.py) for "bounce" scenes, or raygen in torch ops
-(stratified_jitter + generate_rays, wavefront.py:624-633) and the
-"shade" route for the rest.
+(stratified_jitter, the thin-lens camera's lens samples and
+generate_rays, wavefront.py:624-633) and the "shade" route for the
+rest.
 """
 
 from __future__ import annotations
 
 import torch
 
-from craytracer_tpu_torch.camera import generate_rays
+from craytracer_tpu_torch.camera import THINLENS, generate_rays
 from craytracer_tpu_torch.constants import K_EPSILON
 from craytracer_tpu_torch.integrator.gate import production_fast_shade
 from craytracer_tpu_torch.integrator.shade_kernel import (
     fused_shade, fused_shade_reference)
 from craytracer_tpu_torch.ops.intersect import (intersect_scene,
                                                 shadow_distance)
-from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
+from craytracer_tpu_torch.sampling.multijitter import (CAMERA_BOUNCE,
+                                                       stratified_jitter)
+from craytracer_tpu_torch.sampling.rng import uniforms
 from craytracer_tpu_torch.scene import types as T
+
+
+def camera_rays(camera, film, pixel_ids, seed: int, spp_index, jitter):
+    """generate_rays with, for a thin-lens camera, the lens samples the
+    JAX render_sample takes: CAMERA_BOUNCE dims 2-3 (wavefront.py:632)."""
+    lens_u = (uniforms(seed, pixel_ids, spp_index, CAMERA_BOUNCE, 2, 2)
+              if camera.camera_type == THINLENS else None)
+    return generate_rays(camera, film, pixel_ids, jitter, lens_u)
 
 
 def _bounce_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
@@ -132,8 +143,8 @@ def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
                                     raygen="strat")
     else:
         pixel_ids = torch.as_tensor(pixel_ids)
-        o, d = generate_rays(camera, film, pixel_ids,
-                             stratified_jitter(seed, pixel_ids, spp_index))
+        o, d = camera_rays(camera, film, pixel_ids, seed, spp_index,
+                           stratified_jitter(seed, pixel_ids, spp_index))
         L, good, _ = _trace(scene, o, d, seed, pixel_ids, spp_index,
                             max_depth, kernels=o.device.type == "cuda")
     if estimator == "physical":

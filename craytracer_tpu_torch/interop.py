@@ -79,6 +79,8 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
         m["mat_type"], m["alphax"], m["alphay"], m["distrib"])
     kw["sphere_clips_in_domain"] = T.sphere_clips_in_domain(
         s["phi"], s["min_theta"], s["max_theta"])
+    kw["instanced_aabox_only"] = T.instanced_aabox_only(
+        leaves["instanced"]["kind"])
     return T.Scene(**kw)
 
 

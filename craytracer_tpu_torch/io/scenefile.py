@@ -8,13 +8,15 @@ material keys, C-`atof` floats, film/camera header defaults; every
 material type (MATTE, MIRROR, TRANSPARENT, EMISSIVE, PLASTIC, GLASS,
 METAL with its TYPE preset, and the legacy REFLECTIVE as plastic);
 OBJECT SPHERE (with the PHI / MIN_THETA / MAX_THETA clip defaults),
-RECTANGLE, TRIANGLE and MESH (FILE/FILE_NAME, SMOOTH, SCALING, LOCATION,
+PLANE, RECTANGLE, TRIANGLE, DISK, the instanced BOX, OPENCYLINDER (with
+its NORMAL_TYPE), SOLIDCYLINDER and TORUS (LOCATION, SCALE,
+ORIENTATION), and MESH (FILE/FILE_NAME, SMOOTH, SCALING, LOCATION,
 ORIENTATION; the file is looked up beside the scene file, then in the
 working directory, and a mesh file that cannot be found is skipped, as
-the JAX parser skips it, :323-324). Planes, disks, instanced shapes,
-textures and point/directional lights raise NotImplementedError naming
-the ROADMAP item that will port them; a shape the parser does not know
-is skipped, as in the JAX parser.
+the JAX parser skips it, :323-324). Textures and point/directional
+lights raise NotImplementedError naming the ROADMAP item that will port
+them; a shape the parser does not know is skipped, as in the JAX
+parser.
 
 Returns (Scene, Camera, Film) on the CUDA card unless the caller asks
 for another device.
@@ -31,6 +33,7 @@ from craytracer_tpu_torch.camera import Film, make_camera
 from craytracer_tpu_torch.constants import PI, PRESET_COLORS
 from craytracer_tpu_torch.io.objloader import compute_vertex_normals, load_obj
 from craytracer_tpu_torch.io.tokenizer import TokenStream, atof, tokenize
+from craytracer_tpu_torch.scene import types as T
 from craytracer_tpu_torch.scene.build import SceneBuilder, not_ported
 from craytracer_tpu_torch.scene.types import resolve_device
 
@@ -55,10 +58,8 @@ _KNOWN_KEYS = {
     "SWEPT_RADIUS", "TUBE_RADIUS", "FILE", "FILE_NAME", "SMOOTH", "SCALING",
     "DIST_ATTEN", "DIRECTION",
 }
-# object keywords -> the feature name NotImplementedError cites
-_OBJ_FEATURE = {"PLANE": "plane", "DISK": "disk",
-                "BOX": "box", "OPENCYLINDER": "cylinder",
-                "SOLIDCYLINDER": "cylinder", "TORUS": "torus"}
+_NORMAL_TYPES = {"OPEN": T.NORMAL_OPEN, "CONVEX": T.NORMAL_CONVEX,
+                 "CONCAVE": T.NORMAL_CONCAVE}
 
 
 def _is_block_start(ts: TokenStream) -> bool:
@@ -186,11 +187,17 @@ def _parse_mesh(builder: SceneBuilder, kv: dict, mat: str, search_dirs):
                          orientation=_vec3_from(kv.get("ORIENTATION")))
 
 
+def _placement(kv: dict):
+    """An instanced object's LOCATION, SCALE and ORIENTATION."""
+    return dict(location=_vec3_from(kv.get("LOCATION")),
+                scale=_vec3_from(kv.get("SCALE"), (1, 1, 1)),
+                orientation=_vec3_from(kv.get("ORIENTATION")))
+
+
 def _parse_object(builder: SceneBuilder, obj_type: str, kv: dict,
                   search_dirs=()):
+    """One OBJECT block (scenefile.py:210-258)."""
     mat = (kv.get("MATERIAL") or ["__default__"])[0]
-    if obj_type in _OBJ_FEATURE:
-        raise not_ported(_OBJ_FEATURE[obj_type])
     if obj_type == "MESH":
         _parse_mesh(builder, kv, mat, search_dirs)
     elif obj_type == "SPHERE":
@@ -207,6 +214,27 @@ def _parse_object(builder: SceneBuilder, obj_type: str, kv: dict,
         builder.add_triangle(_vec3_from(kv.get("V0")),
                              _vec3_from(kv.get("V1")),
                              _vec3_from(kv.get("V2")), mat)
+    elif obj_type == "PLANE":
+        builder.add_plane(_vec3_from(kv.get("POINT")),
+                          _vec3_from(kv.get("NORMAL"), (0, 1, 0)), mat)
+    elif obj_type == "DISK":
+        builder.add_disk(_vec3_from(kv.get("CENTER")),
+                         _vec3_from(kv.get("NORMAL"), (0, 1, 0)),
+                         _f(kv.get("RADIUS"), 1.0), mat)
+    elif obj_type == "BOX":
+        builder.add_box(_f(kv.get("LENGTH"), 1.0), _f(kv.get("HEIGHT"), 1.0),
+                        _f(kv.get("WIDTH"), 1.0), mat, **_placement(kv))
+    elif obj_type == "OPENCYLINDER":
+        ntype = _NORMAL_TYPES.get((kv.get("NORMAL_TYPE") or ["OPEN"])[0],
+                                  T.NORMAL_OPEN)
+        builder.add_open_cylinder(_f(kv.get("PHI"), PI), mat,
+                                  normal_type=ntype, **_placement(kv))
+    elif obj_type == "SOLIDCYLINDER":
+        builder.add_solid_cylinder(mat, **_placement(kv))
+    elif obj_type == "TORUS":
+        builder.add_torus(_f(kv.get("SWEPT_RADIUS"), 1.0),
+                          _f(kv.get("TUBE_RADIUS"), 0.25),
+                          _f(kv.get("PHI"), PI), mat, **_placement(kv))
 
 
 def load_scene_file(path: str, accel: str = "auto", device=None):

@@ -1,21 +1,26 @@
 """Host-side scene builder: Python API -> scene tensors (counterpart of
 craytracer_tpu/scene/build.py; `beckmann_roughness_to_alpha` :31,
-`SceneBuilder` :84, the material adders :112-159, `add_sphere` :181,
-`add_triangle` :205, `add_triangles_array` :222, `add_mesh` :254,
+`_affine_inverse_rows` :65, `SceneBuilder` :84, the material adders
+:112-159, `add_sphere` :181, `add_plane` :185, `add_rect` :191,
+`add_disk` :199, `add_triangle` :205, `add_triangles_array` :222,
+`add_mesh` :254, the instanced adders :290-323, `_scene_bounds` :355,
 `build` :405, `_build_lights` :645).
 
 The accumulation runs in numpy with the JAX builder's exact arithmetic
 (same dtypes, same order), so both packages emit bit-identical tables:
 all seven material types (MATTE with its Oren-Nayar A/B, MIRROR,
 TRANSPARENT, EMISSIVE, PLASTIC, GLASS, METAL with its eta/k presets and
-the microfacet alphas), spheres with their phi/theta clip window, rects,
-triangles, the area lights derived from emissive rects and spheres, the
-reference's product-of-components light power, the normalized power CDF,
-the env world radius, mesh triangles baked to world space (flat or
-smooth) and the SAH fat-row BVH4 (accel/bvh4.py). Planes, disks,
-instanced shapes, textures, point/directional/mesh lights and the other
-accelerators (the sphere BVH4 included) raise NotImplementedError naming
-the ROADMAP item that will port them.
+the microfacet alphas), spheres with their phi/theta clip window, planes,
+rects, disks, triangles, the instanced boxes, open and solid cylinders
+(a tube and two INST_DISK caps) and tori behind their world -> object
+affines, the area lights derived from emissive rects, spheres and disks,
+the reference's product-of-components light power, the normalized power
+CDF, the env world radius (instanced shapes bounded through their
+affines), mesh triangles baked to world space (flat or smooth) and the
+SAH fat-row BVH4 (accel/bvh4.py). Textures, point/directional/mesh
+lights and the other accelerators (the sphere BVH4 included) raise
+NotImplementedError naming the ROADMAP item that will port them; disk
+lights are built and refused by the gate (integrator/gate.py).
 """
 
 from __future__ import annotations
@@ -31,10 +36,7 @@ from craytracer_tpu_torch.constants import METAL_PRESETS, PI
 from craytracer_tpu_torch.core.math import euler_to_mat3
 from craytracer_tpu_torch.scene import types as T
 
-_TODO_K1 = "ROADMAP queue 2, K1/K2 remaining gate features"
 _TODO = {
-    "plane": _TODO_K1, "disk": _TODO_K1, "box": _TODO_K1,
-    "cylinder": "ROADMAP queue 1, slice D", "torus": "ROADMAP queue 1, slice D",
     "texture": "ROADMAP queue 1, slice E",
     "point/directional light": "ROADMAP queue 1, slice E",
     "mesh light": "ROADMAP queue 1, slice E",
@@ -48,7 +50,7 @@ _TODO = {
 def not_ported(feature: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to craytracer_tpu_torch yet "
-        f"({_TODO.get(feature, _TODO_K1)})")
+        f"({_TODO[feature]})")
 
 
 def beckmann_roughness_to_alpha(roughness: float) -> float:
@@ -62,6 +64,20 @@ def beckmann_roughness_to_alpha(roughness: float) -> float:
         + 0.0171201 * x**3
         + 0.000640711 * x**4
     )
+
+
+def _affine_inverse_rows(location, scale, orientation):
+    """The world -> object affine S^-1 R^-1 T^-1 [3, 4] and the normal
+    matrix R S^-1 = (M^-1)^T for M = T R S, both f32, computed in f64 as
+    build.py:65-81 does (scene/scenefile.h:497-507)."""
+    loc = np.asarray(location, np.float64)
+    sc = np.asarray(scale, np.float64)
+    rot = euler_to_mat3(orientation).astype(np.float64)
+    inv_s = np.diag(1.0 / sc)
+    m3 = inv_s @ rot.T
+    t = m3 @ (-loc)
+    inv_transform = np.concatenate([m3, t[:, None]], axis=1)
+    return inv_transform.astype(np.float32), (rot @ inv_s).astype(np.float32)
 
 
 @dataclass
@@ -83,14 +99,17 @@ class _Mat:
 
 
 class SceneBuilder:
-    """Accumulates spheres, rects, triangles, meshes, materials and the
-    env light, then `build()`s the Scene (build.py:84-833)."""
+    """Accumulates primitives, meshes, materials and the env light, then
+    `build()`s the Scene (build.py:84-833)."""
 
     def __init__(self):
         self._mats: list[_Mat] = []
         self._mat_index: dict[str, int] = {}
         self._spheres = []
+        self._planes = []
         self._rects = []
+        self._disks = []
+        self._instanced = []
         self._triangles = []
         self._bulk_triangles = []  # [T]-row column blocks (13 columns)
         self._tri_columns = None  # merged columns, set by build()
@@ -168,6 +187,12 @@ class SceneBuilder:
                               float(phi), float(min_theta), float(max_theta),
                               self.material_id(mat)))
 
+    def add_plane(self, point, normal, mat):
+        n = np.asarray(normal, np.float64)
+        n = n / np.linalg.norm(n)
+        self._planes.append((np.asarray(point, np.float32),
+                             n.astype(np.float32), self.material_id(mat)))
+
     def add_rect(self, point, width, height, mat):
         w = np.asarray(width, np.float64)
         h = np.asarray(height, np.float64)
@@ -175,6 +200,13 @@ class SceneBuilder:
         n = n / np.linalg.norm(n)
         self._rects.append((np.asarray(point, np.float32), w.astype(np.float32),
                             h.astype(np.float32), n.astype(np.float32),
+                            self.material_id(mat)))
+
+    def add_disk(self, center, normal, radius, mat):
+        n = np.asarray(normal, np.float64)
+        n = n / np.linalg.norm(n)
+        self._disks.append((np.asarray(center, np.float32),
+                            n.astype(np.float32), float(radius),
                             self.material_id(mat)))
 
     def add_triangle(self, v0, v1, v2, mat, n0=None, n1=None, n2=None,
@@ -269,6 +301,43 @@ class SceneBuilder:
                               smooth=smooth, double_sided=False)
         return start, len(self._triangles)
 
+    def _add_instanced(self, kind, params, mat, location, scale,
+                       orientation, normal_type=T.NORMAL_OPEN):
+        inv_t, nmat = _affine_inverse_rows(location, scale, orientation)
+        p = np.zeros(4, np.float32)
+        p[: len(params)] = params
+        self._instanced.append((inv_t, nmat, int(kind), p, int(normal_type),
+                                self.material_id(mat)))
+
+    def add_box(self, length, height, width, mat, location=(0, 0, 0),
+                scale=(1, 1, 1), orientation=(0, 0, 0)):
+        """A box of dims (length, height, width) centered on the origin
+        of its object space (initBox, shapes/box.cpp:4-20)."""
+        self._add_instanced(T.INST_AABOX, [length, height, width], mat,
+                            location, scale, orientation)
+
+    def add_open_cylinder(self, phi, mat, location=(0, 0, 0),
+                          scale=(1, 1, 1), orientation=(0, 0, 0),
+                          normal_type=T.NORMAL_OPEN):
+        self._add_instanced(T.INST_OPEN_CYLINDER, [phi, 1.0, 1.0], mat,
+                            location, scale, orientation, normal_type)
+
+    def add_solid_cylinder(self, mat, location=(0, 0, 0), scale=(1, 1, 1),
+                           orientation=(0, 0, 0)):
+        """A convex tube and two INST_DISK caps at y = +-1
+        (initSolidCylinder, shapes/cylinder.cpp:23-60)."""
+        self._add_instanced(T.INST_OPEN_CYLINDER, [PI, 1.0, 1.0], mat,
+                            location, scale, orientation, T.NORMAL_CONVEX)
+        self._add_instanced(T.INST_DISK, [1.0, 1.0, 0.0], mat, location,
+                            scale, orientation)
+        self._add_instanced(T.INST_DISK, [1.0, -1.0, 0.0], mat, location,
+                            scale, orientation)
+
+    def add_torus(self, swept_radius, tube_radius, phi, mat,
+                  location=(0, 0, 0), scale=(1, 1, 1), orientation=(0, 0, 0)):
+        self._add_instanced(T.INST_TORUS, [swept_radius, tube_radius, phi],
+                            mat, location, scale, orientation)
+
     # -- lights ------------------------------------------------------------
 
     def set_env_light(self, kind, color=(1, 1, 1), intensity=1.0):
@@ -294,6 +363,9 @@ class SceneBuilder:
         for p, w, h, n, m in self._rects:
             for q in (p, p + w, p + h, p + w + h):
                 cover(q)
+        for c, n, r, m in self._disks:
+            cover(c - r)
+            cover(c + r)
         cols = self._tri_columns
         if cols is not None and cols[0].shape[0] > 0:
             for c in cols[:3]:
@@ -303,6 +375,22 @@ class SceneBuilder:
             for tri in self._triangles:
                 for q in tri[:3]:
                     cover(q)
+        for inv_t, nmat, kind, p, nt, m in self._instanced:
+            # the corners of the canonical shape's object-space bound,
+            # pushed through the inverse of the stored affine
+            fwd = np.linalg.inv(inv_t[:, :3])
+            t = inv_t[:, 3]
+            if kind == T.INST_AABOX:
+                half = np.array([p[0], p[1], p[2]], np.float64) / 2.0
+            elif kind == T.INST_TORUS:
+                s = p[0] + p[1]
+                half = np.array([s, p[1], s], np.float64)
+            else:
+                half = np.array([1.0, 1.0, 1.0], np.float64)
+            for sx in (-1, 1):
+                for sy in (-1, 1):
+                    for sz in (-1, 1):
+                        cover(fwd @ (half * [sx, sy, sz] - t))
         if not np.all(np.isfinite(mins)):
             mins = np.zeros(3)
             maxs = np.ones(3)
@@ -344,12 +432,13 @@ class SceneBuilder:
         spheres = tensors(T.Spheres, soa(self._spheres, [((3,), f32)]
                                          + [((), f32)] * 4
                                          + [((), np.int32)]))
-        planes = tensors(T.Planes, soa([], [((3,), f32), ((3,), f32),
-                                            ((), np.int32)]))
+        planes = tensors(T.Planes, soa(self._planes, [((3,), f32),
+                                                      ((3,), f32),
+                                                      ((), np.int32)]))
         rects = tensors(T.Rects, soa(self._rects, [((3,), f32)] * 4
                                      + [((), np.int32)]))
-        disks = tensors(T.Disks, soa([], [((3,), f32), ((3,), f32),
-                                          ((), f32), ((), np.int32)]))
+        disks = tensors(T.Disks, soa(self._disks, [((3,), f32), ((3,), f32),
+                                                   ((), f32), ((), np.int32)]))
         tv = soa(self._triangles, [((3,), f32)] * 6 + [((2,), f32)] * 3
                  + [((3,), f32), ((), bool), ((), bool), ((), np.int32)])
         if self._bulk_triangles:
@@ -364,8 +453,8 @@ class SceneBuilder:
 
             tri_bvh = build_bvh4(tv[0], tv[1], tv[2])
         instanced = tensors(T.Instanced, soa(
-            [], [((3, 4), f32), ((3, 3), f32), ((), np.int32), ((4,), f32),
-                 ((), np.int32), ((), np.int32)]))
+            self._instanced, [((3, 4), f32), ((3, 3), f32), ((), np.int32),
+                              ((4,), f32), ((), np.int32), ((), np.int32)]))
 
         mats = self._mats
 
@@ -403,6 +492,8 @@ class SceneBuilder:
             sphere_clips_in_domain=T.sphere_clips_in_domain(
                 spheres.phi.numpy(), spheres.min_theta.numpy(),
                 spheres.max_theta.numpy()),
+            instanced_aabox_only=T.instanced_aabox_only(
+                instanced.kind.numpy()),
         )
         return scene.to(device)
 
@@ -419,8 +510,8 @@ class SceneBuilder:
         return 0.45 * s2 / (s2 + 0.09)
 
     def _build_lights(self, mats):
-        """Area lights from emissive rects and spheres, the env light row,
-        the reference power rule and the normalized CDF
+        """Area lights from emissive rects, spheres and disks, the env
+        light row, the reference power rule and the normalized CDF
         (build.py:645-833)."""
         f32 = np.float32
         rows = []  # (type, p0, v1, v2, normal, radius, color, intensity,
@@ -438,6 +529,13 @@ class SceneBuilder:
                 rows.append((T.LIGHT_AREA_SPHERE, c, np.zeros(3, f32),
                              np.zeros(3, f32), np.zeros(3, f32), r, m.color,
                              m.intensity, area, -1, T.GROUP_SPHERE, i))
+        for i, (c, n, r, mat_id) in enumerate(self._disks):
+            m = mats[mat_id]
+            if m.mat_type == T.MAT_EMISSIVE:
+                area = float(PI * r * r)
+                rows.append((T.LIGHT_AREA_DISK, c, np.zeros(3, f32),
+                             np.zeros(3, f32), n, r, m.color, m.intensity,
+                             area, -1, T.GROUP_DISK, i))
 
         env_cfg = self._env
         mins, maxs = self._scene_bounds()

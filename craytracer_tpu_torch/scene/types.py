@@ -2,17 +2,17 @@
 craytracer_tpu/scene/types.py:1-299).
 
 Field names, shapes and dtypes follow the JAX pytrees leaf for leaf, so a
-test can compare the two packages' scenes field by field. Groups the
-slice does not render (spheres, planes, disks, instanced, mesh lights)
-are still present, as zero-row tensors, exactly as the JAX builder emits
-them for a scene without such primitives. The static fields `accel`,
+test can compare the two packages' scenes field by field. A group the
+scene lacks (or the port does not render yet: mesh lights) is still
+present, as zero-row tensors, exactly as the JAX builder emits it. The static fields `accel`,
 `mat_types_present`, `light_types_present` and `matte_lambertian` stay
 plain Python values, as do BVH4Arrays' `n_tris`, `leaf_size` and
 `stack_size` (accel/bvh4.py:56-72). `smooth_triangles` (not in the JAX
-Scene) records whether any triangle is smooth, and `microfacet_iso_beckmann`
-and `sphere_clips_in_domain` (not in the JAX Scene either) record what
-the JAX gate reads from table values (pallas_shade.py:1541-1553,
-:1580-1589), so the route gate reads them without a device sync.
+Scene) records whether any triangle is smooth, and
+`microfacet_iso_beckmann`, `sphere_clips_in_domain` and
+`instanced_aabox_only` (not in the JAX Scene either) record what the JAX gate reads from table values
+(pallas_shade.py:1538-1553, :1580-1589), so the route gate reads them
+without a device sync.
 """
 
 from __future__ import annotations
@@ -35,6 +35,15 @@ MAT_GLASS = 6
 MAT_METAL = 7
 
 DIST_BECKMANN = 0
+
+# Instanced-primitive kinds and cylinder normal rules (types.py:31-41).
+INST_AABOX = 0
+INST_OPEN_CYLINDER = 1
+INST_TORUS = 2
+INST_DISK = 3  # the caps of a solid cylinder
+NORMAL_OPEN = 0
+NORMAL_CONVEX = 1
+NORMAL_CONCAVE = 2
 
 # Light type codes (types.py:45-51).
 LIGHT_AREA_RECT = 0
@@ -99,6 +108,12 @@ def sphere_clips_in_domain(phi, min_theta, max_theta) -> bool:
                 and (mx >= -eps).all() and (mx <= np.pi + eps).all())
 
 
+def instanced_aabox_only(kind) -> bool:
+    """Every instanced row is a box, the only kind K1's table holds
+    (fast_shade_mode, pallas_shade.py:1535-1540)."""
+    return bool((np.asarray(kind) == INST_AABOX).all())
+
+
 @dataclass(frozen=True)
 class Spheres:
     center: torch.Tensor  # [N, 3]
@@ -152,11 +167,14 @@ class Triangles:
 
 @dataclass(frozen=True)
 class Instanced:
-    inv_transform: torch.Tensor  # [N, 3, 4]
-    normal_mat: torch.Tensor  # [N, 3, 3]
-    kind: torch.Tensor  # [N] int32
-    params: torch.Tensor  # [N, 4]
-    normal_type: torch.Tensor  # [N] int32
+    """Canonical shapes behind a world -> object affine: rays are pulled
+    into object space, normals pushed out through `normal_mat`."""
+
+    inv_transform: torch.Tensor  # [N, 3, 4] world -> object affine
+    normal_mat: torch.Tensor  # [N, 3, 3] (M^-1)^T for object normals
+    kind: torch.Tensor  # [N] int32 INST_*
+    params: torch.Tensor  # [N, 4] per kind (ops/intersect.py)
+    normal_type: torch.Tensor  # [N] int32 NORMAL_* (cylinders)
     mat_id: torch.Tensor  # [N]
 
 
@@ -281,6 +299,7 @@ class Scene:
     smooth_triangles: bool = False  # any triangle interpolates normals
     microfacet_iso_beckmann: bool = True
     sphere_clips_in_domain: bool = True
+    instanced_aabox_only: bool = True  # every instanced row is an AABOX
 
     @property
     def device(self) -> torch.device:

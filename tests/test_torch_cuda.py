@@ -26,11 +26,13 @@ from craytracer_tpu_torch.ops.intersect import intersect_scene
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 from craytracer_tpu_torch.scene import types as T
 
+import torch_prim_scenes as prim_scenes
 import torch_sphere_scenes as sphere_scenes
 
 pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(REPO, "scenes", "parity_cornell.txt")
+PRIMS = os.path.join(REPO, "scenes", "parity_prims.txt")
 
 
 @pytest.fixture
@@ -70,15 +72,13 @@ def test_k1_matches_plain_version(cuda, depth, raygen):
 
 
 def test_k1_refuses_scenes_outside_its_gate(cuda):
+    """A torus (the "shade" route's) and depth 31 stay out of K1."""
     scene, cam, film = _cornell(cuda, 8)
     pix = torch.arange(64, dtype=torch.int32, device=cuda)
-    plane = dataclasses.replace(scene, planes=T.Planes(
-        point=torch.zeros((1, 3), device=cuda),
-        normal=torch.tensor([[0.0, 1.0, 0.0]], device=cuda),
-        mat_id=torch.zeros(1, dtype=torch.int32, device=cuda)))
+    torus, _, _ = load_scene_file(PRIMS, device=cuda)
     before = pk.KERNEL.launches
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pk.fused_pass(plane, cam, film, pix, 0, 0, 5)
+        pk.fused_pass(torus, cam, film, pix, 0, 0, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pk.fused_pass(scene, cam, film, pix, 0, 0, 31)
     assert pk.KERNEL.launches == before
@@ -241,6 +241,104 @@ def test_k2_full_core_matches_plain_shade(cuda, name):
     pix = torch.arange(film.num_pixels, dtype=torch.int32, device=cuda)
     spp = torch.full_like(pix, 1)
     o, d = generate_rays(cam, film, pix, stratified_jitter(3, pix, spp))
+    state = wf._init_state(o, d, 5, pix)
+    for b in range(5):
+        hit = intersect_scene(scene, state[0], state[1])
+        if b in (0, 1, 4):
+            args = (scene, state[1], hit, state[2], state[5], state[6],
+                    state[10], spp, 3, b, 5)
+            got = sk.fused_shade(*args)
+            ref = sk.fused_shade_reference(*args)
+            for key, val in ref.items():
+                if val.dtype == torch.float32:
+                    assert torch.allclose(got[key], val, rtol=1e-5,
+                                          atol=1e-5), (b, key)
+                else:
+                    agree = (got[key] == val).double().mean().item()
+                    assert agree >= 0.999, (b, key)
+        state = wf._bounce_step(scene, 3, spp, 5, b, state, kernels=False)
+
+
+# ---- slice D: planes, disks, boxes and thin-lens in K1; parity_prims
+# through the "shade" route
+
+
+def _prim_scene(dev, name, size=48):
+    """(scene, camera, film, depth): a torch_prim_scenes.py scene, or
+    parity_cornell with a thin-lens camera."""
+    if name == "thinlens_cornell":
+        scene, cam, film = _cornell(dev, size)
+        return scene, prim_scenes.thinlens(cam), film, 5
+    from craytracer_tpu_torch.camera import make_camera
+    from craytracer_tpu_torch.scene.build import SceneBuilder
+
+    b = SceneBuilder()
+    eye, look, fov, depth = prim_scenes.SCENES[name](b)
+    return (b.build(device=dev), make_camera(eye, look, device=dev),
+            Film(fov=torch.tensor(fov, device=dev), width=size, height=size),
+            depth)
+
+
+@pytest.mark.parametrize("raygen", ["strat", "plain"])
+@pytest.mark.parametrize("name", ["plane_disk", "aabox", "thinlens_cornell"])
+def test_k1_prims_match_plain_version(cuda, name, raygen):
+    """Planes, disks, the box table and the thin-lens raygen in K1 against
+    the plain version, with the bars of test_k1_matches_plain_version, at
+    depth 0 and the scene's depth."""
+    scene, cam, film, depth = _prim_scene(cuda, name)
+    n = film.num_pixels
+    pix = torch.arange(n, dtype=torch.int32, device=cuda).repeat(2)
+    spp = 3 + torch.arange(2, dtype=torch.int32,
+                           device=cuda).repeat_interleave(n)
+    for dp in (0, depth):
+        before = pk.KERNEL.launches
+        L, good, m = pk.fused_pass(scene, cam, film, pix, spp, 7, dp,
+                                   raygen=raygen)
+        assert pk.KERNEL.launches == before + 1
+        Lr, goodr, mr = pk.fused_pass_reference(scene, cam, film, pix, spp,
+                                                7, dp, raygen=raygen)
+        same = good == goodr
+        close = ((L - Lr).abs() <= 1e-4 + 1e-4 * Lr.abs()).all(dim=1)
+        assert (same & close).double().mean().item() >= 0.999
+        for key in ("rays", "shadow_rays"):
+            a, b = int(m[key]), int(mr[key])
+            assert a == b if dp == 0 else abs(a - b) <= 1e-3 * max(b, 1)
+
+
+def _prims(dev, size=48):
+    scene, cam, film = load_scene_file(PRIMS, device=dev)
+    film = Film(fov=film.fov, width=size, height=size)
+    pix = torch.arange(film.num_pixels, dtype=torch.int32, device=dev)
+    o, d = generate_rays(cam, film, pix, stratified_jitter(3, pix, 1))
+    return scene, pix, o, d
+
+
+@pytest.mark.parametrize("depth", [0, 2, 5])
+def test_parity_prims_shade_route_matches_plain_pass(cuda, depth):
+    """parity_prims through trace_paths(fast_shade="shade"): one K2 launch
+    per bounce and nothing else, against the plain trace_paths."""
+    scene, pix, o, d = _prims(cuda)
+    before = (pk.KERNEL.launches, sk.KERNEL.launches, bk.CLOSEST.launches)
+    Lk, gk, mk = wf.trace_paths(scene, o, d, 3, pix, 1, depth,
+                                with_metrics=True, fast_shade="shade")
+    assert (pk.KERNEL.launches, sk.KERNEL.launches,
+            bk.CLOSEST.launches) == (before[0], before[1] + depth + 1,
+                                     before[2])
+    Lp, gp, mp = wf.trace_paths(scene, o, d, 3, pix, 1, depth,
+                                with_metrics=True)
+    same = gk == gp
+    close = ((Lk - Lp).abs() <= 1e-4 + 1e-4 * Lp.abs()).all(dim=1)
+    assert (same & close).double().mean().item() >= 0.999
+    for key in ("rays", "shadow_rays"):
+        assert int(mk[key]) == int(mp[key])
+
+
+def test_k2_matches_plain_shade_on_prims_hits(cuda):
+    """K2 on parity_prims' hit records (torus, box and disk fills with
+    their Duff-tangent dpdu) of bounces 0, 1 and 4: floats within 1e-5,
+    ints equal on >= 99.9% of lanes."""
+    scene, pix, o, d = _prims(cuda)
+    spp = torch.full_like(pix, 1)
     state = wf._init_state(o, d, 5, pix)
     for b in range(5):
         hit = intersect_scene(scene, state[0], state[1])

@@ -10,7 +10,9 @@ then calls the same C entry point the wrapper calls, through ctypes, on
 CPU tensors, at both instantiations of the shading core: the matte-only
 core on parity_cornell, the full core on parity_cornell, parity_mix and
 the sphere scenes of torch_sphere_scenes.py (mirror and clipped sphere,
-sphere light, Oren-Nayar / plastic / metal, glass / transparent). K1 is
+sphere light, Oren-Nayar / plastic / metal, glass / transparent), and
+on the planes-and-disks and instanced-box scenes of torch_prim_scenes.py
+and a thin-lens parity_cornell, in both jitter variants. K1 is
 held to the card's bar: >= 99.9% of lanes with equal good and L within
 1e-4 (rtol and atol), ray and shadow-ray counters within 0.1% and exact
 at depth 0, and the per-bounce histogram of live lanes exact; at these
@@ -32,7 +34,8 @@ import subprocess
 import pytest
 import torch
 
-from craytracer_tpu_torch.camera import Film, generate_rays, make_camera
+from craytracer_tpu_torch.camera import (THINLENS, Film, generate_rays,
+                                        make_camera)
 from craytracer_tpu_torch.integrator import pass_kernel as pk
 from craytracer_tpu_torch.integrator import shade_kernel as sk
 from craytracer_tpu_torch.integrator.gate import shade_features
@@ -42,6 +45,7 @@ from craytracer_tpu_torch.ops.intersect import intersect_scene
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 from craytracer_tpu_torch.scene.build import SceneBuilder
 
+import torch_prim_scenes as prim_scenes
 import torch_sphere_scenes as sphere_scenes
 
 torch.set_num_threads(2)
@@ -117,8 +121,9 @@ def _run_host(so, scene, cam, film, pix, spp, seed, depth, raygen,
     g = torch.empty((4, n), dtype=torch.int32)
     err = so.k1_pass_launch(
         tab.data_ptr(), tab.numel(), pix.data_ptr(), spp.data_ptr(), n,
-        *pk.table_counts(scene), seed, depth, pk.RR_START,
-        int(raygen == "strat"), film.width, full, L.data_ptr(),
+        (ctypes.c_int * 8)(*pk.table_counts(scene)), seed, depth,
+        pk.RR_START, int(raygen == "strat"),
+        int(cam.camera_type == THINLENS), film.width, full, L.data_ptr(),
         g.data_ptr(), None)
     assert err == 0
     return L, g
@@ -182,6 +187,41 @@ def test_k1_source_full_core_on_sphere_scenes(k1_host, name):
         ref = pk.fused_pass_reference(scene, cam, film, pix, spp, 7, dp)
         _check_k1(_run_host(k1_host, scene, cam, film, pix, spp, 7, dp,
                             "strat", 1), ref, dp)
+
+
+PRIM_SCENES = ["plane_disk", "aabox", "thinlens_cornell"]
+
+
+def _prim_scene(name):
+    """(scene, camera, film, depth): a torch_prim_scenes.py scene at its
+    32x32 view, or parity_cornell at 40x32 with a thin-lens camera."""
+    if name == "thinlens_cornell":
+        scene, cam, film = load_scene_file(CORNELL, device="cpu")
+        return (scene, prim_scenes.thinlens(cam),
+                Film(fov=film.fov, width=40, height=32), 5)
+    b = SceneBuilder()
+    eye, look, fov, depth = prim_scenes.SCENES[name](b)
+    return (b.build(device="cpu"), make_camera(eye, look, device="cpu"),
+            Film(fov=torch.tensor(fov), width=32, height=32), depth)
+
+
+@pytest.mark.parametrize("raygen", ["strat", "plain"])
+@pytest.mark.parametrize("name", PRIM_SCENES)
+def test_k1_source_on_planes_disks_boxes_thinlens(k1_host, name, raygen):
+    """Planes and disks in the prim table, the box table (slab test, face
+    Newton step, dominant-axis normal, zero dpdu) and the thin-lens raygen
+    against the plain version at depth 0 and the scene's depth, on the
+    core the wrapper picks."""
+    scene, cam, film, depth = _prim_scene(name)
+    n = film.num_pixels
+    pix = torch.arange(n, dtype=torch.int32).repeat(2)
+    spp = (3 + torch.arange(2, dtype=torch.int32).repeat_interleave(n))
+    full = int(shade_features(scene) != 0)
+    for dp in (0, depth):
+        ref = pk.fused_pass_reference(scene, cam, film, pix, spp, 7, dp,
+                                      raygen=raygen)
+        _check_k1(_run_host(k1_host, scene, cam, film, pix, spp, 7, dp,
+                            raygen, full), ref, dp)
 
 
 @pytest.mark.parametrize("name", ["parity_mix", "glass_spheres"])

@@ -168,5 +168,5 @@ def test_kernel_launch_refuses_cpu_tensors(scenes):
     tab = pk.kernel_tables(ts, tc, tf)
     p = torch.from_numpy(pix)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        pk.KERNEL.launch(tab, *pk.table_counts(ts), p, torch.from_numpy(spp),
+        pk.KERNEL.launch(tab, pk.table_counts(ts), p, torch.from_numpy(spp),
                          SEED, 5, True, SIZE, 0)

@@ -1,8 +1,8 @@
 """scenes/parity_cornell.txt through both packages' parsers and builders:
 every Scene leaf equal (dtype, shape, bits), the interop carry-over equal
 to the port's own parse, the camera and film equal, and generate_rays
-agreeing to 1e-6. Also the port's refusals of what the slice does not
-cover."""
+agreeing to 1e-6, for the pinhole and the thin-lens camera. Also the
+port's refusals of what it does not cover yet."""
 
 import dataclasses
 import os
@@ -14,16 +14,19 @@ import torch
 
 from craytracer_tpu.camera import generate_rays as j_generate_rays
 from craytracer_tpu.io.scenefile import load_scene_file as j_load
+from craytracer_tpu.sampling import uniforms as j_uniforms
 from craytracer_tpu.sampling.multijitter import stratified_jitter as j_strat
-from craytracer_tpu_torch.camera import Film, generate_rays
+from craytracer_tpu_torch.camera import THINLENS, Film, generate_rays
 from craytracer_tpu_torch.integrator.pass_kernel import (
     fused_pass, fused_pass_reference, production_fast_shade)
-from craytracer_tpu_torch.integrator.wavefront import render_sample
+from craytracer_tpu_torch.integrator.wavefront import (camera_rays,
+                                                      render_sample)
 from craytracer_tpu_torch.interop import (camera_from_numpy, film_from_numpy,
                                           numpy_leaves, scene_from_numpy)
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 from craytracer_tpu_torch.scene import types as T
+from craytracer_tpu_torch.scene.build import SceneBuilder
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,18 +107,42 @@ def test_generate_rays_agree(both, size):
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("size", [24, 37])
+def test_thinlens_rays_agree(both, size):
+    """Thin-lens rays with the lens samples render_sample takes
+    (CAMERA_BOUNCE dims 2-3): the port's camera_rays against JAX's
+    generate_rays(..., lens_u)."""
+    (_, jc, jf), (_, tc, tf) = both
+    jc, tc = jc.replace(camera_type=1), _thin(tc)
+    jf = jf.replace(width=size, height=size + 3)
+    tf = Film(fov=tf.fov, width=size, height=size + 3)
+    n = jf.num_pixels
+    pix = np.tile(np.arange(n, dtype=np.int32), 2)
+    spp = np.repeat(np.arange(2, dtype=np.int32), n) + 4
+    jp, js_ = jnp.asarray(pix), jnp.asarray(spp)
+    jo, jd = j_generate_rays(jc, jf, jp, j_strat(3, jp, js_),
+                             j_uniforms(3, jp, js_, 0x7FFF, 2, 2))
+    tp, ts_ = torch.from_numpy(pix), torch.from_numpy(spp)
+    to, td = camera_rays(tc, tf, tp, 3, ts_, stratified_jitter(3, tp, ts_))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
+    assert np.abs(np.asarray(jo) - np.asarray(jc.position)).max() > 0.01
+
+
 # a sphere is refused only where the JAX builder would index it with a
-# sphere BVH4 (256 or more with an accelerator), a mirror only with a
-# texture; planes, disks, boxes and tori are refused outright
+# sphere BVH4 (256 or more with an accelerator), a mirror or a matte only
+# with a texture; a disk light is built (as a LIGHT_AREA_DISK row) and
+# refused by the gate, point and directional lights by the parser
 UNPORTED = {
     "sphere": "OBJECT SPHERE\nRADIUS 0.1\nCENTER 0 0 0\nMATERIAL m\n"
               * 256,
     "mirror": "MATERIAL MIRROR\nNAME m\nTEXTURE x.png\nEND\n",
-    "plane": "OBJECT PLANE\nPOINT 0 0 0\nNORMAL 0 1 0\nMATERIAL m\n",
-    "disk": "OBJECT DISK\nCENTER 0 0 0\nNORMAL 0 1 0\nRADIUS 1\n"
-            "MATERIAL m\n",
-    "box": "OBJECT BOX\nLENGTH 1\nHEIGHT 1\nWIDTH 1\nMATERIAL m\n",
-    "torus": "OBJECT TORUS\nSWEPT_RADIUS 1\nTUBE_RADIUS 0.2\nMATERIAL m\n",
+    "disk light": "MATERIAL EMISSIVE\nNAME lamp\nINTENSITY 5\nEND\n"
+                  "OBJECT DISK\nCENTER 0 1 0\nNORMAL 0 -1 0\nRADIUS 1\n"
+                  "MATERIAL lamp\n",
+    "point light": "POINT_LIGHT\nPOINT 0 2 0\nINTENSITY 3\n",
+    "directional light": "DIRECTIONAL_LIGHT\nDIRECTION 0 1 0\n",
+    "textured matte": "MATERIAL MATTE\nNAME m\nTEXTURE x.png\nEND\n",
     "mesh": "OBJECT MESH\nFILE x.obj\nMATERIAL FROM_MTL\n",
     "texture env": "ENV_LIGHT\nTYPE TEXTURE\nCOLOR x.exr\nINTENSITY 1\n",
 }
@@ -123,10 +150,12 @@ UNPORTED = {
 
 @pytest.mark.parametrize("feature", sorted(UNPORTED))
 def test_unported_features_raise(tmp_path, feature):
+    """The parser, the builder or the gate refuses it, naming its
+    ROADMAP item."""
     p = tmp_path / "scene.txt"
     p.write_text(UNPORTED[feature])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_scene_file(str(p), device="cpu")
+        production_fast_shade(*load_scene_file(str(p), device="cpu"))
 
 
 def test_gate_admits_cornell_and_refuses_the_rest(both):
@@ -134,20 +163,39 @@ def test_gate_admits_cornell_and_refuses_the_rest(both):
     assert production_fast_shade(ts, tc, tf) == "bounce"
     # depth 31 leaves K1's 32-bit alive bitmask: the per-bounce route
     assert production_fast_shade(ts, tc, tf, max_depth=31) == "shade"
+    # a plane and a thin-lens camera stay in K1's gate
+    assert production_fast_shade(_with_plane(ts), _thin(tc), tf) == "bounce"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         production_fast_shade(ts, tc, tf, estimator="mis")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        production_fast_shade(ts, dataclasses.replace(tc, camera_type=1), tf)
+        production_fast_shade(ts, dataclasses.replace(tc, camera_type=2), tf)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        production_fast_shade(_with_plane(ts), tc, tf)
+        production_fast_shade(_anisotropic(ts), tc, tf)
+
+
+def _thin(camera):
+    return dataclasses.replace(camera, camera_type=THINLENS)
 
 
 def _with_plane(scene):
-    """The scene plus one plane: planes wait for the next K1/K2 gate
-    item."""
+    """The scene plus one ground plane, a row of K1's table."""
     return dataclasses.replace(scene, planes=T.Planes(
         point=torch.zeros((1, 3)), normal=torch.tensor([[0.0, 1.0, 0.0]]),
         mat_id=torch.zeros(1, dtype=torch.int32)))
+
+
+def _anisotropic(_scene):
+    """A small scene with an anisotropic metal, which the JAX package
+    renders on XLA only, so the port refuses it."""
+    b = SceneBuilder()
+    b.add_metal("gold", "GOLD", 0.1)
+    b.add_rect((0, 0, 0), (1, 0, 0), (0, 0, 1), "gold")
+    b.add_emissive("lamp", (1, 1, 1), 4.0)
+    b.add_rect((0, 1, 0), (1, 0, 0), (0, 0, 1), "lamp")
+    aniso = b.build(device="cpu")
+    m = aniso.materials
+    return dataclasses.replace(aniso, materials=dataclasses.replace(
+        m, alphay=m.alphax * 2.0), microfacet_iso_beckmann=False)
 
 
 ENTRIES = ["render_sample", "fused_pass", "fused_pass_reference"]
@@ -155,7 +203,7 @@ ENTRIES = ["render_sample", "fused_pass", "fused_pass_reference"]
 
 @pytest.mark.parametrize("entry,refused", [
     ("render_sample", "estimator"),
-    *[(e, r) for e in ENTRIES for r in ("thin-lens", "plane", "depth")]])
+    *[(e, r) for e in ENTRIES for r in ("camera", "anisotropic", "depth")]])
 def test_every_entry_refuses_outside_the_gate(both, entry, refused):
     """Each entry point asks the gate (integrator/gate.py) before it traces
     anything: a refused scene raises and never reaches the plain tracer.
@@ -170,10 +218,10 @@ def test_every_entry_refuses_outside_the_gate(both, entry, refused):
         return
     if refused == "estimator":
         est = "mis"
-    elif refused == "thin-lens":
-        tc = dataclasses.replace(tc, camera_type=1)
-    elif refused == "plane":
-        ts = _with_plane(ts)
+    elif refused == "camera":
+        tc = dataclasses.replace(tc, camera_type=2)
+    elif refused == "anisotropic":
+        ts = _anisotropic(ts)
     else:
         depth = 31
     pix = torch.arange(16, dtype=torch.int32)
