@@ -8,9 +8,11 @@ never JAX or the JAX package. Phases, each printing its own lines:
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and
    power limit.
-2. build: compiles K1 (csrc/pass_kernel.cu), K2 (csrc/shade_kernel.cu)
-   and K3/K4 (csrc/bvh4_traverse.cu) from the checkout with one nvcc each,
-   all started together (sm_90a), into craytracer_tpu_torch/_build/;
+2. build: compiles K1 (csrc/pass_kernel.cu), K2 (csrc/shade_kernel.cu),
+   K3/K3 `_init`/K4 (csrc/bvh4_traverse.cu), K5 (csrc/bvh4_split.cu), K6
+   (csrc/tri_closest.cu) and P1 (csrc/pop_probe.cu) from the checkout with
+   one nvcc each, all started together (sm_90a), into
+   craytracer_tpu_torch/_build/;
    prints each build's seconds and ptxas' registers and spills for every
    kernel and instantiation (K1 and K2 each as the matte-only core,
    `<false>`, and the full core, `<true>`); then builds the native scene
@@ -55,10 +57,10 @@ never JAX or the JAX package. Phases, each printing its own lines:
    512x512 depth 5 rays/s through render_sample over 16 passes (live
    closest-hit rays + shadow rays, from the counters); bare K3, K2 and K4
    per launch on the six bounces of one pass's real inputs, and the plain
-   versions once; then the bench_mesh.py city of 327,680 triangles built
-   with add_triangles_array: its build seconds, 256x256 depth 4 rays/s,
-   and bare K3 per launch on camera and bounce-1 rays, each with and
-   without the ray_key sort.
+   versions once; then the bench_mesh.py city of 327,680 triangles
+   (craytracer_tpu_torch/scene/city.py): its build seconds, 256x256
+   depth 4 rays/s, and bare K3 per launch on camera and bounce-1 rays,
+   each with and without the ray_key sort.
 11. K1's full core vs plain: scenes/parity_mix.txt (4 spheres, 3 rects;
    matte, Oren-Nayar, plastic, mirror, gold) at 512x512 Morton lanes,
    depth 0, 2, 5 (spp 0) and 5 (spp 63); then the four sphere scenes of
@@ -101,15 +103,53 @@ never JAX or the JAX package. Phases, each printing its own lines:
 19. times (as phase 5): bare K1 per pass on the plane/disk, AABOX and
    thin-lens Cornell scenes with its bound, the plain version timed once;
    parity_prims ms/pass and rays/s through render_sample.
+20. the city at CITY_TRIS triangles (6,999,040: the San-Miguel-scale
+   scene the partitioned BVH4 was built for): its triangle count, fat
+   rows and bytes, part count, each part's rows and stack size, the host
+   build and partition seconds; every part under the 120 MiB budget and
+   every triangle in exactly one part. Main path: the Renderer at
+   512x512, depth 5, CITY_SPP spp (one per pass), counts set to 0 just
+   before and read just after: K2 passes x 6, K3 `_init` and K4 passes x
+   6 x parts, nothing else, no NaN, a finite image. Then ms/pass and
+   rays/s through render_sample, median of 5.
+21. K3 `_init` vs plain on the city: 512x512 camera rays and bounce-1
+   rays in the route's order (ray_key sort, then the part sort), every
+   part with the best hit of the parts before it carried: t and ids
+   bit-equal on every lane of every part. The whole parts route against
+   monolithic K3 on the same rays: t bit-equal on every lane, the lanes
+   whose id differs on an exact tie of t counted. K2 vs plain on the
+   bounce-0 and bounce-1 hit records of the parts route, phase 7's bars.
+   On the plain shade's shadow rays of those bounces: K4 on every part
+   against the plain any hit with the max_dist the route carries in
+   (occluded lanes 0), t bit-equal on every lane; the route's t
+   bit-equal with that plain chain; monolithic K4 bit-equal with its
+   plain version; the verdicts of the route, the plain parts any hit
+   and monolithic K4 equal on every lane.
+22. K5 on the city: on the monolithic table and on every part, without
+   and with a carried hit (the route's on the parts; half the lanes at
+   half their closest t on the whole table), bit-equal with the plain
+   version and with K3 / K3 `_init`; bare K5 against bare K3 and K3
+   `_init` on the same sorted camera rays.
+23. K6 on parity_mesh_mid's 20,480 triangles (pack_triangles) against
+   its 512x512 camera rays: t and idx bit-equal with the plain version
+   on every lane; bare K6 and the plain version timed.
+24. P1 on the city's fat table: every mode bit-equal with its plain
+   version at 4 packets and 48 pops; then ns per pop of every mode, the
+   slope between 512 and 1,536 pops over 4,224 packets of camera rays;
+   bare and plain full mode at 128 pops, t and sink bit-equal.
 
 Then one JSON line describing the kernels (each with its launches on its
-main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's;
+main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K3 `_init`
+on the 7M city's; K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch, the plain version's ms,
 and bound_ms: the larger of the bytes it must move over 3.35 TB/s and
 the operations this run's inputs need over 67 TFLOP/s f32, counted from
 the CUDA sources; for K3/K4 both are counted from the rows the plain
 traversal pops: each visited row read once, and per pop the slab tests
-of its internal children and the triangle tests of its filled slots;
+of its internal children and the triangle tests of its filled slots; K5
+the same pops, reading a visited row's topology and its leaf children's
+slots; K6 one Moller-Trumbore test per (ray, table column) pair; P1 the
+full mode's box, slot and sort operations per lane and pop;
 library_ms is null, since no single
 PyTorch call computes any of these functions), the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure exits
@@ -119,7 +159,6 @@ non-zero without them.
 from __future__ import annotations
 
 import json
-import math
 import os
 import statistics
 import subprocess
@@ -168,6 +207,11 @@ OREN_OPS, MIRROR_OPS, PLASTIC_OPS, METAL_OPS = 90, 10, 170, 250
 TRANSPARENT_OPS, GLASS_OPS = 45, 330
 K2_LANE_BYTES = 15 * 4 + 4 + 4 + 1 + 1 + 4 + 4 + 23 * 4 + 4 * 4
 ROW_BYTES = 108 * 4  # the columns K3/K4 load of a row: boxes, children, slots
+TOPO_BYTES = 28 * 4  # the columns K5 loads of a topology row
+PAIR_BYTES = 20 * 4  # a leaf child's two slots, which K5 loads
+K6_OPS = 53  # K6: one (ray, triangle) Moller-Trumbore test
+CITY_TRIS = 7_000_000  # the 7M class the partitioned BVH4 was built for
+CITY_SPP = 4
 
 
 def _bound(nbytes, ops):
@@ -176,16 +220,22 @@ def _bound(nbytes, ops):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def _pop_bound(bvh, visits, lanes):
-    """Bound of one K3/K4 launch from the rows its rays popped (`visits`,
-    [M] pops per row): each visited row read once and each lane's 32 bytes
-    of ray, max_dist and result; per pop, a slab test for each internal
-    child (child id >= 0) and a Moller-Trumbore test for each filled slot
-    (triangle id >= 0) of the popped row, and the sort."""
+def _pop_bound(bvh, visits, lanes, lane_bytes=32, split=False):
+    """Bound of one K3/K4/K5 launch from the rows its rays popped
+    (`visits`, [M] pops per row): each visited row read once (K3/K4: its
+    108 used columns; K5: its topology and its leaf children's slots) and
+    each lane's `lane_bytes` of ray, max_dist or carried hit, and result;
+    per pop, a slab test for each internal child (child id >= 0) and a
+    Moller-Trumbore test for each filled slot (triangle id >= 0) of the
+    popped row, and the sort."""
     fat = bvh.fat
-    row_ops = (BOX_OPS * (fat[:, 24:28] >= 0).sum(1)
+    internal = (fat[:, 24:28] >= 0).sum(1)
+    row_ops = (BOX_OPS * internal
                + SLOT_OPS * (fat[:, 37:108:10] >= 0).sum(1) + SORT_OPS)
-    return _bound(int((visits > 0).sum()) * ROW_BYTES + lanes * 32,
+    seen = visits > 0
+    row_bytes = (int((TOPO_BYTES + PAIR_BYTES * (4 - internal[seen])).sum())
+                 if split else int(seen.sum()) * ROW_BYTES)
+    return _bound(row_bytes + lanes * lane_bytes,
                   int((visits * row_ops).sum()))
 
 
@@ -277,8 +327,11 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from craytracer_tpu_torch import cuda_build, native
     from craytracer_tpu_torch.accel import bvh4_kernel as bk
-    from craytracer_tpu_torch.accel.bvh4 import (bvh4_any_hit_stats,
-                                                 bvh4_closest_hit_stats)
+    from craytracer_tpu_torch.accel import bvh4_parts
+    from craytracer_tpu_torch.accel import bvh4_split_kernel as sp
+    from craytracer_tpu_torch.accel.bvh4 import (
+        bvh4_any_hit_stats, bvh4_closest_hit_init_stats,
+        bvh4_closest_hit_stats)
     from craytracer_tpu_torch.camera import (THINLENS, Film, generate_rays,
                                              make_camera)
     from craytracer_tpu_torch.constants import K_EPSILON, TMAX
@@ -289,14 +342,21 @@ def main() -> int:
     from craytracer_tpu_torch.io.image import write_ppm
     from craytracer_tpu_torch.io.scenefile import load_scene_file
     from craytracer_tpu_torch.ops.intersect import intersect_scene
+    from craytracer_tpu_torch.ops import tri_kernel
     from craytracer_tpu_torch.ops.raysort import ray_key
+    from craytracer_tpu_torch.profiling import pop_probe as pp
     from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
     from craytracer_tpu_torch.scene.build import SceneBuilder
+    from craytracer_tpu_torch.scene.city import city_builder, city_view
 
     dev = torch.device("cuda", 0)
     fails: list[str] = []
     counters = {"k1_pass": pk.KERNEL, "k2_shade": sk.KERNEL,
-                "k3_bvh4_closest": bk.CLOSEST, "k4_bvh4_any": bk.ANY}
+                "k3_bvh4_closest": bk.CLOSEST, "k4_bvh4_any": bk.ANY,
+                "k3_init_bvh4_closest": bk.CLOSEST_INIT,
+                "k5_bvh4_split": sp.SPLIT,
+                "k6_tri_closest": tri_kernel.KERNEL,
+                "p1_pop_probe": pp.KERNEL}
     err = dict.fromkeys(counters, 0.0)  # max |kernel - plain| per kernel
 
     def reset_counts():
@@ -316,10 +376,13 @@ def main() -> int:
 
     # ---- 2. build
     libs = {"k1_pass": pk.LIBRARY, "k2_shade": sk.LIBRARY,
-            "k3_bvh4_closest + k4_bvh4_any": bk.LIBRARY}
+            "k3_bvh4_closest + k3_init + k4_bvh4_any": bk.LIBRARY,
+            "k5_bvh4_split": sp.LIBRARY,
+            "k6_tri_closest": tri_kernel.LIBRARY,
+            "p1_pop_probe": pp.LIBRARY}
     t0 = time.perf_counter()
     cuda_build.build_all(libs.values())
-    print(f"[build] K1, K2, K3/K4 built in parallel in "
+    print(f"[build] K1, K2, K3/K3 _init/K4, K5, K6, P1 built in parallel in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           f"{' '.join(cuda_build.NVCC_FLAGS)})", flush=True)
     t0 = time.perf_counter()
@@ -366,12 +429,13 @@ def main() -> int:
         if got != w:
             fails.append(f"{label} launches {got}, want {w}")
 
-    def main_path(label, scn, c, fm, golden=None):
-        """The Renderer on `scn` at cfg's spp and depth, every count set to
-        0 just before it and read just after; prints its line, writes its
-        PPM, records NaN, image and golden failures. Returns (passes,
-        launches)."""
-        r = Renderer(scn, c, fm, cfg)
+    def main_path(label, scn, c, fm, golden=None, config=None):
+        """The Renderer on `scn` at the spp and depth of `config` (cfg
+        unless given), every count set to 0 just before it and read just
+        after; prints its line, writes its PPM, records NaN, image and
+        golden failures. Returns (passes, launches)."""
+        config = config or cfg
+        r = Renderer(scn, c, fm, config)
         reset_counts()
         t0 = time.perf_counter()
         r.render()
@@ -391,7 +455,8 @@ def main() -> int:
                     f"block dev max {dev_max:.4f}, share < 0.02 {share:.3f}")
             fails.extend(f"{label} golden: {x}" for x in f)
         print(f"[main-path] Renderer {label} {fm.width}x{fm.height} "
-              f"{cfg.num_samples} spp depth {cfg.max_depth}: {dt:.2f} s, "
+              f"{config.num_samples} spp depth {config.max_depth}: "
+              f"{dt:.2f} s, "
               f"{r.passes} passes, launches {got}, {r.nan_count} NaN; {what};"
               f" wrote {os.path.relpath(ppm, REPO)}", flush=True)
         if r.passes == 0:
@@ -602,9 +667,9 @@ def main() -> int:
     int_keys = ("good_inc", "want_shadow", "new_alive", "new_prev_sg")
 
     def check_k2(label, scn, recs_, spp, bounces=(0, 1, 4)):
-        """K2 against the plain shade on a plain pass's hit records: floats
-        within 1e-5 (absolute + relative), int outputs on >= 99.9% of
-        lanes."""
+        """K2 against the plain shade on the same hit records (a plain
+        pass's, or the route's): floats within 1e-5 (absolute + relative),
+        int outputs on >= 99.9% of lanes."""
         for b in bounces:
             state, hit, ref = recs_[b]
             got = sk.fused_shade(scn, state[1], hit, state[2], state[5],
@@ -784,41 +849,12 @@ def main() -> int:
             "library_ms": None}
 
     # the city of bench_mesh.py:18-53 (327,680 triangles)
-    sys.path.insert(0, os.path.join(REPO, "scenes"))
-    from make_fixtures import icosphere
-
-    v, fc = icosphere(3)
-    count = 327680 // fc.shape[0]
-    grid = int(np.ceil(np.sqrt(count)))
-    builder = SceneBuilder()
-    builder.add_matte("w", (0.7, 0.7, 0.7))
-    builder.add_emissive("l", (1, 1, 1), 40.0)
-    builder.add_rect((-200, 0, -200), (400, 0, 0), (0, 0, 400), "w")
-    builder.add_rect((-10, 80, -10), (20, 0, 0), (0, 0, 20), "l")
-    rng = np.random.default_rng(0)
-    v0s, v1s, v2s = [], [], []
-    k = 0
-    for i in range(grid):
-        for j in range(grid):
-            if k >= count:
-                break
-            ctr = np.array([i * 6.0 - 3 * grid, 1.0 + rng.random() * 2,
-                            j * 6.0 - 3 * grid])
-            w = v * (0.8 + rng.random()) + ctr
-            v0s.append(w[fc[:, 0]])
-            v1s.append(w[fc[:, 1]])
-            v2s.append(w[fc[:, 2]])
-            k += 1
-    builder.add_triangles_array(np.concatenate(v0s), np.concatenate(v1s),
-                                np.concatenate(v2s), "w")
+    builder = city_builder(327680)
     t0 = time.perf_counter()
     city = builder.build(device=dev)
     build_s = time.perf_counter() - t0
     n_city = city.triangles.mat_id.shape[0]
-    ccam = make_camera((0, 40, 3.2 * (n_city / 1280) ** 0.5 + 40), (0, 2, 0),
-                       device=dev)
-    cfilm = Film(fov=torch.tensor(math.radians(50.0), device=dev),
-                 width=256, height=256)
+    ccam, cfilm = city_view(n_city, 256, device=dev)
     cids = torch.from_numpy(Renderer(city, ccam, cfilm, cfg).pixel_order()
                             ).to(dev)
     cpasses = 4
@@ -1112,6 +1148,375 @@ def main() -> int:
           f"{med_pr / passes:.4f} ms/pass, {rays_pr / (med_pr / 1e3):.6g} "
           f"rays/s ({rays_pr} rays + shadow rays per run; runs "
           f"{_runs(t_pr)} ms)", flush=True)
+
+    # ---- 20. the 7M city through the parts route (the slice's main path)
+    t0 = time.perf_counter()
+    big_builder = city_builder(CITY_TRIS)
+    t_tris = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big = big_builder.build(device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    del big_builder
+    parts = big.tri_parts or ()
+    n_big = big.triangles.mat_id.shape[0]
+    fat_bytes = big.tri_bvh.fat.numel() * 4
+    t0 = time.perf_counter()
+    again = bvh4_parts.partition_bvh4(big.tri_bvh,
+                                      bvh4_parts.PART_BUDGET_BYTES)
+    t_part = time.perf_counter() - t0
+    same_cut = len(again) == len(parts) and all(
+        torch.equal(a.fat, b.fat) and a.stack_size == b.stack_size
+        for a, b in zip(again, parts))
+    del again
+    print(f"[city] {card}, {n_big} triangles, {big.tri_bvh.fat.shape[0]} "
+          f"fat rows ({fat_bytes} bytes, stack {big.tri_bvh.stack_size}), "
+          f"{len(parts)} parts under the {bvh4_parts.PART_BUDGET_BYTES}-byte "
+          f"budget; host: triangles {t_tris:.2f} s, SceneBuilder.build (SAH "
+          f"BVH4, partition, copy to the card) {t_build:.2f} s, "
+          f"partition_bvh4 alone {t_part:.2f} s, the same parts {same_cut}",
+          flush=True)
+    print(f"[city] parts (rows, stack size): "
+          f"{[(p.fat.shape[0], p.stack_size) for p in parts]}", flush=True)
+    ids = torch.cat([p.fat[:, 37:108:10].reshape(-1) for p in parts])
+    ids = torch.sort(ids[ids >= 0].long()).values
+    if len(parts) < 3 or not same_cut or any(
+            p.fat.numel() * 4 > bvh4_parts.PART_BUDGET_BYTES for p in parts):
+        fails.append(f"city: {len(parts)} parts, same cut {same_cut}")
+    if not torch.equal(ids, torch.arange(n_big, device=dev)):
+        fails.append("city: a triangle is not in exactly one part")
+    del ids
+    bcam, bfilm = city_view(n_big, size, device=dev)
+    bcfg = RenderConfig(num_samples=CITY_SPP, max_depth=5,
+                        estimator="reference")
+    n_p, launches_city = main_path("city_7m", big, bcam, bfilm, config=bcfg)
+    expect("city_7m", launches_city, k2_shade=6 * n_p,
+           k3_init_bvh4_closest=6 * n_p * len(parts),
+           k4_bvh4_any=6 * n_p * len(parts))
+    bids = torch.from_numpy(Renderer(big, bcam, bfilm, bcfg).pixel_order()
+                            ).to(dev)
+    bpasses = 3
+    med_b, t_b = _median5(lambda: [
+        wf.render_sample(big, bcam, bfilm, bids, cfg.seed, 5000 + s, 5)
+        for s in range(bpasses)])
+    rays_b = pass_rays(big, bcam, bfilm, bids, 5000, bpasses, 5)
+    print(f"[time] {card}, city {n_big} triangles ({len(parts)} parts) "
+          f"512x512 depth 5, {bpasses} passes through render_sample per run, "
+          f"median of 5: {med_b / bpasses:.4f} ms/pass, "
+          f"{rays_b / (med_b / 1e3):.6g} rays/s ({rays_b} rays + shadow "
+          f"rays per run; runs {_runs(t_b)} ms)", flush=True)
+
+    # ---- 21. K3 _init vs plain per part; the parts route vs monolithic
+    bspp = torch.zeros_like(bids)
+    ob, db = generate_rays(bcam, bfilm, bids,
+                           stratified_jitter(cfg.seed, bids, bspp))
+    bst0 = wf._init_state(ob, db, 5, bids)
+    bst1 = wf._bounce_step(big, cfg.seed, bspp, 5, 0, bst0, kernels=True)
+
+    def route_order(o, d):
+        """The rays in the order the route walks the parts in: the
+        ray_key sort, then the part sort."""
+        o, d = sorted_rays(o, d)
+        perm = bvh4_parts.part_sort(parts, o, d)[1]
+        return o[perm].contiguous(), d[perm].contiguous()
+
+    walks = {}  # label -> rays and per part (in, out, visits, pops)
+    for label, st in (("camera", bst0), ("bounce-1", bst1)):
+        o, d = route_order(st[0], st[1])
+        t = torch.full((o.shape[0],), TMAX, device=dev)
+        tri = torch.full((o.shape[0],), -1, dtype=torch.int32, device=dev)
+        steps, bit_eq, replaced = [], 0, []
+        for p in parts:
+            t_k, tri_k = bk.bvh4_closest_hit_init_kernel(p, o, d, t, tri)
+            visits = torch.zeros(p.fat.shape[0], dtype=torch.int64,
+                                 device=dev)
+            t_p, tri_p, pops = bvh4_closest_hit_init_stats(
+                p, o, d, t, tri, visits=visits)
+            eq = torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
+            bit_eq += eq
+            both = (t_k < TMAX) & (t_p < TMAX)
+            if bool(both.any()):
+                err["k3_init_bvh4_closest"] = max(
+                    err["k3_init_bvh4_closest"],
+                    (t_k - t_p)[both].abs().max().item())
+            if not eq:
+                fails.append(f"K3 _init {label} part {len(steps)}")
+            replaced.append(int((tri_p != tri).sum()))
+            steps.append((p, t, tri, t_p, tri_p, visits, pops))
+            t, tri = t_p, tri_p
+        t_m, tri_m = bk.bvh4_closest_hit_kernel(big.tri_bvh, o, d)
+        t_r, tri_r = bvh4_parts.parts_closest_hit_kernel(parts, o, d)
+        t_eq = torch.equal(t, t_m) and torch.equal(t_r, t)
+        ties = int(((t == t_m) & (tri != tri_m)).sum())
+        print(f"[k3-init-vs-plain] city {label} rays {o.shape[0]}: K3 _init "
+              f"bit-equal with the plain version on {bit_eq} of "
+              f"{len(parts)} parts (t and ids, every lane); lanes whose "
+              f"best hit a part replaced: {replaced}; the parts route vs "
+              f"monolithic K3: t bit-equal {t_eq}, hits "
+              f"{int((t < TMAX).sum())}, lanes whose id differs on an exact tie of t {ties}"
+              + ("" if t_eq and bit_eq == len(parts) else " FAIL"),
+              flush=True)
+        if not t_eq:
+            fails.append(f"city {label}: parts route t differs from K3")
+        walks[label] = (o, d, steps, t_m, tri_m)
+    # K2 vs plain on the city's bounce-0 and bounce-1 hit records (the
+    # parts route's), then the shadow rays of the plain shade through the
+    # parts any hit
+    city_recs = {}
+    for b, st in ((0, bst0), (1, bst1)):
+        hit = intersect_scene(big, st[0], st[1], kernels=True)
+        city_recs[b] = (st, hit, sk.fused_shade_reference(
+            big, st[1], hit, st[2], st[5], st[6], st[10], bspp, cfg.seed, b,
+            5))
+    check_k2("city", big, city_recs, bspp, bounces=(0, 1))
+    for b in (0, 1):
+        out = city_recs[b][2]
+        so, sd, smd, sadj = sorted_rays(out["shadow_o"], out["shadow_d"],
+                                        out["dist_adj_t"], out["dist_adj"])
+        t_pa = bvh4_parts.parts_any_hit_kernel(parts, so, sd, smd)
+        # K4 on every part against the plain any hit on the same inputs:
+        # the max_dist the route carries in (0 on lanes occluded before)
+        best_p = torch.full_like(smd, TMAX)
+        md, k4_eq = smd, 0
+        for p in parts:
+            t_k = bk.bvh4_any_hit_kernel(p, so, sd, md)
+            t_p = bvh4_any_hit_stats(p, so, sd, md)[0]
+            k4_eq += torch.equal(t_k, t_p)
+            both = (t_k < TMAX) & (t_p < TMAX)
+            if bool(both.any()):
+                err["k4_bvh4_any"] = max(err["k4_bvh4_any"],
+                                         (t_k - t_p)[both].abs().max().item())
+            best_p = torch.minimum(best_p, t_p)
+            md = torch.where(best_p < smd, 0.0, smd)
+        route_eq = torch.equal(t_pa, best_p)
+        t_pl = bvh4_parts.parts_any_hit(parts, so, sd, smd)
+        t_mo = bk.bvh4_any_hit_kernel(big.tri_bvh, so, sd, smd)
+        t_mp = bvh4_any_hit_stats(big.tri_bvh, so, sd, smd)[0]
+        mono_eq = torch.equal(t_mo, t_mp)
+        occ = t_mp < smd
+        same_v = all(torch.equal(x < smd, occ) for x in (t_pa, t_pl, t_mo))
+        band = sadj - torch.clamp(1e-3 * sadj, min=K_EPSILON)
+        lit = ((t_pa >= band) == (t_mo >= band)).double().mean().item()
+        ok = k4_eq == len(parts) and route_eq and mono_eq and same_v
+        print(f"[parts-any-vs-plain] city bounce-{b} shadow rays "
+              f"{so.shape[0]}, occluded {int(occ.sum())}: K4 bit-equal with "
+              f"the plain any hit on {k4_eq} of {len(parts)} parts (the "
+              f"route's carried max_dist), the route's t bit-equal with the "
+              f"plain chain {route_eq}; monolithic K4 bit-equal with plain "
+              f"{mono_eq}; verdicts of the route, the plain parts any hit, "
+              f"monolithic K4 and its plain version equal on every lane "
+              f"{same_v}; lit (route vs monolithic K4) agrees on {lit:.6f}"
+              + ("" if ok else " FAIL"), flush=True)
+        if not ok:
+            fails.append(f"city bounce-{b}: parts any hit")
+    del city_recs, out
+
+    # ---- 22. K5 on the city's monolithic table and its parts
+    o, d, steps, t_m, tri_m = walks["camera"]
+    topo_m = sp.split_topology(big.tri_bvh)
+    topos = [sp.split_topology(p) for p in parts]
+    t_pm, tri_pm, _ = bvh4_closest_hit_stats(big.tri_bvh, o, d)
+    half = (torch.arange(o.shape[0], device=dev) % 2 == 0) & (t_pm < TMAX)
+    t0h = torch.where(half, t_pm * 0.5, torch.full_like(t_pm, TMAX))
+    tri0h = torch.where(half, 7777, -1).to(torch.int32)
+    k5_checks = []
+    k5_out = sp.bvh4_closest_hit_split_kernel(big.tri_bvh, o, d, topo=topo_m)
+    k5_checks.append(("whole table, no carried hit", k5_out, (t_pm, tri_pm),
+                      (t_m, tri_m)))
+    k5_out = sp.bvh4_closest_hit_split_kernel(big.tri_bvh, o, d, t0h, tri0h,
+                                              topo=topo_m)
+    k5_checks.append((
+        "whole table, half the lanes carried",
+        k5_out, bvh4_closest_hit_init_stats(big.tri_bvh, o, d, t0h,
+                                            tri0h)[:2],
+        bk.bvh4_closest_hit_init_kernel(big.tri_bvh, o, d, t0h, tri0h)))
+    for k, (p, t_in, tri_in, t_p, tri_p, _, _) in enumerate(steps):
+        k5_checks.append((
+            f"part {k}, the route's carried hit",
+            sp.bvh4_closest_hit_split_kernel(p, o, d, t_in, tri_in,
+                                             topo=topos[k]),
+            (t_p, tri_p), bk.bvh4_closest_hit_init_kernel(p, o, d, t_in,
+                                                          tri_in)))
+        k5_checks.append((
+            f"part {k}, no carried hit",
+            sp.bvh4_closest_hit_split_kernel(p, o, d, topo=topos[k]),
+            bvh4_closest_hit_stats(p, o, d)[:2],
+            bk.bvh4_closest_hit_kernel(p, o, d)))
+    k5_bad = []
+    for label, (t5, tri5), (tp_, trp_), (tk_, trk_) in k5_checks:
+        ok = (torch.equal(t5, tp_) and torch.equal(tri5, trp_)
+              and torch.equal(t5, tk_) and torch.equal(tri5, trk_))
+        both = (t5 < TMAX) & (tp_ < TMAX)
+        if bool(both.any()):
+            err["k5_bvh4_split"] = max(err["k5_bvh4_split"],
+                                       (t5 - tp_)[both].abs().max().item())
+        if not ok:
+            k5_bad.append(label)
+    print(f"[k5-vs-plain] city camera rays {o.shape[0]}: K5 bit-equal with "
+          f"the plain version and with K3 / K3 _init on "
+          f"{len(k5_checks) - len(k5_bad)} of {len(k5_checks)} tables "
+          f"(the whole table with and without a carried hit, every part "
+          f"with the route's carried hit and without one)"
+          + (f" FAIL {k5_bad}" if k5_bad else ""), flush=True)
+    fails.extend(f"K5 city {x}" for x in k5_bad)
+    del k5_checks, k5_out
+    t_k3m = _median5(lambda: bk.bvh4_closest_hit_kernel(big.tri_bvh, o, d))
+    t_k5m = _median5(lambda: sp.bvh4_closest_hit_split_kernel(
+        big.tri_bvh, o, d, topo=topo_m))
+    t_k3p = _median5(lambda: [bk.bvh4_closest_hit_init_kernel(
+        p, o, d, t_in, tri_in) for p, t_in, tri_in, *_ in steps])
+    t_k5p = _median5(lambda: [sp.bvh4_closest_hit_split_kernel(
+        p, o, d, t_in, tri_in, topo=topos[k])
+        for k, (p, t_in, tri_in, *_) in enumerate(steps)])
+    print(f"[time] {card}, city {o.shape[0]} camera rays (route order), "
+          f"median of 5: whole table bare K3 {t_k3m[0]:.4f} ms, bare K5 "
+          f"{t_k5m[0]:.4f} ms; the {len(parts)} parts, the route's carried "
+          f"hits: bare K3 _init {t_k3p[0]:.4f} ms, bare K5 {t_k5p[0]:.4f} ms "
+          f"(all parts; runs K3 {_runs(t_k3m[1])}; K5 {_runs(t_k5m[1])}; "
+          f"K3 _init {_runs(t_k3p[1])}; K5 parts {_runs(t_k5p[1])} ms); "
+          f"parts route / whole-table K3 {t_k3p[0] / t_k3m[0]:.3f}",
+          flush=True)
+    # per launch, over both ray sets: bare K3 _init and K5, plain, bounds
+    k3i_ms, k3i_plain, k3i_bounds, k5_bounds = 0.0, 0.0, [], []
+    n_launch = 0
+    for label in walks:
+        o_, d_, steps_, _, _ = walks[label]
+        k3i_ms += _median5(lambda: [bk.bvh4_closest_hit_init_kernel(
+            p, o_, d_, t_in, tri_in) for p, t_in, tri_in, *_ in steps_])[0]
+        k3i_plain += _timed(lambda: [bvh4_closest_hit_init_stats(
+            p, o_, d_, t_in, tri_in) for p, t_in, tri_in, *_ in steps_])[0]
+        for p, _, _, _, _, visits, _ in steps_:
+            k3i_bounds.append(_pop_bound(p, visits, o_.shape[0], 40))
+            k5_bounds.append(_pop_bound(p, visits, o_.shape[0], 40, True))
+        n_launch += len(steps_)
+    k5_ms = t_k5p[0] / len(parts)
+    k5_plain = _timed(lambda: [bvh4_closest_hit_init_stats(
+        p, o, d, t_in, tri_in) for p, t_in, tri_in, *_ in steps])[0] / len(
+        parts)
+    k5_bound = k5_bounds[:len(parts)]
+    pops_all = [int(st[6].sum()) for lb in walks for st in walks[lb][2]]
+    print(f"[time] {card}, k3_init_bvh4_closest per launch on the city "
+          f"(camera and bounce-1 rays, every part): bare "
+          f"{k3i_ms / n_launch:.4f} ms, plain {k3i_plain / n_launch:.4f} ms "
+          f"(timed once), bound "
+          f"{sum(b for b, _ in k3i_bounds) / n_launch:.4f} ms "
+          f"({k3i_bounds[0][1]}); pops per lane and part mean "
+          f"{sum(pops_all) / (n_launch * o.shape[0]):.3f}; k5_bvh4_split "
+          f"per launch on the camera rays' parts: bare {k5_ms:.4f} ms, "
+          f"plain {k5_plain:.4f} ms, bound "
+          f"{sum(b for b, _ in k5_bound) / len(parts):.4f} ms "
+          f"({k5_bound[0][1]})", flush=True)
+    kernels["k3_init_bvh4_closest"] = {
+        "name": "k3_init_bvh4_closest", "route": "cuda",
+        "source": "craytracer_tpu_torch/csrc/bvh4_traverse.cu",
+        "replaces": "craytracer_tpu/accel/pallas_bvh4.py:126",
+        "launches": launches_city["k3_init_bvh4_closest"],
+        "ms": k3i_ms / n_launch, "plain_ms": k3i_plain / n_launch,
+        "bound_ms": sum(b for b, _ in k3i_bounds) / n_launch,
+        "bound_by": k3i_bounds[0][1], "library_ms": None}
+    kernels["k5_bvh4_split"] = {
+        "name": "k5_bvh4_split", "route": "cuda",
+        "source": "craytracer_tpu_torch/csrc/bvh4_split.cu",
+        "replaces": "craytracer_tpu/accel/pallas_bvh4.py:683",
+        "launches": launches_city["k5_bvh4_split"], "ms": k5_ms,
+        "plain_ms": k5_plain,
+        "bound_ms": sum(b for b, _ in k5_bound) / len(parts),
+        "bound_by": k5_bound[0][1], "library_ms": None}
+    del walks, steps, topos, topo_m
+
+    # ---- 23. K6 on parity_mesh_mid's triangles and camera rays
+    soa = tri_kernel.pack_triangles(*(x.cpu().numpy() for x in (
+        mesh.triangles.v0, mesh.triangles.v1, mesh.triangles.v2)),
+        device=dev)
+    t6, i6 = tri_kernel.triangle_closest_kernel(o_cam, d_cam, soa)
+    ms6_plain, (t6p, i6p) = _timed(
+        lambda: tri_kernel.triangle_closest(o_cam, d_cam, soa))
+    eq6 = torch.equal(t6, t6p) and torch.equal(i6, i6p)
+    both = (t6 < TMAX) & (t6p < TMAX)
+    err["k6_tri_closest"] = ((t6 - t6p)[both].abs().max().item()
+                             if bool(both.any()) else 0.0)
+    med6, ts6 = _median5(
+        lambda: tri_kernel.triangle_closest_kernel(o_cam, d_cam, soa))
+    pairs = o_cam.shape[0] * soa.shape[1]
+    b6 = _bound(soa.numel() * 4 + o_cam.shape[0] * 32, pairs * K6_OPS)
+    print(f"[k6-vs-plain] parity_mesh_mid {soa.shape[1]} table columns "
+          f"({mesh.triangles.mat_id.shape[0]} triangles) x {o_cam.shape[0]} "
+          f"camera rays: t and idx bit-equal on every lane {eq6}, hits "
+          f"{int((i6p >= 0).sum())}" + ("" if eq6 else " FAIL"), flush=True)
+    print(f"[time] {card}, k6_tri_closest on those rays, median of 5: bare "
+          f"{med6:.4f} ms (runs {_runs(ts6)} ms), plain {ms6_plain:.4f} ms "
+          f"(timed once), bound {b6[0]:.4f} ms ({b6[1]}, {pairs} pair "
+          f"tests)", flush=True)
+    if not eq6:
+        fails.append("K6 parity_mesh_mid")
+    kernels["k6_tri_closest"] = {
+        "name": "k6_tri_closest", "route": "cuda",
+        "source": "craytracer_tpu_torch/csrc/tri_closest.cu",
+        "replaces": "craytracer_tpu/ops/pallas_tri.py:35",
+        "launches": launches_city["k6_tri_closest"], "ms": med6,
+        "plain_ms": ms6_plain, "bound_ms": b6[0], "bound_by": b6[1],
+        "library_ms": None}
+    del soa, t6, i6, t6p, i6p
+
+    # ---- 24. P1 on the city's fat table
+    fat_c = big.tri_bvh.fat
+    o4, d4 = sorted_rays(ob, db)
+    p1_bad = []
+    for mode in pp.MODES:
+        tk1, sk1 = pp.pop_probe_kernel(fat_c, o4[:128].contiguous(),
+                                       d4[:128].contiguous(), mode, 48)
+        tp1, sp1 = pp.pop_probe(fat_c, o4[:128], d4[:128], mode, 48)
+        if not (torch.equal(tk1, tp1) and torch.equal(sk1, sp1)):
+            p1_bad.append(mode)
+        fin = (tk1 < 1e30) & (tp1 < 1e30)
+        if bool(fin.any()):
+            err["p1_pop_probe"] = max(err["p1_pop_probe"],
+                                      (tk1 - tp1)[fin].abs().max().item())
+    print(f"[p1-vs-plain] city fat table, 4 packets, 48 pops: t and sink "
+          f"bit-equal in {len(pp.MODES) - len(p1_bad)} of {len(pp.MODES)} "
+          f"modes" + (f" FAIL {p1_bad}" if p1_bad else ""), flush=True)
+    fails.extend(f"P1 mode {m}" for m in p1_bad)
+    packets = 4224
+    op, dp = o4[:packets * pp.PACKET].contiguous(), d4[
+        :packets * pp.PACKET].contiguous()
+    per_pop = pp.measure(fat_c, op, dp, pops=512)
+    print(f"[time] {card}, p1_pop_probe on the city fat table, {packets} "
+          f"packets of 32 camera rays, slope between 512 and 1536 pops "
+          f"(median of 5 each): ns per pop of the launch "
+          f"{json.dumps({k: round(v[0], 3) for k, v in per_pop.items()})}; "
+          f"ns per packet-pop "
+          f"{json.dumps({k: round(v[1], 5) for k, v in per_pop.items()})}",
+          flush=True)
+    p1_pops = 128
+    med_p1, ts_p1 = _median5(lambda: pp.pop_probe_kernel(fat_c, op, dp,
+                                                         "full", p1_pops))
+    ms_p1_plain, (tpf, spf) = _timed(lambda: pp.pop_probe(
+        fat_c, op, dp, "full", p1_pops))
+    tkf, skf = pp.pop_probe_kernel(fat_c, op, dp, "full", p1_pops)
+    eq_p1 = torch.equal(tkf, tpf) and torch.equal(skf, spf)
+    fin = (tkf < 1e30) & (tpf < 1e30)
+    if bool(fin.any()):
+        err["p1_pop_probe"] = max(err["p1_pop_probe"],
+                                  (tkf - tpf)[fin].abs().max().item())
+    if not eq_p1:
+        fails.append("P1 full mode at the timed size")
+    rows_p1 = len(set(pp.lcg_nodes(p1_pops, fat_c.shape[0])))
+    b_p1 = _bound(rows_p1 * ROW_BYTES + op.shape[0] * 32,
+                  op.shape[0] * p1_pops * (4 * BOX_OPS + 8 * SLOT_OPS
+                                           + SORT_OPS))
+    print(f"[time] {card}, p1_pop_probe full mode, {op.shape[0]} lanes x "
+          f"{p1_pops} pops, median of 5: bare {med_p1:.4f} ms (runs "
+          f"{_runs(ts_p1)} ms), plain {ms_p1_plain:.4f} ms (timed once), "
+          f"bound {b_p1[0]:.4f} ms ({b_p1[1]}); t and sink bit-equal "
+          f"with the plain version {eq_p1}" + ("" if eq_p1 else " FAIL"),
+          flush=True)
+    kernels["p1_pop_probe"] = {
+        "name": "p1_pop_probe", "route": "cuda",
+        "source": "craytracer_tpu_torch/csrc/pop_probe.cu",
+        "replaces": "profiling/ablate_pallas_pop.py:43",
+        "launches": launches_city["p1_pop_probe"], "ms": med_p1,
+        "plain_ms": ms_p1_plain, "bound_ms": b_p1[0], "bound_by": b_p1[1],
+        "library_ms": None}
 
     if fails:
         for f in fails:

@@ -1,10 +1,14 @@
 """4-wide fat-row BVH: the build and the plain PyTorch traversal
-(counterpart of craytracer_tpu/accel/bvh4.py: `_stack_bound` :79-98,
-`build_bvh4` :210 on the native path, `_traverse4` :262-410,
-`bvh4_closest_hit` :413, `bvh4_closest_hit_stats` :417, `bvh4_any_hit`
-:425).
+(counterpart of craytracer_tpu/accel/bvh4.py: `_stack_bound` :79,
+`stack_bound_children` :88, `build_bvh4` :210 on the native path,
+`_traverse4` :262-410, `bvh4_closest_hit` :413, `bvh4_closest_hit_stats`
+:417, `bvh4_any_hit` :425).
 
-The traversal is the plain version of K3 and K4 (accel/bvh4_kernel.py).
+The traversal is the plain version of K3, K3 `_init` and K4
+(accel/bvh4_kernel.py) and of K5 (accel/bvh4_split_kernel.py). A closest
+hit may start from a carried best hit (t0, tri0) instead of TMAX / -1:
+the per-part step of the partitioned tables (accel/bvh4_parts.py), which
+pallas_bvh4.py:399 `pallas_bvh4_closest_hit_init` runs on the TPU.
 Every lane walks the tree with its own stack of `stack_size` node ids and
 follows `_traverse4`'s per-lane visit order exactly: pop the top node,
 slab-test its four child boxes against min(best_t, max_dist) as it was
@@ -45,11 +49,12 @@ FAT_COLS = 128  # rows padded to 128 columns (accel/bvh4.py `_pad128`)
 _SORT_NET = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
 
 
-def stack_bound(fat: np.ndarray) -> int:
-    """BFS depth of the 4-wide tree -> the per-lane stack bound: a pop
-    nets at most +3, so sp <= 3 * depth + 1; +4 margin, rounded up to a
-    multiple of 8, at least 16 and at most MAX_STACK."""
-    child = np.asarray(fat[:, 24:28], np.int64)
+def stack_bound_children(child) -> int:
+    """BFS depth of the 4-wide tree from its [M, 4] child ids (-1: none)
+    -> the per-lane stack bound: a pop nets at most +3, so sp <= 3 * depth
+    + 1; +4 margin, rounded up to a multiple of 8, at least 16 and at most
+    MAX_STACK."""
+    child = np.asarray(child, np.int64)
     frontier = np.array([0], np.int64)
     depth = 0
     while frontier.size and depth < 200:
@@ -71,7 +76,7 @@ def build_bvh4(v0, v1, v2, leaf_size: int = LEAF_SIZE) -> BVH4Arrays:
         raise ValueError("fat rows inline f32 triangle ids: fewer than 2^24 "
                          "triangles")
     fat = build_bvh4_fat_native(v0, v1, v2, leaf_size)
-    bound = stack_bound(fat)
+    bound = stack_bound_children(fat[:, 24:28])
     if fat.shape[1] < FAT_COLS:
         fat = np.pad(fat, ((0, 0), (0, FAT_COLS - fat.shape[1])))
     return BVH4Arrays(fat=torch.from_numpy(np.ascontiguousarray(fat)),
@@ -89,17 +94,23 @@ def _swap(key, val, i, j):
 
 @torch.no_grad()
 def _traverse4(bvh: BVH4Arrays, o, d, any_hit: bool, max_dist=None,
-               visits=None):
-    """(best_t [N] f32, best_tri [N] int32, pops [N] int32) per lane; each
-    pop adds one to its row's entry of `visits` ([M] int64) if given."""
+               visits=None, t0=None, tri0=None):
+    """(best_t [N] f32, best_tri [N] int32, pops [N] int32) per lane,
+    starting from the carried best hit (t0 [N] f32, tri0 [N] int32) when
+    given, else TMAX / -1; each pop adds one to its row's entry of
+    `visits` ([M] int64) if given."""
     n = o.shape[0]
     dev = o.device
     fat = bvh.fat
     m = fat.shape[0]
     k_slots = WIDTH * bvh.leaf_size
     S = int(bvh.stack_size)
-    out_t = torch.full((n,), TMAX, dtype=torch.float32, device=dev)
-    out_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if t0 is None:
+        out_t = torch.full((n,), TMAX, dtype=torch.float32, device=dev)
+        out_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    else:
+        out_t = t0.to(torch.float32).clone()
+        out_tri = tri0.to(torch.int32).clone()
     out_pops = torch.zeros((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return out_t, out_tri, out_pops
@@ -219,6 +230,23 @@ def bvh4_closest_hit_stats(bvh: BVH4Arrays, o, d, visits=None):
     Each pop also adds one to its row's entry of `visits` ([M] int64) if
     given."""
     return _traverse4(bvh, o, d, any_hit=False, visits=visits)
+
+
+def bvh4_closest_hit_init(bvh: BVH4Arrays, o, d, t0, tri0):
+    """Closest hit carrying in a best hit: (t, tri) is (t0, tri0) unless
+    the tree holds a triangle strictly closer than t0 (a box is entered
+    only when its entry distance is below the running best). The plain
+    version of K3 `_init` and K5."""
+    t, tri, _ = _traverse4(bvh, o, d, any_hit=False, t0=t0, tri0=tri0)
+    return t, tri
+
+
+def bvh4_closest_hit_init_stats(bvh: BVH4Arrays, o, d, t0, tri0,
+                                visits=None):
+    """(t, tri, pops [N] int32) of `bvh4_closest_hit_init`, with each pop
+    counted per row into `visits` ([M] int64) if given."""
+    return _traverse4(bvh, o, d, any_hit=False, visits=visits, t0=t0,
+                      tri0=tri0)
 
 
 def bvh4_any_hit(bvh: BVH4Arrays, o, d, max_dist):

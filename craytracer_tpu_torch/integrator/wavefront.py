@@ -13,8 +13,9 @@ offset-adjusted light distance, then L and good_paths). With
 this is K1's plain version and the plain version of the whole "shade"
 route. With `fast_shade="shade"` on the card the stages go through the
 kernel wrappers: K3 closest hit (bvh4 scenes, in ray_key order), K2
-shade, K4 any hit (bvh4 scenes, behind a ray_key argsort). On the CPU
-both values run the plain versions. No MIS, stream compaction or remat:
+shade, K4 any hit (bvh4 scenes, behind a ray_key argsort); a table cut
+into parts (Scene.tri_parts) takes K3 `_init` and K4 once per part. On
+the CPU both values run the plain versions. No MIS, stream compaction or remat:
 those wait for ROADMAP slices F and G.
 
 `render_sample` is the production entry: it asks the gate

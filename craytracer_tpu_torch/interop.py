@@ -31,11 +31,14 @@ _STATIC = ("accel", "mat_types_present", "light_types_present",
 
 def numpy_leaves(obj):
     """Any (nested) dataclass -> nested dict: array leaves through
-    np.asarray, None and Python scalars/strings/tuples kept as they are."""
+    np.asarray, tuples element by element, None and Python
+    scalars/strings kept as they are."""
     if dataclasses.is_dataclass(obj):
         return {f.name: numpy_leaves(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}
-    if obj is None or isinstance(obj, (bool, int, float, str, tuple)):
+    if isinstance(obj, tuple):
+        return tuple(numpy_leaves(x) for x in obj)
+    if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     return np.asarray(obj)
 
@@ -56,9 +59,10 @@ def _build(cls, leaves: Mapping, device):
 def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     """`leaves` maps each Scene group name to a mapping of its fields
     (numpy arrays) plus the static fields. The bvh4 table `tri_bvh` (fat
-    rows, n_tris, leaf_size, stack_size) is carried; a scene holding any
-    other accel table is refused (ROADMAP queue 1, slice I)."""
-    for name in ("tri_shadow", "tri_parts", "tri_cam", "sph_bvh"):
+    rows, n_tris, leaf_size, stack_size) and its parts `tri_parts` are
+    carried; a scene holding any other accel table is refused (ROADMAP
+    queue 1, slice I)."""
+    for name in ("tri_shadow", "tri_cam", "sph_bvh"):
         if leaves.get(name) is not None:
             raise NotImplementedError(
                 f"scene carries {name}; that accelerator is not ported "
@@ -68,6 +72,9 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     kw["env"] = _build(T.EnvLight, leaves["env"], device)
     if leaves.get("tri_bvh") is not None:
         kw["tri_bvh"] = _build(T.BVH4Arrays, leaves["tri_bvh"], device)
+    if leaves.get("tri_parts") is not None:
+        kw["tri_parts"] = tuple(_build(T.BVH4Arrays, p, device)
+                                for p in leaves["tri_parts"])
     for name in _STATIC:
         kw[name] = leaves[name]
     kw["mat_types_present"] = tuple(kw["mat_types_present"])

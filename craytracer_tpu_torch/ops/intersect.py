@@ -21,8 +21,11 @@ are brute force too in an accel="none" scene; in an accel="bvh4" scene
 they go through the fat-row BVH4 (accel/bvh4.py): with `kernels=True`,
 K3 for the closest hit inside the ray_key coherence sort
 (ops/raysort.py), as intersect.py:609-620 runs the Pallas kernel, and K4
-for the shadow any hit behind a ray_key argsort (:737-747); with
-`kernels=False`, the plain traversal. The tracer
+for the shadow any hit behind a ray_key argsort (:737-747); a scene whose
+table was cut into parts (Scene.tri_parts, accel/bvh4_parts.py) walks
+the parts instead, K3 `_init` part after part inside the same sort
+(:583-616) and K4 per part behind it (:752-766); with `kernels=False`,
+the plain traversal of the monolithic table. The tracer
 (integrator/wavefront.py) asks for the kernels only for rays on the
 card. No Pallas kernel intersects the instanced shapes (pallas_shade.py
 :1536-1537): they stay torch ops on every route. Affine products are
@@ -36,7 +39,7 @@ from dataclasses import dataclass
 
 import torch
 
-from craytracer_tpu_torch.accel import bvh4_kernel
+from craytracer_tpu_torch.accel import bvh4_kernel, bvh4_parts
 from craytracer_tpu_torch.accel.bvh4 import bvh4_any_hit, bvh4_closest_hit
 from craytracer_tpu_torch.constants import K_EPSILON, PI, TMAX, TWO_PI
 from craytracer_tpu_torch.core import math as vm
@@ -435,7 +438,11 @@ _GROUPS = (
 def _tri_closest(scene: T.Scene, o, d, kernels: bool):
     """(t, index) of the closest triangle per ray (index 0 on a miss)."""
     if scene.accel == "bvh4":
-        if kernels:
+        if kernels and scene.tri_parts is not None:
+            t, tri = sorted_traversal(
+                lambda oo, dd: bvh4_parts.parts_closest_hit_kernel(
+                    scene.tri_parts, oo, dd), o, d)
+        elif kernels:
             t, tri = sorted_traversal(
                 lambda oo, dd: bvh4_kernel.bvh4_closest_hit_kernel(
                     scene.tri_bvh, oo, dd), o, d)
@@ -449,7 +456,8 @@ def _tri_closest(scene: T.Scene, o, d, kernels: bool):
 def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
     """Closest hit across the primitive groups: first minimum within a
     group, strict < across groups (the reference's tie-break order).
-    `kernels` routes a bvh4 scene's triangles through K3."""
+    `kernels` routes a bvh4 scene's triangles through K3 (K3 `_init` per
+    part when the table was cut into parts)."""
     n = o.shape[0]
     best_t = torch.full((n,), TMAX, dtype=o.dtype, device=o.device)
     best_group = torch.full((n,), T.GROUP_NONE, dtype=torch.int32,
@@ -504,7 +512,8 @@ def shadow_distance(scene: T.Scene, o, d, max_dist=None,
     """Hit distance for shadow rays: the minimum over the brute-force
     groups, and for a bvh4 scene's triangles the any hit under `max_dist`
     (t < max_dist when occluded, TMAX otherwise). `kernels` routes that
-    any hit through K4 in ray_key order."""
+    any hit through K4 in ray_key order (per part when the table was cut
+    into parts)."""
     n = o.shape[0]
     best_t = torch.full((n,), TMAX, dtype=o.dtype, device=o.device)
     for gid, name, ts_fn, _ in _GROUPS:
@@ -514,7 +523,11 @@ def shadow_distance(scene: T.Scene, o, d, max_dist=None,
         if gid == T.GROUP_TRIANGLE and scene.accel == "bvh4":
             md = (torch.full_like(best_t, TMAX) if max_dist is None
                   else max_dist)
-            if kernels:
+            if kernels and scene.tri_parts is not None:
+                t = sorted_traversal(
+                    lambda oo, dd, mm: bvh4_parts.parts_any_hit_kernel(
+                        scene.tri_parts, oo, dd, mm), o, d, md)
+            elif kernels:
                 t = sorted_traversal(
                     lambda oo, dd, mm: bvh4_kernel.bvh4_any_hit_kernel(
                         scene.tri_bvh, oo, dd, mm), o, d, md)

@@ -447,11 +447,17 @@ class SceneBuilder:
                   for c in range(13)]
         self._tri_columns = tv  # corners by global index for the bounds
         triangles = tensors(T.Triangles, tv)
-        tri_bvh = None
+        tri_bvh = tri_parts = None
         if accel == "bvh4":
+            from craytracer_tpu_torch.accel import bvh4_parts
             from craytracer_tpu_torch.accel.bvh4 import build_bvh4
 
             tri_bvh = build_bvh4(tv[0], tv[1], tv[2])
+            # past the part budget, also cut the table into parts
+            # (scene/build.py:535-541); the monolithic table stays
+            budget = bvh4_parts.PART_BUDGET_BYTES
+            if tri_bvh.fat.numel() * 4 > budget:
+                tri_parts = bvh4_parts.partition_bvh4(tri_bvh, budget)
         instanced = tensors(T.Instanced, soa(
             self._instanced, [((3, 4), f32), ((3, 3), f32), ((), np.int32),
                               ((4,), f32), ((), np.int32), ((), np.int32)]))
@@ -478,7 +484,7 @@ class SceneBuilder:
             triangles=triangles, instanced=instanced, materials=materials,
             lights=lights, mesh_lights=mesh_lights, env=env,
             textures=T.empty_texture_pack(), tri_bvh=tri_bvh,
-            accel=accel,
+            tri_parts=tri_parts, accel=accel,
             mat_types_present=tuple(sorted(int(t) for t in
                                            np.unique(mat_type))),
             light_types_present=tuple(sorted(

@@ -78,9 +78,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_device(obj, device):
-    """Copy every tensor leaf of a (nested) dataclass to `device`."""
+    """Copy every tensor leaf of a (nested) dataclass or tuple to
+    `device`."""
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(to_device(x, device) for x in obj)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
             f.name: to_device(getattr(obj, f.name), device)
@@ -276,9 +279,12 @@ class BVH4Arrays:
 
 @dataclass(frozen=True)
 class Scene:
-    """The whole scene. Of the JAX Scene's accel slots only `tri_bvh`
-    (accel="bvh4") is carried; tri_shadow/tri_parts/tri_cam/sph_bvh belong
-    to accelerators the port does not build (ROADMAP slice I)."""
+    """The whole scene. Of the JAX Scene's accel slots the port carries
+    `tri_bvh` (accel="bvh4") and, for a fat table past the part budget,
+    `tri_parts` (accel/bvh4_parts.py), the table cut into a tuple of
+    BVH4Arrays beside the monolithic one, as the JAX Scene does
+    (scene/types.py:265-271); tri_shadow/tri_cam/sph_bvh belong to
+    accelerators the port does not build (ROADMAP slice I)."""
 
     spheres: Spheres
     planes: Planes
@@ -292,6 +298,7 @@ class Scene:
     env: EnvLight
     textures: TexturePack
     tri_bvh: Optional[BVH4Arrays] = None
+    tri_parts: Optional[tuple] = None  # of BVH4Arrays: (top, subtrees...)
     accel: str = "none"
     mat_types_present: tuple = ()
     light_types_present: tuple = ()

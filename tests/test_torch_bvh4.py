@@ -43,8 +43,11 @@ from craytracer_tpu_torch.interop import numpy_leaves
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.ops.raysort import ray_key, sorted_traversal
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
+from torch_jax_native import (  # noqa: F401
+    SAH_WARNING_IS_ERROR, ensure_jax_native, jax_native)
 
 torch.set_num_threads(2)
+pytestmark = SAH_WARNING_IS_ERROR
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(REPO, "scenes", "parity_mesh.txt")
 
@@ -171,3 +174,20 @@ def test_nan_rays_miss():
     assert (t == TMAX).all() and (tri == -1).all()
     ta = bvh4_any_hit(ours, o, d, torch.tensor([20.0, float("nan")]))
     assert (ta == TMAX).all()
+
+
+def test_jax_native_recovers_after_a_failed_load(monkeypatch):
+    """A worker that lost the build race is left with the JAX loader's
+    `_TRIED` set and no library, and would build median trees from then
+    on; ensure_jax_native reloads it, and the SAH build then matches the
+    port's table (no median-fallback warning, which this module makes an
+    error)."""
+    from craytracer_tpu import native as jn
+
+    monkeypatch.setattr(jn, "_LIB", None)
+    monkeypatch.setattr(jn, "_TRIED", True)
+    assert jn._load() is None
+    lib = ensure_jax_native()
+    assert lib is not None and jn._load() is lib
+    ours, ref = _ico3()
+    np.testing.assert_array_equal(np.asarray(ref.fat), ours.fat.numpy())

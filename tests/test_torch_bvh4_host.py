@@ -1,8 +1,9 @@
-"""K2's, K3's and K4's CUDA sources, built for the CPU, against their plain
-PyTorch versions.
+"""K2's, K3's, K3 `_init`'s, K4's, K5's and K6's CUDA sources, built for the
+CPU, against their plain PyTorch versions.
 
-As tests/test_torch_k1_host.py does for K1: csrc/shade_kernel.cu and
-csrc/bvh4_traverse.cu are compiled with the host C++ compiler against a
+As tests/test_torch_k1_host.py does for K1: csrc/shade_kernel.cu,
+csrc/bvh4_traverse.cu, csrc/bvh4_split.cu and csrc/tri_closest.cu are
+compiled with the host C++ compiler against a
 stub `cuda_runtime.h` (qualifiers as empty macros, float4 and __ldg as
 plain C++, the shared table as a static array) with each `<<<...>>>`
 launch replaced by a loop over lanes, and their C entry points are called
@@ -19,6 +20,14 @@ fails it); K2's float outputs within 1e-5 (absolute + relative) of
 fused_shade_reference and its int outputs equal on every lane, at
 bounces 0, 2 and 5 with per-lane spp (the host libm's sinf/cosf may
 differ from torch's by an ulp). Measured: every K3/K4 lane bit-equal.
+K3 `_init` and K5 (with and without a carried hit: half the lanes carry
+t at half their closest hit with id 7777, as tests/test_pallas_kernel.py
+:167-175 does) on the same rays and on every part of the soup's table cut
+at a fifth of its bytes (the top part's cut children -1), and K6 on
+random triangles with a duplicated block (exact-t ties): t and ids equal
+the plain versions' on every lane. The single-lane launch loop runs a
+block's shared-memory staging (K5's top topology rows, K6's triangle
+tiles) with a block of one thread.
 
 Skips when no C++ compiler is on the PATH."""
 
@@ -33,8 +42,12 @@ import pytest
 import torch
 
 from craytracer_tpu_torch.accel.bvh4 import (build_bvh4, bvh4_any_hit,
-                                             bvh4_closest_hit)
+                                             bvh4_closest_hit,
+                                             bvh4_closest_hit_init)
+from craytracer_tpu_torch.accel.bvh4_parts import partition_bvh4
+from craytracer_tpu_torch.accel.bvh4_split_kernel import split_topology
 from craytracer_tpu_torch.camera import Film, generate_rays
+from craytracer_tpu_torch.constants import TMAX
 from craytracer_tpu_torch.cuda_build import CSRC
 from craytracer_tpu_torch.integrator import shade_kernel as sk
 from craytracer_tpu_torch.integrator.wavefront import _bounce_step, _init_state
@@ -96,7 +109,7 @@ def _host_build(tmp_path_factory, stem, n_launches):
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    trav = _host_build(tmp_path_factory, "bvh4_traverse", 2)
+    trav = _host_build(tmp_path_factory, "bvh4_traverse", 3)
     from craytracer_tpu_torch.accel.bvh4_kernel import _bind
 
     _bind(trav)
@@ -227,3 +240,99 @@ def test_k2_source_matches_plain_shade(host_libs, mesh, bounce):
                                "new_prev_sg")):
         assert torch.equal(io[row], ref[key].to(torch.int32)), key
     assert bool(alive.any())
+
+
+@pytest.fixture(scope="module")
+def split_libs(tmp_path_factory):
+    from craytracer_tpu_torch.accel import bvh4_split_kernel
+    from craytracer_tpu_torch.ops import tri_kernel
+
+    split = _host_build(tmp_path_factory, "bvh4_split", 2)
+    bvh4_split_kernel._bind(split)
+    tri = _host_build(tmp_path_factory, "tri_closest", 1)
+    tri_kernel._bind(tri)
+    return split, tri
+
+
+def _carried(t_ref, tri_ref):
+    """Half the lanes carry a hit at half their closest t (id 7777), the
+    rest TMAX / -1 (tests/test_pallas_kernel.py:167-175)."""
+    n = t_ref.shape[0]
+    even = torch.arange(n) % 2 == 0
+    t0 = torch.where(even & (t_ref < TMAX), t_ref * 0.5,
+                     torch.full_like(t_ref, TMAX))
+    tri0 = torch.where(t0 < TMAX, 7777, -1).to(torch.int32)
+    return t0, tri0
+
+
+@pytest.mark.parametrize("kind", ["camera", "bounce1", "random", "soup",
+                                  "soup_parts"])
+def test_k3_init_k5_sources_match_plain_traversal(host_libs, split_libs, mesh,
+                                                  kind):
+    trav, _ = host_libs
+    split, _ = split_libs
+    scene, cam, film = mesh
+    if kind.startswith("soup"):
+        bvh, o, d = _soup()
+    else:
+        bvh = scene.tri_bvh
+        o, d = _rays(scene, cam, film, kind)
+    tables = ([bvh] if kind != "soup_parts"
+              else partition_bvh4(bvh, bvh.fat.numel() * 4 // 5))
+    assert len(tables) >= (3 if kind == "soup_parts" else 1)
+    n = o.shape[0]
+    assert (bvh4_closest_hit(bvh, o, d)[0] < TMAX).sum() > 50
+    for part in tables:
+        t_ref, tri_ref = bvh4_closest_hit(part, o, d)
+        t0, tri0 = _carried(t_ref, tri_ref)
+        ref_init = bvh4_closest_hit_init(part, o, d, t0, tri0)
+        if (t_ref < TMAX).any():  # the carried hits win somewhere
+            assert not torch.equal(ref_init[1], tri_ref)
+        topo = split_topology(part)
+        m, s = part.fat.shape[0], part.stack_size
+        for carry in (False, True):
+            want = ref_init if carry else (t_ref, tri_ref)
+            for lib in ("k3_init", "k5"):
+                if lib == "k3_init" and not carry:
+                    continue
+                t = torch.empty(n, dtype=torch.float32)
+                tri = torch.empty(n, dtype=torch.int32)
+                c = ((t0.data_ptr(), tri0.data_ptr()) if carry
+                     else (None, None))
+                if lib == "k3_init":
+                    err = trav.k3_closest_init_launch(
+                        part.fat.data_ptr(), m, s, o.data_ptr(), d.data_ptr(),
+                        *c, n, t.data_ptr(), tri.data_ptr(), None)
+                else:
+                    err = split.k5_split_launch(
+                        topo.data_ptr(), part.fat.data_ptr(), m, s,
+                        o.data_ptr(), d.data_ptr(), *c, n, t.data_ptr(),
+                        tri.data_ptr(), None)
+                assert err == 0
+                assert torch.equal(t, want[0]), (lib, carry)
+                assert torch.equal(tri, want[1]), (lib, carry)
+
+
+def test_k6_source_matches_plain_triangle_closest(split_libs):
+    from craytracer_tpu_torch.ops.tri_kernel import (pack_triangles,
+                                                     triangle_closest)
+
+    _, tri = split_libs
+    rng = np.random.default_rng(4)
+    base = rng.uniform(-10, 10, (300, 3))
+    v = [base + rng.normal(0, 1, (300, 3)) for _ in range(3)]
+    v = [np.concatenate([x, x[:40]]) for x in v]  # exact-t ties
+    soa = pack_triangles(*v)
+    o = torch.from_numpy(rng.uniform(-15, 15, (700, 3)).astype(np.float32))
+    d = rng.normal(size=(700, 3))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True))
+                         .astype(np.float32))
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32)
+    idx = torch.empty(n, dtype=torch.int32)
+    assert tri.k6_tri_launch(o.data_ptr(), d.data_ptr(), n, soa.data_ptr(),
+                             soa.shape[1], t.data_ptr(), idx.data_ptr(),
+                             None) == 0
+    t_ref, idx_ref = triangle_closest(o, d, soa)
+    assert torch.equal(t, t_ref) and torch.equal(idx, idx_ref)
+    assert (idx_ref >= 0).sum() > 50 and (idx_ref < 40).any()

@@ -1,5 +1,5 @@
-"""K1, K2, K3 and K4 on the card: each CUDA kernel against its plain
-PyTorch version, the launch counts, and the wrappers' refusals. These
+"""K1-K6 and P1 on the card: each CUDA kernel against its plain PyTorch
+version, the launch counts, and the wrappers' refusals. These
 cases carry the
 `cuda` marker (pytest.ini) and need a CUDA card and nvcc; without a card
 they skip. The file imports no JAX, so on a machine with the card (and
@@ -18,6 +18,7 @@ import torch
 from craytracer_tpu_torch.accel import bvh4_kernel as bk
 from craytracer_tpu_torch.accel.bvh4 import bvh4_any_hit, bvh4_closest_hit
 from craytracer_tpu_torch.camera import Film, generate_rays
+from craytracer_tpu_torch.constants import TMAX
 from craytracer_tpu_torch.integrator import pass_kernel as pk
 from craytracer_tpu_torch.integrator import shade_kernel as sk
 from craytracer_tpu_torch.integrator import wavefront as wf
@@ -355,3 +356,125 @@ def test_k2_matches_plain_shade_on_prims_hits(cuda):
                     agree = (got[key] == val).double().mean().item()
                     assert agree >= 0.999, (b, key)
         state = wf._bounce_step(scene, 3, spp, 5, b, state, kernels=False)
+
+
+# ---- slice J: partitioned tables (K3 `_init`, K4 per part), K5, K6, P1
+
+
+def _city_parts(dev, tris=5120, size=32):
+    """A small city whose table is cut at a fifth of its bytes (17 parts),
+    the same scene uncut, and camera rays of 2 spp at size x size."""
+    from craytracer_tpu_torch.accel import bvh4_parts
+    from craytracer_tpu_torch.camera import make_camera
+    from craytracer_tpu_torch.scene.city import city_builder
+
+    whole = city_builder(tris).build(device=dev)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(bvh4_parts, "PART_BUDGET_BYTES",
+               whole.tri_bvh.fat.numel() * 4 // 5)
+    try:
+        cut = city_builder(tris).build(device=dev)
+    finally:
+        mp.undo()
+    cam = make_camera((4, 6, 6), (-3, 2, -3), device=dev)
+    film = Film(fov=torch.tensor(0.8726646, device=dev), width=size,
+                height=size)
+    pix = torch.arange(size * size, dtype=torch.int32, device=dev).repeat(2)
+    spp = torch.arange(2, dtype=torch.int32,
+                       device=dev).repeat_interleave(size * size)
+    o, d = generate_rays(cam, film, pix, stratified_jitter(11, pix, spp))
+    return whole, cut, pix, spp, o, d
+
+
+def test_k3_init_and_k5_match_plain_traversal(cuda):
+    """K3 `_init` and K5 (with and without a carried hit) equal the plain
+    traversal on every lane, on every part with the best hit of the parts
+    before it carried and on the whole table."""
+    from craytracer_tpu_torch.accel import bvh4_split_kernel as sp
+    from craytracer_tpu_torch.accel.bvh4 import bvh4_closest_hit_init
+
+    whole, cut, _, _, o, d = _city_parts(cuda)
+    assert len(cut.tri_parts) >= 3
+    n = o.shape[0]
+    t = torch.full((n,), TMAX, device=cuda)
+    tri = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    for p in cut.tri_parts + (whole.tri_bvh,):
+        before = (bk.CLOSEST_INIT.launches, sp.SPLIT.launches)
+        t_p, tri_p = bvh4_closest_hit_init(p, o, d, t, tri)
+        t_k, tri_k = bk.bvh4_closest_hit_init_kernel(p, o, d, t, tri)
+        assert torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p)
+        t_s, tri_s = sp.bvh4_closest_hit_split_kernel(p, o, d, t, tri)
+        assert torch.equal(t_s, t_p) and torch.equal(tri_s, tri_p)
+        t_0, tri_0 = sp.bvh4_closest_hit_split_kernel(p, o, d)
+        t_3, tri_3 = bk.bvh4_closest_hit_kernel(p, o, d)
+        assert torch.equal(t_0, t_3) and torch.equal(tri_0, tri_3)
+        assert (bk.CLOSEST_INIT.launches, sp.SPLIT.launches) == (
+            before[0] + 1, before[1] + 2)
+        t, tri = t_p, tri_p
+    assert bool((tri >= 0).any())
+
+
+@pytest.mark.parametrize("depth", [0, 2, 5])
+def test_parts_route_matches_monolithic_route(cuda, depth):
+    """trace_paths through the parts (K3 `_init` per part and bounce, K4
+    per part) against the same scene's monolithic K3 / K4 route: counters
+    exact, L and good equal on >= 99.9% of lanes (exact-t ties may pick
+    another triangle)."""
+    whole, cut, pix, spp, o, d = _city_parts(cuda)
+    k = len(cut.tri_parts)
+    before = (bk.CLOSEST.launches, bk.CLOSEST_INIT.launches, bk.ANY.launches)
+    Lk, gk, mk = wf.trace_paths(cut, o, d, 11, pix, spp, depth,
+                                with_metrics=True, fast_shade="shade")
+    assert (bk.CLOSEST.launches, bk.CLOSEST_INIT.launches,
+            bk.ANY.launches) == (before[0], before[1] + k * (depth + 1),
+                                 before[2] + k * (depth + 1))
+    Lm, gm, mm = wf.trace_paths(whole, o, d, 11, pix, spp, depth,
+                                with_metrics=True, fast_shade="shade")
+    same = (gk == gm) & (Lk == Lm).all(dim=1)
+    assert same.double().mean().item() >= 0.999
+    for key in ("rays", "shadow_rays"):
+        assert int(mk[key]) == int(mm[key])
+
+
+def test_k6_matches_plain_triangle_closest(cuda):
+    """K6's t and idx equal the plain version's on every lane, exact-t
+    ties (a repeated block of triangles) to the lowest index."""
+    import numpy as np
+
+    from craytracer_tpu_torch.ops import tri_kernel as tk
+
+    rng = np.random.default_rng(4)
+    base = rng.uniform(-10, 10, (1000, 3))
+    v = [base + rng.normal(0, 1, (1000, 3)) for _ in range(3)]
+    v = [np.concatenate([x, x[:200]]) for x in v]
+    soa = tk.pack_triangles(*v, device=cuda)
+    o = torch.from_numpy(rng.uniform(-15, 15, (5000, 3)).astype(
+        np.float32)).to(cuda)
+    d = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
+        size=(5000, 3)).astype(np.float32)).to(cuda), dim=1)
+    before = tk.KERNEL.launches
+    t, idx = tk.triangle_closest_kernel(o, d, soa)
+    assert tk.KERNEL.launches == before + 1
+    t_p, idx_p = tk.triangle_closest(o, d, soa)
+    assert torch.equal(t, t_p) and torch.equal(idx, idx_p)
+    assert bool((idx >= 0).any()) and not bool((idx >= 1000).any())
+    with pytest.raises(ValueError):
+        tk.triangle_closest_kernel(o, d, soa[:, :100].contiguous())
+
+
+@pytest.mark.parametrize("mode", ["empty", "rowload", "cols", "colsdir",
+                                  "box", "mt", "full"])
+def test_p1_matches_plain_probe(cuda, mode):
+    """P1's t and sink equal the plain version's on every lane: the parity
+    mesh's fat table, 4 packets of camera rays, 48 pops."""
+    from craytracer_tpu_torch.profiling import pop_probe as pp
+
+    scene, _, _, _, o, d = _mesh(cuda)
+    o, d = o[:128].contiguous(), d[:128].contiguous()
+    before = pp.KERNEL.launches
+    t, sink = pp.pop_probe_kernel(scene.tri_bvh.fat, o, d, mode, 48)
+    assert pp.KERNEL.launches == before + 1
+    t_p, sink_p = pp.pop_probe(scene.tri_bvh.fat, o, d, mode, 48)
+    assert torch.equal(t, t_p) and torch.equal(sink, sink_p)
+    with pytest.raises(ValueError):
+        pp.pop_probe_kernel(scene.tri_bvh.fat, o[:100], d[:100], mode, 48)

@@ -18,8 +18,10 @@ from craytracer_tpu.io.scenefile import load_scene_file as j_load
 from craytracer_tpu_torch.interop import numpy_leaves, scene_from_numpy
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.scene.build import SceneBuilder
+from torch_jax_native import SAH_WARNING_IS_ERROR, jax_native  # noqa: F401
 
 torch.set_num_threads(2)
+pytestmark = SAH_WARNING_IS_ERROR
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = os.path.join(REPO, "scenes")
 GROUPS = ["rects", "triangles", "materials", "lights", "mesh_lights", "env",

@@ -26,7 +26,9 @@ from craytracer_tpu_torch.integrator.gate import (F_GLASS, F_METAL, F_MIRROR,
 from craytracer_tpu_torch.interop import numpy_leaves, scene_from_numpy
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.scene import types as T
+from torch_jax_native import SAH_WARNING_IS_ERROR, jax_native  # noqa: F401
 
+pytestmark = SAH_WARNING_IS_ERROR
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIX = os.path.join(REPO, "scenes", "parity_mix.txt")
 GROUPS = ["spheres", "planes", "rects", "disks", "triangles", "instanced",

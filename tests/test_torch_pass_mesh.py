@@ -40,8 +40,10 @@ from craytracer_tpu_torch.integrator.render import RenderConfig, Renderer
 from craytracer_tpu_torch.integrator.wavefront import trace_paths
 from craytracer_tpu_torch.io.imagestate import read_reference_is
 from craytracer_tpu_torch.io.scenefile import load_scene_file
+from torch_jax_native import SAH_WARNING_IS_ERROR, jax_native  # noqa: F401
 
 torch.set_num_threads(2)
+pytestmark = SAH_WARNING_IS_ERROR
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(REPO, "scenes", "parity_mesh.txt")
 GOLDEN = os.path.join(REPO, "tests", "goldens", "golden_mesh.is")

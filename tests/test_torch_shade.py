@@ -40,8 +40,10 @@ from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 from craytracer_tpu_torch.scene.build import SceneBuilder
 
 import torch_sphere_scenes as sphere_scenes
+from torch_jax_native import SAH_WARNING_IS_ERROR, jax_native  # noqa: F401
 
 torch.set_num_threads(2)
+pytestmark = SAH_WARNING_IS_ERROR
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(REPO, "scenes", "parity_mesh.txt")
 MIX = os.path.join(REPO, "scenes", "parity_mix.txt")
