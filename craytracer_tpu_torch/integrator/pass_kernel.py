@@ -13,10 +13,12 @@ One launch runs a whole spp-pass: raygen, then for every bounce the
 closest hit over the prim table, shading, NEE with a shadow any-hit,
 throughput and Russian roulette. The CUDA C++ source is
 csrc/pass_kernel.cu, whose shading is csrc/shade_core.cuh (shared with
-K2), instantiated as the matte-only core and as the full core; it
-is compiled with nvcc for sm_90a at first use into
-craytracer_tpu_torch/_build/ and bound through a plain C ABI with ctypes
-(cuda_build.py).
+K2): persistent warps, as many blocks as fit on the card, whose threads
+take the next path index when a path ends. It is instantiated for the
+matte-only and the full core, each with and without plane/disk rows and
+box rows (the C entry picks one from the row counts); it is compiled
+with nvcc for sm_90a at first use into craytracer_tpu_torch/_build/ and
+bound through a plain C ABI with ctypes (cuda_build.py).
 
 `fused_pass` is the wrapper: for CPU tensors it takes the plain version
 `fused_pass_reference` (the ported raygen followed by the plain
@@ -103,7 +105,7 @@ def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.k1_pass_launch.argtypes = [vp, ci, vp, vp, ci, ctypes.c_int * 8,
                                    ctypes.c_uint, ci, ci, ci, ci, ci, ci, vp,
-                                   vp, vp]
+                                   vp, vp, vp]
     lib.k1_pass_launch.restype = ci
 
 
@@ -143,11 +145,12 @@ class PassKernel(LaunchCount):
         lib = LIBRARY.load()
         L = torch.empty((n, 3), dtype=torch.float32, device=dev)
         g = torch.empty((4, n), dtype=torch.int32, device=dev)
+        next_path = torch.empty(1, dtype=torch.int32, device=dev)
         err = lib.k1_pass_launch(
             tables.data_ptr(), tables.numel(), pix.data_ptr(), spp.data_ptr(),
             n, (ctypes.c_int * 8)(*counts), int(seed) & MASK32, max_depth,
             RR_START, int(strat), int(thinlens), width, int(full),
-            L.data_ptr(), g.data_ptr(),
+            next_path.data_ptr(), L.data_ptr(), g.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         LIBRARY.check(err, "K1")
         self.launches += 1
@@ -243,9 +246,10 @@ def _leaves(obj):
 def fused_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
                seed: int, max_depth: int, raygen: str = "strat"):
     """Whole-pass wrapper: returns (L[N,3], good[N] int32, metrics dict
-    with `rays`/`shadow_rays` scalars and the `bounce_live` histogram) —
-    the trace_paths contract. `pixel_ids` decides the device: a CPU
-    tensor takes the plain version, a CUDA tensor launches K1.
+    with `rays`/`shadow_rays` scalars, the `bounce_live` histogram and the
+    per-lane `lane_rays`/`lane_shadow_rays`) — the trace_paths contract.
+    `pixel_ids` decides the device: a CPU tensor takes the plain version,
+    a CUDA tensor launches K1.
     Forward-only, as in the JAX package (pallas_shade.py:47). A scene
     outside K1's gate raises NotImplementedError."""
     _k1_gate(scene, camera, film, max_depth)
@@ -288,5 +292,6 @@ def _admitted_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
     bits = torch.arange(max_depth + 1, dtype=torch.int32, device=pix.device)
     bounce_live = ((g[3][:, None] >> bits) & 1).sum(dim=0)
     metrics = {"rays": g[1].sum(), "shadow_rays": g[2].sum(),
-               "bounce_live": bounce_live}
+               "bounce_live": bounce_live, "lane_rays": g[1],
+               "lane_shadow_rays": g[2]}
     return L, g[0], metrics

@@ -68,22 +68,21 @@ def _bounce_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
     L = L + out["L_add"] + contrib
     good = good + out["good_inc"] + (contrib != 0.0).any(dim=1).to(
         torch.int32)
-    n_live = alive.sum()
     live_hist = live_hist.clone()
-    live_hist[bounce] += n_live
+    live_hist[bounce] += alive.sum()
     return (out["new_o"], out["new_d"], out["new_beta"], L, good,
-            out["new_alive"], out["new_prev_sg"], rays + n_live,
-            shadows + out["want_shadow"].sum(), live_hist, pix)
+            out["new_alive"], out["new_prev_sg"], rays + alive,
+            shadows + out["want_shadow"], live_hist, pix)
 
 
 def _init_state(origin, direction, max_depth, pixel_ids):
     n = origin.shape[0]
     dev = origin.device
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    zero = torch.zeros((n,), dtype=torch.int32, device=dev)
     return (origin, direction,
             torch.ones((n, 3), dtype=origin.dtype, device=dev),
             torch.zeros((n, 3), dtype=origin.dtype, device=dev),
-            torch.zeros((n,), dtype=torch.int32, device=dev),
+            zero,
             torch.ones((n,), dtype=torch.bool, device=dev),
             torch.zeros((n,), dtype=torch.bool, device=dev),
             zero, zero,
@@ -105,15 +104,19 @@ def _trace(scene: T.Scene, origin, direction, seed: int, pixel_ids,
     for bounce in range(max_depth + 1):
         state = _bounce_step(scene, seed, spp_index, max_depth, bounce,
                              state, kernels=kernels)
-    return state[3], state[4], {"rays": state[7], "shadow_rays": state[8],
-                                "bounce_live": state[9]}
+    return state[3], state[4], {"rays": state[7].sum(),
+                                "shadow_rays": state[8].sum(),
+                                "bounce_live": state[9],
+                                "lane_rays": state[7],
+                                "lane_shadow_rays": state[8]}
 
 
 def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
                 spp_index, max_depth: int, with_metrics: bool = False,
                 fast_shade=None):
     """Trace one path per lane. Returns (L[N,3], good_paths[N] int32),
-    plus {rays, shadow_rays, bounce_live[depth+1]} when `with_metrics`.
+    plus {rays, shadow_rays, bounce_live[depth+1], and the per-lane
+    lane_rays and lane_shadow_rays [N] int32} when `with_metrics`.
     `spp_index` is an int or a per-lane [N] tensor. `fast_shade`: None for
     the plain versions, "shade" for the kernel route on the card (module
     docstring). A scene outside the gate raises NotImplementedError."""

@@ -2,11 +2,11 @@
 CPU, against their plain PyTorch versions.
 
 As tests/test_torch_k1_host.py does for K1: csrc/shade_kernel.cu,
-csrc/bvh4_traverse.cu, csrc/bvh4_split.cu and csrc/tri_closest.cu are
-compiled with the host C++ compiler against a
-stub `cuda_runtime.h` (qualifiers as empty macros, float4 and __ldg as
-plain C++, the shared table as a static array) with each `<<<...>>>`
-launch replaced by a loop over lanes, and their C entry points are called
+csrc/bvh4_traverse.cu, csrc/bvh4_split.cu, csrc/tri_closest.cu and
+csrc/pop_probe.cu are compiled with the host C++ compiler against the
+stub `cuda_runtime.h` of tests/torch_cuda_host.py (each block's threads
+run as threads, with the block's shared memory, block and warp barriers,
+and the warp votes and shuffles), and their C entry points are called
 through ctypes on CPU tensors. Built with -ffp-contract=off, as the card
 build uses --fmad=false.
 
@@ -25,17 +25,15 @@ t at half their closest hit with id 7777, as tests/test_pallas_kernel.py
 :167-175 does) on the same rays and on every part of the soup's table cut
 at a fifth of its bytes (the top part's cut children -1), and K6 on
 random triangles with a duplicated block (exact-t ties): t and ids equal
-the plain versions' on every lane. The single-lane launch loop runs a
-block's shared-memory staging (K5's top topology rows, K6's triangle
-tiles) with a block of one thread.
+the plain versions' on every lane; the blocks stage their shared memory
+together (K5's top topology rows, K6's triangle tiles). P1 (the packet
+of a warp: its stack filled by its lanes, shuffle minima and votes) in
+all 7 modes on the inputs of tests/test_torch_pop_probe.py: t and sink
+equal the plain version's on every lane.
 
 Skips when no C++ compiler is on the PATH."""
 
-import ctypes
 import os
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -48,72 +46,27 @@ from craytracer_tpu_torch.accel.bvh4_parts import partition_bvh4
 from craytracer_tpu_torch.accel.bvh4_split_kernel import split_topology
 from craytracer_tpu_torch.camera import Film, generate_rays
 from craytracer_tpu_torch.constants import TMAX
-from craytracer_tpu_torch.cuda_build import CSRC
 from craytracer_tpu_torch.integrator import shade_kernel as sk
 from craytracer_tpu_torch.integrator.wavefront import _bounce_step, _init_state
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.ops.intersect import intersect_scene
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 
+from torch_cuda_host import host_build
+
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(REPO, "scenes", "parity_mesh.txt")
 SEED = 5
 
-STUB = """#pragma once
-#include <math.h>
-#include <stdint.h>
-#include <algorithm>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __shared__
-#define __restrict__
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-struct float4 { float x, y, z, w; };
-static inline float4 __ldg(const float4* p) { return *p; }
-struct host_dim3 { int x; };
-static host_dim3 threadIdx, blockIdx, blockDim;
-static inline void __syncthreads() {}
-static inline int cudaGetLastError() { return 0; }
-static inline const char* cudaGetErrorString(int) { return "host build"; }
-using std::min;
-using std::max;
-namespace { float tab[1 << 14]; }
-#define HOST_LAUNCH(blocks, threads) \\
-  blockDim.x = 1; threadIdx.x = 0; \\
-  for (blockIdx.x = 0; blockIdx.x < (blocks) * (threads); ++blockIdx.x)
-"""
-
-
-def _host_build(tmp_path_factory, stem, n_launches):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to build the kernel sources")
-    d = tmp_path_factory.mktemp(f"{stem}_host")
-    (d / "cuda_runtime.h").write_text(STUB)
-    src, n = re.subn(r"(\w+(?:<\w+>)?)<<<\s*(\w+),\s*(\w+)[^>]*>>>\(",
-                     r"HOST_LAUNCH(\2, \3) \1(",
-                     (CSRC / f"{stem}.cu").read_text())
-    assert n == n_launches
-    (d / f"{stem}.cpp").write_text(src)
-    lib = d / f"lib{stem}.so"
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-fno-fast-math", "-shared", "-fPIC", "-I", str(d),
-                    "-I", str(CSRC), "-o", str(lib), str(d / f"{stem}.cpp")],
-                   check=True, capture_output=True, timeout=300)
-    return ctypes.CDLL(str(lib))
-
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    trav = _host_build(tmp_path_factory, "bvh4_traverse", 3)
+    trav = host_build(tmp_path_factory, "bvh4_traverse", 3)
     from craytracer_tpu_torch.accel.bvh4_kernel import _bind
 
     _bind(trav)
-    shade = _host_build(tmp_path_factory, "shade_kernel", 1)
+    shade = host_build(tmp_path_factory, "shade_kernel", 1)
     sk._bind(shade)
     return trav, shade
 
@@ -247,9 +200,9 @@ def split_libs(tmp_path_factory):
     from craytracer_tpu_torch.accel import bvh4_split_kernel
     from craytracer_tpu_torch.ops import tri_kernel
 
-    split = _host_build(tmp_path_factory, "bvh4_split", 2)
+    split = host_build(tmp_path_factory, "bvh4_split", 2)
     bvh4_split_kernel._bind(split)
-    tri = _host_build(tmp_path_factory, "tri_closest", 1)
+    tri = host_build(tmp_path_factory, "tri_closest", 1)
     tri_kernel._bind(tri)
     return split, tri
 
@@ -336,3 +289,35 @@ def test_k6_source_matches_plain_triangle_closest(split_libs):
     t_ref, idx_ref = triangle_closest(o, d, soa)
     assert torch.equal(t, t_ref) and torch.equal(idx, idx_ref)
     assert (idx_ref >= 0).sum() > 50 and (idx_ref < 40).any()
+
+
+def test_p1_source_matches_plain_probe(tmp_path_factory):
+    """P1 in every mode against `pop_probe`, on test_torch_pop_probe.py's
+    inputs: an icosphere(2) scaled by 3, three packets of rays aimed at
+    it, 64 pops of the LCG stack."""
+    from craytracer_tpu_torch.profiling import pop_probe as pp
+    from craytracer_tpu_torch.scene.city import icosphere
+
+    p1 = host_build(tmp_path_factory, "pop_probe", 1)
+    pp._bind(p1)
+    v, f = icosphere(2)
+    fat = build_bvh4(*(v[f[:, k]] * 3 for k in range(3))).fat
+    rng = np.random.default_rng(1)
+    n = 3 * pp.PACKET
+    o = np.tile([[0.0, 0.5, 8.0]], (n, 1)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 2] -= 1.5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    for mode in pp.MODES:
+        t = torch.empty(n, dtype=torch.float32)
+        sink = torch.empty(n, dtype=torch.int32)
+        assert p1.p1_launch(fat.data_ptr(), fat.shape[0], o.data_ptr(),
+                            d.data_ptr(), n, 64, pp.MODES.index(mode),
+                            t.data_ptr(), sink.data_ptr(), None) == 0
+        t_ref, sink_ref = pp.pop_probe(fat, o, d, mode, 64)
+        assert torch.equal(t, t_ref) and torch.equal(sink, sink_ref), mode
+        if mode in ("box", "full"):
+            assert (sink != 0).all()
+        if mode in ("mt", "full"):
+            assert (t < 1e30).sum() > 8  # triangles were hit

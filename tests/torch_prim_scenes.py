@@ -81,6 +81,37 @@ def every_instance(b):
 SCENES = {"plane_disk": plane_disk, "aabox": aabox}
 
 
+class MatteOnly:
+    """A SceneBuilder whose mirrors are matte, so the scene takes K1's
+    matte-only core, and which leaves the planes out if `planes` is
+    False."""
+
+    def __init__(self, b, planes=True):
+        self._b, self._planes = b, planes
+
+    def __getattr__(self, name):
+        return getattr(self._b, name)
+
+    def add_mirror(self, name, color):
+        self._b.add_matte(name, color)
+
+    def add_plane(self, *args, **kwargs):
+        if self._planes:
+            self._b.add_plane(*args, **kwargs)
+
+
+# matte-only scenes with planes and disks, planes and boxes, or boxes
+# alone: with Cornell (neither) they reach every K1 instantiation
+MATTE_SCENES = {"plane_disk_matte": (plane_disk, True),
+                "aabox_matte": (aabox, True), "boxes_matte": (aabox, False)}
+
+
+def build_matte(name, b):
+    """Builds MATTE_SCENES[name] into `b`; returns its view."""
+    scene, planes = MATTE_SCENES[name]
+    return scene(MatteOnly(b, planes))
+
+
 def thinlens(camera):
     """`camera` with the thin-lens type (its focal_length and lens_radius
     as made, the JAX defaults 3.0 and 0.2)."""
