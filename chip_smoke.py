@@ -41,18 +41,18 @@ never JAX or the JAX package. Phases, each printing its own lines:
 6. K3/K4 vs plain on scenes/parity_mesh_mid.txt (20,480 triangles): the
    512x512 camera rays in Morton order, the bounce-1 and bounce-3 rays and
    shadow rays of one plain pass, and 64k seeded random rays with 1%
-   escape lanes. Bars: hit masks and ids equal and t within rtol 1e-6 on
-   >= 99.99% of hit lanes; the any-hit verdict t < max_dist and, for the
-   shadow rays, the `lit` predicate equal on >= 99.99% of lanes.
+   escape lanes. Bars: K3's t and ids and K4's t bit-equal with the plain
+   traversal's on every lane (so the any-hit verdict and the shadow
+   rays' `lit` predicate agree too).
 7. K2 vs plain on the hit records of bounces 0, 1 and 4 of that pass:
    float outputs within 1e-5 (absolute + relative), int outputs equal on
    every lane.
 8. whole mesh pass vs plain: trace_paths through the kernels (K3 -> K2 ->
    K4, with the ray_key sorts) against the plain trace_paths (no sort) at
    512x512 Morton lanes, per-lane spp, depth 0, 2, 5 (spp 0) and depth 5
-   (spp 63), with the per-bounce routes' bars: >= 99.9% of lanes with
-   equal `good` and L within 1e-4 (absolute + relative), rays and
-   shadow_rays within 0.1% (exact at depth 0).
+   (spp 63), with phase 3's bars (the North star's): on every lane
+   `good`, the ray and shadow-ray counts equal, L within 2e-5 (absolute +
+   relative), and the per-bounce histogram of live lanes equal.
 9. mesh main path: the Renderer on parity_mesh_mid at 512x512, depth 5,
    64 spp, reference estimator; counts set to 0 just before and read just
    after: K3, K2 and K4 launch passes x 6 times each, K1 never, no NaN;
@@ -63,7 +63,13 @@ never JAX or the JAX package. Phases, each printing its own lines:
    512x512 depth 5 rays/s through render_sample over 16 passes (live
    closest-hit rays + shadow rays, from the counters); bare K3, K2 and K4
    per launch on the six bounces of one pass's real inputs, and the plain
-   versions once; then the bench_mesh.py city of 327,680 triangles
+   versions once; each K3/K4 bound counted twice (the rows' boxes and
+   their filled slots, all the result needs and the bound the JSON line
+   keeps, and whole rows), the pops per lane and the
+   share of lane-pops that warps of 32 one-ray-per-thread lanes leave
+   idle (1 - sum of pops / sum of 32 x the warp's most pops, the rays in
+   the route's order) on the camera rays, the bounce-1 rays and all six
+   bounces; then the bench_mesh.py city of 327,680 triangles
    (craytracer_tpu_torch/scene/city.py): its build seconds, 256x256
    depth 4 rays/s, and bare K3 per launch on camera and bounce-1 rays,
    each with and without the ray_key sort.
@@ -137,12 +143,16 @@ never JAX or the JAX package. Phases, each printing its own lines:
    bit-equal with that plain chain; monolithic K4 bit-equal with its
    plain version; the verdicts of the route, the plain parts any hit
    and monolithic K4 equal on every lane; bare K4 per part on those
-   inputs, timed, with its bound from the rows the plain any hit pops.
+   inputs, timed, with its bound from the rows the plain any hit pops
+   (both counts, as phase 10) and the idle lane-pop share over the parts
+   and on the last part.
 22. K5 on the city: on the monolithic table and on every part, without
    and with a carried hit (the route's on the parts; half the lanes at
    half their closest t on the whole table), bit-equal with the plain
    version and with K3 / K3 `_init`; bare K5 against bare K3 and K3
-   `_init` on the same sorted camera rays.
+   `_init` on the same sorted camera rays; bare K3 `_init` per launch
+   with both bounds and the idle lane-pop share of the camera and
+   bounce-1 rays over the parts.
 23. K6 on parity_mesh_mid's 20,480 triangles (pack_triangles) against
    its 512x512 camera rays: t and idx bit-equal with the plain version
    on every lane; bare K6 and the plain version timed.
@@ -157,11 +167,11 @@ on the 7M city's; K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch, the plain version's ms,
 and bound_ms: the larger of the bytes it must move over 3.35 TB/s and
 the operations this run's inputs need over 67 TFLOP/s f32, counted from
-the CUDA sources; for K3/K4 both are counted from the rows the plain
-traversal pops: each visited row read once, and per pop the slab tests
-of its internal children and the triangle tests of its filled slots; K5
-the same pops, reading a visited row's topology and its leaf children's
-slots; K6 one Moller-Trumbore test per (ray, table column) pair; P1 the
+the CUDA sources; for K3, K3 `_init`, K4 and K5 both are counted from
+the rows the plain traversal pops: each visited row's boxes and its
+filled slots read once, and per pop the slab tests of its internal
+children and the triangle tests of its filled slots; K6 one
+Moller-Trumbore test per (ray, table column) pair; P1 the
 full mode's box, slot and sort operations per lane and pop;
 library_ms is null, since no single
 PyTorch call computes any of these functions), the nvidia-smi line, and
@@ -190,8 +200,7 @@ MIX = os.path.join(REPO, "scenes", "parity_mix.txt")
 GOLDEN_MIX = os.path.join(REPO, "tests", "goldens", "golden_mix.is")
 PRIMS = os.path.join(REPO, "scenes", "parity_prims.txt")
 GOLDEN_PRIMS = os.path.join(REPO, "tests", "goldens", "golden_prims.is")
-L_TOL = 1e-4  # the per-bounce routes' whole passes
-K1_L_TOL = 2e-5  # K1: the North star's radiance bar, on every lane
+L_TOL = 2e-5  # the North star's radiance bar, on every lane
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 # operations per unit of work, counted from the CUDA sources (f32 adds,
@@ -221,8 +230,8 @@ OREN_OPS, MIRROR_OPS, PLASTIC_OPS, METAL_OPS = 90, 10, 170, 250
 TRANSPARENT_OPS, GLASS_OPS = 45, 330
 K2_LANE_BYTES = 15 * 4 + 4 + 4 + 1 + 1 + 4 + 4 + 23 * 4 + 4 * 4
 ROW_BYTES = 108 * 4  # the columns K3/K4 load of a row: boxes, children, slots
-TOPO_BYTES = 28 * 4  # the columns K5 loads of a topology row
-PAIR_BYTES = 20 * 4  # a leaf child's two slots, which K5 loads
+BOX_BYTES = 28 * 4  # a row's boxes and child ids (K5's topology row)
+SLOT_BYTES = 10 * 4  # one filled slot: a triangle's 9 floats and its id
 K6_OPS = 53  # K6: one (ray, triangle) Moller-Trumbore test
 CITY_TRIS = 7_000_000  # the 7M class the partitioned BVH4 was built for
 CITY_SPP = 4
@@ -237,21 +246,35 @@ def _bound(nbytes, ops):
 
 def _pop_bound(bvh, visits, lanes, lane_bytes=32, split=False):
     """Bound of one K3/K4/K5 launch from the rows its rays popped
-    (`visits`, [M] pops per row): each visited row read once (K3/K4: its
-    108 used columns; K5: its topology and its leaf children's slots) and
-    each lane's `lane_bytes` of ray, max_dist or carried hit, and result;
-    per pop, a slab test for each internal child (child id >= 0) and a
-    Moller-Trumbore test for each filled slot (triangle id >= 0) of the
-    popped row, and the sort."""
+    (`visits`, [M] pops per row): each visited row read once (its 108 used
+    columns, or with `split` only what the result needs of it: its boxes
+    and child ids and its filled slots, not the slots of internal or empty
+    children) and each lane's `lane_bytes` of ray, max_dist or carried hit,
+    and result; per pop, a slab test for each internal child (child id >=
+    0) and a Moller-Trumbore test for each filled slot (triangle id >= 0)
+    of the popped row, and the sort."""
     fat = bvh.fat
     internal = (fat[:, 24:28] >= 0).sum(1)
-    row_ops = (BOX_OPS * internal
-               + SLOT_OPS * (fat[:, 37:108:10] >= 0).sum(1) + SORT_OPS)
+    filled = (fat[:, 37:108:10] >= 0).sum(1)
+    row_ops = BOX_OPS * internal + SLOT_OPS * filled + SORT_OPS
     seen = visits > 0
-    row_bytes = (int((TOPO_BYTES + PAIR_BYTES * (4 - internal[seen])).sum())
+    row_bytes = (int((BOX_BYTES + SLOT_BYTES * filled[seen]).sum())
                  if split else int(seen.sum()) * ROW_BYTES)
     return _bound(row_bytes + lanes * lane_bytes,
                   int((visits * row_ops).sum()))
+
+
+def _children(bvh):
+    """The table's children by kind, the empty ones (the builder's
+    sentinel box) also as a share of those not internal, whose slots the
+    walk past the L2 would read without its empty-child skip."""
+    fat = bvh.fat
+    internal = int((fat[:, 24:28] >= 0).sum())
+    empty = int((fat[:, 0:12:3] > fat[:, 12:24:3]).sum())
+    leaf = fat.shape[0] * 4 - internal - empty
+    return (f"children internal / leaf / empty {internal} / {leaf} / "
+            f"{empty} (empty: {empty / (leaf + empty):.4f} of those not "
+            f"internal)")
 
 
 def _tonemapped(img):
@@ -285,49 +308,52 @@ def _golden(ours, golden_path):
     return full_o, full_r, dev_b.max(), (dev_b < 0.02).mean(), fails
 
 
-def _compare(kernel_out, plain_out, depth, strict=False):
-    """Kernel route vs plain on one batch: (share of lanes with differing
-    good, max |dL| over agreeing lanes, max |dL| overall, failures).
-    `strict` (K1): `good`, each lane's ray and shadow-ray counts and the
-    per-bounce histogram of live lanes equal, L within K1_L_TOL (absolute +
-    relative) on every lane. Otherwise (the per-bounce routes): >= 99.9%
-    of lanes with equal good and L within L_TOL, rays and shadow_rays
-    within 0.1% (exact at depth 0)."""
+def _compare(kernel_out, plain_out):
+    """Kernel route vs plain on one batch, the North star's bars: (share of
+    lanes with differing good, max |dL| over agreeing lanes, max |dL|
+    overall, failures). `good`, each lane's ray and shadow-ray counts and
+    the per-bounce histogram of live lanes equal, L within L_TOL (absolute
+    + relative) on every lane. K1's whole pass and the per-bounce routes'
+    whole passes are both held to them."""
     (Lk, gk, mk), (Lp, gp, mp) = kernel_out, plain_out
     Lk, Lp = Lk.double(), Lp.double()
     same = gk == gp
     dL = (Lk - Lp).abs()
-    tol = K1_L_TOL if strict else L_TOL
-    close = (dL <= tol + tol * Lp.abs()).all(dim=1)
+    close = (dL <= L_TOL + L_TOL * Lp.abs()).all(dim=1)
     bad_share = 1.0 - same.double().mean().item()
     ok_share = (same & close).double().mean().item()
     err_same = dL[same].max().item() if bool(same.any()) else 0.0
     fails = []
-    if ok_share < (1.0 if strict else 0.999):
+    if ok_share < 1.0:
         fails.append(f"only {ok_share:.7f} of lanes agree")
     if not torch.isfinite(Lk).all():
         fails.append("non-finite L from the kernels")
-    if strict:
-        for key in ("lane_rays", "lane_shadow_rays", "bounce_live"):
-            if not torch.equal(mk[key], mp[key]):
-                fails.append(f"{key} differs")
+    for key in ("lane_rays", "lane_shadow_rays", "bounce_live"):
+        if not torch.equal(mk[key], mp[key]):
+            fails.append(f"{key} differs")
     for key in ("rays", "shadow_rays"):
-        a, b = int(mk[key]), int(mp[key])
-        if ((strict or depth == 0) and a != b
-                or abs(a - b) > 1e-3 * max(b, 1)):
-            fails.append(f"{key} {a} vs {b}")
+        if int(mk[key]) != int(mp[key]):
+            fails.append(f"{key} {int(mk[key])} vs {int(mp[key])}")
     return bad_share, err_same, dL.max().item(), fails
 
 
-def _idle_share(recs):
-    """The share of lane-bounces that one-path-per-thread warps leave idle
-    on a plain pass's lanes in their order (`recs`: plain_records): per
-    32 consecutive lanes, 32 x the longest path's bounces minus the sum of
-    the paths' bounces, over the sum of 32 x the longest."""
-    bounces = sum(st[5].to(torch.int64) for st, _, _ in recs)
-    w = bounces[:bounces.shape[0] // 32 * 32].reshape(-1, 32)
-    slots = 32 * w.max(dim=1).values
-    return float((slots - w.sum(dim=1)).sum()) / float(slots.sum())
+def _idle_share(work):
+    """The share of lane-work that warps of 32 one-item-per-thread lanes
+    leave idle, the lanes in the order given (`work`: a list of [N] counts
+    per lane, such as a plain pass's bounces or a traversal's pops): per
+    32 consecutive lanes, 32 x the lane with the most work minus the sum,
+    over the sum of 32 x the most."""
+    used = slots = 0
+    for x in work:
+        w = x[:x.shape[0] // 32 * 32].to(torch.int64).reshape(-1, 32)
+        used += int(w.sum())
+        slots += 32 * int(w.max(dim=1).values.sum())
+    return 1.0 - used / max(slots, 1)
+
+
+def _bounces(recs):
+    """Each lane's bounces on a plain pass (`recs`: plain_records)."""
+    return sum(st[5].to(torch.int64) for st, _, _ in recs)
 
 
 def _events():
@@ -449,7 +475,7 @@ def main() -> int:
             out_k = pk.fused_pass(*args, raygen=raygen)
             out_p = pk.fused_pass_reference(*args, raygen=raygen)
         torch.cuda.synchronize()
-        bad, err_same, err_all, f = _compare(out_k, out_p, depth, True)
+        bad, err_same, err_all, f = _compare(out_k, out_p)
         err["k1_pass"] = max(err["k1_pass"], err_all)
         print(f"[kernel-vs-plain] {label} depth {depth} raygen {raygen}: "
               f"lanes {pix.shape[0]}, good differs on {bad:.5f}, max|dL| "
@@ -645,7 +671,8 @@ def main() -> int:
     mmorton = torch.from_numpy(
         Renderer(mesh, mcam, mfilm, cfg).pixel_order()).to(dev)
     print(f"[mesh] parity_mesh_mid: {bvh.n_tris} triangles, "
-          f"{bvh.fat.shape[0]} fat rows, stack {bvh.stack_size}, route "
+          f"{bvh.fat.shape[0]} fat rows, stack {bvh.stack_size}, "
+          f"{_children(bvh)}, route "
           f"{wf.production_fast_shade(mesh, mcam, mfilm)}", flush=True)
 
     def plain_records(scn, o, d, pix, spp, depth):
@@ -670,44 +697,43 @@ def main() -> int:
     torch.cuda.synchronize()
 
     def check_k3(label, o, d, bvh_=bvh):
+        """K3 against the plain traversal: t and ids bit-equal on every
+        lane."""
         t_k, tri_k = bk.bvh4_closest_hit_kernel(bvh_, o, d)
         t_p, tri_p = bvh4_closest_hit_stats(bvh_, o, d)[:2]
         hit_p = t_p < TMAX
-        same = (tri_k == tri_p) & ((t_k - t_p).abs() <= 1e-6 * t_p.abs())
-        agree = (same & hit_p).sum().item() / max(hit_p.sum().item(), 1)
-        masks = ((t_k < TMAX) == hit_p).double().mean().item()
-        exact = (torch.equal(t_k, t_p), torch.equal(tri_k, tri_p))
-        e = (t_k - t_p)[hit_p & (tri_k == tri_p)].abs().max().item() \
-            if bool(hit_p.any()) else 0.0
+        lanes = ((t_k == t_p) & (tri_k == tri_p)).double().mean().item()
+        both = hit_p & (t_k < TMAX)
+        e = (t_k - t_p)[both].abs().max().item() if bool(both.any()) else 0.0
         err["k3_bvh4_closest"] = max(err["k3_bvh4_closest"], e)
-        bad = agree < 0.9999 or masks < 0.9999
+        bad = not (torch.equal(t_k, t_p) and torch.equal(tri_k, tri_p))
         print(f"[k3-vs-plain] {label}: rays {o.shape[0]}, hits "
-              f"{int(hit_p.sum())}, ids and t agree on {agree:.6f} of hit "
-              f"lanes, hit masks on {masks:.6f} of lanes, bit-equal t/ids "
-              f"{exact}, max|dt| {e:.3g}" + (" FAIL" if bad else ""),
+              f"{int(hit_p.sum())}, t and ids bit-equal on {lanes:.6f} of "
+              f"lanes, max|dt| {e:.3g}" + (" FAIL" if bad else ""),
               flush=True)
         if bad:
-            fails.append(f"K3 {label}: {agree} / {masks}")
+            fails.append(f"K3 {label}: bit-equal on {lanes} of lanes")
 
     def check_k4(label, o, d, md, dadj=None):
+        """K4 against the plain any hit: t bit-equal on every lane (so the
+        verdict and, for shadow rays, the `lit` test too)."""
         t_k = bk.bvh4_any_hit_kernel(bvh, o, d, md)
         t_p = bvh4_any_hit_stats(bvh, o, d, md)[0]
-        verdict = ((t_k < md) == (t_p < md)).double().mean().item()
+        lanes = (t_k == t_p).double().mean().item()
         both = (t_k < TMAX) & (t_p < TMAX)
         e = (t_k - t_p)[both].abs().max().item() if bool(both.any()) else 0.0
         err["k4_bvh4_any"] = max(err["k4_bvh4_any"], e)
         msg = (f"[k4-vs-plain] {label}: rays {o.shape[0]}, occluded "
-               f"{int((t_p < md).sum())}, verdicts agree on {verdict:.6f}, "
-               f"bit-equal t {torch.equal(t_k, t_p)}, max|dt| {e:.3g}")
-        bad = verdict < 0.9999
+               f"{int((t_p < md).sum())}, t bit-equal on {lanes:.6f} of "
+               f"lanes, max|dt| {e:.3g}")
+        bad = not torch.equal(t_k, t_p)
         if dadj is not None:
             band = dadj - torch.clamp(1e-3 * dadj, min=K_EPSILON)
             lit = ((t_k >= band) == (t_p >= band)).double().mean().item()
             msg += f", lit agrees on {lit:.6f}"
-            bad = bad or lit < 0.9999
         print(msg + (" FAIL" if bad else ""), flush=True)
         if bad:
-            fails.append(f"K4 {label}")
+            fails.append(f"K4 {label}: bit-equal on {lanes} of lanes")
 
     gen = torch.Generator(device=dev).manual_seed(3)
     t_cam = bvh4_closest_hit_stats(bvh, o_cam, d_cam)[0]
@@ -774,7 +800,7 @@ def main() -> int:
         out_p = wf.trace_paths(mesh, o, d, cfg.seed, mmorton, spp, depth,
                                with_metrics=True)
         torch.cuda.synchronize()
-        bad, err_same, err_all, f = _compare(out_k, out_p, depth)
+        bad, err_same, err_all, f = _compare(out_k, out_p)
         print(f"[pass-vs-plain] mesh_mid 512x512 Morton spp {s} depth "
               f"{depth}: good differs on {bad:.5f}, max|dL| {err_same:.3g} "
               f"(agreeing lanes) {err_all:.3g} (all), rays "
@@ -881,21 +907,29 @@ def main() -> int:
                                "craytracer_tpu/accel/pallas_bvh4.py:451")}
     # bounds per launch, from this pass's inputs (the rows each launch's
     # rays pop, from the plain traversal's counters)
-    def pops_and_bound(stats_fn, bvh_, *args):
+    def pops_and_bound(stats_fn, bvh_, *args, lane_bytes=32):
+        """Pops per lane and the launch's bound twice: reading each
+        visited row's boxes and its filled slots (all the result needs of
+        a row: the bound the kernel table keeps), and reading whole
+        rows."""
         visits = torch.zeros(bvh_.fat.shape[0], dtype=torch.int64,
                              device=dev)
         pops = stats_fn(bvh_, *args, visits=visits)[-1]
-        return pops, _pop_bound(bvh_, visits, args[0].shape[0])
+        n = args[0].shape[0]
+        return (pops, _pop_bound(bvh_, visits, n, lane_bytes, split=True),
+                _pop_bound(bvh_, visits, n, lane_bytes))
 
     k3_pb = [pops_and_bound(bvh4_closest_hit_stats, bvh, *a) for a in k3_in]
     k4_pb = [pops_and_bound(bvh4_any_hit_stats, bvh, *a) for a in k4_in]
-    k3_pops, k4_pops = [p for p, _ in k3_pb], [p for p, _ in k4_pb]
+    k3_pops, k4_pops = [p for p, *_ in k3_pb], [p for p, *_ in k4_pb]
     lanes = [a[0].shape[0] for a in k3_in]
     bounds = {
-        "k3_bvh4_closest": [b for _, b in k3_pb],
-        "k4_bvh4_any": [b for _, b in k4_pb],
+        "k3_bvh4_closest": [b for _, b, _ in k3_pb],
+        "k4_bvh4_any": [b for _, b, _ in k4_pb],
         "k2_shade": [_bound(nl * K2_LANE_BYTES, nl * SHADE_OPS)
                      for nl in lanes]}
+    row_bounds = {"k3_bvh4_closest": [b for *_, b in k3_pb],
+                  "k4_bvh4_any": [b for *_, b in k4_pb]}
     for name in ("k3_bvh4_closest", "k2_shade", "k4_bvh4_any"):
         med, ts = _median5(bare[name])
         if any(bare[name]()):
@@ -906,9 +940,15 @@ def main() -> int:
         extra = ""
         if name != "k2_shade":
             pops = k3_pops if name == "k3_bvh4_closest" else k4_pops
-            extra = (f", pops per lane mean "
+            extra = (f"; whole rows read: bound "
+                     f"{sum(b for b, _ in row_bounds[name]) / len(recs):.4f}"
+                     f" ms/launch; pops per lane mean "
                      f"{sum(int(p.sum()) for p in pops) / sum(lanes):.3f} max "
-                     f"{max(int(p.max()) for p in pops)}")
+                     f"{max(int(p.max()) for p in pops)}; lane-pops idle in "
+                     f"one-ray-per-thread warps: camera rays "
+                     f"{_idle_share(pops[:1]):.4f}, bounce 1 "
+                     f"{_idle_share(pops[1:2]):.4f}, six bounces "
+                     f"{_idle_share(pops):.4f}")
         print(f"[time] {card}, {name} on the 6 bounces of one "
               f"parity_mesh_mid 512x512 pass: bare {med / len(recs):.4f} "
               f"ms/launch (runs of 6 {_runs(ts)} ms), plain "
@@ -936,7 +976,8 @@ def main() -> int:
         for s in range(cpasses)])
     rays_c = pass_rays(city, ccam, cfilm, cids, 4000, cpasses, 4)
     print(f"[time] {card}, city {n_city} triangles ({city.tri_bvh.fat.shape[0]}"
-          f" fat rows, stack {city.tri_bvh.stack_size}): host build "
+          f" fat rows, stack {city.tri_bvh.stack_size}, "
+          f"{_children(city.tri_bvh)}): host build "
           f"{build_s:.2f} s; 256x256 depth 4, {cpasses} passes through "
           f"render_sample per run, median of 5: {med_c / cpasses:.4f} "
           f"ms/pass, {rays_c / (med_c / 1e3):.6g} rays/s ({rays_c} rays + "
@@ -953,12 +994,14 @@ def main() -> int:
             city.tri_bvh, o, d))[0]
         t_s = _median5(lambda: bk.bvh4_closest_hit_kernel(
             city.tri_bvh, os_, ds_))[0]
-        pops, cb = pops_and_bound(bvh4_closest_hit_stats, city.tri_bvh, o, d)
+        pops, cb, cb_rows = pops_and_bound(bvh4_closest_hit_stats,
+                                           city.tri_bvh, o, d)
         print(f"[time] {card}, city bare K3 on {o.shape[0]} {label} rays: "
               f"{t_u:.4f} ms unsorted (Morton pixel order), {t_s:.4f} ms "
-              f"ray_key-sorted; bound {cb[0]:.4f} ms ({cb[1]}); pops per "
-              f"lane mean {pops.double().mean().item():.3f} max "
-              f"{int(pops.max())}", flush=True)
+              f"ray_key-sorted; bound {cb[0]:.4f} ms ({cb[1]}; whole rows "
+              f"read: {cb_rows[0]:.4f} ms); pops per lane mean "
+              f"{pops.double().mean().item():.3f} max {int(pops.max())}",
+              flush=True)
 
     # ---- 11. parity_mix: K1's full core vs plain
     from craytracer_tpu_torch.integrator.gate import F_OREN
@@ -1016,7 +1059,7 @@ def main() -> int:
             out_p = wf.trace_paths(scn, o, d, cfg.seed, morton, zspp, depth,
                                    with_metrics=True)
             torch.cuda.synchronize()
-            bad, err_same, err_all, f = _compare(out_k, out_p, depth)
+            bad, err_same, err_all, f = _compare(out_k, out_p)
             print(f"[pass-vs-plain] {label} shade route 512x512 Morton spp 0 "
                   f"depth {depth}: launches {got}, good differs on "
                   f"{bad:.5f}, max|dL| {err_same:.3g} (agreeing lanes) "
@@ -1102,8 +1145,8 @@ def main() -> int:
     crecs = plain_records(scene, c_o, c_d, morton, zspp, 5)
     print(f"[idle] 512x512 Morton spp 0 depth 5, share of lane-bounces "
           f"idle in warps of 32 one-path-per-thread lanes: cornell "
-          f"{_idle_share(crecs):.4f}, parity_mix "
-          f"{_idle_share(xrecs['parity_mix']):.4f}", flush=True)
+          f"{_idle_share([_bounces(crecs)]):.4f}, parity_mix "
+          f"{_idle_share([_bounces(xrecs['parity_mix'])]):.4f}", flush=True)
     del crecs
     # Cornell on the full core against the matte-only core, in turns
     t_c0, t_cf = [], []
@@ -1206,7 +1249,7 @@ def main() -> int:
         ops_ = k1_pass_ops(scn, recs_, lens)
         print(f"[idle] {name} 512x512 Morton spp 0 depth 5, share of "
               f"lane-bounces idle in warps of 32 one-path-per-thread lanes: "
-              f"{_idle_share(recs_):.4f}", flush=True)
+              f"{_idle_share([_bounces(recs_)]):.4f}", flush=True)
         del recs_
         bnd = _bound(pk.kernel_tables(scn, c, fm).numel() * 4
                      + size * size * (8 + 28), ops_)
@@ -1261,7 +1304,8 @@ def main() -> int:
         for a, b in zip(again, parts))
     del again
     print(f"[city] {card}, {n_big} triangles, {big.tri_bvh.fat.shape[0]} "
-          f"fat rows ({fat_bytes} bytes, stack {big.tri_bvh.stack_size}), "
+          f"fat rows ({fat_bytes} bytes, stack {big.tri_bvh.stack_size}; "
+          f"{_children(big.tri_bvh)}), "
           f"{len(parts)} parts under the {bvh4_parts.PART_BUDGET_BYTES}-byte "
           f"budget; host: triangles {t_tris:.2f} s, SceneBuilder.build (SAH "
           f"BVH4, partition, copy to the card) {t_build:.2f} s, "
@@ -1369,14 +1413,18 @@ def main() -> int:
         # K4 on every part against the plain any hit on the same inputs:
         # the max_dist the route carries in (0 on lanes occluded before)
         best_p = torch.full_like(smd, TMAX)
-        md, k4_eq, k4_in, k4_bound = smd, 0, [], 0.0
+        md, k4_eq, k4_in, k4_pops = smd, 0, [], []
+        k4_bound = k4_rows = 0.0
         for p in parts:
             k4_in.append((p, md))
             t_k = bk.bvh4_any_hit_kernel(p, so, sd, md)
             visits = torch.zeros(p.fat.shape[0], dtype=torch.int64,
                                  device=dev)
-            t_p = bvh4_any_hit_stats(p, so, sd, md, visits=visits)[0]
-            k4_bound += _pop_bound(p, visits, so.shape[0])[0] / len(parts)
+            t_p, pops = bvh4_any_hit_stats(p, so, sd, md, visits=visits)
+            k4_pops.append(pops)
+            k4_bound += _pop_bound(p, visits, so.shape[0],
+                                   split=True)[0] / len(parts)
+            k4_rows += _pop_bound(p, visits, so.shape[0])[0] / len(parts)
             k4_eq += torch.equal(t_k, t_p)
             both = (t_k < TMAX) & (t_p < TMAX)
             if bool(both.any()):
@@ -1413,7 +1461,10 @@ def main() -> int:
               f" median of 5: {k4_ms / len(parts):.4f} ms per part (runs of "
               f"{len(parts)} {_runs(k4_ts)} ms); bound {k4_bound:.4f} ms per "
               f"part (bytes or operations of the rows the plain any hit "
-              f"pops)", flush=True)
+              f"pops; whole rows read: {k4_rows:.4f} ms); lane-pops idle in "
+              f"one-ray-per-thread warps {_idle_share(k4_pops):.4f} over the "
+              f"parts, {_idle_share(k4_pops[-1:]):.4f} on the last part",
+              flush=True)
     del city_recs, out
     kernels["k4_bvh4_any"].update(
         city_part_ms=statistics.mean(m_ for m_, _ in k4_city),
@@ -1486,7 +1537,7 @@ def main() -> int:
           f"parts route / whole-table K3 {t_k3p[0] / t_k3m[0]:.3f}",
           flush=True)
     # per launch, over both ray sets: bare K3 _init and K5, plain, bounds
-    k3i_ms, k3i_plain, k3i_bounds, k5_bounds = 0.0, 0.0, [], []
+    k3i_ms, k3i_plain, k3i_bounds, k3i_rows = 0.0, 0.0, [], []
     n_launch = 0
     for label in walks:
         o_, d_, steps_, _, _ = walks[label]
@@ -1495,22 +1546,27 @@ def main() -> int:
         k3i_plain += _timed(lambda: [bvh4_closest_hit_init_stats(
             p, o_, d_, t_in, tri_in) for p, t_in, tri_in, *_ in steps_])[0]
         for p, _, _, _, _, visits, _ in steps_:
-            k3i_bounds.append(_pop_bound(p, visits, o_.shape[0], 40))
-            k5_bounds.append(_pop_bound(p, visits, o_.shape[0], 40, True))
+            k3i_bounds.append(_pop_bound(p, visits, o_.shape[0], 40, True))
+            k3i_rows.append(_pop_bound(p, visits, o_.shape[0], 40))
         n_launch += len(steps_)
     k5_ms = t_k5p[0] / len(parts)
     k5_plain = _timed(lambda: [bvh4_closest_hit_init_stats(
         p, o, d, t_in, tri_in) for p, t_in, tri_in, *_ in steps])[0] / len(
         parts)
-    k5_bound = k5_bounds[:len(parts)]
+    k5_bound = k3i_bounds[:len(parts)]  # K5 needs what K3 _init needs
     pops_all = [int(st[6].sum()) for lb in walks for st in walks[lb][2]]
+    idle = {lb: _idle_share([st[6] for st in walks[lb][2]]) for lb in walks}
     print(f"[time] {card}, k3_init_bvh4_closest per launch on the city "
           f"(camera and bounce-1 rays, every part): bare "
           f"{k3i_ms / n_launch:.4f} ms, plain {k3i_plain / n_launch:.4f} ms "
           f"(timed once), bound "
           f"{sum(b for b, _ in k3i_bounds) / n_launch:.4f} ms "
-          f"({k3i_bounds[0][1]}); pops per lane and part mean "
-          f"{sum(pops_all) / (n_launch * o.shape[0]):.3f}; k5_bvh4_split "
+          f"({k3i_bounds[0][1]}; whole rows read: "
+          f"{sum(b for b, _ in k3i_rows) / n_launch:.4f} ms); pops per lane "
+          f"and part mean {sum(pops_all) / (n_launch * o.shape[0]):.3f}; "
+          f"lane-pops idle in one-ray-per-thread warps over the parts: "
+          + ", ".join(f"{lb} rays {v:.4f}" for lb, v in idle.items())
+          + "; k5_bvh4_split "
           f"per launch on the camera rays' parts: bare {k5_ms:.4f} ms, "
           f"plain {k5_plain:.4f} ms, bound "
           f"{sum(b for b, _ in k5_bound) / len(parts):.4f} ms "

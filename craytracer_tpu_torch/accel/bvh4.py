@@ -65,6 +65,25 @@ def stack_bound_children(child) -> int:
     return int(min(MAX_STACK, max(16, ((bound + 7) // 8) * 8)))
 
 
+def check_leaf_slots(fat, leaf_size: int = LEAF_SIZE) -> None:
+    """Raise unless every internal child (child id >= 0) and every empty
+    child (its box's min x > max x, the builder's sentinel) of every row
+    of the fat table has empty slots (triangle ids < 0). K3, K3 `_init`,
+    K4 and K5 skip such children's slots (csrc/bvh4_walk.cuh), which is
+    exact only on such a table."""
+    fat = np.asarray(fat)
+    child = fat[:, 24:28]
+    empty = fat[:, 0:12:3] > fat[:, 12:24:3]
+    ids = fat[:, FAT_TRI0:FAT_TRI0 + WIDTH * leaf_size * TRI_COLS].reshape(
+        -1, WIDTH, leaf_size, TRI_COLS)[..., TRI_COLS - 1]
+    for kind, which in (("internal", child >= 0), ("empty", empty)):
+        bad = which[:, :, None] & (ids >= 0)
+        if bad.any():
+            row, c, _ = np.argwhere(bad)[0]
+            raise ValueError(f"fat row {row}: {kind} child {c} holds a "
+                             "triangle in its slots")
+
+
 def build_bvh4(v0, v1, v2, leaf_size: int = LEAF_SIZE) -> BVH4Arrays:
     """SAH-split 4-wide BVH over [T, 3] f32 triangle corners, built by the
     native runtime (the JAX builder's default with the library present,
@@ -76,6 +95,7 @@ def build_bvh4(v0, v1, v2, leaf_size: int = LEAF_SIZE) -> BVH4Arrays:
         raise ValueError("fat rows inline f32 triangle ids: fewer than 2^24 "
                          "triangles")
     fat = build_bvh4_fat_native(v0, v1, v2, leaf_size)
+    check_leaf_slots(fat, leaf_size)
     bound = stack_bound_children(fat[:, 24:28])
     if fat.shape[1] < FAT_COLS:
         fat = np.pad(fat, ((0, 0), (0, FAT_COLS - fat.shape[1])))

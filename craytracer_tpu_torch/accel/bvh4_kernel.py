@@ -4,8 +4,15 @@
 `pallas_bvh4_closest_hit_init` :399 with `_make_traversal_kernel_init`
 :126, `pallas_bvh4_any_hit` :547 with `_anyhit_kernel` :451).
 
-The CUDA C++ source is csrc/bvh4_traverse.cu (one ray per thread, the
-plain version's visit order; see its note). `bvh4_closest_hit_kernel`,
+The CUDA C++ source is csrc/bvh4_traverse.cu with the walk of
+csrc/bvh4_walk.cuh (see their notes): one ray per thread in the plain
+version's visit order; a pop skips the (empty) slots of internal
+children, and on a table past the L2 those of empty children too, which
+is exact on every table the port hands to a kernel (`build_bvh4`,
+`partition_bvh4` and `interop.scene_from_numpy` check it, accel/bvh4.py
+`check_leaf_slots`); on a table past the L2 each pop prefetches the rows
+of the children it pushes.
+`bvh4_closest_hit_kernel`,
 `bvh4_closest_hit_init_kernel` (the closest hit from a carried best hit,
 the per-part step of accel/bvh4_parts.py) and `bvh4_any_hit_kernel` are
 the wrappers: for CPU tensors they take the plain versions (accel/bvh4.py

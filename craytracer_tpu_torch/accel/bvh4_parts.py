@@ -32,6 +32,7 @@ import torch
 from craytracer_tpu_torch.accel import bvh4_kernel
 from craytracer_tpu_torch.accel.bvh4 import (WIDTH, bvh4_any_hit,
                                              bvh4_closest_hit,
+                                             check_leaf_slots,
                                              stack_bound_children)
 from craytracer_tpu_torch.constants import TMAX
 from craytracer_tpu_torch.core import math as vm
@@ -118,6 +119,7 @@ def partition_bvh4(bvh: BVH4Arrays, budget_bytes: int = PART_BUDGET_BYTES):
         # children outside the part (the top part's cut children) -> -1
         remap = np.where(ch >= 0, new_id[np.maximum(ch, 0)], -1)
         pf[:, 24:28] = remap.astype(np.float32)
+        check_leaf_slots(pf, bvh.leaf_size)
         parts.append(BVH4Arrays(
             fat=torch.from_numpy(pf).to(bvh.fat.device), n_tris=bvh.n_tris,
             leaf_size=bvh.leaf_size, stack_size=stack_bound_children(remap)))

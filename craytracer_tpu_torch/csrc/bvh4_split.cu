@@ -66,10 +66,10 @@ k5_split_kernel(const float4* __restrict__ topo,
   if (lane >= n) return;
   float t = INIT ? t0[lane] : TMAXF;
   int tri = INIT ? tri0[lane] : -1;
-  bvh4::walk<false>(bvh4::SplitRows{topo_s, cached, topo, fat}, m,
-                    stack_size, o[3 * lane], o[3 * lane + 1],
-                    o[3 * lane + 2], d[3 * lane], d[3 * lane + 1],
-                    d[3 * lane + 2], TMAXF, t, tri);
+  bvh4::Ray r;
+  if (bvh4::load_ray(o, d, TMAXF, lane, r))
+    bvh4::walk<false>(bvh4::SplitRows{topo_s, cached, topo, fat}, m,
+                      stack_size, r, t, tri);
   t_out[lane] = t;
   tri_out[lane] = tri;
 }

@@ -19,17 +19,18 @@
 // craytracer_tpu/accel/bvh4.py `_traverse4` :262-410) exactly:
 //   pop the top node (clamped to the table), slab-test its four child
 //   boxes against min(best_t, max_dist) as it stood before this pop, test
-//   the row's inlined triangles in slot order (a slot replaces the best hit
-//   only when strictly closer; any hit also needs t < max_dist), sort the
-//   entered internal children far to near with the network
+//   the row's inlined triangles in slot order (a slot replaces the best
+//   hit only when strictly closer; any hit also needs t < max_dist), sort
+//   the entered internal children far to near with the network
 //   (0,1),(2,3),(0,2),(1,3),(1,2), push them clamped to min(npush, S - sp)
 //   so the nearest pops next; any hit retires the ray once best_t <
-//   max_dist.
-// With the same order, the same expression trees and --fmad=false, t and
-// the triangle id are the plain version's bit for bit, tie breaks
-// included; K4's t (not only its verdict) matches too, which the caller's
-// lit test needs (it compares t with dist_adj - max(K_EPS, 1e-3 dist_adj),
-// not with max_dist).
+//   max_dist, after the whole row.
+// The sort reads nothing the triangle tests write, so it runs before
+// them and changes no result. With the same order, the same expression
+// trees and --fmad=false, t and the triangle id are the plain version's
+// bit for bit, tie breaks included; K4's t (not only its verdict) matches
+// too, which the caller's lit test needs (it compares t with dist_adj -
+// max(K_EPS, 1e-3 dist_adj), not with max_dist).
 //
 // Divide guard: Moller-Trumbore guards det with 1e-12, as the plain
 // version and the JAX XLA traversal do (core/math.py `_safe`); the Pallas
@@ -42,23 +43,39 @@
 // 3e18, direction +x): every box lies behind them, so they pop the root and
 // return their starting hit.
 //
-// What bounds it on an H100: dependent global loads per pop and
-// divergence. Each pop reads one 512-byte row whose address depends on the
-// previous pop, and the lanes of a warp walk different nodes. The design:
-//   * one ray per thread, the stack (<= 128 ints, per-tree bound
-//     `stack_size`) in local memory, everything else in registers;
-//   * a partitioned table (K3 `_init`, one launch per part) is the same
-//     walk over a smaller table, the carried best hit read once and
-//     written once per ray and part;
-//   * the walk itself is bvh4_walk.cuh's, shared with K5;
-//   * each popped row is read through the read-only path as aligned
-//     float4 loads (boxes and child ids: 7 loads; two leaf slots: 5 loads);
-//     the parity_mesh_mid table (5,733 rows, 2.9 MB) and the 327,680-tri
-//     city's stay in the 50 MB L2;
+// What bounds it on an H100: the latency of dependent loads, not bytes or
+// operations (PERF.md holds it at 10-25x its bound). Each pop reads a row
+// whose address depends on the previous pop, and a leaf child's slots
+// only after the row's child ids have arrived; the lanes of a warp walk
+// different nodes. The design:
+//   * one ray per thread in blocks of 128, the stack (<= 128 ints,
+//     per-tree bound `stack_size`) in local memory, everything else in
+//     registers; a partitioned table (K3 `_init`, one launch per part) is
+//     the same walk over a smaller table, the carried best hit read once
+//     and written once per ray and part;
+//   * exact slot skips (bvh4_walk.cuh): a pop reads its row's boxes and
+//     child ids (7 float4 loads, through the read-only path) and skips the
+//     slots of internal children (5 loads and two tests each), which are
+//     empty: a row without a leaf child, as every row of a tree's top
+//     levels is, reads 7 of its 27 float4 and tests nothing. On a table
+//     past the L2 a pop reads its leaf children's slots only, not those of
+//     empty children (the builder's sentinel box); on one the L2 holds, a
+//     row with a leaf child has all its slots read and tested, since
+//     there a branch per child cost more than the empty slots;
+//   * on a table past the L2 (a city part, 120 MiB, or the 1.05 GB city;
+//     the device's L2 size, read once, decides per launch), each pop asks
+//     L1 for the whole rows of the children it will push before it tests
+//     its own triangles, which hides part of their later pops' trips to
+//     device memory; on a table the L2 holds, prefetching cost more than
+//     it saved (PERF.md), so that form has none;
 //   * the wrapper sorts the rays by ray_key (ops/raysort.py) so that a
 //     warp's rays start alike and walk alike.
-// Shared-memory treelets, wide-node compression and ray reordering inside
-// the kernel are not done here.
+// Measured slower and left out (same-call A/Bs, PERF.md): persistent
+// warps (the warp's next 32 rays from one atomicAdd, or an idle lane's
+// next ray from its warp's chunk of 64); the top 85 rows' boxes in shared
+// memory (cp.async, once per block); a branch around each empty slot's
+// test; the stack stores before the triangle tests on a table the L2
+// holds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,35 +86,66 @@ namespace {
 
 using bvh4::TMAXF;
 
-template <bool INIT>
-__global__ void __launch_bounds__(128)
-k3_closest_kernel(const float4* __restrict__ fat, int m, int stack_size,
-                  const float* __restrict__ o, const float* __restrict__ d,
-                  const float* __restrict__ t0, const int* __restrict__ tri0,
-                  int n, float* __restrict__ t_out, int* __restrict__ tri_out) {
+constexpr int THREADS = 128;
+
+// INIT: start from the carried (t0, tri0) (`aux` = t0); ANY: the any hit
+// under max_dist (`aux` = max_dist); neither: K3 from TMAX / -1.
+// PREFETCH: the table is past the L2 (bvh4_walk.cuh FatRows).
+template <bool INIT, bool ANY, bool PREFETCH>
+__global__ void __launch_bounds__(THREADS)
+walk_kernel(const float4* __restrict__ fat, int m, int stack_size,
+            const float* __restrict__ o, const float* __restrict__ d,
+            const float* __restrict__ aux, const int* __restrict__ tri0,
+            int n, float* __restrict__ t_out, int* __restrict__ tri_out) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  float t = INIT ? t0[lane] : TMAXF;
+  float t = INIT ? aux[lane] : TMAXF;
   int tri = INIT ? tri0[lane] : -1;
-  bvh4::walk<false>(bvh4::FatRows{fat}, m, stack_size, o[3 * lane],
-                    o[3 * lane + 1], o[3 * lane + 2], d[3 * lane],
-                    d[3 * lane + 1], d[3 * lane + 2], TMAXF, t, tri);
+  bvh4::Ray r;
+  if (bvh4::load_ray(o, d, ANY ? aux[lane] : TMAXF, lane, r))
+    bvh4::walk<ANY>(bvh4::FatRows<PREFETCH>{fat}, m, stack_size, r, t, tri);
   t_out[lane] = t;
-  tri_out[lane] = tri;
+  if (!ANY) tri_out[lane] = tri;
 }
 
-__global__ void __launch_bounds__(128)
-k4_any_kernel(const float4* __restrict__ fat, int m, int stack_size,
-              const float* __restrict__ o, const float* __restrict__ d,
-              const float* __restrict__ md, int n, float* __restrict__ t_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  float t = TMAXF;
-  int tri = -1;
-  bvh4::walk<true>(bvh4::FatRows{fat}, m, stack_size, o[3 * lane],
-                   o[3 * lane + 1], o[3 * lane + 2], d[3 * lane],
-                   d[3 * lane + 1], d[3 * lane + 2], md[lane], t, tri);
-  t_out[lane] = t;
+// The L2 size of the current device, read once per device.
+int l2_bytes(int* l2) {
+  static int known[64];  // 0: not read yet
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= 64)
+    return (int)cudaDeviceGetAttribute(l2, cudaDevAttrL2CacheSize, dev);
+  if (!known[dev]) {
+    err = (int)cudaDeviceGetAttribute(&known[dev], cudaDevAttrL2CacheSize,
+                                      dev);
+    if (err) return err;
+  }
+  *l2 = known[dev];
+  return 0;
+}
+
+template <bool INIT, bool ANY>
+int launch(const float* fat, int m, int stack_size, const float* o,
+           const float* d, const float* aux, const int* tri0, int n,
+           float* t_out, int* tri_out, void* stream) {
+  if (n <= 0) return 0;
+  int l2 = 0;
+  const int err = l2_bytes(&l2);
+  if (err) return err;
+  const bool past_l2 =
+      (size_t)m * bvh4::ROW_F4 * sizeof(float4) > (size_t)l2;
+  const int blocks = (n + THREADS - 1) / THREADS;
+  if (past_l2)
+    walk_kernel<INIT, ANY, true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float4*)fat, m, stack_size, o, d, aux, tri0, n, t_out,
+        tri_out);
+  else
+    walk_kernel<INIT, ANY, false><<<blocks, THREADS, 0,
+                                    (cudaStream_t)stream>>>(
+        (const float4*)fat, m, stack_size, o, d, aux, tri0, n, t_out,
+        tri_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -105,13 +153,8 @@ k4_any_kernel(const float4* __restrict__ fat, int m, int stack_size,
 extern "C" int k3_closest_launch(const float* fat, int m, int stack_size,
                                  const float* o, const float* d, int n,
                                  float* t_out, int* tri_out, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  k3_closest_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float4*)fat, m, stack_size, o, d, nullptr, nullptr, n, t_out,
-      tri_out);
-  return (int)cudaGetLastError();
+  return launch<false, false>(fat, m, stack_size, o, d, nullptr, nullptr, n,
+                              t_out, tri_out, stream);
 }
 
 extern "C" int k3_closest_init_launch(const float* fat, int m,
@@ -119,23 +162,15 @@ extern "C" int k3_closest_init_launch(const float* fat, int m,
                                       const float* d, const float* t0,
                                       const int* tri0, int n, float* t_out,
                                       int* tri_out, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  k3_closest_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float4*)fat, m, stack_size, o, d, t0, tri0, n, t_out, tri_out);
-  return (int)cudaGetLastError();
+  return launch<true, false>(fat, m, stack_size, o, d, t0, tri0, n, t_out,
+                             tri_out, stream);
 }
 
 extern "C" int k4_any_launch(const float* fat, int m, int stack_size,
                              const float* o, const float* d, const float* md,
                              int n, float* t_out, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  k4_any_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float4*)fat, m, stack_size, o, d, md, n, t_out);
-  return (int)cudaGetLastError();
+  return launch<false, true>(fat, m, stack_size, o, d, md, nullptr, n, t_out,
+                             nullptr, stream);
 }
 
 extern "C" const char* cray_error_string(int code) {

@@ -16,6 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from craytracer_tpu_torch.accel.bvh4 import check_leaf_slots
 from craytracer_tpu_torch.camera import Camera, Film
 from craytracer_tpu_torch.scene import types as T
 
@@ -60,7 +61,8 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     """`leaves` maps each Scene group name to a mapping of its fields
     (numpy arrays) plus the static fields. The bvh4 table `tri_bvh` (fat
     rows, n_tris, leaf_size, stack_size) and its parts `tri_parts` are
-    carried; a scene holding any other accel table is refused (ROADMAP
+    carried, each held to `check_leaf_slots` as the port's own builders
+    hold theirs; a scene holding any other accel table is refused (ROADMAP
     queue 1, slice I)."""
     for name in ("tri_shadow", "tri_cam", "sph_bvh"):
         if leaves.get(name) is not None:
@@ -70,6 +72,10 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     kw = {name: _build(cls, leaves[name], device)
           for name, cls in _GROUPS.items()}
     kw["env"] = _build(T.EnvLight, leaves["env"], device)
+    tables = [leaves.get("tri_bvh"), *(leaves.get("tri_parts") or ())]
+    for table in tables:
+        if table is not None:
+            check_leaf_slots(table["fat"], int(table["leaf_size"]))
     if leaves.get("tri_bvh") is not None:
         kw["tri_bvh"] = _build(T.BVH4Arrays, leaves["tri_bvh"], device)
     if leaves.get("tri_parts") is not None:

@@ -32,8 +32,12 @@ import hashlib
 import json
 import os
 import statistics
-import subprocess
 import sys
+
+if __package__:
+    from craytracer_tpu_torch.profiling import ab_roots
+else:  # a child process, started by file path: a sibling import
+    import ab_roots
 
 SIZE, DEPTH, WIDE = 512, 5, 16
 SCENES = ("cornell", "parity_mix", "plane_disk", "aabox", "thinlens_cornell")
@@ -70,18 +74,12 @@ def _scenes(root, dev):
 def _one(root: str) -> dict:
     """Time bare K1 on every scene and size with the package under
     `root`."""
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
+    root = ab_roots.import_root(root)
     import torch
 
-    import craytracer_tpu_torch
     from craytracer_tpu_torch.camera import THINLENS
     from craytracer_tpu_torch.integrator import pass_kernel as pk
 
-    pkg_root = os.path.dirname(os.path.dirname(
-        os.path.abspath(craytracer_tpu_torch.__file__)))
-    if pkg_root != root:
-        raise RuntimeError(f"imported the package from {pkg_root}, not {root}")
     dev = torch.device("cuda")
     pk.LIBRARY.load()
     out = {"root": root, "ptxas": [
@@ -128,14 +126,6 @@ def _one(root: str) -> dict:
     return out
 
 
-def _card() -> str:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    lines = smi.stdout.strip().splitlines()
-    return lines[0] if lines else "unknown card"
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="*")
@@ -147,45 +137,19 @@ def main(argv=None) -> int:
         return 0
     if not args.roots:
         ap.error("give at least one ROOT")
-    results = []
-    for root in map(os.path.abspath, args.roots):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one", root],
-            capture_output=True, text=True, cwd=root, timeout=900)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stderr[-4000:])
-            print(f"FAIL: {root} exited {proc.returncode}")
-            return 1
-        results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(json.dumps(results[-1]), flush=True)
-    card = _card()
+    results = ab_roots.run_roots(__file__, args.roots)
+    if results is None:
+        return 1
+    card = ab_roots.card()
     print(card)
-    first = os.path.abspath(args.roots[0])
-    same = True
-    for name in SCENES:
-        hashes = {r[name]["hash"] for r in results}
-        same = same and len(hashes) == 1
-        for label in ("1spp", "16spp"):
-            by_root = {}
-            for r in results:
-                by_root.setdefault(r["root"], []).append(
-                    r[name][label]["ms_per_spp_pass"])
-            means = {k: statistics.mean(v) for k, v in by_root.items()}
-            print(f"[ab-k1] {card}, {name} {SIZE}x{SIZE} depth {DEPTH}, "
-                  f"{label} per launch, median of 5, ms per spp-pass in run "
-                  f"order: " + ", ".join(
-                      f"{os.path.basename(r['root']) or r['root']} "
-                      f"{r[name][label]['ms_per_spp_pass']:.4f}"
-                      for r in results)
-                  + "; each other root's mean / the first root's: "
-                  + ", ".join(f"{os.path.basename(k)} "
-                              f"{means[k] / means[first]:.4f}"
-                              for k in means if k != first)
-                  + f"; output hashes {sorted(hashes)}", flush=True)
+    same = ab_roots.report("ab-k1", card, results, [
+        (f"{name} {SIZE}x{SIZE} depth {DEPTH}, {label} per launch, median "
+         f"of 5, ms per spp-pass",
+         lambda r, n=name, lb=label: r[n][lb]["ms_per_spp_pass"],
+         lambda r, n=name: r[n]["hash"])
+        for name in SCENES for label in ("1spp", "16spp")])
     print(f"[ab-k1] every root's outputs bit-equal on every scene: {same}")
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump({"card": card, "runs": results}, f, indent=1)
+    ab_roots.write_out(args.out, card, results)
     return 0 if same else 1
 
 

@@ -26,28 +26,26 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
+
+if __package__:
+    from craytracer_tpu_torch.profiling import ab_roots
+else:  # a child process, started by file path: a sibling import
+    import ab_roots
 
 _SCENES = ("scenes/parity_mesh_mid.txt", "scenes/parity_prims.txt")
 
 
 def _one(root: str, scenes, size: int, passes: int) -> dict:
     """Time render_sample on each scene with the package under `root`."""
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
+    root = ab_roots.import_root(root)
     import torch
 
-    import craytracer_tpu_torch
     from craytracer_tpu_torch.camera import Film
     from craytracer_tpu_torch.integrator import wavefront as wf
     from craytracer_tpu_torch.integrator.render import RenderConfig, Renderer
     from craytracer_tpu_torch.io.scenefile import load_scene_file
 
-    pkg_root = os.path.dirname(os.path.dirname(
-        os.path.abspath(craytracer_tpu_torch.__file__)))
-    if pkg_root != root:
-        raise RuntimeError(f"imported the package from {pkg_root}, not {root}")
     dev = torch.device("cuda")
     cfg = RenderConfig(num_samples=64, max_depth=5)
     out = {"root": root}
@@ -77,14 +75,6 @@ def _one(root: str, scenes, size: int, passes: int) -> dict:
     return out
 
 
-def _card() -> str:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    lines = smi.stdout.strip().splitlines()
-    return lines[0] if lines else "unknown card"
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="*")
@@ -100,39 +90,18 @@ def main(argv=None) -> int:
         return 0
     if not args.roots:
         ap.error("give at least one ROOT")
-    results = []
-    for root in map(os.path.abspath, args.roots):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one", root,
-             "--size", str(args.size), "--passes", str(args.passes),
-             "--scenes", *args.scenes], capture_output=True, text=True,
-            cwd=root, timeout=900)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stderr[-4000:])
-            print(f"FAIL: {root} exited {proc.returncode}")
-            return 1
-        results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(json.dumps(results[-1]), flush=True)
-    card = _card()
+    results = ab_roots.run_roots(__file__, args.roots, (
+        "--size", str(args.size), "--passes", str(args.passes), "--scenes",
+        *args.scenes))
+    if results is None:
+        return 1
+    card = ab_roots.card()
     print(card)
-    first = os.path.abspath(args.roots[0])
-    for path in args.scenes:
-        by_root = {}
-        for r in results:
-            by_root.setdefault(r["root"], []).append(r[path]["ms_per_pass"])
-        means = {k: statistics.mean(v) for k, v in by_root.items()}
-        print(f"[ab] {card}, {path} {args.size}x{args.size} depth 5, "
-              f"{args.passes} passes per run, median of 5, ms/pass in run "
-              f"order: " + ", ".join(
-                  f"{os.path.basename(r['root']) or r['root']} "
-                  f"{r[path]['ms_per_pass']:.4f}" for r in results)
-              + "; each other root's mean / the first root's: "
-              + ", ".join(f"{os.path.basename(k)} "
-                          f"{means[k] / means[first]:.4f}"
-                          for k in means if k != first), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump({"card": card, "runs": results}, f, indent=1)
+    ab_roots.report("ab", card, results, [
+        (f"{path} {args.size}x{args.size} depth 5, {args.passes} passes per "
+         f"run, median of 5, ms/pass", lambda r, p=path: r[p]["ms_per_pass"],
+         None) for path in args.scenes])
+    ab_roots.write_out(args.out, card, results)
     return 0
 
 

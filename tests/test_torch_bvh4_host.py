@@ -16,7 +16,15 @@ triangle ids and K4's t equal the plain traversal's on every lane
 rays with 1% escape lanes; and seeded rays through a soup of 3,000
 random triangles, where an any hit's first occluder is often not the
 closest, so K4's t checks its visit order: dropping K4's early exit
-fails it); K2's float outputs within 1e-5 (absolute + relative) of
+fails it), in both forms of the kernel: the stub device's L2 (50 MB)
+holds these tables, and a build whose L2 holds none takes the form for
+tables past the L2. Both forms also carry the route's chains across the
+soup's parts bit for bit: K3 `_init` part after part with the best hit
+carried, K4 part after part with max_dist 0 on the lanes an earlier part
+occluded. Every table build_bvh4 and partition_bvh4 make keeps its
+internal children's slots empty (the kernels skip them), and
+check_leaf_slots raises on a doctored row. K2's float outputs
+within 1e-5 (absolute + relative) of
 fused_shade_reference and its int outputs equal on every lane, at
 bounces 0, 2 and 5 with per-lane spp (the host libm's sinf/cosf may
 differ from torch's by an ulp). Measured: every K3/K4 lane bit-equal.
@@ -41,7 +49,8 @@ import torch
 
 from craytracer_tpu_torch.accel.bvh4 import (build_bvh4, bvh4_any_hit,
                                              bvh4_closest_hit,
-                                             bvh4_closest_hit_init)
+                                             bvh4_closest_hit_init,
+                                             check_leaf_slots)
 from craytracer_tpu_torch.accel.bvh4_parts import partition_bvh4
 from craytracer_tpu_torch.accel.bvh4_split_kernel import split_topology
 from craytracer_tpu_torch.camera import Film, generate_rays
@@ -62,13 +71,51 @@ SEED = 5
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    trav = host_build(tmp_path_factory, "bvh4_traverse", 3)
+    trav = host_build(tmp_path_factory, "bvh4_traverse", 2)
     from craytracer_tpu_torch.accel.bvh4_kernel import _bind
 
     _bind(trav)
     shade = host_build(tmp_path_factory, "shade_kernel", 1)
     sk._bind(shade)
     return trav, shade
+
+
+@pytest.fixture(scope="module")
+def past_l2_lib(tmp_path_factory):
+    """bvh4_traverse.cu built against a device whose L2 holds no table, so
+    every launch takes the form for tables past the L2 (the next pop's row
+    prefetched; a no-op on the host, whose walk is the same code)."""
+    from craytracer_tpu_torch.accel.bvh4_kernel import _bind
+
+    lib = host_build(tmp_path_factory, "bvh4_traverse", 2, l2_bytes=0)
+    _bind(lib)
+    return lib
+
+
+def _launch_k3(lib, bvh, o, d, t0=None, tri0=None):
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32)
+    tri = torch.empty(n, dtype=torch.int32)
+    head = (bvh.fat.data_ptr(), bvh.fat.shape[0], bvh.stack_size,
+            o.data_ptr(), d.data_ptr())
+    if t0 is None:
+        err = lib.k3_closest_launch(*head, n, t.data_ptr(),
+                                    tri.data_ptr(), None)
+    else:
+        err = lib.k3_closest_init_launch(*head, t0.data_ptr(),
+                                         tri0.data_ptr(), n,
+                                         t.data_ptr(), tri.data_ptr(), None)
+    assert err == 0
+    return t, tri
+
+
+def _launch_k4(lib, bvh, o, d, md):
+    t = torch.empty(o.shape[0], dtype=torch.float32)
+    assert lib.k4_any_launch(
+        bvh.fat.data_ptr(), bvh.fat.shape[0], bvh.stack_size, o.data_ptr(),
+        d.data_ptr(), md.data_ptr(), o.shape[0], t.data_ptr(),
+        None) == 0
+    return t
 
 
 @pytest.fixture(scope="module")
@@ -128,40 +175,111 @@ def _rays(scene, cam, film, kind):
     return state[0].contiguous(), state[1].contiguous()
 
 
+def _any_md(t_ref):
+    """max_dist around the closest hit: occluded and clear lanes, zero
+    max_dist lanes (no shadow ray) and far max_dist lanes (where the visit
+    order decides which occluder is found)."""
+    n = t_ref.shape[0]
+    hit = t_ref < 3e38
+    md = torch.where(hit, t_ref * torch.linspace(0.5, 1.5, n), 5.0)
+    md[1::3] = 1e30
+    md[::7] = 0.0
+    return md
+
+
+@pytest.mark.parametrize("l2", ["fits", "past"])
 @pytest.mark.parametrize("kind", ["camera", "bounce1", "bounce3", "random",
                                   "soup"])
-def test_k3_k4_sources_match_plain_traversal(host_libs, mesh, kind):
-    trav, _ = host_libs
+def test_k3_k4_sources_match_plain_traversal(host_libs, past_l2_lib, mesh,
+                                             kind, l2):
+    trav = host_libs[0] if l2 == "fits" else past_l2_lib
     scene, cam, film = mesh
     if kind == "soup":
         bvh, o, d = _soup()
     else:
         bvh = scene.tri_bvh
         o, d = _rays(scene, cam, film, kind)
-    n = o.shape[0]
-    t = torch.empty(n, dtype=torch.float32)
-    tri = torch.empty(n, dtype=torch.int32)
-    assert trav.k3_closest_launch(
-        bvh.fat.data_ptr(), bvh.fat.shape[0], bvh.stack_size, o.data_ptr(),
-        d.data_ptr(), n, t.data_ptr(), tri.data_ptr(), None) == 0
+    t, tri = _launch_k3(trav, bvh, o, d)
     t_ref, tri_ref = bvh4_closest_hit(bvh, o, d)
     assert torch.equal(tri, tri_ref) and torch.equal(t, t_ref)
     hit = t_ref < 3e38
     assert hit.any() and (~hit).any()
 
-    # any hit under a max_dist around the closest hit: occluded and clear
-    # lanes, zero max_dist lanes (no shadow ray) and far max_dist lanes
-    # (where the visit order decides which occluder is found) included
-    md = torch.where(hit, t_ref * torch.linspace(0.5, 1.5, n), 5.0)
-    md[1::3] = 1e30
-    md[::7] = 0.0
-    ta = torch.empty(n, dtype=torch.float32)
-    assert trav.k4_any_launch(
-        bvh.fat.data_ptr(), bvh.fat.shape[0], bvh.stack_size, o.data_ptr(),
-        d.data_ptr(), md.data_ptr(), n, ta.data_ptr(), None) == 0
+    md = _any_md(t_ref)
+    ta = _launch_k4(trav, bvh, o, d, md)
     ta_ref = bvh4_any_hit(bvh, o, d, md)
     assert torch.equal(ta, ta_ref)
     assert (ta_ref < md).any() and (ta_ref >= md).any()
+
+
+@pytest.mark.parametrize("l2", ["fits", "past"])
+def test_k3_init_k4_sources_across_the_soups_parts(host_libs, past_l2_lib,
+                                                   l2):
+    """The route's chains over the soup's parts (its table cut at a fifth
+    of its bytes): K3 `_init` part after part with the best hit of the
+    parts before carried in, K4 part after part with max_dist 0 on the
+    lanes an earlier part occluded (and on every seventh lane from the
+    start); each launch bit-equal with the plain version on every lane."""
+    trav = host_libs[0] if l2 == "fits" else past_l2_lib
+    bvh, o, d = _soup()
+    parts = partition_bvh4(bvh, bvh.fat.numel() * 4 // 5)
+    assert len(parts) >= 3
+    n = o.shape[0]
+    t = torch.full((n,), TMAX)
+    tri = torch.full((n,), -1, dtype=torch.int32)
+    replaced = 0
+    for p in parts:
+        got = _launch_k3(trav, p, o, d, t, tri)
+        want = bvh4_closest_hit_init(p, o, d, t, tri)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        replaced += int((want[1] != tri).sum())
+        t, tri = want
+    assert replaced > n // 4 and torch.equal(t, bvh4_closest_hit(bvh, o, d)[0])
+
+    md0 = _any_md(t)
+    best = torch.full((n,), TMAX)
+    md, occluded = md0, []
+    for p in parts:
+        got = _launch_k4(trav, p, o, d, md)
+        want = bvh4_any_hit(p, o, d, md)
+        assert torch.equal(got, want)
+        best = torch.minimum(best, want)
+        occluded.append(int((best < md0).sum()))
+        md = torch.where(best < md0, 0.0, md0)
+    assert 0 < occluded[-2] and occluded[1] < occluded[-1]
+    assert torch.equal(best < md0, bvh4_any_hit(bvh, o, d, md0) < md0)
+
+
+def test_every_table_keeps_internal_children_slots_empty(mesh):
+    """K3, K3 `_init`, K4 and K5 skip internal children's slots, and past
+    the L2 empty children's: every table build_bvh4 and partition_bvh4
+    make holds no triangle in such a child's slots (parity_mesh, the soup,
+    the soup's parts), and check_leaf_slots raises on a row that does."""
+    scene, _, _ = mesh
+    soup, _, _ = _soup()
+    tables = [scene.tri_bvh, soup, *partition_bvh4(
+        soup, soup.fat.numel() * 4 // 5)]
+    for b in tables:
+        check_leaf_slots(b.fat.numpy())
+    fat = torch.cat([b.fat for b in tables])
+    internal = fat[:, 24:28] >= 0
+    ids = fat[:, 28:108].reshape(-1, 4, 2, 10)[..., 9]
+    assert internal.any() and (ids >= 0).any()
+    assert not (internal[:, :, None] & (ids >= 0)).any()
+    empty = fat[:, 0:12:3] > fat[:, 12:24:3]
+    assert empty.any() and not (empty[:, :, None] & (ids >= 0)).any()
+    fat = soup.fat.numpy().copy()
+    row, c = np.argwhere(fat[:, 24:28] >= 0)[0]
+    fat[row, 28 + 20 * c + 19] = 5.0  # a triangle id in slot 1
+    with pytest.raises(ValueError, match=f"fat row {row}: internal child"):
+        check_leaf_slots(fat)
+    fat = soup.fat.numpy().copy()
+    empty = fat[:, 0:12:3] > fat[:, 12:24:3]
+    assert empty.any()
+    row, c = np.argwhere(empty)[0]
+    fat[row, 28 + 20 * c + 9] = 5.0  # a triangle id in slot 0
+    with pytest.raises(ValueError, match=f"fat row {row}: empty child"):
+        check_leaf_slots(fat)
 
 
 @pytest.mark.parametrize("bounce", [0, 2, 5])

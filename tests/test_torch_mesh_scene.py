@@ -97,6 +97,24 @@ def test_mesh_statics_and_interop(both):
     _assert_tree_equal(numpy_leaves(carried), numpy_leaves(ts))
 
 
+@pytest.mark.parametrize("where", ["tri_bvh", "tri_parts"])
+def test_interop_refuses_a_table_with_slots_in_an_internal_child(where):
+    """scene_from_numpy holds a carried table, whole or a part, to the
+    invariant the kernels' slot skips rely on (accel/bvh4.py
+    check_leaf_slots)."""
+    js, _, _ = j_load(os.path.join(SCENES, "parity_mesh.txt"))
+    leaves = numpy_leaves(js)
+    table = dict(leaves["tri_bvh"], fat=leaves["tri_bvh"]["fat"].copy())
+    row, c = np.argwhere(table["fat"][:, 24:28] >= 0)[0]
+    table["fat"][row, 28 + 20 * c + 9] = 3.0  # a triangle id in slot 0
+    if where == "tri_bvh":
+        leaves["tri_bvh"] = table
+    else:
+        leaves["tri_parts"] = (leaves["tri_bvh"], table)
+    with pytest.raises(ValueError, match=f"fat row {row}: internal child"):
+        scene_from_numpy(leaves)
+
+
 def test_missing_mesh_file_raises(tmp_path):
     """A mesh file that cannot be found no longer raises: the port skips
     the object, as the JAX parser does (scenefile.py:323-324), and both

@@ -19,7 +19,10 @@ library (ctypes), whose C entry points the tests call on CPU tensors:
   on the card;
 - `cudaOccupancyMaxActiveBlocksPerMultiprocessor` answers 1 block and
   the SM count is 2, so a persistent kernel runs 2 blocks and every
-  thread takes many work items;
+  thread takes many work items; the L2 size is `l2_bytes` (the H100's
+  50 MB unless the build asks for another), so a test can make a kernel
+  that chooses its code by whether a table fits the L2 take either
+  choice;
 - a barrier that waits longer than `CRAY_HOST_TIMEOUT_S` seconds gives
   up: every thread of the launch unwinds and the launch's
   cudaGetLastError() is cudaErrorLaunchTimeout (702), so a deadlock fails
@@ -59,7 +62,10 @@ STUB = r"""#pragma once
 typedef void* cudaStream_t;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorLaunchTimeout = 702 };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrL2CacheSize = 38
+};
 struct float4 { float x, y, z, w; };
 static inline float4 __ldg(const float4* p) { return *p; }
 static inline float __ldg(const float* p) { return *p; }
@@ -73,6 +79,7 @@ namespace cray_host {
 
 constexpr int WAVE = 2;         // blocks run at once
 constexpr int SM_COUNT = 2;     // what cudaDeviceGetAttribute answers
+constexpr int L2_BYTES = CRAY_HOST_L2_BYTES;
 constexpr double TIMEOUT_S = CRAY_HOST_TIMEOUT_S;
 static int last_error = 0;
 
@@ -291,8 +298,9 @@ static inline int cudaGetDevice(int* d) {
   *d = 0;
   return 0;
 }
-static inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = cray_host::SM_COUNT;
+static inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrL2CacheSize ? cray_host::L2_BYTES
+                                   : cray_host::SM_COUNT;
   return 0;
 }
 template <class F>
@@ -330,10 +338,11 @@ def host_source(text: str):
 
 
 def host_build(tmp_path_factory, stem: str, n_launches: int,
-               timeout_s: float = 20.0, text: str = None):
+               timeout_s: float = 20.0, text: str = None,
+               l2_bytes: int = 50 * 1024 * 1024):
     """csrc/`stem`.cu (or the source `text`) built for the CPU with the
-    stub; asserts that it has `n_launches` launches. Skips when no C++
-    compiler is on the PATH."""
+    stub, whose device has an L2 of `l2_bytes`; asserts that it has
+    `n_launches` launches. Skips when no C++ compiler is on the PATH."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel sources")
@@ -345,7 +354,8 @@ def host_build(tmp_path_factory, stem: str, n_launches: int,
     lib = d / f"lib{stem}_host.so"
     subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
                     "-fno-fast-math", "-shared", "-fPIC", "-pthread",
-                    f"-DCRAY_HOST_TIMEOUT_S={timeout_s}", "-I", str(d),
+                    f"-DCRAY_HOST_TIMEOUT_S={timeout_s}",
+                    f"-DCRAY_HOST_L2_BYTES={l2_bytes}", "-I", str(d),
                     "-I", str(CSRC), "-o", str(lib), str(d / f"{stem}.cpp")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
