@@ -160,10 +160,31 @@ never JAX or the JAX package. Phases, each printing its own lines:
    version at 4 packets and 48 pops; then ns per pop of every mode, the
    slope between 512 and 1,536 pops over 4,224 packets of camera rays;
    bare and plain full mode at 128 pops, t and sink bit-equal.
+25. the general route (the torch-op shading of every lobe and light,
+   wavefront.py `_general_step`) through K3 and K4 against the general
+   route with the plain traversal on parity_mesh_mid at 512x512 Morton
+   lanes, depth 0, 2, 5 (spp 0) and 5 (spp 63); then against the "shade"
+   route (K2; K3 and K4 on the mesh) on parity_mix and parity_mesh_mid at
+   depth 5; phase 8's bars. A lane that differs is printed with the
+   bounce where the two routes part and their state there.
+26. golden_mix and golden_mesh_mid through the forced general route
+   (render_sample(general=True), 512x512, depth 5, 64 spp, the
+   Renderer's Morton order and NaN rule); counts set to 0 just before
+   and read just after: K3 and K4 passes x 6 on the mesh, nothing else.
+27. scenes that take the general route by themselves, through the
+   Renderer at 512x512, depth 5, 16 spp: scenes/materials_scene.txt (no
+   kernel launch) and parity_mesh_mid's geometry with a disk light, a
+   constant env light and an anisotropic Trowbridge-Reitz metal
+   (tests/torch_general_scenes.py `mesh_env_disk`: K3 and K4 passes x 6,
+   nothing else); no NaN, a finite image.
+28. times, in turns, median of 5: ms/pass and rays/s through
+   render_sample of the "shade" and the general route on
+   parity_mesh_mid and of the general route on phase 27's mesh scene.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K3 `_init`
-on the 7M city's; K5, K6 and P1 lie on no path: 0;
+on the 7M city's; K3 and K4 also carry the general route's traversal
+(phases 25-27), which adds no kernel; K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch, the plain version's ms,
 and bound_ms: the larger of the bytes it must move over 3.35 TB/s and
 the operations this run's inputs need over 67 TFLOP/s f32, counted from
@@ -1682,6 +1703,202 @@ def main() -> int:
         "launches": launches_city["p1_pop_probe"], "ms": med_p1,
         "plain_ms": ms_p1_plain, "bound_ms": b_p1[0], "bound_by": b_p1[1],
         "library_ms": None}
+
+    # ---- 25. the general route with K3/K4 vs its plain traversal, and vs
+    # the "shade" route
+    from craytracer_tpu_torch.interop import numpy_leaves, scene_from_numpy
+    from craytracer_tpu_torch.io.objloader import load_obj
+    import torch_general_scenes as general_scenes
+
+    def first_divergence(scn, o, d, ids, spp, depth, lanes, other):
+        """Where each lane of `lanes` first parts between the general step
+        through the kernels and `other` (("general" or "shade", kernels)):
+        its bounce and the per-lane state there, both sides."""
+        step_b = wf._general_step if other[0] == "general" else \
+            wf._bounce_step
+        sa = sb = wf._init_state(o, d, depth, ids)
+        found = {}
+        for b in range(depth + 1):
+            sa = wf._general_step(scn, cfg.seed, spp, depth, b, sa,
+                                  kernels=True)
+            sb = step_b(scn, cfg.seed, spp, depth, b, sb, kernels=other[1])
+            for ln in lanes:
+                if ln in found:
+                    continue
+                diff = [f"{name} {sa[i][ln].tolist()}/{sb[i][ln].tolist()}"
+                        for i, name in ((5, "alive"), (4, "good"),
+                                        (7, "rays"), (8, "shadow rays"))
+                        if not torch.equal(sa[i][ln], sb[i][ln])]
+                dl = (sa[3][ln] - sb[3][ln]).abs()
+                if bool((dl > L_TOL + L_TOL * sb[3][ln].abs()).any()):
+                    diff.append(f"L {sa[3][ln].tolist()}/"
+                                f"{sb[3][ln].tolist()}")
+                if diff:
+                    found[ln] = f"bounce {b}: " + ", ".join(diff)
+        return found
+
+    def check_general(label, scn, o, d, ids, spp, depth, other):
+        """The general route through the kernels against `other` on one
+        batch, phase 8's bars; a lane that differs is printed with the
+        bounce where it parts and the state there."""
+        out_k = wf.trace_paths(scn, o, d, cfg.seed, ids, spp, depth,
+                               with_metrics=True, fast_shade="shade",
+                               general=True)
+        out_p = wf.trace_paths(scn, o, d, cfg.seed, ids, spp, depth,
+                               with_metrics=True,
+                               fast_shade="shade" if other[1] else None,
+                               general=other[0] == "general")
+        torch.cuda.synchronize()
+        bad, err_same, err_all, f = _compare(out_k, out_p)
+        print(f"[general-vs-{other[0]}] {label} depth {depth}: good "
+              f"differs on {bad:.5f}, max|dL| {err_same:.3g} (agreeing "
+              f"lanes) {err_all:.3g} (all), rays {int(out_k[2]['rays'])}/"
+              f"{int(out_p[2]['rays'])}, shadow_rays "
+              f"{int(out_k[2]['shadow_rays'])}/"
+              f"{int(out_p[2]['shadow_rays'])}"
+              + (" FAIL " + "; ".join(f) if f else ""), flush=True)
+        if f:
+            (Lk, gk, mk), (Lp, gp, mp) = out_k, out_p
+            off = ((gk != gp) | (mk["lane_rays"] != mp["lane_rays"])
+                   | (mk["lane_shadow_rays"] != mp["lane_shadow_rays"])
+                   | ((Lk - Lp).abs() > L_TOL + L_TOL * Lp.abs()).any(1))
+            lanes = torch.nonzero(off).flatten()[:8].tolist()
+            for ln, why in first_divergence(scn, o, d, ids, spp, depth,
+                                            lanes, other).items():
+                print(f"[general-vs-{other[0]}]   lane {ln}: first parts "
+                      f"at {why}", flush=True)
+            fails.extend(f"general vs {other[0]} {label} depth {depth}: "
+                         f"{x}" for x in f)
+
+    for depth, s in ((0, 0), (2, 0), (5, 0), (5, cfg.num_samples - 1)):
+        spp = torch.full_like(mmorton, s)
+        o, d = generate_rays(mcam, mfilm, mmorton,
+                             stratified_jitter(cfg.seed, mmorton, spp))
+        check_general(f"mesh_mid 512x512 Morton spp {s}", mesh, o, d,
+                      mmorton, spp, depth, ("general", False))
+    for name, scn, c, fm, ids in (
+            ("parity_mix", mix, xcam, xfilm, morton),
+            ("mesh_mid", mesh, mcam, mfilm, mmorton)):
+        spp = torch.zeros_like(ids)
+        o, d = generate_rays(c, fm, ids, stratified_jitter(cfg.seed, ids,
+                                                           spp))
+        check_general(f"{name} 512x512 Morton spp 0", scn, o, d, ids, spp, 5,
+                      ("shade", True))
+
+    # ---- 26. the goldens through the forced general route
+    def general_golden(label, scn, c, fm, golden):
+        """render_sample(general=True) over cfg's passes in the Renderer's
+        Morton order and NaN rule, the counts set to 0 just before and
+        read just after; the image against `golden`. Returns (passes,
+        launches)."""
+        ids = torch.from_numpy(Renderer(scn, c, fm, cfg).pixel_order()
+                               ).to(dev)
+        accum = torch.zeros((fm.num_pixels, 3), device=dev)
+        nan = 0
+        reset_counts()
+        t0 = time.perf_counter()
+        for s in range(cfg.num_samples):
+            vals = wf.render_sample(scn, c, fm, ids, cfg.seed,
+                                    torch.full_like(ids, s), cfg.max_depth,
+                                    cfg.estimator, general=True)
+            nan_px = torch.isnan(vals).any(dim=-1)
+            nan += int(nan_px.sum())
+            vals = torch.where(nan_px[:, None], torch.nan_to_num(
+                accum[ids.long()] / max(s, 1)), vals)
+            accum.index_add_(0, ids.long(), vals)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        ours = (accum / cfg.num_samples).cpu().numpy().reshape(
+            fm.height, fm.width, 3)
+        full_o, full_r, dev_max, share, f = _golden(ours, golden)
+        print(f"[general-golden] {label} {fm.width}x{fm.height} "
+              f"{cfg.num_samples} spp depth {cfg.max_depth} through "
+              f"render_sample(general=True): {dt:.2f} s, launches {got}, "
+              f"{nan} NaN; tone-mapped mean {full_o:.4f} vs golden "
+              f"{full_r:.4f}, block dev max {dev_max:.4f}, share < 0.02 "
+              f"{share:.3f}" + (" FAIL " + "; ".join(f) if f else ""),
+              flush=True)
+        fails.extend(f"{label} general golden: {x}" for x in f)
+        if nan:
+            fails.append(f"{label} general: {nan} NaN samples")
+        return cfg.num_samples, got
+
+    n_p, got = general_golden("parity_mix", mix, xcam, xfilm, GOLDEN_MIX)
+    expect("parity_mix general", got)
+    n_p, got = general_golden(
+        "parity_mesh_mid", mesh, mcam, mfilm,
+        os.path.join(REPO, "tests", "goldens", "golden_mesh_mid.is"))
+    expect("parity_mesh_mid general", got, k3_bvh4_closest=6 * n_p,
+           k4_bvh4_any=6 * n_p)
+
+    # ---- 27. scenes that take the general route by themselves
+    gcfg = RenderConfig(num_samples=16, max_depth=5, estimator="reference")
+    mat_s, mat_c, mat_f0 = load_scene_file(
+        os.path.join(REPO, "scenes", "materials_scene.txt"), device=dev)
+    mat_f = Film(fov=mat_f0.fov, width=size, height=size)
+    b = SceneBuilder()
+    eye, look, fov, _ = general_scenes.mesh_env_disk(
+        b, [(sh.positions, sh.indices) for sh in load_obj(
+            os.path.join(REPO, "scenes", "parity_mesh_mid.obj"))])
+    ged = scene_from_numpy(general_scenes.make_anisotropic(numpy_leaves(
+        b.build(device="cpu"))), device=dev)
+    ged_c = make_camera(eye, look, device=dev)
+    ged_f = Film(fov=torch.tensor(fov, dtype=torch.float32, device=dev),
+                 width=size, height=size)
+    for label, scn, c, fm in (("materials_scene", mat_s, mat_c, mat_f),
+                              ("mesh_mid_env_disk_aniso", ged, ged_c,
+                               ged_f)):
+        route = wf.production_fast_shade(scn, c, fm)
+        print(f"[general] {label}: route {route}, material types "
+              f"{scn.mat_types_present}, light types "
+              f"{scn.light_types_present}, triangles "
+              f"{scn.triangles.mat_id.shape[0]}", flush=True)
+        if route != "general":
+            fails.append(f"{label}: route {route}, not general")
+        n_p, got = main_path(label, scn, c, fm, config=gcfg)
+        if label == "materials_scene":
+            expect(label, got)
+        else:
+            expect(label, got, k3_bvh4_closest=6 * n_p, k4_bvh4_any=6 * n_p)
+
+    # ---- 28. general route times, in turns
+    gpasses = 8
+    runs = {
+        "parity_mesh_mid shade route": (mesh, mcam, mfilm, mmorton, False),
+        "parity_mesh_mid general route": (mesh, mcam, mfilm, mmorton, True),
+        "mesh_mid_env_disk_aniso general route": (
+            ged, ged_c, ged_f, torch.from_numpy(Renderer(
+                ged, ged_c, ged_f, cfg).pixel_order()).to(dev), False)}
+
+    def passes_of(scn, c, fm, ids, general):
+        return lambda: [wf.render_sample(scn, c, fm, ids, cfg.seed, 5000 + s,
+                                         5, general=general)
+                        for s in range(gpasses)][-1]
+
+    fns = {k: passes_of(*v) for k, v in runs.items()}
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for k, fn in fns.items():
+            times[k].append(_timed(fn)[0])
+    for k, (scn, c, fm, ids, general) in runs.items():
+        rays = 0
+        for s in range(gpasses):
+            o, d = generate_rays(c, fm, ids, stratified_jitter(
+                cfg.seed, ids, 5000 + s))
+            m = wf.trace_paths(scn, o, d, cfg.seed, ids, 5000 + s, 5,
+                               with_metrics=True, fast_shade="shade",
+                               general=general)[2]
+            rays += int(m["rays"]) + int(m["shadow_rays"])
+        med = statistics.median(times[k])
+        print(f"[time] {card}, {k} 512x512 depth 5, {gpasses} passes through "
+              f"render_sample per run, in turns, median of 5: "
+              f"{med / gpasses:.4f} ms/pass, {rays / (med / 1e3):.6g} rays/s "
+              f"({rays} rays + shadow rays per run; runs "
+              f"{_runs(times[k])} ms)", flush=True)
 
     if fails:
         for f in fails:

@@ -21,10 +21,13 @@ Layout (same module names as the JAX package where that helps):
                                   _init and K4, the partitioned tables
                                   (bvh4_parts.py), K5 (bvh4_split_kernel.py)
   bsdf/                           Beckmann, Oren-Nayar, FresnelBlend and
-                                  Fresnel helpers of the shading
-  integrator/wavefront.py         torch-op path tracer (plain version)
+                                  Fresnel helpers of the shading, and the
+                                  general route's lobes (bxdf.py)
+  lights/                         the general route's light sampling
+  integrator/wavefront.py         torch-op path tracer: the "shade" and
+                                  "general" bounce steps
   integrator/gate.py              which scenes the port covers, by which
-                                  kernels, and the shading feature mask
+                                  route, and the shading feature mask
   integrator/pass_kernel.py       K1: the whole-pass kernel wrapper
   integrator/shade_kernel.py      K2: the per-bounce shading (plain + wrapper)
   integrator/render.py            progressive Renderer

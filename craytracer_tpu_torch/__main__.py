@@ -6,14 +6,18 @@ port's counterpart of the repo-root render.py, for the slices' options).
         -o mesh.ppm
 
 It runs on the CUDA card, and raises when there is none, unless asked for
-the CPU (--device cpu). On the card every pass runs through the kernels
-(K1 for scenes of at most 64 rows of spheres, planes, rects, disks, flat
-triangles and boxes, such as parity_cornell and parity_mix; K3 -> K2 ->
-K4 per bounce for meshes; K2 per bounce for scenes with a torus or a
-cylinder, such as parity_prims); on the CPU the plain PyTorch versions
-run instead. `--thin-lens` swaps the scene file's pinhole for a thin-lens
-camera (make_camera's lens radius 0.2 and focal length 3.0). Prints one
-summary line with each kernel's launches.
+the CPU (--device cpu). On the card every pass runs through the route the
+gate picks (integrator/gate.py): K1 for scenes of at most 64 rows of
+spheres, planes, rects, disks, flat triangles and boxes, such as
+parity_cornell and parity_mix; K3 -> K2 -> K4 per bounce for meshes; K2
+per bounce for scenes with a torus or a cylinder, such as parity_prims;
+the general torch-op step per bounce, with K3 and K4 for a mesh, for
+scenes no kernel shades, such as materials_scene (a constant env light)
+or one with disk, point or directional lights. On the CPU the plain
+PyTorch versions run instead. `--thin-lens` swaps the scene file's
+pinhole for a thin-lens camera (make_camera's lens radius 0.2 and focal
+length 3.0). Prints one summary line with the route and each kernel's
+launches.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ def main(argv=None):
 
     from craytracer_tpu_torch.camera import THINLENS, Film
     from craytracer_tpu_torch.integrator import pass_kernel, shade_kernel
+    from craytracer_tpu_torch.integrator.gate import production_fast_shade
     from craytracer_tpu_torch.integrator.render import RenderConfig, Renderer
     from craytracer_tpu_torch.io.image import write_ppm
     from craytracer_tpu_torch.io.scenefile import load_scene_file
@@ -66,8 +71,11 @@ def main(argv=None):
     launches = {"K1": pass_kernel.KERNEL, "K2": shade_kernel.KERNEL,
                 "K3": bvh4_kernel.CLOSEST, "K4": bvh4_kernel.ANY}
     ks = ", ".join(f"{k} {c.launches}" for k, c in launches.items())
+    route = production_fast_shade(scene, camera, film, args.estimator,
+                                  args.depth)
     print(f"{film.width}x{film.height} {args.spp} spp depth {args.depth} on "
-          f"{scene.device}: {dt:.3f} s, {r.passes} passes, launches {ks}, "
+          f"{scene.device}, route {route}: {dt:.3f} s, {r.passes} passes, "
+          f"launches {ks}, "
           f"{r.nan_count} NaN samples -> {args.output}")
 
 

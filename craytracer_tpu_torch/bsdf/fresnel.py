@@ -1,9 +1,13 @@
-"""Fresnel terms on per-lane scalars, in the component form the kernels use
-(counterpart of craytracer_tpu/integrator/pallas_shade.py `_fr_dielectric`
-:204 and `_fr_conductor_c` :221, the per-channel forms of
-craytracer_tpu/bsdf/fresnel.py `fr_dielectric` :12 and `fr_conductor`
-:32 with eta_i = 1). Same expression trees and epsilons as the JAX
-helpers and csrc/shade_core.cuh."""
+"""Fresnel terms (counterpart of craytracer_tpu/bsdf/fresnel.py
+`fr_dielectric` :12, `fr_conductor` :32 and `schlick_fresnel` :54).
+
+`fr_dielectric` is elementwise, so it serves both the kernels' per-lane
+scalars (pallas_shade.py `_fr_dielectric` :204) and the general route's
+vectors. `fr_conductor` is the per-channel form with eta_i = 1
+(pallas_shade.py `_fr_conductor_c` :221) that the "shade" route calls;
+`fr_conductor_rgb` is the JAX [..., 3] signature, the same arithmetic
+(k / eta_i and eta_t / eta_i are exact at eta_i = 1). Same expression
+trees and epsilons as the JAX helpers and csrc/shade_core.cuh."""
 
 from __future__ import annotations
 
@@ -46,3 +50,17 @@ def fr_conductor(c, eta, k):
     t4 = t2 * s2
     rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-12)
     return 0.5 * (rp + rs)
+
+
+def fr_conductor_rgb(cos_theta_i, eta_t, eta_i, k):
+    """RGB conductor reflectance: `eta_t`, `eta_i`, `k` [..., 3],
+    cos_theta_i [...]."""
+    return fr_conductor(cos_theta_i[..., None], eta_t / eta_i, k / eta_i)
+
+
+def schlick_fresnel(cos_theta, rs):
+    """Schlick's approximation (reflection.cpp:466-482); rs [..., 3].
+    (1 - cos)^5 as XLA lowers it: x * (x^2 * x^2)."""
+    x = 1.0 - cos_theta
+    x2 = x * x
+    return rs + (x * (x2 * x2))[..., None] * (1.0 - rs)

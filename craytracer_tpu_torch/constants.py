@@ -12,6 +12,9 @@ K_EPSILON = 7.0e-6
 # Finite f32 miss sentinel (craytracer_tpu/constants.py:17).
 TMAX = float(np.float32(3.4028235e38))
 
+# The disk light's jittered up vector (constants.py:45).
+JITTERED_UP = (0.0072, 1.0, 0.0034)
+
 PI = float(np.pi)
 INV_PI = float(1.0 / np.pi)
 TWO_PI = float(2.0 * np.pi)

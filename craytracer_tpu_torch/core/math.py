@@ -1,12 +1,17 @@
 """Batched vector math on `[..., 3]` tensors.
 
 Counterpart of craytracer_tpu/core/math.py, restricted to the ops the
-port's torch code uses (the shading math lives in
-integrator/shade_kernel.py, formula for formula with the kernels). Each
+port's torch code uses (the "shade" route's math lives in
+integrator/shade_kernel.py, formula for formula with the kernels; the
+general route's in bsdf/bxdf.py and lights/lights.py calls these). Each
 function keeps the JAX expression tree (same operand order, same
 epsilons) so the two packages round alike: `dot` :16, `cross` :30,
-`normalize` :55, `orthonormal_basis` :86, `_safe` :199, and the
-host-side `euler_to_mat3` :246 for mesh and instance placement.
+`max3` :34, `length` :44, `length_sq` :50, `normalize` :55, `reflect`
+:62, `refract` :68, `orthonormal_basis` :86, `make_shading_frame` :110,
+`to_local` :123, `to_world` :128, the shading-frame trig :137-196,
+`_safe` :199, `spherical_direction` :214, and the host-side
+`euler_to_mat3` :246 for mesh and instance placement. Integer powers
+are products, as XLA lowers `x ** 2`.
 """
 
 from __future__ import annotations
@@ -27,12 +32,44 @@ def cross(a, b):
                        dim=-1)
 
 
+def max3(a, keepdims: bool = False):
+    r = torch.maximum(torch.maximum(a[..., 0], a[..., 1]), a[..., 2])
+    return r[..., None] if keepdims else r
+
+
+def length(a, keepdims: bool = False):
+    return torch.sqrt(torch.clamp(dot(a, a, keepdims=keepdims), min=1e-20))
+
+
+def length_sq(a, keepdims: bool = False):
+    return dot(a, a, keepdims=keepdims)
+
+
 def normalize(a, eps: float = 1e-20):
     """Safe normalize: `a/|a|`, or zeros for (near-)zero vectors."""
     n2 = dot(a, a, keepdims=True)
     inv = torch.where(n2 > eps, 1.0 / torch.sqrt(torch.clamp(n2, min=eps)),
                       torch.zeros_like(n2))
     return a * inv
+
+
+def reflect(wo, n):
+    """Mirror `wo` about `n` (util/ray.cpp reflect)."""
+    return 2.0 * dot(wo, n, keepdims=True) * n - wo
+
+
+def refract(wi, n, eta):
+    """PBRT refraction (reflection.cpp:26-49): `wi` points away from the
+    surface, `n` is on its side, `eta` = incident / transmitted IOR.
+    Returns (ok, wt)."""
+    cos_theta_i = dot(n, wi, keepdims=True)
+    sin2_theta_i = torch.clamp(1.0 - cos_theta_i * cos_theta_i, min=0.0)
+    if eta.dim() < n.dim():
+        eta = eta[..., None]
+    sin2_theta_t = eta * eta * sin2_theta_i
+    ok = (sin2_theta_t < 1.0)[..., 0]
+    cos_theta_t = torch.sqrt(torch.clamp(1.0 - sin2_theta_t, min=1e-12))
+    return ok, -eta * wi + (eta * cos_theta_i - cos_theta_t) * n
 
 
 def orthonormal_basis(n):
@@ -46,6 +83,91 @@ def orthonormal_basis(n):
     bt = torch.stack([b[..., 0], s[..., 0] + n[..., 1] * n[..., 1] * a[..., 0],
                       -n[..., 1]], dim=-1)
     return t, bt, n
+
+
+def make_shading_frame(normal, dpdu):
+    """Gram-Schmidt dpdu against the normal (computeLocalBasis,
+    trace.h:132-146), the Duff tangent where dpdu is degenerate."""
+    t = dpdu - dot(normal, dpdu, keepdims=True) * normal
+    t_len2 = dot(t, t, keepdims=True)
+    ft, _, _ = orthonormal_basis(normal)
+    t = torch.where(t_len2 > 1e-12, normalize(t), ft)
+    return t, normalize(cross(normal, t)), normal
+
+
+def to_local(v, t, b, n):
+    """World -> shading-local: (v.t, v.b, v.n)."""
+    return torch.stack([dot(v, t), dot(v, b), dot(v, n)], dim=-1)
+
+
+def to_world(v, t, b, n):
+    """Shading-local -> world (orthoNormalTransform, util/math.h:55)."""
+    return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+# Shading-frame trig on local directions (z = normal), util/math.h:13-40.
+
+def cos_theta(w):
+    return w[..., 2]
+
+
+def cos2_theta(w):
+    return w[..., 2] * w[..., 2]
+
+
+def abs_cos_theta(w):
+    return torch.abs(w[..., 2])
+
+
+def sin2_theta(w):
+    return torch.clamp(1.0 - cos2_theta(w), min=0.0)
+
+
+def sin_theta(w):
+    return torch.sqrt(torch.clamp(sin2_theta(w), min=1e-16))
+
+
+def tan_theta(w):
+    c = cos_theta(w)
+    c = torch.where(torch.abs(c) < 1e-3,
+                    torch.where(c < 0, -1e-3, 1e-3).to(c.dtype), c)
+    return sin_theta(w) / c
+
+
+def tan2_theta(w):
+    return sin2_theta(w) / torch.clamp(cos2_theta(w), min=1e-6)
+
+
+def cos_phi(w):
+    s = sin_theta(w)
+    return torch.where(s < 1e-6, 1.0,
+                       torch.clamp(w[..., 0] / _safe(s), -1.0, 1.0))
+
+
+def sin_phi(w):
+    s = sin_theta(w)
+    return torch.where(s < 1e-6, 0.0,
+                       torch.clamp(w[..., 1] / _safe(s), -1.0, 1.0))
+
+
+def cos2_phi(w):
+    c = cos_phi(w)
+    return c * c
+
+
+def sin2_phi(w):
+    s = sin_phi(w)
+    return s * s
+
+
+def same_hemisphere(a, b):
+    return a[..., 2] * b[..., 2] > 0.0
+
+
+def spherical_direction(sin_t, cos_t, phi):
+    """Local direction from spherical angles (z up)."""
+    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
+                        cos_t], dim=-1)
 
 
 def _safe(x, eps: float = 1e-12):

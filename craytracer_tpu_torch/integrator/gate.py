@@ -1,30 +1,41 @@
 """The route gate: which scenes the port can render and through which
-kernels (the port's restriction of
+route (the port's counterpart of
 craytracer_tpu/integrator/pallas_shade.py `production_fast_shade` :1490,
-`fast_shade_mode` :1521 and `fast_shade_ok` :1566 to what K1 and K2
-cover).
+`fast_shade_mode` :1521 and `fast_shade_ok` :1566).
 
-`production_fast_shade` returns "bounce" (the whole pass is one K1
-launch, integrator/pass_kernel.py) or "shade" (per bounce: closest hit,
-through K3 for a bvh4 scene, then K2 shading, then the shadow any hit,
-through K4 for a bvh4 scene; integrator/wavefront.py). Together they
-cover spheres, planes, rects, disks, triangles and the instanced boxes,
-cylinders and tori, all seven material types (MATTE with or without
-Oren-Nayar, MIRROR, PLASTIC, METAL, GLASS, TRANSPARENT, EMISSIVE; the
-microfacet lobes isotropic Beckmann), rect and sphere area lights, a
-constant or black env light, and pinhole and thin-lens cameras. A scene
-leaves K1's gate for "shade" by its geometry only: an instanced row that
-is not a box (a torus, an open cylinder, a solid cylinder's caps: no
-kernel intersects them, pallas_shade.py:1535-1540), more than 64 rows of
-spheres, planes, rects, disks, triangles and boxes together, a bvh4
-accelerator, smooth triangles, a sphere clip outside the domain where
-the kernel's cosine-space window equals the atan2/acos one
-(pallas_shade.py:1541-1553), or depth 31 and over. Textures, disk,
-point, directional and mesh lights, other camera types and other
-accelerators raise NotImplementedError naming their ROADMAP item. The
-plain versions ask the same gate, so they cover the same scenes. The
-gate reads only static fields and table shapes, so asking costs no
-device sync.
+`production_fast_shade` returns one of three routes:
+
+- "bounce": the whole pass is one K1 launch (integrator/pass_kernel.py);
+- "shade": per bounce, the closest hit (through K3 for a bvh4 scene),
+  K2's shading, then the shadow any hit (through K4 for a bvh4 scene)
+  (integrator/wavefront.py);
+- "general": per bounce, the same closest hit and shadow any hit around
+  the torch-op shading of every lobe and light (the JAX XLA bounce step,
+  integrator/wavefront.py `_general_step`), for the scenes the JAX gate
+  answers False: a material type or lobe form K2 lacks (anisotropic or
+  Trowbridge-Reitz microfacets), light rows other than rect and sphere
+  area lights (a constant env light with intensity > 0, disk, point and
+  directional lights), no light or more than 16 lights, or more than 64
+  materials.
+
+"bounce" and "shade" cover spheres, planes, rects, disks, triangles and
+the instanced boxes, cylinders and tori, all seven material types (MATTE
+with or without Oren-Nayar, MIRROR, PLASTIC, METAL, GLASS, TRANSPARENT,
+EMISSIVE; the microfacet lobes isotropic Beckmann), rect and sphere area
+lights, a constant or black env light without a light row, and pinhole
+and thin-lens cameras. A scene leaves K1's gate for "shade" by its
+geometry only: an instanced row that is not a box (a torus, an open
+cylinder, a solid cylinder's caps: no kernel intersects them,
+pallas_shade.py:1535-1540), more than 64 rows of spheres, planes, rects,
+disks, triangles and boxes together, a bvh4 accelerator, smooth
+triangles, a sphere clip outside the domain where the kernel's
+cosine-space window equals the atan2/acos one (pallas_shade.py
+:1541-1553), or depth 31 and over. Textures, texture env lights and mesh
+lights (ROADMAP slice E), estimators other than reference and physical
+(slice F), other accelerators (slice I) and other camera types raise
+NotImplementedError naming their ROADMAP item. The plain versions ask
+the same gate, so they cover the same scenes. The gate reads only static
+fields and table shapes, so asking costs no device sync.
 
 `shade_features` is the scene's feature mask (pallas_shade.py:1793-1802):
 which of the material and light branches the shading core needs. The
@@ -42,9 +53,6 @@ MAX_PRIMS = 64
 MAX_MATS = 64
 MAX_DEPTH = 30  # K1's alive-per-bounce bitmask is one 32-bit word
 ESTIMATORS = ("reference", "physical")
-
-_TABLES_TODO = "ROADMAP queue 2, K1/K2 table limits"
-_XLA_TODO = "ROADMAP queue 2, scenes the JAX package renders on XLA only"
 
 # the shading core's feature mask (the has_* flags of pallas_shade.py
 # :1793-1802)
@@ -79,33 +87,33 @@ def check_estimator(estimator: str):
         _refuse(f"estimator {estimator!r} (ROADMAP queue 1, slice F)")
 
 
-def shading_refusal(scene: T.Scene):
-    """Why neither K1 nor K2 can shade this scene, or None. A light table
-    holding any type but rect and sphere area lights is refused outright
-    (the JAX gate looks at per-row powers; the port's builder emits such
-    a row only with nonzero power)."""
-    mats = set(scene.mat_types_present)
-    if not mats <= _MATERIALS:
-        return f"material types {sorted(mats - _MATERIALS)} ({_XLA_TODO})"
-    if not scene.microfacet_iso_beckmann:
-        return ("anisotropic or non-Beckmann microfacet materials "
-                f"({_XLA_TODO})")
+def unported(scene: T.Scene):
+    """What no route of the port renders yet, naming its ROADMAP item, or
+    None."""
     if scene.textures.texels.shape[0] > 1:
-        return "textures (ROADMAP queue 1, slice E)"
+        return "textures or normal maps (ROADMAP queue 1, slice E)"
     if scene.env.kind not in (0, 1) or scene.env.importance:
         return "texture env lights (ROADMAP queue 1, slice E)"
-    n_lights = scene.lights.light_type.shape[0]
-    if n_lights == 0 or n_lights > MAX_LIGHTS:
-        return f"{n_lights} lights, outside 1..{MAX_LIGHTS} ({_TABLES_TODO})"
-    if not set(scene.light_types_present) <= {T.LIGHT_AREA_RECT,
-                                              T.LIGHT_AREA_SPHERE}:
-        return ("light rows other than rect and sphere area lights "
-                f"({_XLA_TODO})")
-    if scene.materials.mat_type.shape[0] > MAX_MATS:
-        return f"more than {MAX_MATS} materials ({_TABLES_TODO})"
+    if (T.LIGHT_MESH in scene.light_types_present
+            or scene.mesh_lights.surface_area.shape[0] > 0):
+        return "mesh lights (ROADMAP queue 1, slice E)"
     if scene.accel not in ("none", "bvh4"):
         return f"accel={scene.accel!r} (ROADMAP queue 1, slice I)"
     return None
+
+
+def kernels_shade(scene: T.Scene) -> bool:
+    """K1 and K2 can shade this scene (fast_shade_ok, pallas_shade.py
+    :1566-1610). A light table holding any type but rect and sphere area
+    lights is outside (the JAX gate looks at per-row powers; the port's
+    builder emits such a row only with nonzero power)."""
+    n_lights = scene.lights.light_type.shape[0]
+    return (set(scene.mat_types_present) <= _MATERIALS
+            and scene.microfacet_iso_beckmann
+            and 1 <= n_lights <= MAX_LIGHTS
+            and set(scene.light_types_present) <= {T.LIGHT_AREA_RECT,
+                                                    T.LIGHT_AREA_SPHERE}
+            and scene.materials.mat_type.shape[0] <= MAX_MATS)
 
 
 _GEOMETRY = ("spheres", "planes", "rects", "disks", "triangles",
@@ -126,15 +134,17 @@ def fast_shade_mode(scene: T.Scene, max_depth: int = 5) -> str:
 
 def production_fast_shade(scene: T.Scene, camera=None, film=None,
                           estimator: str = "reference", max_depth: int = 5):
-    """THE production decision (pallas_shade.py:1490): "bounce" or
-    "shade", or NotImplementedError naming the ROADMAP item that will
-    cover the scene. The port has no other route, so nothing is quietly
-    traced another way."""
+    """THE production decision (pallas_shade.py:1490): "bounce",
+    "shade" or "general", or NotImplementedError naming the ROADMAP item
+    that will cover the scene. The port has no other route, so nothing is
+    quietly traced another way."""
     check_estimator(estimator)
     if camera is not None and camera.camera_type not in (PINHOLE, THINLENS):
         _refuse(f"camera type {camera.camera_type}, neither PINHOLE nor "
                 "THINLENS (ROADMAP queue 1, item 3)")
-    reason = shading_refusal(scene)
+    reason = unported(scene)
     if reason is not None:
         _refuse(reason)
+    if not kernels_shade(scene):
+        return "general"
     return fast_shade_mode(scene, max_depth)

@@ -62,8 +62,9 @@ def _k1_gate(scene, camera, film, max_depth):
         raise NotImplementedError(
             "outside K1's gate (an instanced row that is not a box, a bvh4 "
             "accel, more than 64 rows, smooth triangles, a sphere clip "
-            "outside the kernel's domain or depth > 30): render_sample "
-            "traces it per bounce (fast_shade='shade'); ROADMAP queue 2, K1")
+            "outside the kernel's domain, depth > 30, or shading only the "
+            "general route does): render_sample traces it per bounce; "
+            "ROADMAP queue 2, K1")
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,11 @@ Each pass traces one sample per pixel for the whole image through
 `render_sample` (one K1 launch on the card for a scene of at most 64
 rows of spheres, planes, rects, disks, flat triangles and boxes; a K3,
 K2 and K4 launch per bounce for a mesh scene; a K2 launch per bounce for
-a scene with a torus or a cylinder) and accumulates into an f32 buffer
-on the scene's device.
+a scene with a torus or a cylinder; the general torch-op step per
+bounce, with a K3 and K4 launch for a mesh, for a scene no kernel
+shades: disk, point or directional lights, a constant env light,
+anisotropic or Trowbridge-Reitz microfacets, more than 16 lights or 64
+materials) and accumulates into an f32 buffer on the scene's device.
 With `spp_batch` B > 1 one pass carries B samples per pixel (lanes = B *
 pixels) with the same launches.
 Pixels go out in Morton order, a pure reorder (the RNG keys off pixel

@@ -13,9 +13,10 @@ its NORMAL_TYPE), SOLIDCYLINDER and TORUS (LOCATION, SCALE,
 ORIENTATION), and MESH (FILE/FILE_NAME, SMOOTH, SCALING, LOCATION,
 ORIENTATION; the file is looked up beside the scene file, then in the
 working directory, and a mesh file that cannot be found is skipped, as
-the JAX parser skips it, :323-324). Textures and point/directional
-lights raise NotImplementedError naming the ROADMAP item that will port
-them; a shape the parser does not know is skipped, as in the JAX
+the JAX parser skips it, :323-324), and the POINT_LIGHT and
+DIRECTIONAL_LIGHT blocks (:387-405, the JAX grammar's extension).
+Textures raise NotImplementedError naming the ROADMAP item that will
+port them; a shape the parser does not know is skipped, as in the JAX
 parser.
 
 Returns (Scene, Camera, Film) on the CUDA card unless the caller asks
@@ -271,8 +272,19 @@ def load_scene_file(path: str, accel: str = "auto", device=None):
             kv = _collect_block(ts)
             if obj_type in _OBJECT_TYPES:
                 _parse_object(builder, obj_type, kv, search_dirs)
-        elif tok in ("POINT_LIGHT", "DIRECTIONAL_LIGHT"):
-            raise not_ported("point/directional light")
+        elif tok == "POINT_LIGHT":
+            kv = _collect_block(ts)
+            builder.add_point_light(
+                _vec3_from(kv.get("POINT")),
+                _color_from(kv.get("COLOR"), (1, 1, 1)),
+                _f(kv.get("INTENSITY"), 1.0),
+                dist_atten=(kv.get("DIST_ATTEN") or ["yes"])[0] != "no")
+        elif tok == "DIRECTIONAL_LIGHT":
+            kv = _collect_block(ts)
+            builder.add_directional_light(
+                _vec3_from(kv.get("DIRECTION"), (0, 1, 0)),
+                _color_from(kv.get("COLOR"), (1, 1, 1)),
+                _f(kv.get("INTENSITY"), 1.0))
         elif tok == "ENV_LIGHT":
             kv = _collect_block(ts)
             kind = (kv.get("TYPE") or ["CONSTANT"])[0]

@@ -1,0 +1,193 @@
+"""Light sampling for next-event estimation over hit queues, the general
+route's (counterpart of craytracer_tpu/lights/lights.py: `LightSample`
+:29, `env_radiance` :37, `sample_one_light` :164, `sample_light_index`
+:191).
+
+`uniformSampleOneLight` + `estimateDirect` (trace.h:221-397) as one
+masked computation: the light is picked by the normalized power CDF
+(`searchsorted(side="right")`, clipped to the table), then every light
+type the scene holds samples masked for every lane (rows: rect :220,
+sphere :229, disk :248, the constant env's cosine hemisphere :314-325,
+directional and point :397-420), with the area -> solid-angle pdf and the
+facing rejections of the reference. Types absent from
+Scene.light_types_present are skipped, not evaluated and masked, as the
+JAX code compiles them away. The caller fires the shadow ray. Texture env
+lights (kind 2, texel importance :263-313) and mesh lights (:327-368)
+wait for ROADMAP slice E; `light_pdf_for_hit` and `env_pdf` for slice F
+(MIS); the gate refuses such scenes (integrator/gate.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from craytracer_tpu_torch.constants import INV_PI, JITTERED_UP, PI, TMAX
+from craytracer_tpu_torch.core import math as vm
+from craytracer_tpu_torch.sampling.mappings import (map_to_disk_polar,
+                                                    map_to_hemisphere_cosine)
+from craytracer_tpu_torch.scene import types as T
+
+
+@dataclass(frozen=True)
+class LightSample:
+    wi: torch.Tensor  # [N, 3] direction to the light sample
+    li: torch.Tensor  # [N, 3] incident radiance
+    distance: torch.Tensor  # [N] shadow-ray length
+    pdf: torch.Tensor  # [N] solid-angle pdf times the pick probability
+    valid: torch.Tensor  # [N] facing and pdf checks passed
+
+
+def env_radiance(env: T.EnvLight, direction):
+    """getEnvLightIncRadiance (lights.cpp:233-248) for kinds 0 (none) and 1
+    (constant); `direction` is already through env.transform."""
+    if env.kind == 0:
+        return torch.zeros_like(direction)
+    if env.kind == 1:
+        return (env.color * env.intensity).expand_as(direction)
+    raise NotImplementedError(
+        "texture env lights are not ported to craytracer_tpu_torch yet "
+        "(ROADMAP queue 1, slice E)")
+
+
+def env_transform(env: T.EnvLight, d):
+    """env.transform @ d per lane (the einsum "ij,nj->ni")."""
+    return d @ env.transform.T
+
+
+def sample_one_light(scene: T.Scene, u_pick, u2, hit_point, shading_normal,
+                     frame_t, frame_b) -> LightSample:
+    """Pick one light by the power CDF and sample it; the pdf includes the
+    pick probability (uniformSampleOneLight, trace.h:393-396)."""
+    lights = scene.lights
+    n = hit_point.shape[0]
+    num_lights = lights.light_type.shape[0]
+    if num_lights == 0:
+        z = torch.zeros((n,), dtype=hit_point.dtype, device=hit_point.device)
+        return LightSample(wi=torch.zeros_like(hit_point),
+                           li=torch.zeros_like(hit_point), distance=z, pdf=z,
+                           valid=torch.zeros((n,), dtype=torch.bool,
+                                             device=hit_point.device))
+    idx = torch.clamp(torch.searchsorted(lights.power_cdf,
+                                         u_pick.contiguous(), right=True),
+                      0, num_lights - 1)
+    pick_p = lights.power[idx]
+    ls = sample_light_index(scene, idx, u2, hit_point, shading_normal,
+                            frame_t, frame_b)
+    return dataclasses.replace(ls, pdf=ls.pdf * torch.clamp(pick_p,
+                                                            min=1e-12),
+                               valid=ls.valid & (pick_p > 0.0))
+
+
+def sample_light_index(scene: T.Scene, idx, u2, hit_point, shading_normal,
+                       frame_t, frame_b) -> LightSample:
+    """Sample light `idx` ([N] int64) for every lane: the estimateDirect
+    sampling block (trace.h:230-314) and the delta lights (Light_sample_Li,
+    lights.cpp:309-327)."""
+    lights = scene.lights
+    present = scene.light_types_present
+
+    def use(*codes):
+        return not present or any(c in present for c in codes)
+
+    ltype = lights.light_type[idx]
+    p0, v1, v2 = lights.p0[idx], lights.v1[idx], lights.v2[idx]
+    lnormal, radius = lights.normal[idx], lights.radius[idx]
+    color, intensity = lights.color[idx], lights.intensity[idx]
+    sp = torch.zeros_like(hit_point)
+    sn = torch.zeros_like(hit_point)
+    pdf_area = torch.zeros_like(hit_point[:, 0])
+    is_rect = ltype == T.LIGHT_AREA_RECT
+    is_sph = ltype == T.LIGHT_AREA_SPHERE
+    is_dsk = ltype == T.LIGHT_AREA_DISK
+    is_env = ltype == T.LIGHT_ENV
+    is_dir = ltype == T.LIGHT_DIRECTIONAL
+    is_pnt = ltype == T.LIGHT_POINT
+
+    if use(T.LIGHT_AREA_RECT):
+        # RECT (trace.h:244-254): a uniform point, pdf 1 / (|w| |h|)
+        sp_rect = p0 + u2[:, 0:1] * v1 + u2[:, 1:2] * v2
+        pdf_rect = 1.0 / torch.clamp(vm.length(v1) * vm.length(v2),
+                                     min=1e-12)
+        sp = torch.where(is_rect[:, None], sp_rect, sp)
+        sn = torch.where(is_rect[:, None], lnormal, sn)
+        pdf_area = torch.where(is_rect, pdf_rect, pdf_area)
+
+    if use(T.LIGHT_AREA_SPHERE):
+        # SPHERE (trace.h:230-243): a cosine hemisphere about the center ->
+        # hit axis; pdf 1 / (2 pi r^2) |h.z| / pi
+        z_axis = vm.normalize(hit_point - p0)
+        zt, zb, _ = vm.orthonormal_basis(z_axis)
+        h = map_to_hemisphere_cosine(u2)
+        h_world = vm.to_world(h, zt, zb, z_axis)
+        pdf_sph = (1.0 / (2.0 * PI * torch.clamp(radius * radius, min=1e-12))
+                   * vm.abs_cos_theta(h) * INV_PI)
+        sp = torch.where(is_sph[:, None], p0 + h_world * radius[:, None], sp)
+        sn = torch.where(is_sph[:, None], h_world, sn)
+        pdf_area = torch.where(is_sph, pdf_sph, pdf_area)
+
+    if use(T.LIGHT_AREA_DISK):
+        # DISK (trace.h:255-270): the polar disk map in the
+        # (JITTERED_UP x n, ...) basis; pdf 1 / (pi r^2)
+        jup = torch.tensor(JITTERED_UP, dtype=hit_point.dtype,
+                           device=hit_point.device).expand_as(lnormal)
+        x_axis = vm.normalize(vm.cross(jup, lnormal))
+        y_axis = vm.cross(x_axis, lnormal)
+        dsk = map_to_disk_polar(u2)
+        sp_dsk = p0 + (dsk[:, 0:1] * x_axis
+                       + dsk[:, 1:2] * y_axis) * radius[:, None]
+        pdf_dsk = 1.0 / (PI * torch.clamp(radius * radius, min=1e-12))
+        sp = torch.where(is_dsk[:, None], sp_dsk, sp)
+        sn = torch.where(is_dsk[:, None], lnormal, sn)
+        pdf_area = torch.where(is_dsk, pdf_dsk, pdf_area)
+
+    # area lights: solid-angle conversion (trace.h:298-309) and the facing
+    # rejections (trace.h:316-323)
+    to_sample = sp - hit_point
+    wi = vm.normalize(to_sample)
+    dist = vm.length(to_sample)
+    pdf = pdf_area * (vm.length_sq(to_sample) / torch.clamp(
+        torch.abs(vm.dot(sn, -wi)), min=1e-12))
+    li = color * intensity[:, None]
+    reject = ((vm.dot(to_sample, sn) > 0.0)
+              | (vm.dot(to_sample, shading_normal) < 0.0))
+
+    if use(T.LIGHT_ENV):
+        # constant ENV (trace.h:272-296): a cosine hemisphere about the
+        # shading normal through the env transform; solid-angle pdf
+        h_env = map_to_hemisphere_cosine(u2)
+        wi_env = env_transform(scene.env, vm.to_world(
+            h_env, frame_t, frame_b, shading_normal))
+        m = is_env[:, None]
+        wi = torch.where(m, wi_env, wi)
+        li = torch.where(m, env_radiance(scene.env, wi_env), li)
+        pdf = torch.where(is_env, torch.abs(vm.dot(
+            wi_env, shading_normal)) * INV_PI, pdf)
+        dist = torch.where(is_env, scene.env.world_radius, dist)
+        reject = torch.where(is_env, vm.dot(wi_env, shading_normal) < 0.0,
+                             reject)
+
+    if use(T.LIGHT_DIRECTIONAL, T.LIGHT_POINT):
+        # delta lights (lights.h:18-34): pdf 1; p0 is the direction toward
+        # a directional light and the position of a point light, whose
+        # radius slot holds its 1/d^2 attenuation flag (lights.cpp:41-55)
+        wi_pnt_raw = p0 - hit_point
+        dist_pnt = vm.length(wi_pnt_raw)
+        atten = torch.where(radius > 0.0, 1.0 / torch.clamp(
+            dist_pnt * dist_pnt, min=1e-6), 1.0)
+        wi = torch.where(is_dir[:, None], vm.normalize(p0), wi)
+        li = torch.where(is_dir[:, None], color * intensity[:, None], li)
+        wi = torch.where(is_pnt[:, None], vm.normalize(wi_pnt_raw), wi)
+        li = torch.where(is_pnt[:, None],
+                         color * (intensity * atten)[:, None], li)
+        delta = is_dir | is_pnt
+        pdf = torch.where(delta, 1.0, pdf)
+        dist = torch.where(is_dir, TMAX, dist)
+        dist = torch.where(is_pnt, dist_pnt, dist)
+        reject = torch.where(delta, vm.dot(wi, shading_normal) < 0.0, reject)
+
+    valid = ((is_rect | is_sph | is_dsk | is_env | is_dir | is_pnt)
+             & ~reject & (pdf > 1e-12))
+    return LightSample(wi=wi, li=li, distance=dist, pdf=pdf, valid=valid)

@@ -4,23 +4,24 @@ craytracer_tpu/scene/build.py; `beckmann_roughness_to_alpha` :31,
 :112-159, `add_sphere` :181, `add_plane` :185, `add_rect` :191,
 `add_disk` :199, `add_triangle` :205, `add_triangles_array` :222,
 `add_mesh` :254, the instanced adders :290-323, `_scene_bounds` :355,
-`build` :405, `_build_lights` :645).
+`add_directional_light` :327, `add_point_light` :331, `build` :405,
+`_build_lights` :645).
 
 The accumulation runs in numpy with the JAX builder's exact arithmetic
 (same dtypes, same order), so both packages emit bit-identical tables:
 all seven material types (MATTE with its Oren-Nayar A/B, MIRROR,
 TRANSPARENT, EMISSIVE, PLASTIC, GLASS, METAL with its eta/k presets and
-the microfacet alphas), spheres with their phi/theta clip window, planes,
+the microfacet alphas and distribution), spheres with their phi/theta clip window, planes,
 rects, disks, triangles, the instanced boxes, open and solid cylinders
 (a tube and two INST_DISK caps) and tori behind their world -> object
 affines, the area lights derived from emissive rects, spheres and disks,
-the reference's product-of-components light power, the normalized power
-CDF, the env world radius (instanced shapes bounded through their
-affines), mesh triangles baked to world space (flat or smooth) and the
-SAH fat-row BVH4 (accel/bvh4.py). Textures, point/directional/mesh
-lights and the other accelerators (the sphere BVH4 included) raise
-NotImplementedError naming the ROADMAP item that will port them; disk
-lights are built and refused by the gate (integrator/gate.py).
+the directional and point lights, the reference's product-of-components
+light power (mean color x intensity for the delta lights), the
+normalized power CDF, the env world radius (instanced shapes bounded
+through their affines), mesh triangles baked to world space (flat or
+smooth) and the SAH fat-row BVH4 (accel/bvh4.py). Textures, mesh lights
+and the other accelerators (the sphere BVH4 included) raise
+NotImplementedError naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from craytracer_tpu_torch.scene import types as T
 
 _TODO = {
     "texture": "ROADMAP queue 1, slice E",
-    "point/directional light": "ROADMAP queue 1, slice E",
     "mesh light": "ROADMAP queue 1, slice E",
     "MATERIAL FROM_MTL": "ROADMAP queue 1, slice E",
     "accelerator": "ROADMAP queue 1, slice I",
@@ -95,6 +95,7 @@ class _Mat:
     k: tuple = (0.0, 0.0, 0.0)
     alphax: float = 0.0
     alphay: float = 0.0
+    distrib: int = T.DIST_BECKMANN
     intensity: float = 0.0
 
 
@@ -113,6 +114,7 @@ class SceneBuilder:
         self._triangles = []
         self._bulk_triangles = []  # [T]-row column blocks (13 columns)
         self._tri_columns = None  # merged columns, set by build()
+        self._extra_lights = []  # directional and point lights
         self._env: Optional[dict] = None
         self.add_material(_Mat(name="__default__", mat_type=T.MAT_MATTE,
                                color=(0.5, 0.5, 0.5)))
@@ -340,6 +342,21 @@ class SceneBuilder:
 
     # -- lights ------------------------------------------------------------
 
+    def add_directional_light(self, toward, color=(1, 1, 1), intensity=1.0):
+        """A delta directional light; `toward` points at the light."""
+        self._extra_lights.append((T.LIGHT_DIRECTIONAL,
+                                   np.asarray(toward, np.float32),
+                                   tuple(color), float(intensity), 0.0))
+
+    def add_point_light(self, point, color=(1, 1, 1), intensity=1.0,
+                        dist_atten=True):
+        """A delta point light; the radius slot holds the 1/d^2
+        attenuation flag (PointLight.dist_atten, lights.h:25-34)."""
+        self._extra_lights.append((T.LIGHT_POINT,
+                                   np.asarray(point, np.float32),
+                                   tuple(color), float(intensity),
+                                   1.0 if dist_atten else 0.0))
+
     def set_env_light(self, kind, color=(1, 1, 1), intensity=1.0):
         if kind != "constant":
             raise not_ported("texture")
@@ -473,7 +490,7 @@ class SceneBuilder:
             np.asarray([self._on_b(m.sigma) for m in mats], f32),
             col("ior_in"), col("ior_out"), col("cf_in"), col("cf_out"),
             col("eta"), col("k"), col("alphax"), col("alphay"),
-            np.full(len(mats), T.DIST_BECKMANN, np.int32),
+            col("distrib", np.int32),
             col("intensity"),
             np.full(len(mats), -1, np.int32), np.full(len(mats), -1, np.int32),
         ])
@@ -516,9 +533,9 @@ class SceneBuilder:
         return 0.45 * s2 / (s2 + 0.09)
 
     def _build_lights(self, mats):
-        """Area lights from emissive rects, spheres and disks, the env
-        light row, the reference power rule and the normalized CDF
-        (build.py:645-833)."""
+        """Area lights from emissive rects, spheres and disks, the delta
+        lights, the env light row, the reference power rule and the
+        normalized CDF (build.py:645-833)."""
         f32 = np.float32
         rows = []  # (type, p0, v1, v2, normal, radius, color, intensity,
         #              area, mesh_id, src_group, src_prim)
@@ -542,6 +559,12 @@ class SceneBuilder:
                 rows.append((T.LIGHT_AREA_DISK, c, np.zeros(3, f32),
                              np.zeros(3, f32), n, r, m.color, m.intensity,
                              area, -1, T.GROUP_DISK, i))
+        # the delta lights: the reference gives them power 0
+        # (buildscene.h:878-918); the JAX builder mean(color) x intensity
+        for ltype, p0, color, inten, flag in self._extra_lights:
+            rows.append((ltype, p0, np.zeros(3, f32), np.zeros(3, f32),
+                         np.zeros(3, f32), flag, color, inten,
+                         float(np.mean(color) * inten), -1, -1, -1))
 
         env_cfg = self._env
         mins, maxs = self._scene_bounds()
@@ -558,6 +581,8 @@ class SceneBuilder:
             c = np.asarray(color, np.float64)
             if ltype == T.LIGHT_ENV:
                 powers.append(float(c.mean() * inten * world_radius))
+            elif ltype in (T.LIGHT_DIRECTIONAL, T.LIGHT_POINT):
+                powers.append(float(c.mean() * inten))
             else:
                 powers.append(float((c[0] * c[1] * c[2]) / 3.0 * inten * area))
         total_p = sum(powers)

@@ -35,6 +35,7 @@ MAT_GLASS = 6
 MAT_METAL = 7
 
 DIST_BECKMANN = 0
+DIST_TROWBRIDGE_REITZ = 1
 
 # Instanced-primitive kinds and cylinder normal rules (types.py:31-41).
 INST_AABOX = 0

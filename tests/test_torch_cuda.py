@@ -1,5 +1,6 @@
 """K1-K6 and P1 on the card: each CUDA kernel against its plain PyTorch
-version, the launch counts, and the wrappers' refusals. These
+version, the launch counts, and the wrappers' refusals; and the general
+route, whose traversal is K3 and K4. These
 cases carry the
 `cuda` marker (pytest.ini) and need a CUDA card and nvcc; without a card
 they skip. The file imports no JAX, so on a machine with the card (and
@@ -18,16 +19,21 @@ import torch
 
 from craytracer_tpu_torch.accel import bvh4_kernel as bk
 from craytracer_tpu_torch.accel.bvh4 import bvh4_any_hit, bvh4_closest_hit
-from craytracer_tpu_torch.camera import Film, generate_rays
+from craytracer_tpu_torch.camera import Film, generate_rays, make_camera
 from craytracer_tpu_torch.constants import TMAX
 from craytracer_tpu_torch.integrator import pass_kernel as pk
 from craytracer_tpu_torch.integrator import shade_kernel as sk
 from craytracer_tpu_torch.integrator import wavefront as wf
+from craytracer_tpu_torch.integrator.gate import production_fast_shade
+from craytracer_tpu_torch.interop import numpy_leaves, scene_from_numpy
+from craytracer_tpu_torch.io.objloader import load_obj
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.ops.intersect import intersect_scene
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 from craytracer_tpu_torch.scene import types as T
+from craytracer_tpu_torch.scene.build import SceneBuilder
 
+import torch_general_scenes as general_scenes
 import torch_prim_scenes as prim_scenes
 import torch_sphere_scenes as sphere_scenes
 
@@ -230,6 +236,44 @@ def test_shade_route_matches_plain_pass(cuda, depth):
                          fast_shade="shade")
     ref = wf.trace_paths(scene, o, d, 3, pix, 1, depth, with_metrics=True)
     _assert_pass_bars(out, ref)
+
+
+@pytest.mark.parametrize("depth", [0, 2, 5])
+def test_general_route_matches_plain_pass(cuda, depth):
+    """The general step through K3 and K4 against the general step with
+    the plain traversal, on every lane; K3 and K4 launch once a bounce,
+    K2 never."""
+    scene, _, _, pix, o, d = _mesh(cuda)
+    before = (bk.CLOSEST.launches, bk.ANY.launches, sk.KERNEL.launches)
+    out = wf.trace_paths(scene, o, d, 3, pix, 1, depth, with_metrics=True,
+                         fast_shade="shade", general=True)
+    assert (bk.CLOSEST.launches, bk.ANY.launches, sk.KERNEL.launches) == (
+        before[0] + depth + 1, before[1] + depth + 1, before[2])
+    ref = wf.trace_paths(scene, o, d, 3, pix, 1, depth, with_metrics=True,
+                         general=True)
+    _assert_pass_bars(out, ref)
+
+
+def test_general_scene_renders_through_k3_k4(cuda):
+    """A scene only the general route shades (a disk light, a constant
+    env light, an anisotropic Trowbridge-Reitz metal mesh) through
+    render_sample: K3 and K4 once a bounce, no K1 or K2, finite."""
+    b = SceneBuilder()
+    shapes = [(s.positions, s.indices) for s in load_obj(
+        os.path.join(REPO, "scenes", "icosphere_small.obj"))]
+    eye, look, fov, depth = general_scenes.mesh_env_disk(b, shapes)
+    scene = scene_from_numpy(general_scenes.make_anisotropic(
+        numpy_leaves(b.build(device="cpu"))), device=cuda)
+    cam = make_camera(eye, look, device=cuda)
+    film = Film(fov=torch.tensor(fov, device=cuda), width=32, height=32)
+    assert production_fast_shade(scene, cam, film) == "general"
+    pix = torch.arange(film.num_pixels, dtype=torch.int32, device=cuda)
+    counts = (pk.KERNEL, sk.KERNEL, bk.CLOSEST, bk.ANY)
+    before = [c.launches for c in counts]
+    out = wf.render_sample(scene, cam, film, pix, 0, 0, depth)
+    got = [c.launches - b0 for c, b0 in zip(counts, before)]
+    assert got == [0, 0, depth + 1, depth + 1]
+    assert bool(torch.isfinite(out).all()) and float(out.mean()) > 0
 
 
 def test_slice_b_wrappers_refuse_bad_inputs(cuda):

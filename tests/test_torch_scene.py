@@ -131,29 +131,36 @@ def test_thinlens_rays_agree(both, size):
 
 # a sphere is refused only where the JAX builder would index it with a
 # sphere BVH4 (256 or more with an accelerator), a mirror or a matte only
-# with a texture; a disk light is built (as a LIGHT_AREA_DISK row) and
-# refused by the gate, point and directional lights by the parser
+# with a texture
 UNPORTED = {
     "sphere": "OBJECT SPHERE\nRADIUS 0.1\nCENTER 0 0 0\nMATERIAL m\n"
               * 256,
     "mirror": "MATERIAL MIRROR\nNAME m\nTEXTURE x.png\nEND\n",
+    "textured matte": "MATERIAL MATTE\nNAME m\nTEXTURE x.png\nEND\n",
+    "mesh": "OBJECT MESH\nFILE x.obj\nMATERIAL FROM_MTL\n",
+    "texture env": "ENV_LIGHT\nTYPE TEXTURE\nCOLOR x.exr\nINTENSITY 1\n",
+}
+# disk, point and directional lights take the general route
+# (tests/test_torch_general.py holds it against the JAX package)
+GENERAL = {
     "disk light": "MATERIAL EMISSIVE\nNAME lamp\nINTENSITY 5\nEND\n"
                   "OBJECT DISK\nCENTER 0 1 0\nNORMAL 0 -1 0\nRADIUS 1\n"
                   "MATERIAL lamp\n",
     "point light": "POINT_LIGHT\nPOINT 0 2 0\nINTENSITY 3\n",
     "directional light": "DIRECTIONAL_LIGHT\nDIRECTION 0 1 0\n",
-    "textured matte": "MATERIAL MATTE\nNAME m\nTEXTURE x.png\nEND\n",
-    "mesh": "OBJECT MESH\nFILE x.obj\nMATERIAL FROM_MTL\n",
-    "texture env": "ENV_LIGHT\nTYPE TEXTURE\nCOLOR x.exr\nINTENSITY 1\n",
 }
 
 
-@pytest.mark.parametrize("feature", sorted(UNPORTED))
+@pytest.mark.parametrize("feature", sorted(UNPORTED) + sorted(GENERAL))
 def test_unported_features_raise(tmp_path, feature):
     """The parser, the builder or the gate refuses it, naming its
-    ROADMAP item."""
+    ROADMAP item; the lights the general route renders get "general"."""
     p = tmp_path / "scene.txt"
-    p.write_text(UNPORTED[feature])
+    p.write_text({**UNPORTED, **GENERAL}[feature])
+    if feature in GENERAL:
+        assert production_fast_shade(*load_scene_file(
+            str(p), device="cpu")) == "general"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         production_fast_shade(*load_scene_file(str(p), device="cpu"))
 
@@ -169,8 +176,8 @@ def test_gate_admits_cornell_and_refuses_the_rest(both):
         production_fast_shade(ts, tc, tf, estimator="mis")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         production_fast_shade(ts, dataclasses.replace(tc, camera_type=2), tf)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        production_fast_shade(_anisotropic(ts), tc, tf)
+    # no kernel shades an anisotropic microfacet
+    assert production_fast_shade(_anisotropic(ts), tc, tf) == "general"
 
 
 def _thin(camera):
@@ -186,7 +193,7 @@ def _with_plane(scene):
 
 def _anisotropic(_scene):
     """A small scene with an anisotropic metal, which the JAX package
-    renders on XLA only, so the port refuses it."""
+    renders on XLA only, so the port takes the general route."""
     b = SceneBuilder()
     b.add_metal("gold", "GOLD", 0.1)
     b.add_rect((0, 0, 0), (1, 0, 0), (0, 0, 1), "gold")
@@ -207,13 +214,18 @@ ENTRIES = ["render_sample", "fused_pass", "fused_pass_reference"]
 def test_every_entry_refuses_outside_the_gate(both, entry, refused):
     """Each entry point asks the gate (integrator/gate.py) before it traces
     anything: a refused scene raises and never reaches the plain tracer.
-    Depth 31 is outside K1's gate only: K1's entries refuse it, while
-    render_sample traces it per bounce (the "shade" route)."""
+    Depth 31 and an anisotropic metal are outside K1's gate only: K1's
+    entries refuse them, while render_sample traces them per bounce (the
+    "shade" and "general" routes)."""
     _, (ts, tc, tf) = both
     depth, est = 2, "reference"
-    if (entry, refused) == ("render_sample", "depth"):
+    if (entry, refused) in (("render_sample", "depth"),
+                            ("render_sample", "anisotropic")):
         pix = torch.arange(16, dtype=torch.int32)
-        out = render_sample(ts, tc, tf, pix, 0, 0, 31, est)
+        if refused == "depth":
+            out = render_sample(ts, tc, tf, pix, 0, 0, 31, est)
+        else:
+            out = render_sample(_anisotropic(ts), tc, tf, pix, 0, 0, 2, est)
         assert out.shape == (16, 3) and bool(torch.isfinite(out).all())
         return
     if refused == "estimator":
