@@ -181,10 +181,47 @@ never JAX or the JAX package. Phases, each printing its own lines:
    render_sample of the "shade" and the general route on
    parity_mesh_mid and of the general route on phase 27's mesh scene.
 
+29. golden_textured (scenes/parity_textured.txt: a checker on a rect and
+   a smooth quad mesh, an EXR texture env, CRAY_TEX_FLOAT_DIV255=1)
+   through the Renderer at 128x128, depth 5, 160 spp, reference
+   estimator (tests/test_reference_parity.py:133-154); counts set to 0
+   just before and read just after: no launch (under 64 triangles, no
+   bvh4), no NaN; the image against golden_textured.is. Then the same
+   scene with accel="bvh4": the general route through K3 and K4 against
+   the general route with the plain traversal at 512x512 Morton lanes,
+   depth 5, phase 8's bars.
+30. the fullscene (craytracer_tpu_torch/scene/fullscene.py writes
+   scenes/fullscene.obj unless it already holds the 380-sphere OBJ,
+   timed): scenes/fullscene.txt (558,592 triangles, checked; MATERIAL
+   FROM_MTL, PNG textures and normal map, HDR env with IMPORTANCE, two
+   lamp mesh lights), its load seconds,
+   triangles, fat rows, table MB, part count and route (whole-table K3
+   and K4 on the general route); the general route through K3 and K4
+   against the plain traversal at 512x512 Morton lanes, depth 0, 2, 5
+   (spp 0) and 5 (spp 63), phase 8's bars; K3 and K4 alone on the
+   route's bounce-0 and bounce-1 rays and shadow rays, bit-equal with the
+   plain traversal; then the Renderer at 512x512, depth 5, 16 spp:
+   counts set to 0 just before and read just after, K3 and K4 passes x 6
+   and nothing else, no NaN, a finite image.
+31. the quad mesh light of tests/test_mis.py:76-104 at 512x512
+   (tests/torch_textured_scenes.py): the valid bounce-0 NEE samples per
+   light row at the camera rays' hits, with the general step's
+   uniforms; under the principled power the mesh light gets them, under
+   the reference power beside a rect lamp it gets none (alone it takes
+   the uniform fallback, power 1); each through the Renderer (16 spp,
+   physical estimator): no launch, no NaN, a lit image.
+32. times, in turns, median of 5: ms/pass and rays/s through
+   render_sample of the fullscene and of parity_textured at 512x512,
+   depth 5, with profile_render's wall, device time and idle share at 2
+   spp, one per pass; bare K3 and K4 per launch on the fullscene's
+   bounce-0 and bounce-1 rays and shadow rays (ray_key-sorted), with
+   their bounds counted as phase 10 counts them.
+
 Then one JSON line describing the kernels (each with its launches on its
-main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K3 `_init`
-on the 7M city's; K3 and K4 also carry the general route's traversal
-(phases 25-27), which adds no kernel; K5, K6 and P1 lie on no path: 0;
+main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K3 and K4
+plus the fullscene's, K3 `_init` on the 7M city's; K3 and K4 also carry
+the general route's traversal (phases 25-30), which adds no kernel; K5,
+K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch, the plain version's ms,
 and bound_ms: the larger of the bytes it must move over 3.35 TB/s and
 the operations this run's inputs need over 67 TFLOP/s f32, counted from
@@ -735,11 +772,11 @@ def main() -> int:
         if bad:
             fails.append(f"K3 {label}: bit-equal on {lanes} of lanes")
 
-    def check_k4(label, o, d, md, dadj=None):
+    def check_k4(label, o, d, md, dadj=None, bvh_=bvh):
         """K4 against the plain any hit: t bit-equal on every lane (so the
         verdict and, for shadow rays, the `lit` test too)."""
-        t_k = bk.bvh4_any_hit_kernel(bvh, o, d, md)
-        t_p = bvh4_any_hit_stats(bvh, o, d, md)[0]
+        t_k = bk.bvh4_any_hit_kernel(bvh_, o, d, md)
+        t_p = bvh4_any_hit_stats(bvh_, o, d, md)[0]
         lanes = (t_k == t_p).double().mean().item()
         both = (t_k < TMAX) & (t_p < TMAX)
         e = (t_k - t_p)[both].abs().max().item() if bool(both.any()) else 0.0
@@ -1840,7 +1877,7 @@ def main() -> int:
     b = SceneBuilder()
     eye, look, fov, _ = general_scenes.mesh_env_disk(
         b, [(sh.positions, sh.indices) for sh in load_obj(
-            os.path.join(REPO, "scenes", "parity_mesh_mid.obj"))])
+            os.path.join(REPO, "scenes", "parity_mesh_mid.obj"))[0]])
     ged = scene_from_numpy(general_scenes.make_anisotropic(numpy_leaves(
         b.build(device="cpu"))), device=dev)
     ged_c = make_camera(eye, look, device=dev)
@@ -1899,6 +1936,217 @@ def main() -> int:
               f"{med / gpasses:.4f} ms/pass, {rays / (med / 1e3):.6g} rays/s "
               f"({rays} rays + shadow rays per run; runs "
               f"{_runs(times[k])} ms)", flush=True)
+
+    # ---- 29. golden_textured through the Renderer; its bvh4 route
+    import torch_textured_scenes as tex_scenes
+    from craytracer_tpu_torch.core import math as vm
+    from craytracer_tpu_torch.lights.lights import sample_one_light
+    from craytracer_tpu_torch.profile_render import profile_render
+    from craytracer_tpu_torch.sampling.rng import uniforms
+    from craytracer_tpu_torch.scene import fullscene
+
+    textured = os.path.join(REPO, "scenes", "parity_textured.txt")
+    os.environ["CRAY_TEX_FLOAT_DIV255"] = "1"  # the golden's EXR scale
+    try:
+        tex_s, tex_c, tex_f = load_scene_file(textured, device=dev)
+        tex_b = load_scene_file(textured, accel="bvh4", device=dev)[0]
+    finally:
+        del os.environ["CRAY_TEX_FLOAT_DIV255"]
+    route = wf.production_fast_shade(tex_s, tex_c, tex_f)
+    print(f"[textured] parity_textured: {tex_s.textures.width.shape[0]} "
+          f"textures ({tex_s.textures.texels.shape[0]} texels), env kind "
+          f"{tex_s.env.kind}, {tex_s.triangles.mat_id.shape[0]} triangles, "
+          f"accel {tex_s.accel}, route {route}; with accel bvh4: "
+          f"{tex_b.tri_bvh.fat.shape[0]} fat rows, route "
+          f"{wf.production_fast_shade(tex_b, tex_c, tex_f)}", flush=True)
+    if route != "general":
+        fails.append(f"parity_textured: route {route}, not general")
+    n_p, got = main_path(
+        "parity_textured", tex_s, tex_c, tex_f,
+        os.path.join(REPO, "tests", "goldens", "golden_textured.is"),
+        config=RenderConfig(num_samples=160, max_depth=5,
+                            estimator="reference"))
+    expect("parity_textured", got)
+    tex512 = Film(fov=tex_f.fov, width=size, height=size)
+    tids = torch.from_numpy(Renderer(tex_b, tex_c, tex512, cfg).pixel_order()
+                            ).to(dev)
+    spp = torch.zeros_like(tids)
+    o, d = generate_rays(tex_c, tex512, tids,
+                         stratified_jitter(cfg.seed, tids, spp))
+    check_general("parity_textured bvh4 512x512 Morton spp 0", tex_b, o, d,
+                  tids, spp, 5, ("general", False))
+
+    # ---- 30. the fullscene: K3/K4 against the plain traversal, main path
+    t0 = time.perf_counter()
+    made = fullscene.ensure_obj()
+    print(f"[fullscene] {os.path.relpath(fullscene.OBJ, REPO)} "
+          f"{'generated' if made else 'present'}: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    full, fcam, ffilm0 = load_scene_file(
+        os.path.join(REPO, "scenes", "fullscene.txt"), device=dev)
+    load_s = time.perf_counter() - t0
+    fbvh = full.tri_bvh
+    ffilm = Film(fov=ffilm0.fov, width=size, height=size)
+    route = wf.production_fast_shade(full, fcam, ffilm)
+    print(f"[fullscene] scenes/fullscene.txt loaded and built in {load_s:.2f}"
+          f" s: {fbvh.n_tris} triangles, {fbvh.fat.shape[0]} fat rows, "
+          f"{fbvh.fat.numel() * 4 / 1e6:.1f} MB table, parts "
+          f"{len(full.tri_parts) if full.tri_parts else 0}, route {route}; "
+          f"material types {full.mat_types_present}, light types "
+          f"{full.light_types_present}, {full.mesh_lights.surface_area.shape[0]}"
+          f" mesh lights, {full.textures.width.shape[0]} textures, env "
+          f"importance {full.env.importance}", flush=True)
+    if route != "general" or full.tri_parts is not None:
+        fails.append(f"fullscene: route {route}, parts {full.tri_parts}")
+    if fbvh.n_tris != fullscene.triangle_count():
+        fails.append(f"fullscene: {fbvh.n_tris} triangles, not the "
+                     f"{fullscene.triangle_count()} of {fullscene.SPHERES} "
+                     f"spheres")
+    fids = torch.from_numpy(Renderer(full, fcam, ffilm, cfg).pixel_order()
+                            ).to(dev)
+    for depth, s in ((0, 0), (2, 0), (5, 0), (5, cfg.num_samples - 1)):
+        spp = torch.full_like(fids, s)
+        o, d = generate_rays(fcam, ffilm, fids,
+                             stratified_jitter(cfg.seed, fids, spp))
+        check_general(f"fullscene 512x512 Morton spp {s}", full, o, d, fids,
+                      spp, depth, ("general", False))
+
+    def general_bounce(scn, state, spp, bounce):
+        """The shadow rays (origin, direction, max_dist) that the plain
+        general step of `bounce` hands to shadow_distance, and the state
+        after it."""
+        seen, plain = [], wf.shadow_distance
+
+        def grab(scene, o, d, md, kernels=False):
+            seen.append((o, d, md))
+            return plain(scene, o, d, md, kernels=kernels)
+
+        wf.shadow_distance = grab
+        try:
+            nxt = wf._general_step(scn, cfg.seed, spp, 5, bounce, state,
+                                   kernels=False)
+        finally:
+            wf.shadow_distance = plain
+        return seen[0], nxt
+
+    # K3 and K4 alone on the route's bounce-0 and bounce-1 rays and shadow
+    # rays: t and ids bit-equal with the plain traversal on every lane
+    spp = torch.zeros_like(fids)
+    o, d = generate_rays(fcam, ffilm, fids,
+                         stratified_jitter(cfg.seed, fids, spp))
+    state = wf._init_state(o, d, 5, fids)
+    frecs = []
+    for b in (0, 1):
+        shadow, nxt = general_bounce(full, state, spp, b)
+        frecs.append((state[0], state[1], shadow))
+        check_k3(f"fullscene bounce-{b} rays", state[0], state[1], fbvh)
+        check_k4(f"fullscene bounce-{b} shadow rays", *shadow, bvh_=fbvh)
+        state = nxt
+    n_p, got = main_path("fullscene", full, fcam, ffilm,
+                         config=RenderConfig(num_samples=16, max_depth=5,
+                                             estimator="reference"))
+    expect("fullscene", got, k3_bvh4_closest=6 * n_p, k4_bvh4_any=6 * n_p)
+    for name in ("k3_bvh4_closest", "k4_bvh4_any"):
+        kernels[name]["launches"] += got[name]
+
+    # ---- 31. the quad mesh light: NEE under the principled power only
+    def bounce0_nee(scn, c, fm):
+        """Valid bounce-0 NEE samples per light row: the rows the general
+        step's pick and sample uniforms choose at the camera rays' hits."""
+        ids = torch.arange(fm.num_pixels, dtype=torch.int32, device=dev)
+        spp0 = torch.zeros_like(ids)
+        o, d = generate_rays(c, fm, ids, stratified_jitter(cfg.seed, ids,
+                                                           spp0))
+        hit = intersect_scene(scn, o, d)
+        u = uniforms(cfg.seed, ids, spp0, 0, 9, 0)
+        ft, fb, fn = vm.make_shading_frame(hit.normal, hit.dpdu)
+        ls = sample_one_light(scn, u[:, 4], u[:, 0:2], hit.point, fn, ft, fb)
+        pick = torch.clamp(torch.searchsorted(scn.lights.power_cdf,
+                                              u[:, 4].contiguous(),
+                                              right=True),
+                           0, scn.lights.light_type.shape[0] - 1)
+        ok = ls.valid & hit.hit_mask
+        return torch.bincount(pick[ok], minlength=scn.lights.light_type.shape[
+            0]).tolist()
+
+    pcfg = RenderConfig(num_samples=16, max_depth=5, estimator="physical")
+    for label, fn, power in (
+            ("quad_lamp principled", tex_scenes.quad_lamp, "principled"),
+            ("quad_lamp_and_rect reference", tex_scenes.quad_lamp_and_rect,
+             "reference"),
+            ("quad_lamp reference", tex_scenes.quad_lamp, "reference")):
+        qb = SceneBuilder()
+        eye, look, fov = fn(qb)
+        qs = qb.build(light_power=power, device=dev)
+        qc = make_camera(eye, look, device=dev)
+        qf = Film(fov=torch.tensor(fov, dtype=torch.float32, device=dev),
+                  width=size, height=size)
+        types = qs.lights.light_type.tolist()
+        row = types.index(T.LIGHT_MESH)
+        nee = bounce0_nee(qs, qc, qf)
+        print(f"[mesh-light] {label}: light types {types}, powers "
+              f"{[round(x, 6) for x in qs.lights.power.tolist()]}, valid "
+              f"bounce-0 NEE samples per row {nee}", flush=True)
+        # alone in the reference mode the quad takes the uniform fallback
+        # (every power 0 -> 1 / rows), so it is sampled there too
+        want_nee = power == "principled" or len(types) == 1
+        if (nee[row] > 0) != want_nee:
+            fails.append(f"{label}: {nee[row]} NEE samples on the mesh light")
+        n_p, got = main_path(label.replace(" ", "_"), qs, qc, qf,
+                             config=pcfg)
+        expect(label, got)
+
+    # ---- 32. times, in turns: fullscene and parity_textured at 512x512
+    tex_ids = torch.from_numpy(Renderer(tex_s, tex_c, tex512, cfg)
+                               .pixel_order()).to(dev)
+    truns = {"fullscene": (full, fcam, ffilm, fids, False),
+             "parity_textured": (tex_s, tex_c, tex512, tex_ids, False)}
+    fns = {k: passes_of(*v) for k, v in truns.items()}
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for k, fn in fns.items():
+            times[k].append(_timed(fn)[0])
+    for k, (scn, c, fm, ids, _) in truns.items():
+        rays = 0
+        for s in range(gpasses):
+            o, d = generate_rays(c, fm, ids, stratified_jitter(
+                cfg.seed, ids, 5000 + s))
+            m = wf.trace_paths(scn, o, d, cfg.seed, ids, 5000 + s, 5,
+                               with_metrics=True, fast_shade="shade")[2]
+            rays += int(m["rays"]) + int(m["shadow_rays"])
+        med = statistics.median(times[k])
+        prof = profile_render(scn, c, fm, 2, 5, 1)
+        print(f"[time] {card}, {k} 512x512 depth 5, {gpasses} passes through "
+              f"render_sample per run, in turns, median of 5: "
+              f"{med / gpasses:.4f} ms/pass, {rays / (med / 1e3):.6g} rays/s "
+              f"({rays} rays + shadow rays per run; runs "
+              f"{_runs(times[k])} ms); profile_render 2 spp, one per pass: "
+              f"wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f}"
+              f" ms, idle share {prof['idle']:.4f}", flush=True)
+    for b, (o_b, d_b, (so, sd, smd)) in enumerate(frecs):
+        o_s, d_s = sorted_rays(o_b, d_b)
+        so_s, sd_s, smd_s = sorted_rays(so, sd, smd)
+        med3, ts3 = _median5(lambda: bk.bvh4_closest_hit_kernel(fbvh, o_s,
+                                                                d_s))
+        med4, ts4 = _median5(lambda: bk.bvh4_any_hit_kernel(fbvh, so_s, sd_s,
+                                                            smd_s))
+        pops3, b3, rows3 = pops_and_bound(bvh4_closest_hit_stats, fbvh, o_s,
+                                          d_s)
+        pops4, b4, rows4 = pops_and_bound(bvh4_any_hit_stats, fbvh, so_s,
+                                          sd_s, smd_s)
+        print(f"[time] {card}, fullscene bare K3 on the {o_s.shape[0]} "
+              f"bounce-{b} rays (ray_key-sorted): {med3:.4f} ms (runs "
+              f"{_runs(ts3)}), bound {b3[0]:.4f} ms ({b3[1]}; whole rows "
+              f"{rows3[0]:.4f}), pops per lane mean "
+              f"{pops3.double().mean().item():.3f} max {int(pops3.max())}; "
+              f"bare K4 on its shadow rays: {med4:.4f} ms (runs "
+              f"{_runs(ts4)}), bound {b4[0]:.4f} ms ({b4[1]}; whole rows "
+              f"{rows4[0]:.4f}), pops per lane mean "
+              f"{pops4.double().mean().item():.3f}", flush=True)
 
     if fails:
         for f in fails:

@@ -12,8 +12,10 @@ spheres, planes, rects, disks, flat triangles and boxes, such as
 parity_cornell and parity_mix; K3 -> K2 -> K4 per bounce for meshes; K2
 per bounce for scenes with a torus or a cylinder, such as parity_prims;
 the general torch-op step per bounce, with K3 and K4 for a mesh, for
-scenes no kernel shades, such as materials_scene (a constant env light)
-or one with disk, point or directional lights. On the CPU the plain
+scenes no kernel shades, such as materials_scene (a constant env light),
+parity_textured and fullscene (textures, normal maps, a texture env
+light, mesh lights, MTL materials) or one with disk, point or
+directional lights. On the CPU the plain
 PyTorch versions run instead. `--thin-lens` swaps the scene file's
 pinhole for a thin-lens camera (make_camera's lens radius 0.2 and focal
 length 3.0). Prints one summary line with the route and each kernel's

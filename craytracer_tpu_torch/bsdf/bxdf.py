@@ -16,19 +16,22 @@ the two packages evaluate the same expressions. Directions are local
 FresnelBlend's specular pdf D / (2 wo.wh), glass reflection weighted
 by 1 - Fr(wh, wi), the thin transmission wi = -wo scaled by eta^2, and
 PLASTIC's summed lobe pdfs. Microfacet lobes take any (alphax, alphay,
-distrib) through bsdf/microfacet.py's general forms. Textures wait for
-ROADMAP slice E: `gather_params` takes the table color.
+distrib) through bsdf/microfacet.py's general forms. `gather_params`
+resolves a diffuse texture (the nearest texel, bsdf/texture.py) where
+the scene's pack holds real texels, as the JAX code does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from craytracer_tpu_torch.bsdf import microfacet as mf
 from craytracer_tpu_torch.bsdf.fresnel import (fr_conductor_rgb,
                                                fr_dielectric, schlick_fresnel)
+from craytracer_tpu_torch.bsdf.texture import tex_lookup_nearest
 from craytracer_tpu_torch.constants import INV_PI, PI
 from craytracer_tpu_torch.core import math as vm
 from craytracer_tpu_torch.sampling.mappings import map_to_hemisphere_cosine
@@ -40,7 +43,7 @@ class MatParams:
     """Per-hit material parameters gathered from the table ([N, ...])."""
 
     mat_type: torch.Tensor
-    color: torch.Tensor  # diffuse / cr / kd / emissive color
+    color: torch.Tensor  # diffuse / cr / kd / emissive color, textured
     ks: torch.Tensor
     on_a: torch.Tensor
     on_b: torch.Tensor
@@ -55,18 +58,32 @@ class MatParams:
     # static: every MATTE row has sigma 0 (Scene.matte_lambertian), so
     # Oren-Nayar is color * on_a / pi
     lambertian_only: bool = False
+    # the table color before the texture (emitted radiance uses it,
+    # trace.h:421-427) and the normal-map texture id (-1: none); the
+    # lobes read neither
+    color_raw: Optional[torch.Tensor] = None
+    normal_tex: Optional[torch.Tensor] = None
 
 
-def gather_params(materials: T.Materials, mat_id,
-                  lambertian_only: bool = False) -> MatParams:
+def gather_params(materials: T.Materials, textures: T.TexturePack, mat_id,
+                  uv, lambertian_only: bool = False) -> MatParams:
     """One row lookup per lane, the index clipped to the table as
     take_rows clips it (ops/gather.py:76): a miss lane's -1 reads row 0.
+    Where the pack holds real texels (more than the empty pack's one), a
+    row with a diffuse texture takes the nearest texel at `uv` as its
+    color (computeScatteringFunc's texture branch, materials.cpp:117-127).
     The alphas are floored at 1e-4: non-microfacet rows carry 0, and
     every microfacet lobe divides by alpha^2 on the masked lanes too."""
     idx = torch.clamp(mat_id.to(torch.int64), 0,
                       materials.mat_type.shape[0] - 1)
+    color_raw = materials.color[idx]
+    color = color_raw
+    if textures.texels.shape[0] > 1:
+        tex_id = materials.diffuse_tex[idx]
+        color = torch.where((tex_id >= 0)[:, None],
+                            tex_lookup_nearest(textures, tex_id, uv), color)
     return MatParams(
-        mat_type=materials.mat_type[idx], color=materials.color[idx],
+        mat_type=materials.mat_type[idx], color=color,
         ks=materials.ks[idx], on_a=materials.on_a[idx],
         on_b=materials.on_b[idx], ior_in=materials.ior_in[idx],
         ior_out=materials.ior_out[idx], eta3=materials.eta[idx],
@@ -74,7 +91,8 @@ def gather_params(materials: T.Materials, mat_id,
         alphax=torch.clamp(materials.alphax[idx], min=1e-4),
         alphay=torch.clamp(materials.alphay[idx], min=1e-4),
         distrib=materials.distrib[idx], intensity=materials.intensity[idx],
-        lambertian_only=lambertian_only)
+        lambertian_only=lambertian_only, color_raw=color_raw,
+        normal_tex=materials.normal_tex[idx])
 
 
 # ---------------------------------------------------------------------------

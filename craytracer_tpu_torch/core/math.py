@@ -9,15 +9,20 @@ epsilons) so the two packages round alike: `dot` :16, `cross` :30,
 `max3` :34, `length` :44, `length_sq` :50, `normalize` :55, `reflect`
 :62, `refract` :68, `orthonormal_basis` :86, `make_shading_frame` :110,
 `to_local` :123, `to_world` :128, the shading-frame trig :137-196,
-`_safe` :199, `spherical_direction` :214, and the host-side
+`_safe` :199, `spherical_direction` :214, `cartesian_to_spherical`
+:219, `spherical_to_uv` :232, `rotate_y` :239, and the host-side
 `euler_to_mat3` :246 for mesh and instance placement. Integer powers
 are products, as XLA lowers `x ** 2`.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+from craytracer_tpu_torch.constants import INV_PI, PI, TWO_PI
 
 
 def dot(a, b, keepdims: bool = False):
@@ -168,6 +173,30 @@ def spherical_direction(sin_t, cos_t, phi):
     """Local direction from spherical angles (z up)."""
     return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi),
                         cos_t], dim=-1)
+
+
+def cartesian_to_spherical(d):
+    """Direction -> (theta, phi) (cartesianToSpherical, util/math.h:95-101;
+    math.py:219): theta = acos(y) with y clipped 1e-6 inside [-1, 1],
+    phi = atan2(z, x) + pi."""
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0 + 1e-6, 1.0 - 1e-6))
+    phi = torch.atan2(d[..., 2], d[..., 0]) + PI
+    return theta, phi
+
+
+def spherical_to_uv(theta, phi):
+    """sphericalToUV (util/math.h:103-107; math.py:232): u = phi / 2pi,
+    v = 1 - theta / pi."""
+    return phi * (1.0 / TWO_PI), 1.0 - theta * INV_PI
+
+
+def rotate_y(angle: float) -> torch.Tensor:
+    """f32 rotation about y (mat3_rotate_y, util/mat.h; math.py:239), the
+    cosine and sine of the f32 angle rounded to f32."""
+    a = float(np.float32(angle))
+    c, s = float(np.float32(math.cos(a))), float(np.float32(math.sin(a)))
+    return torch.tensor([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]],
+                        dtype=torch.float32)
 
 
 def _safe(x, eps: float = 1e-12):

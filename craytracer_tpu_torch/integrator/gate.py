@@ -13,10 +13,14 @@ craytracer_tpu/integrator/pallas_shade.py `production_fast_shade` :1490,
   the torch-op shading of every lobe and light (the JAX XLA bounce step,
   integrator/wavefront.py `_general_step`), for the scenes the JAX gate
   answers False: a material type or lobe form K2 lacks (anisotropic or
-  Trowbridge-Reitz microfacets), light rows other than rect and sphere
-  area lights (a constant env light with intensity > 0, disk, point and
-  directional lights), no light or more than 16 lights, or more than 64
-  materials.
+  Trowbridge-Reitz microfacets), textures or normal maps, a texture env
+  light or texel importance, light rows other than rect and sphere area
+  lights (a constant env light with intensity > 0, disk, point,
+  directional and mesh lights), no light or more than 16 lights, or more
+  than 64 materials. One scene differs: the JAX gate lets a mesh light
+  through when the reference power mode gives it power 0 beside another
+  light (fast_shade_ok reads the powers), where the port sends every
+  scene with a mesh-light row to "general".
 
 "bounce" and "shade" cover spheres, planes, rects, disks, triangles and
 the instanced boxes, cylinders and tori, all seven material types (MATTE
@@ -30,10 +34,9 @@ pallas_shade.py:1535-1540), more than 64 rows of spheres, planes, rects,
 disks, triangles and boxes together, a bvh4 accelerator, smooth
 triangles, a sphere clip outside the domain where the kernel's
 cosine-space window equals the atan2/acos one (pallas_shade.py
-:1541-1553), or depth 31 and over. Textures, texture env lights and mesh
-lights (ROADMAP slice E), estimators other than reference and physical
-(slice F), other accelerators (slice I) and other camera types raise
-NotImplementedError naming their ROADMAP item. The plain versions ask
+:1541-1553), or depth 31 and over. Estimators other than reference and
+physical (slice F), other accelerators (slice I) and other camera types
+raise NotImplementedError naming their ROADMAP item. The plain versions ask
 the same gate, so they cover the same scenes. The gate reads only static
 fields and table shapes, so asking costs no device sync.
 
@@ -90,13 +93,6 @@ def check_estimator(estimator: str):
 def unported(scene: T.Scene):
     """What no route of the port renders yet, naming its ROADMAP item, or
     None."""
-    if scene.textures.texels.shape[0] > 1:
-        return "textures or normal maps (ROADMAP queue 1, slice E)"
-    if scene.env.kind not in (0, 1) or scene.env.importance:
-        return "texture env lights (ROADMAP queue 1, slice E)"
-    if (T.LIGHT_MESH in scene.light_types_present
-            or scene.mesh_lights.surface_area.shape[0] > 0):
-        return "mesh lights (ROADMAP queue 1, slice E)"
     if scene.accel not in ("none", "bvh4"):
         return f"accel={scene.accel!r} (ROADMAP queue 1, slice I)"
     return None
@@ -104,11 +100,15 @@ def unported(scene: T.Scene):
 
 def kernels_shade(scene: T.Scene) -> bool:
     """K1 and K2 can shade this scene (fast_shade_ok, pallas_shade.py
-    :1566-1610). A light table holding any type but rect and sphere area
-    lights is outside (the JAX gate looks at per-row powers; the port's
-    builder emits such a row only with nonzero power)."""
+    :1566-1610): no texture, no texture env or texel importance, and a
+    light table of rect and sphere area lights only (the JAX gate looks
+    at per-row powers; the port's builder emits a row of another type
+    with nonzero power but for a mesh light in the reference power mode,
+    which the port sends to "general" too)."""
     n_lights = scene.lights.light_type.shape[0]
     return (set(scene.mat_types_present) <= _MATERIALS
+            and scene.textures.texels.shape[0] <= 1
+            and scene.env.kind in (0, 1) and not scene.env.importance
             and scene.microfacet_iso_beckmann
             and 1 <= n_lights <= MAX_LIGHTS
             and set(scene.light_types_present) <= {T.LIGHT_AREA_RECT,

@@ -1,7 +1,7 @@
 """Progressive renderer (counterpart of
 craytracer_tpu/integrator/render.py: `RenderConfig` :27, `Renderer` :119
-with the Morton pixel order :150-168, spp batching :98-116 and NaN
-substitution :241-255).
+with the env importance default :120-134, the Morton pixel order
+:150-168, spp batching :98-116 and NaN substitution :241-255).
 
 Each pass traces one sample per pixel for the whole image through
 `render_sample` (one K1 launch on the card for a scene of at most 64
@@ -9,9 +9,16 @@ rows of spheres, planes, rects, disks, flat triangles and boxes; a K3,
 K2 and K4 launch per bounce for a mesh scene; a K2 launch per bounce for
 a scene with a torus or a cylinder; the general torch-op step per
 bounce, with a K3 and K4 launch for a mesh, for a scene no kernel
-shades: disk, point or directional lights, a constant env light,
-anisotropic or Trowbridge-Reitz microfacets, more than 16 lights or 64
-materials) and accumulates into an f32 buffer on the scene's device.
+shades: textures and normal maps, disk, point, directional and mesh
+lights, a constant or texture env light, anisotropic or
+Trowbridge-Reitz microfacets, more than 16 lights or 64 materials) and
+accumulates into an f32 buffer on the scene's device. Under the
+physical estimator a texture env with a texel CDF is sampled by
+importance even where the scene did not ask (the JAX Renderer's
+measured default: lower variance, and the cosine strategy carries the
+reference's rotated-env pdf quirk, trace.h:307); the reference
+estimator keeps what the scene says, since its L / good_paths ratio
+depends on the strategy.
 With `spp_batch` B > 1 one pass carries B samples per pixel (lanes = B *
 pixels) with the same launches.
 Pixels go out in Morton order, a pure reorder (the RNG keys off pixel
@@ -22,6 +29,7 @@ waits for ROADMAP slice F.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -44,6 +52,11 @@ class RenderConfig:
 
 class Renderer:
     def __init__(self, scene, camera, film, config: RenderConfig):
+        env = scene.env
+        if (config.estimator == "physical" and env.kind == 2
+                and not env.importance and env.flat_cdf is not None):
+            scene = dataclasses.replace(
+                scene, env=dataclasses.replace(env, importance=1))
         self.scene = scene
         self.camera = camera
         self.film = film

@@ -1,16 +1,19 @@
-"""Wavefront OBJ loader (counterpart of craytracer_tpu/io/objloader.py:
+"""Wavefront OBJ and MTL loader (counterpart of
+craytracer_tpu/io/objloader.py: `OBJMaterial` :30, `load_mtl` :43,
 `load_obj` :86 through the native scan and `_assemble_native` :104,
 `compute_vertex_normals` :205).
 
 Groups split on g/usemtl/o, faces are fan-triangulated by the C++ scanner
 (native.py), and each group's (v, vt, vn) corner triples are deduplicated
-with np.unique, as in the JAX package. Material libraries are not read:
-`MATERIAL FROM_MTL` waits for ROADMAP slice E, and the scene parser
-refuses it before a mesh is loaded.
+with np.unique, as in the JAX package. Each shape keeps its group name and
+its usemtl material name; the material library the file names (mtllib,
+looked up beside the OBJ) is read by `load_mtl`: Ka/Kd/Ks/Ke, Ns, Ni, d,
+illum, map_Kd and map_bump/bump.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -25,13 +28,66 @@ class OBJShape:
     normals: Optional[np.ndarray]  # [V, 3] f32
     texcoords: Optional[np.ndarray]  # [V, 2] f32
     indices: np.ndarray  # [F, 3] int32
+    name: str = ""
+    mat_name: str = ""
 
 
-def load_obj(path: str) -> list[OBJShape]:
-    """The OBJ file's shapes, one per group, with deduplicated vertices."""
-    positions, texcoords, normals, corners, groups = load_obj_native(path)
+@dataclass
+class OBJMaterial:
+    name: str = ""
+    ka: tuple = (0.0, 0.0, 0.0)
+    kd: tuple = (0.5, 0.5, 0.5)
+    ks: tuple = (0.0, 0.0, 0.0)
+    ke: tuple = (0.0, 0.0, 0.0)
+    ns: float = 0.0
+    ni: float = 1.0
+    d: float = 1.0
+    illum: int = 2
+    map_kd: str = ""
+    map_bump: str = ""
+
+
+def load_mtl(path: str) -> dict[str, OBJMaterial]:
+    """The materials of an MTL file by name ({} when it does not exist)."""
+    mats: dict[str, OBJMaterial] = {}
+    cur = None
+    if not os.path.exists(path):
+        return mats
+    with open(path, errors="replace") as f:
+        for line in f:
+            parts = line.split()
+            if not parts or parts[0].startswith("#"):
+                continue
+            key = parts[0]
+            if key == "newmtl":
+                cur = OBJMaterial(name=parts[1] if len(parts) > 1 else "")
+                mats[cur.name] = cur
+            elif cur is None:
+                continue
+            elif key in ("Ka", "Kd", "Ks", "Ke") and len(parts) >= 4:
+                setattr(cur, key.lower(), tuple(float(x) for x in parts[1:4]))
+            elif key == "Ns":
+                cur.ns = float(parts[1])
+            elif key == "Ni":
+                cur.ni = float(parts[1])
+            elif key == "d":
+                cur.d = float(parts[1])
+            elif key == "illum":
+                cur.illum = int(parts[1])
+            elif key == "map_Kd":
+                cur.map_kd = parts[-1]
+            elif key in ("map_bump", "bump"):
+                cur.map_bump = parts[-1]
+    return mats
+
+
+def load_obj(path: str):
+    """(the OBJ file's shapes, one per group, with deduplicated vertices;
+    its mtllib's materials by name)."""
+    positions, texcoords, normals, corners, groups, mtllib = \
+        load_obj_native(path)
     shapes = []
-    for begin, end in groups:
+    for begin, end, name, mat in groups:
         tri = corners[begin:end].astype(np.int64)
         if tri.shape[0] == 0:
             continue
@@ -48,8 +104,11 @@ def load_obj(path: str) -> list[OBJShape]:
             positions=positions[uniq[:, 0]],
             normals=normals[uniq[:, 2]] if has_vn else None,
             texcoords=texcoords[uniq[:, 1]] if has_vt else None,
-            indices=inv.reshape(-1, 3).astype(np.int32)))
-    return shapes
+            indices=inv.reshape(-1, 3).astype(np.int32),
+            name=name, mat_name=mat))
+    base_dir = os.path.dirname(os.path.abspath(path))
+    return shapes, (load_mtl(os.path.join(base_dir, mtllib)) if mtllib
+                    else {})
 
 
 def compute_vertex_normals(positions: np.ndarray,

@@ -91,8 +91,9 @@ def _iptr(a):
 
 def load_obj_native(path: str):
     """OBJ scan: (positions, texcoords | None, normals | None,
-    corners [T, 3 corners, (v, vt, vn)], groups), groups being
-    (face_begin, face_end) in triangle units."""
+    corners [T, 3 corners, (v, vt, vn)], groups, mtllib), groups being
+    (face_begin, face_end, group name, usemtl name) in triangle units and
+    mtllib the file's material library name ("" when it names none)."""
     lib = library()
     h = lib.crn_load_obj(str(path).encode())
     if not h:
@@ -112,11 +113,17 @@ def load_obj_native(path: str):
         lib.crn_obj_copy(h, _fptr(pos), _fptr(tex), _fptr(nrm),
                          _iptr(corners), _iptr(ranges), names, mats, mtllib,
                          _NAME_STRIDE)
+        def name(buf, i):
+            return buf.raw[i * _NAME_STRIDE:(i + 1) * _NAME_STRIDE].split(
+                b"\0")[0].decode("latin-1")
+
         # ranges count corners; three corners make a triangle
-        groups = [(int(b) // 3, int(e) // 3) for b, e in ranges[:n_groups]]
+        groups = [(int(b) // 3, int(e) // 3, name(names, i), name(mats, i))
+                  for i, (b, e) in enumerate(ranges[:n_groups])]
         return (pos[:n_pos], tex[:n_tex] if n_tex else None,
                 nrm[:n_nrm] if n_nrm else None,
-                corners[:n_corners].reshape(-1, 3, 3), groups)
+                corners[:n_corners].reshape(-1, 3, 3), groups,
+                mtllib.value.decode("latin-1"))
     finally:
         lib.crn_obj_free(h)
 

@@ -1,27 +1,34 @@
 """Host-side scene builder: Python API -> scene tensors (counterpart of
 craytracer_tpu/scene/build.py; `beckmann_roughness_to_alpha` :31,
 `_affine_inverse_rows` :65, `SceneBuilder` :84, the material adders
-:112-159, `add_sphere` :181, `add_plane` :185, `add_rect` :191,
-`add_disk` :199, `add_triangle` :205, `add_triangles_array` :222,
-`add_mesh` :254, the instanced adders :290-323, `_scene_bounds` :355,
-`add_directional_light` :327, `add_point_light` :331, `build` :405,
-`_build_lights` :645).
+:112-159, `add_texture` :171, `add_sphere` :181, `add_plane` :185,
+`add_rect` :191, `add_disk` :199, `add_triangle` :205,
+`add_triangles_array` :222, `add_mesh` :254, the instanced adders
+:290-323, `add_directional_light` :327, `add_point_light` :331,
+`set_env_light` :340, `_scene_bounds` :355, `build` :405,
+`_build_textures` :626, `_build_lights` :645).
 
 The accumulation runs in numpy with the JAX builder's exact arithmetic
 (same dtypes, same order), so both packages emit bit-identical tables:
 all seven material types (MATTE with its Oren-Nayar A/B, MIRROR,
 TRANSPARENT, EMISSIVE, PLASTIC, GLASS, METAL with its eta/k presets and
-the microfacet alphas and distribution), spheres with their phi/theta clip window, planes,
-rects, disks, triangles, the instanced boxes, open and solid cylinders
-(a tube and two INST_DISK caps) and tori behind their world -> object
-affines, the area lights derived from emissive rects, spheres and disks,
-the directional and point lights, the reference's product-of-components
-light power (mean color x intensity for the delta lights), the
-normalized power CDF, the env world radius (instanced shapes bounded
-through their affines), mesh triangles baked to world space (flat or
-smooth) and the SAH fat-row BVH4 (accel/bvh4.py). Textures, mesh lights
-and the other accelerators (the sphere BVH4 included) raise
-NotImplementedError naming the ROADMAP item that will port them.
+the microfacet alphas and distribution) with their diffuse and normal
+map texture ids, the packed texel pool, spheres with their phi/theta
+clip window, planes, rects, disks, triangles, the instanced boxes, open
+and solid cylinders (a tube and two INST_DISK caps) and tori behind
+their world -> object affines, the area lights derived from emissive
+rects, spheres and disks, the mesh lights of emissive meshes with their
+area CDFs, the directional and point lights, the light power in either
+mode ("reference": the reference's product-of-components area power and
+mesh lights at 0; "principled": mean color x intensity x area for every
+area and mesh light), the normalized power CDF, the env light (constant,
+or a texture with the fixed rot-y and its texel CDF), the env world
+radius (instanced shapes bounded through their affines), mesh triangles
+baked to world space (flat or smooth) and the SAH fat-row BVH4
+(accel/bvh4.py). A mesh's triangles are baked in one numpy pass; their
+face normals equal the JAX builder's per-triangle ones bit for bit
+(`_face_normals`). The other accelerators (the sphere BVH4 included)
+raise NotImplementedError naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -34,13 +41,10 @@ import numpy as np
 import torch
 
 from craytracer_tpu_torch.constants import METAL_PRESETS, PI
-from craytracer_tpu_torch.core.math import euler_to_mat3
+from craytracer_tpu_torch.core.math import euler_to_mat3, rotate_y
 from craytracer_tpu_torch.scene import types as T
 
 _TODO = {
-    "texture": "ROADMAP queue 1, slice E",
-    "mesh light": "ROADMAP queue 1, slice E",
-    "MATERIAL FROM_MTL": "ROADMAP queue 1, slice E",
     "accelerator": "ROADMAP queue 1, slice I",
     "sphere BVH4 (256 or more spheres with an accelerator)":
         "ROADMAP queue 1, slice I",
@@ -97,6 +101,32 @@ class _Mat:
     alphay: float = 0.0
     distrib: int = T.DIST_BECKMANN
     intensity: float = 0.0
+    diffuse_tex: int = -1
+    normal_tex: int = -1
+
+
+def _face_normals(v0, v1, v2):
+    """[T, 3] f32 face normals equal bit for bit to add_triangle's
+    per-triangle ones (build.py:211-213): cross of the f32 edges in f64,
+    over np.linalg.norm of that one vector, [0, 0, 1] when it is 0.
+    np.linalg.norm of a 3-vector is BLAS ddot, whose summation order
+    differs from a vectorized sum in the last f64 bit; the f32 result is
+    taken vectorized where a margin of 2^-48 around the norm cannot
+    change it, and from np.linalg.norm row by row elsewhere (a handful
+    of rows in a million)."""
+    fn = np.cross((v1 - v0).astype(np.float64), (v2 - v0).astype(np.float64))
+    sq = fn[:, 0] * fn[:, 0] + fn[:, 1] * fn[:, 1] + fn[:, 2] * fn[:, 2]
+    norm = np.sqrt(sq)[:, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = (fn / (norm * (1.0 - 2.0 ** -48))).astype(np.float32)
+        hi = (fn / (norm * (1.0 + 2.0 ** -48))).astype(np.float32)
+    unsure = ((out != hi).any(axis=1) | ~(sq > 1e-280)
+              | ~np.isfinite(sq))
+    for i in np.flatnonzero(unsure):
+        n = np.linalg.norm(fn[i])
+        out[i] = (fn[i] / n if n > 0 else np.array([0.0, 0.0, 1.0])
+                  ).astype(np.float32)
+    return out
 
 
 class SceneBuilder:
@@ -111,11 +141,18 @@ class SceneBuilder:
         self._rects = []
         self._disks = []
         self._instanced = []
+        # the JAX builder's per-triangle list as [T]-row blocks of the 13
+        # triangle columns (a single triangle is a block of one row; a
+        # mesh one block), in the order they were added
         self._triangles = []
-        self._bulk_triangles = []  # [T]-row column blocks (13 columns)
+        self._n_listed = 0  # rows in self._triangles
+        self._bulk_triangles = []  # add_triangles_array's blocks, after them
         self._tri_columns = None  # merged columns, set by build()
         self._extra_lights = []  # directional and point lights
         self._env: Optional[dict] = None
+        self._textures = []  # [H, W, 3] f32 each
+        self._tex_index: dict[str, int] = {}
+        self._mesh_light_ranges = []  # (start, end, mat_id) triangle rows
         self.add_material(_Mat(name="__default__", mat_type=T.MAT_MATTE,
                                color=(0.5, 0.5, 0.5)))
 
@@ -127,9 +164,12 @@ class SceneBuilder:
         self._mat_index[mat.name] = idx
         return idx
 
-    def add_matte(self, name, color=(0.5, 0.5, 0.5), sigma=0.0):
+    def add_matte(self, name, color=(0.5, 0.5, 0.5), sigma=0.0,
+                  diffuse_tex=-1, normal_tex=-1):
         return self.add_material(_Mat(name=name, mat_type=T.MAT_MATTE,
-                                      color=tuple(color), sigma=float(sigma)))
+                                      color=tuple(color), sigma=float(sigma),
+                                      diffuse_tex=diffuse_tex,
+                                      normal_tex=normal_tex))
 
     def add_mirror(self, name, color=(1.0, 1.0, 1.0)):
         return self.add_material(_Mat(name=name, mat_type=T.MAT_MIRROR,
@@ -147,13 +187,13 @@ class SceneBuilder:
                                       intensity=float(intensity)))
 
     def add_plastic(self, name, kd=(0.5, 0.5, 0.5), ks=(0.5, 0.5, 0.5),
-                    roughness=0.1):
+                    roughness=0.1, diffuse_tex=-1):
         """FresnelBlend: the raw roughness is the alpha
         (BSDF_addFresnelBlendSpecular, reflection.cpp:945-963)."""
         return self.add_material(_Mat(
             name=name, mat_type=T.MAT_PLASTIC, color=tuple(kd), ks=tuple(ks),
             alphax=float(roughness), alphay=float(roughness), ior_in=1.5,
-            ior_out=1.0))
+            ior_out=1.0, diffuse_tex=diffuse_tex))
 
     def add_glass(self, name, roughness=0.0, ior_in=1.5, ior_out=1.0):
         """Rough dielectric: roughness maps to alpha
@@ -178,6 +218,16 @@ class SceneBuilder:
         if isinstance(name, int):
             return name
         return self._mat_index.get(name, 0)
+
+    # -- textures ----------------------------------------------------------
+
+    def add_texture(self, name: str, data: np.ndarray) -> int:
+        """The texture's id; a name added before keeps its first image."""
+        if name in self._tex_index:
+            return self._tex_index[name]
+        self._textures.append(np.asarray(data, np.float32))
+        self._tex_index[name] = len(self._textures) - 1
+        return self._tex_index[name]
 
     # -- primitives --------------------------------------------------------
 
@@ -227,15 +277,12 @@ class SceneBuilder:
         n0 = fn if n0 is None else np.asarray(n0, np.float32)
         n1 = fn if n1 is None else np.asarray(n1, np.float32)
         n2 = fn if n2 is None else np.asarray(n2, np.float32)
-        self._triangles.append((v0, v1, v2, n0, n1, n2,
-                                np.asarray(uv0, np.float32),
-                                np.asarray(uv1, np.float32),
-                                np.asarray(uv2, np.float32), fn, bool(smooth),
-                                bool(double_sided), self.material_id(mat)))
-
-    def _refuse_mesh_light(self, mat_id):
-        if self._mats[mat_id].mat_type == T.MAT_EMISSIVE:
-            raise not_ported("mesh light")
+        row = (v0, v1, v2, n0, n1, n2, np.asarray(uv0, np.float32),
+               np.asarray(uv1, np.float32), np.asarray(uv2, np.float32), fn,
+               np.asarray(bool(smooth)), np.asarray(bool(double_sided)),
+               np.asarray(self.material_id(mat), np.int32))
+        self._triangles.append(tuple(x[None] for x in row))
+        self._n_listed += 1
 
     def add_triangles_array(self, v0, v1, v2, mat, normals=None, uvs=None,
                             smooth=False, double_sided=False):
@@ -256,24 +303,26 @@ class SceneBuilder:
         uv0, uv1, uv2 = (z2, z2, z2) if uvs is None else [
             np.asarray(x, np.float32) for x in uvs]
         mat_id = self.material_id(mat)
-        self._refuse_mesh_light(mat_id)
         start = self.num_triangles()
         self._bulk_triangles.append((
             v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, fn,
             np.full(t, bool(smooth)), np.full(t, bool(double_sided)),
             np.full(t, mat_id, np.int32)))
+        if self._mats[mat_id].mat_type == T.MAT_EMISSIVE:
+            self._mesh_light_ranges.append((start, start + t, mat_id))
         return start, start + t
 
     def num_triangles(self) -> int:
-        return len(self._triangles) + sum(b[0].shape[0]
-                                          for b in self._bulk_triangles)
+        return self._n_listed + sum(b[0].shape[0]
+                                    for b in self._bulk_triangles)
 
     def add_mesh(self, positions, indices, mat, normals=None, uvs=None,
                  smooth=False, scaling=(1, 1, 1), location=(0, 0, 0),
                  orientation=(0, 0, 0)):
         """Bake a mesh's triangles into world space (generateMeshTriangles,
         buildscene.h:214-314; build.py:254-288): vertices through T R S,
-        normals through R S^-1; one-sided triangles."""
+        normals through R S^-1; one-sided triangles. An emissive mesh is a
+        mesh light. Returns the (start, end) triangle range."""
         pos = np.asarray(positions, np.float64).reshape(-1, 3)
         idx = np.asarray(indices, np.int64).reshape(-1, 3)
         rot = euler_to_mat3(orientation).astype(np.float64)
@@ -290,18 +339,23 @@ class SceneBuilder:
         uv = (np.asarray(uvs, np.float32).reshape(-1, 2)
               if uvs is not None and len(np.asarray(uvs)) else None)
         mat_id = self.material_id(mat)
-        self._refuse_mesh_light(mat_id)
-        start = len(self._triangles)
-        for f in idx:
-            tri_v = [world[i].astype(np.float32) for i in f]
-            tri_n = ([nrm[i].astype(np.float32) for i in f]
-                     if nrm is not None else [None] * 3)
-            tri_uv = [uv[i] for i in f] if uv is not None else [(0, 0)] * 3
-            self.add_triangle(tri_v[0], tri_v[1], tri_v[2], mat_id,
-                              n0=tri_n[0], n1=tri_n[1], n2=tri_n[2],
-                              uv0=tri_uv[0], uv1=tri_uv[1], uv2=tri_uv[2],
-                              smooth=smooth, double_sided=False)
-        return start, len(self._triangles)
+        t = idx.shape[0]
+        v = [world[idx[:, k]].astype(np.float32) for k in range(3)]
+        fn = _face_normals(*v)
+        n = ([nrm[idx[:, k]].astype(np.float32) for k in range(3)]
+             if nrm is not None else [fn, fn, fn])
+        z2 = np.zeros((t, 2), np.float32)
+        uvk = ([uv[idx[:, k]] for k in range(3)] if uv is not None
+               else [z2, z2, z2])
+        start = self._n_listed
+        if t:
+            self._triangles.append((
+                *v, *n, *uvk, fn, np.full(t, bool(smooth)),
+                np.zeros(t, bool), np.full(t, mat_id, np.int32)))
+            self._n_listed += t
+        if self._mats[mat_id].mat_type == T.MAT_EMISSIVE:
+            self._mesh_light_ranges.append((start, self._n_listed, mat_id))
+        return start, self._n_listed
 
     def _add_instanced(self, kind, params, mat, location, scale,
                        orientation, normal_type=T.NORMAL_OPEN):
@@ -357,11 +411,17 @@ class SceneBuilder:
                                    tuple(color), float(intensity),
                                    1.0 if dist_atten else 0.0))
 
-    def set_env_light(self, kind, color=(1, 1, 1), intensity=1.0):
-        if kind != "constant":
-            raise not_ported("texture")
+    def set_env_light(self, kind, color=(1, 1, 1), intensity=1.0, tex_id=-1,
+                      rotate_y_angle=0.0, importance=False):
+        """kind "constant" or "texture" (a lat-long map, texture `tex_id`,
+        seen through rot-y(`rotate_y_angle`); the scene parser gives the
+        reference's fixed -0.76, buildscene.h:516). `importance` samples
+        the map by its texel CDF instead of the cosine hemisphere
+        (build.py:340-351)."""
         self._env = dict(kind=kind, color=tuple(color),
-                         intensity=float(intensity))
+                         intensity=float(intensity), tex_id=int(tex_id),
+                         rotate_y_angle=float(rotate_y_angle),
+                         importance=bool(importance))
 
     # -- build -------------------------------------------------------------
 
@@ -383,15 +443,11 @@ class SceneBuilder:
         for c, n, r, m in self._disks:
             cover(c - r)
             cover(c + r)
-        cols = self._tri_columns
-        if cols is not None and cols[0].shape[0] > 0:
+        cols = self._tri_columns  # set by build() before the lights
+        if cols[0].shape[0] > 0:
             for c in cols[:3]:
                 cover(c.min(axis=0))
                 cover(c.max(axis=0))
-        else:
-            for tri in self._triangles:
-                for q in tri[:3]:
-                    cover(q)
         for inv_t, nmat, kind, p, nt, m in self._instanced:
             # the corners of the canonical shape's object-space bound,
             # pushed through the inverse of the stored affine
@@ -413,11 +469,18 @@ class SceneBuilder:
             maxs = np.ones(3)
         return mins, maxs
 
-    def build(self, accel: str = "auto", device=None) -> T.Scene:
+    def build(self, accel: str = "auto", light_power: str = "reference",
+              device=None) -> T.Scene:
         """accel: 'none', 'bvh4', or 'auto' (bvh4 from 64 triangles, as
-        build.py:485-487 resolves it). The scene goes to `device`: the
-        CUDA card unless the caller asks for another (scene/types.py
+        build.py:485-487 resolves it). light_power: 'reference' (the
+        reference's preprocessLights: product-of-components area power,
+        mesh lights at 0, buildscene.h:875-923) or 'principled' (mean
+        color x intensity x area for every area and mesh light, so mesh
+        lights get NEE samples). The scene goes to `device`: the CUDA card
+        unless the caller asks for another (scene/types.py
         `resolve_device`)."""
+        if light_power not in ("reference", "principled"):
+            raise ValueError(f"light_power {light_power!r}")
         device = T.resolve_device(device)
         f32 = np.float32
         n_tris = self.num_triangles()
@@ -456,11 +519,11 @@ class SceneBuilder:
                                      + [((), np.int32)]))
         disks = tensors(T.Disks, soa(self._disks, [((3,), f32), ((3,), f32),
                                                    ((), f32), ((), np.int32)]))
-        tv = soa(self._triangles, [((3,), f32)] * 6 + [((2,), f32)] * 3
+        tv = soa([], [((3,), f32)] * 6 + [((2,), f32)] * 3
                  + [((3,), f32), ((), bool), ((), bool), ((), np.int32)])
-        if self._bulk_triangles:
-            tv = [np.concatenate([tv[c]] + [blk[c] for blk in
-                                            self._bulk_triangles], axis=0)
+        blocks = self._triangles + self._bulk_triangles
+        if blocks:
+            tv = [np.concatenate([blk[c] for blk in blocks], axis=0)
                   for c in range(13)]
         self._tri_columns = tv  # corners by global index for the bounds
         triangles = tensors(T.Triangles, tv)
@@ -492,15 +555,15 @@ class SceneBuilder:
             col("eta"), col("k"), col("alphax"), col("alphay"),
             col("distrib", np.int32),
             col("intensity"),
-            np.full(len(mats), -1, np.int32), np.full(len(mats), -1, np.int32),
+            col("diffuse_tex", np.int32), col("normal_tex", np.int32),
         ])
-        lights, mesh_lights, env = self._build_lights(mats)
+        lights, mesh_lights, env = self._build_lights(mats, light_power)
         mat_type = materials.mat_type.numpy()
         scene = T.Scene(
             spheres=spheres, planes=planes, rects=rects, disks=disks,
             triangles=triangles, instanced=instanced, materials=materials,
             lights=lights, mesh_lights=mesh_lights, env=env,
-            textures=T.empty_texture_pack(), tri_bvh=tri_bvh,
+            textures=self._build_textures(), tri_bvh=tri_bvh,
             tri_parts=tri_parts, accel=accel,
             mat_types_present=tuple(sorted(int(t) for t in
                                            np.unique(mat_type))),
@@ -532,10 +595,49 @@ class SceneBuilder:
         s2 = s * s
         return 0.45 * s2 / (s2 + 0.09)
 
-    def _build_lights(self, mats):
-        """Area lights from emissive rects, spheres and disks, the delta
-        lights, the env light row, the reference power rule and the
-        normalized CDF (build.py:645-833)."""
+    def _build_textures(self) -> T.TexturePack:
+        """Every texture's texels in one [T, 3] pool, with each one's
+        offset, width and height (build.py:626-643)."""
+        if not self._textures:
+            return T.empty_texture_pack()
+        offsets, ws, hs = [], [], []
+        cursor = 0
+        for tex in self._textures:
+            offsets.append(cursor)
+            hs.append(tex.shape[0])
+            ws.append(tex.shape[1])
+            cursor += tex.shape[0] * tex.shape[1]
+        return T.TexturePack(
+            texels=torch.from_numpy(np.concatenate(
+                [tex.reshape(-1, 3) for tex in self._textures], axis=0)),
+            offset=torch.tensor(offsets, dtype=torch.int32),
+            width=torch.tensor(ws, dtype=torch.int32),
+            height=torch.tensor(hs, dtype=torch.int32))
+
+    def _env_table(self, env_cfg):
+        """A texture env's texel distribution (build.py:792-833): texel
+        luminance (negatives clamped) times the solid-angle weight of its
+        row under getTexColor's addressing, row r the theta band
+        pi (r -+ 0.5) / h and row 0 both pole slivers, in float64, then
+        its inclusive cumsum and the probabilities as float32."""
+        tex = np.asarray(self._textures[env_cfg["tex_id"]], np.float64)
+        h, w = tex.shape[0], tex.shape[1]
+        lum = np.maximum(tex, 0.0).mean(axis=-1)
+        r = np.arange(h)
+        dcos = np.cos(np.pi * (r - 0.5) / h) - np.cos(np.pi * (r + 0.5) / h)
+        dcos[0] = 2.0 * (1.0 - np.cos(0.5 * np.pi / h))
+        lum = lum * dcos[:, None]
+        p = (lum / max(lum.sum(), 1e-30)).reshape(-1)
+        return dict(flat_cdf=torch.from_numpy(np.cumsum(p).astype(np.float32)),
+                    flat_pdf=torch.from_numpy(p.astype(np.float32)),
+                    importance=1 if env_cfg["importance"] else 0,
+                    imp_h=h, imp_w=w)
+
+    def _build_lights(self, mats, light_power):
+        """Area lights from emissive rects, spheres and disks, mesh lights
+        from emissive meshes, the delta lights, the env light row, the
+        power rule of the build's mode and the normalized CDF
+        (build.py:645-833)."""
         f32 = np.float32
         rows = []  # (type, p0, v1, v2, normal, radius, color, intensity,
         #              area, mesh_id, src_group, src_prim)
@@ -559,6 +661,23 @@ class SceneBuilder:
                 rows.append((T.LIGHT_AREA_DISK, c, np.zeros(3, f32),
                              np.zeros(3, f32), n, r, m.color, m.intensity,
                              area, -1, T.GROUP_DISK, i))
+        # mesh lights: each emissive mesh's triangle range, with its
+        # per-triangle area CDF (initMeshLights, buildscene.h:749-833)
+        cols = self._tri_columns
+        ml_tri, ml_cdf, ml_off, ml_area = [], [], [0], []
+        for k, (start, end, mat_id) in enumerate(self._mesh_light_ranges):
+            m = mats[mat_id]
+            v0, v1, v2 = (c[start:end] for c in cols[:3])
+            areas = (0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0),
+                                          axis=-1)).tolist()
+            ml_tri.extend(range(start, end))
+            total = sum(areas) or 1.0
+            ml_cdf.extend((np.cumsum(areas) / total).tolist())
+            ml_off.append(len(ml_tri))
+            ml_area.append(total)
+            rows.append((T.LIGHT_MESH, np.zeros(3, f32), np.zeros(3, f32),
+                         np.zeros(3, f32), np.zeros(3, f32), 0.0, m.color,
+                         m.intensity, total, k, -1, -1))
         # the delta lights: the reference gives them power 0
         # (buildscene.h:878-918); the JAX builder mean(color) x intensity
         for ltype, p0, color, inten, flag in self._extra_lights:
@@ -575,6 +694,7 @@ class SceneBuilder:
                          env_cfg["color"], env_cfg["intensity"], world_radius,
                          -1, -1, -1))
 
+        principled = light_power == "principled"
         powers = []
         for row in rows:
             ltype, _, _, _, _, radius, color, inten, area = row[:9]
@@ -583,6 +703,12 @@ class SceneBuilder:
                 powers.append(float(c.mean() * inten * world_radius))
             elif ltype in (T.LIGHT_DIRECTIONAL, T.LIGHT_POINT):
                 powers.append(float(c.mean() * inten))
+            elif ltype == T.LIGHT_MESH and not principled:
+                # preprocessLights' switch skips mesh lights: power 0,
+                # never picked, seen only as emissive hits
+                powers.append(0.0)
+            elif principled:
+                powers.append(float(c.mean() * inten * area))
             else:
                 powers.append(float((c[0] * c[1] * c[2]) / 3.0 * inten * area))
         total_p = sum(powers)
@@ -611,14 +737,17 @@ class SceneBuilder:
             src_group=t([r[10] for r in rows], np.int32, (n,)),
             src_prim=t([r[11] for r in rows], np.int32, (n,)),
         )
-        n_tris = self.num_triangles()
+        tri_light_id = np.full(max(cols[0].shape[0], 1), -1, np.int32)
+        for row_idx, row in enumerate(rows):
+            if row[0] == T.LIGHT_MESH:
+                start, end, _ = self._mesh_light_ranges[row[9]]
+                tri_light_id[start:end] = row_idx
         mesh_lights = T.MeshLights(
-            tri_index=torch.zeros((0,), dtype=torch.int32),
-            cdf=torch.zeros((0,), dtype=torch.float32),
-            light_offset=torch.zeros((1,), dtype=torch.int32),
-            surface_area=torch.zeros((0,), dtype=torch.float32),
-            tri_light_id=torch.full((max(n_tris, 1),), -1, dtype=torch.int32),
-        )
+            tri_index=t(ml_tri, np.int32, (len(ml_tri),)),
+            cdf=t(ml_cdf, f32, (len(ml_cdf),)),
+            light_offset=t(ml_off, np.int32, (len(ml_off),)),
+            surface_area=t(ml_area, f32, (len(ml_area),)),
+            tri_light_id=torch.from_numpy(tri_light_id))
         if env_cfg is None:
             env = T.EnvLight(
                 color=torch.zeros(3, dtype=torch.float32),
@@ -627,11 +756,22 @@ class SceneBuilder:
                 world_radius=torch.tensor(world_radius, dtype=torch.float32),
                 tex_id=torch.tensor(-1, dtype=torch.int32), kind=0)
         else:
+            kind = 1 if env_cfg["kind"] == "constant" else 2
+            angle = env_cfg["rotate_y_angle"]
+            transform = (rotate_y(angle) if angle != 0.0
+                         else torch.eye(3, dtype=torch.float32))
+            # the CDF is built for every texture env: the Renderer turns
+            # importance on under the physical estimator
+            # (integrator/render.py); env.importance stays as authored
+            imp = (self._env_table(env_cfg)
+                   if kind == 2 and 0 <= env_cfg["tex_id"] < len(
+                       self._textures) else {})
             env = T.EnvLight(
                 color=torch.tensor(env_cfg["color"], dtype=torch.float32),
                 intensity=torch.tensor(env_cfg["intensity"],
                                        dtype=torch.float32),
-                transform=torch.eye(3, dtype=torch.float32),
+                transform=transform,
                 world_radius=torch.tensor(world_radius, dtype=torch.float32),
-                tex_id=torch.tensor(-1, dtype=torch.int32), kind=1)
+                tex_id=torch.tensor(env_cfg["tex_id"], dtype=torch.int32),
+                kind=kind, **imp)
         return lights, mesh_lights, env

@@ -3,8 +3,8 @@ craytracer_tpu/scene/types.py:1-299).
 
 Field names, shapes and dtypes follow the JAX pytrees leaf for leaf, so a
 test can compare the two packages' scenes field by field. A group the
-scene lacks (or the port does not render yet: mesh lights) is still
-present, as zero-row tensors, exactly as the JAX builder emits it. The static fields `accel`,
+scene lacks is still present, as zero-row tensors (no texture: the
+one-texel empty pack), exactly as the JAX builder emits it. The static fields `accel`,
 `mat_types_present`, `light_types_present` and `matte_lambertian` stay
 plain Python values, as do BVH4Arrays' `n_tris`, `leaf_size` and
 `stack_size` (accel/bvh4.py:56-72). `smooth_triangles` (not in the JAX

@@ -281,7 +281,8 @@ def test_gather_params_matches_jax():
     mid = np.array([-1, 0, 1, 2, 3, 4, 5, 6, 7, 7, 3], np.int32)
     ref = jb.gather_params(js.materials, js.textures, jnp.asarray(mid),
                            jnp.zeros((mid.shape[0], 2), jnp.float32))
-    ours = tb.gather_params(ts.materials, _t(mid))
+    ours = tb.gather_params(ts.materials, ts.textures, _t(mid),
+                            torch.zeros((mid.shape[0], 2)))
     for name in ("mat_type", "color", "ks", "on_a", "on_b", "ior_in",
                  "ior_out", "eta3", "k3", "alphax", "alphay", "distrib",
                  "intensity"):

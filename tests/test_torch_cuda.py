@@ -41,6 +41,7 @@ pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(REPO, "scenes", "parity_cornell.txt")
 PRIMS = os.path.join(REPO, "scenes", "parity_prims.txt")
+TEXTURED = os.path.join(REPO, "scenes", "parity_textured.txt")
 
 
 @pytest.fixture
@@ -260,7 +261,7 @@ def test_general_scene_renders_through_k3_k4(cuda):
     render_sample: K3 and K4 once a bounce, no K1 or K2, finite."""
     b = SceneBuilder()
     shapes = [(s.positions, s.indices) for s in load_obj(
-        os.path.join(REPO, "scenes", "icosphere_small.obj"))]
+        os.path.join(REPO, "scenes", "icosphere_small.obj"))[0]]
     eye, look, fov, depth = general_scenes.mesh_env_disk(b, shapes)
     scene = scene_from_numpy(general_scenes.make_anisotropic(
         numpy_leaves(b.build(device="cpu"))), device=cuda)
@@ -274,6 +275,28 @@ def test_general_scene_renders_through_k3_k4(cuda):
     got = [c.launches - b0 for c, b0 in zip(counts, before)]
     assert got == [0, 0, depth + 1, depth + 1]
     assert bool(torch.isfinite(out).all()) and float(out.mean()) > 0
+
+
+def test_textured_general_route_through_k3_k4(cuda, monkeypatch):
+    """scenes/parity_textured.txt (a textured rect and quad mesh, an EXR
+    texture env) with a bvh4 table: the general step through K3 and K4
+    against the general step with the plain traversal at depth 5, on
+    every lane; K3 and K4 launch once a bounce, K1 and K2 never."""
+    monkeypatch.setenv("CRAY_TEX_FLOAT_DIV255", "1")
+    scene, cam, film = load_scene_file(TEXTURED, accel="bvh4", device=cuda)
+    film = Film(fov=film.fov, width=32, height=32)
+    assert scene.tri_bvh is not None and scene.env.kind == 2
+    assert production_fast_shade(scene, cam, film) == "general"
+    pix = torch.arange(film.num_pixels, dtype=torch.int32, device=cuda)
+    o, d = generate_rays(cam, film, pix, stratified_jitter(3, pix, 1))
+    counts = (pk.KERNEL, sk.KERNEL, bk.CLOSEST, bk.ANY)
+    before = [c.launches for c in counts]
+    out = wf.trace_paths(scene, o, d, 3, pix, 1, 5, with_metrics=True,
+                         fast_shade="shade")
+    assert [c.launches - b0 for c, b0 in zip(counts, before)] == [0, 0, 6, 6]
+    ref = wf.trace_paths(scene, o, d, 3, pix, 1, 5, with_metrics=True)
+    _assert_pass_bars(out, ref)
+    assert int(out[2]["shadow_rays"]) > 0
 
 
 def test_slice_b_wrappers_refuse_bad_inputs(cuda):

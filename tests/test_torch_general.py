@@ -126,18 +126,36 @@ def test_gate_routes_general(feature):
     assert production_fast_shade(_scene(_lamp)) == "bounce"
 
 
-def _textured(s):
-    return dataclasses.replace(s, textures=dataclasses.replace(
-        s.textures, texels=torch.zeros((2, 3))))
+def _texture(b):
+    return b.add_texture("t", np.full((2, 4, 3), 0.5, np.float32))
+
+
+SLICE_E = {
+    "textures": lambda b: (b.add_matte("tex", diffuse_tex=_texture(b)),
+                           b.add_sphere((0, 1, 0), 0.5, "tex")),
+    "normal map": lambda b: (b.add_matte("nm", normal_tex=_texture(b)),
+                             b.add_sphere((0, 1, 0), 0.5, "nm")),
+    "texture env": lambda b: b.set_env_light("texture", intensity=0.5,
+                                             tex_id=_texture(b)),
+    "texture env, no light row": lambda b: b.set_env_light(
+        "texture", intensity=0.0, tex_id=_texture(b)),
+    "mesh light": lambda b: (b.add_emissive("ml", (1, 1, 1), 3.0),
+                             b.add_mesh([(0, 3, 0), (1, 3, 0), (0, 3, 1)],
+                                        [(0, 2, 1)], "ml")),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(SLICE_E))
+def test_gate_routes_slice_e_general(feature):
+    """Textures, normal maps, texture env lights and mesh lights take the
+    general route beside a rect lamp that alone takes K1 (a mesh light
+    at reference power 0 too, where the JAX gate would shade it)."""
+    assert production_fast_shade(_scene(_lamp)) == "bounce"
+    assert production_fast_shade(_scene(_lamp, SLICE_E[feature])) == \
+        "general"
 
 
 REFUSED = {
-    "textures": (_textured, {}, "slice E"),
-    "texture env": (lambda s: dataclasses.replace(
-        s, env=dataclasses.replace(s.env, kind=2)), {}, "slice E"),
-    "mesh lights": (lambda s: dataclasses.replace(
-        s, mesh_lights=dataclasses.replace(
-            s.mesh_lights, surface_area=torch.ones(1))), {}, "slice E"),
     "grid accel": (lambda s: dataclasses.replace(s, accel="grid"), {},
                    "slice I"),
     "mis": (lambda s: s, {"estimator": "mis"}, "slice F"),

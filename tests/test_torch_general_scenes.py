@@ -43,7 +43,7 @@ EXCUSED = {("many_materials", 5): (225, 828, 899),
 def _build(name):
     jb, tb = JBuilder(), SceneBuilder()
     if name == "mesh_env_disk":
-        shapes = [(s.positions, s.indices) for s in load_obj(OBJ)]
+        shapes = [(s.positions, s.indices) for s in load_obj(OBJ)[0]]
         eye, look, fov, _ = general_scenes.mesh_env_disk(jb, shapes)
         general_scenes.mesh_env_disk(tb, shapes)
     else:

@@ -132,7 +132,7 @@ def test_env_radiance(lanes, kind):
     assert ts.env.kind == js.env.kind == kind
     d = lanes["normal"]
     np.testing.assert_array_equal(
-        tl.env_radiance(ts.env, _t(d)).numpy(),
+        tl.env_radiance(ts.env, ts.textures, _t(d)).numpy(),
         np.asarray(jl.env_radiance(js.env, js.textures, jnp.asarray(d))))
 
 

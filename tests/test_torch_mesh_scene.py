@@ -129,11 +129,13 @@ def test_missing_mesh_file_raises(tmp_path):
 
 
 def test_mesh_refusals():
+    """An emissive triangle soup is a mesh light (no longer refused); a
+    grid accelerator still is, naming slice I."""
     b = SceneBuilder()
     b.add_emissive("lamp")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        b.add_triangles_array(np.zeros((1, 3)), np.eye(3)[:1],
-                              np.eye(3)[1:2], "lamp")
+    assert b.add_triangles_array(np.zeros((1, 3)), np.eye(3)[:1],
+                                 np.eye(3)[1:2], "lamp") == (0, 1)
+    assert b._mesh_light_ranges == [(0, 1, 1)]
     b.add_matte("m")
     b.add_triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), "m")
     with pytest.raises(NotImplementedError, match="slice I"):

@@ -130,19 +130,20 @@ def test_thinlens_rays_agree(both, size):
 
 
 # a sphere is refused only where the JAX builder would index it with a
-# sphere BVH4 (256 or more with an accelerator), a mirror or a matte only
-# with a texture
+# sphere BVH4 (256 or more with an accelerator)
 UNPORTED = {
     "sphere": "OBJECT SPHERE\nRADIUS 0.1\nCENTER 0 0 0\nMATERIAL m\n"
               * 256,
+}
+# disk, point and directional lights take the general route
+# (tests/test_torch_general.py holds it against the JAX package); so do
+# the slice-E blocks, whose missing files are dropped as the JAX parser
+# drops them (a texture id of -1, a white constant env, no mesh)
+GENERAL = {
     "mirror": "MATERIAL MIRROR\nNAME m\nTEXTURE x.png\nEND\n",
     "textured matte": "MATERIAL MATTE\nNAME m\nTEXTURE x.png\nEND\n",
     "mesh": "OBJECT MESH\nFILE x.obj\nMATERIAL FROM_MTL\n",
     "texture env": "ENV_LIGHT\nTYPE TEXTURE\nCOLOR x.exr\nINTENSITY 1\n",
-}
-# disk, point and directional lights take the general route
-# (tests/test_torch_general.py holds it against the JAX package)
-GENERAL = {
     "disk light": "MATERIAL EMISSIVE\nNAME lamp\nINTENSITY 5\nEND\n"
                   "OBJECT DISK\nCENTER 0 1 0\nNORMAL 0 -1 0\nRADIUS 1\n"
                   "MATERIAL lamp\n",
@@ -154,7 +155,7 @@ GENERAL = {
 @pytest.mark.parametrize("feature", sorted(UNPORTED) + sorted(GENERAL))
 def test_unported_features_raise(tmp_path, feature):
     """The parser, the builder or the gate refuses it, naming its
-    ROADMAP item; the lights the general route renders get "general"."""
+    ROADMAP item; what the general route renders gets "general"."""
     p = tmp_path / "scene.txt"
     p.write_text({**UNPORTED, **GENERAL}[feature])
     if feature in GENERAL:
