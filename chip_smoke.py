@@ -208,20 +208,49 @@ never JAX or the JAX package. Phases, each printing its own lines:
    light row at the camera rays' hits, with the general step's
    uniforms; under the principled power the mesh light gets them, under
    the reference power beside a rect lamp it gets none (alone it takes
-   the uniform fallback, power 1); each through the Renderer (16 spp,
-   physical estimator): no launch, no NaN, a lit image.
+   the uniform fallback, power 1); each scene's route (the quad beside
+   the rect lamp at reference power takes K1's "bounce": its mesh row has
+   power 0, as the JAX gate reads the powers; the others "general") and
+   each through the Renderer (16 spp, physical estimator): one K1 launch
+   per pass on the "bounce" scene, no launch on the others, no NaN, a lit
+   image.
 32. times, in turns, median of 5: ms/pass and rays/s through
    render_sample of the fullscene and of parity_textured at 512x512,
    depth 5, with profile_render's wall, device time and idle share at 2
    spp, one per pass; bare K3 and K4 per launch on the fullscene's
    bounce-0 and bounce-1 rays and shadow rays (ray_key-sorted), with
    their bounds counted as phase 10 counts them.
+33. the field of FIELD_SPHERES (10,000) random spheres of
+   bench_spheres.py (scene/sphere_field.py): its build seconds, fat rows
+   and stack bound of the sphere BVH4, its route ("shade": the torch-op
+   sphere walk, then K2); trace_paths through K2 against the plain
+   trace_paths at 512x512 Morton lanes, depth 0, 2, 5 (spp 0) and 5 (spp
+   63), phase 8's bars; K2 vs plain on the bounce 0, 1 and 4 hit records,
+   phase 7's bars; main path: the Renderer at 512x512, depth 5, 16 spp,
+   counts set to 0 just before and read just after: K2 passes x 6 and
+   nothing else, no NaN; then ms/pass and rays/s through render_sample at
+   512x512 depth 5 and at bench_spheres.py's 256x256 depth 3, median of
+   5, profile_render's wall, device time and idle share, bare K2 on the
+   six bounces of one pass with its bound, and the plain sphere walk per
+   bounce (closest hit and shadow any hit).
+34. the MIS estimator on the fullscene: the general route through K3 and
+   K4 against the plain traversal at 512x512 Morton lanes, depth 0, 2, 5,
+   phase 8's bars; main path: the Renderer at 512x512, depth 5, 16 spp,
+   estimator "mis", counts set to 0 just before and read just after: K3
+   and K4 passes x 6 and nothing else, no NaN; ms/pass through
+   render_sample of "mis" and "physical" in turns, median of 5.
+35. the MIS estimator unbiased on the card: tests/test_mis.py's glossy
+   scene (a rough SILVER floor, a 4 x 4 lamp) through the Renderer at
+   512x512 x 64 spp, depth 3, under "mis" (the general route, no launch)
+   and "physical" (K1, one launch per pass): no NaN, and the image means
+   within tests/test_mis.py:58's rtol 0.12.
 
 Then one JSON line describing the kernels (each with its launches on its
-main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K3 and K4
-plus the fullscene's, K3 `_init` on the 7M city's; K3 and K4 also carry
-the general route's traversal (phases 25-30), which adds no kernel; K5,
-K6 and P1 lie on no path: 0;
+main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
+sphere field's, K3 and K4 plus the fullscene's under both estimators, K3
+`_init` on the 7M city's; K3 and K4 also carry the general route's
+traversal (phases 25-30, 34), which adds no kernel; K5, K6 and P1 lie on
+no path: 0;
 max_abs_err over its checks, ms per bare launch, the plain version's ms,
 and bound_ms: the larger of the bytes it must move over 3.35 TB/s and
 the operations this run's inputs need over 67 TFLOP/s f32, counted from
@@ -293,6 +322,7 @@ SLOT_BYTES = 10 * 4  # one filled slot: a triangle's 9 floats and its id
 K6_OPS = 53  # K6: one (ray, triangle) Moller-Trumbore test
 CITY_TRIS = 7_000_000  # the 7M class the partitioned BVH4 was built for
 CITY_SPP = 4
+FIELD_SPHERES = 10_000  # bench_spheres.py's default field
 WIDE = 16  # spp per K1 launch of the second timed launch size
 
 
@@ -1747,18 +1777,22 @@ def main() -> int:
     from craytracer_tpu_torch.io.objloader import load_obj
     import torch_general_scenes as general_scenes
 
-    def first_divergence(scn, o, d, ids, spp, depth, lanes, other):
+    def first_divergence(scn, o, d, ids, spp, depth, lanes, other,
+                         mis=False):
         """Where each lane of `lanes` first parts between the general step
         through the kernels and `other` (("general" or "shade", kernels)):
         its bounce and the per-lane state there, both sides."""
-        step_b = wf._general_step if other[0] == "general" else \
-            wf._bounce_step
-        sa = sb = wf._init_state(o, d, depth, ids)
+        sa = sb = wf._init_state(o, d, depth, ids, mis)
         found = {}
         for b in range(depth + 1):
             sa = wf._general_step(scn, cfg.seed, spp, depth, b, sa,
-                                  kernels=True)
-            sb = step_b(scn, cfg.seed, spp, depth, b, sb, kernels=other[1])
+                                  kernels=True, mis=mis)
+            if other[0] == "general":
+                sb = wf._general_step(scn, cfg.seed, spp, depth, b, sb,
+                                      kernels=other[1], mis=mis)
+            else:
+                sb = wf._bounce_step(scn, cfg.seed, spp, depth, b, sb,
+                                     kernels=other[1])
             for ln in lanes:
                 if ln in found:
                     continue
@@ -1774,17 +1808,18 @@ def main() -> int:
                     found[ln] = f"bounce {b}: " + ", ".join(diff)
         return found
 
-    def check_general(label, scn, o, d, ids, spp, depth, other):
-        """The general route through the kernels against `other` on one
-        batch, phase 8's bars; a lane that differs is printed with the
-        bounce where it parts and the state there."""
+    def check_general(label, scn, o, d, ids, spp, depth, other, mis=False):
+        """The general route (the MIS estimator's when `mis`) through the
+        kernels against `other` on one batch, phase 8's bars; a lane that
+        differs is printed with the bounce where it parts and the state
+        there."""
         out_k = wf.trace_paths(scn, o, d, cfg.seed, ids, spp, depth,
                                with_metrics=True, fast_shade="shade",
-                               general=True)
+                               general=True, mis=mis)
         out_p = wf.trace_paths(scn, o, d, cfg.seed, ids, spp, depth,
                                with_metrics=True,
                                fast_shade="shade" if other[1] else None,
-                               general=other[0] == "general")
+                               general=other[0] == "general", mis=mis)
         torch.cuda.synchronize()
         bad, err_same, err_all, f = _compare(out_k, out_p)
         print(f"[general-vs-{other[0]}] {label} depth {depth}: good "
@@ -1801,7 +1836,7 @@ def main() -> int:
                    | ((Lk - Lp).abs() > L_TOL + L_TOL * Lp.abs()).any(1))
             lanes = torch.nonzero(off).flatten()[:8].tolist()
             for ln, why in first_divergence(scn, o, d, ids, spp, depth,
-                                            lanes, other).items():
+                                            lanes, other, mis).items():
                 print(f"[general-vs-{other[0]}]   lane {ln}: first parts "
                       f"at {why}", flush=True)
             fails.extend(f"general vs {other[0]} {label} depth {depth}: "
@@ -2093,9 +2128,20 @@ def main() -> int:
         want_nee = power == "principled" or len(types) == 1
         if (nee[row] > 0) != want_nee:
             fails.append(f"{label}: {nee[row]} NEE samples on the mesh light")
+        # the mesh row at power 0 beside the rect lamp is never picked,
+        # so that scene stays on K1, as the JAX gate keeps it
+        route = wf.production_fast_shade(qs, qc, qf)
+        want = "bounce" if label.startswith("quad_lamp_and_rect") else \
+            "general"
+        print(f"[mesh-light] {label}: route {route}", flush=True)
+        if route != want:
+            fails.append(f"{label}: route {route}, not {want}")
         n_p, got = main_path(label.replace(" ", "_"), qs, qc, qf,
                              config=pcfg)
-        expect(label, got)
+        if want == "bounce":
+            expect(label, got, k1_pass=n_p)
+        else:
+            expect(label, got)
 
     # ---- 32. times, in turns: fullscene and parity_textured at 512x512
     tex_ids = torch.from_numpy(Renderer(tex_s, tex_c, tex512, cfg)
@@ -2147,6 +2193,184 @@ def main() -> int:
               f"{_runs(ts4)}), bound {b4[0]:.4f} ms ({b4[1]}; whole rows "
               f"{rows4[0]:.4f}), pops per lane mean "
               f"{pops4.double().mean().item():.3f}", flush=True)
+
+    # ---- 33. the sphere field: the "shade" route (the torch-op sphere
+    # walk, then K2) against its plain version, main path, times
+    from craytracer_tpu_torch.accel.bvh4_sphere import (bvh4s_any_hit,
+                                                        bvh4s_closest_hit)
+    from craytracer_tpu_torch.integrator.gate import shade_features
+    from craytracer_tpu_torch.scene.sphere_field import (sphere_field,
+                                                         sphere_field_view)
+
+    t0 = time.perf_counter()
+    field = sphere_field(FIELD_SPHERES, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sbvh = field.sph_bvh
+    scam, sfilm = sphere_field_view(FIELD_SPHERES, size, device=dev)
+    route = wf.production_fast_shade(field, scam, sfilm)
+    print(f"[spheres] sphere_field({FIELD_SPHERES}) built in {build_s:.2f} "
+          f"s: {sbvh.n_prims} spheres, {sbvh.fat.shape[0]} fat rows "
+          f"({sbvh.fat.numel() * 4 / 1e6:.2f} MB), stack {sbvh.stack_size}, "
+          f"accel {field.accel}, route {route}, shading features "
+          f"{shade_features(field)}", flush=True)
+    if route != "shade" or sbvh.n_prims != FIELD_SPHERES:
+        fails.append(f"sphere field: route {route}, {sbvh.n_prims} spheres")
+    sids = torch.from_numpy(Renderer(field, scam, sfilm, cfg).pixel_order()
+                            ).to(dev)
+    for depth, s in ((0, 0), (2, 0), (5, 0), (5, cfg.num_samples - 1)):
+        spp = torch.full_like(sids, s)
+        o, d = generate_rays(scam, sfilm, sids,
+                             stratified_jitter(cfg.seed, sids, spp))
+        out_k = wf.trace_paths(field, o, d, cfg.seed, sids, spp, depth,
+                               with_metrics=True, fast_shade="shade")
+        out_p = wf.trace_paths(field, o, d, cfg.seed, sids, spp, depth,
+                               with_metrics=True)
+        torch.cuda.synchronize()
+        bad, err_same, err_all, f = _compare(out_k, out_p)
+        print(f"[pass-vs-plain] sphere_field 512x512 Morton spp {s} depth "
+              f"{depth}: good differs on {bad:.5f}, max|dL| {err_same:.3g} "
+              f"(agreeing lanes) {err_all:.3g} (all), rays "
+              f"{int(out_k[2]['rays'])}/{int(out_p[2]['rays'])}, shadow_rays "
+              f"{int(out_k[2]['shadow_rays'])}/"
+              f"{int(out_p[2]['shadow_rays'])}"
+              + (" FAIL " + "; ".join(f) if f else ""), flush=True)
+        fails.extend(f"sphere field pass depth {depth}: {x}" for x in f)
+    sspp = torch.zeros_like(sids)
+    o, d = generate_rays(scam, sfilm, sids,
+                         stratified_jitter(cfg.seed, sids, sspp))
+    srecs = plain_records(field, o, d, sids, sspp, 5)
+    check_k2("sphere_field", field, srecs, sspp)
+    n_p, got = main_path("sphere_field", field, scam, sfilm,
+                         config=RenderConfig(num_samples=16, max_depth=5,
+                                             estimator="reference"))
+    expect("sphere_field", got, k2_shade=6 * n_p)
+    kernels["k2_shade"]["launches"] += got["k2_shade"]
+
+    spasses = 2
+    for label, fm, depth in (("512x512 depth 5", sfilm, 5),
+                             ("256x256 depth 3 (bench_spheres.py's shape)",
+                              sphere_field_view(FIELD_SPHERES, 256,
+                                                device=dev)[1], 3)):
+        ids = torch.from_numpy(Renderer(field, scam, fm, cfg).pixel_order()
+                               ).to(dev)
+        med, ts = _median5(lambda: [
+            wf.render_sample(field, scam, fm, ids, cfg.seed, 6000 + k, depth)
+            for k in range(spasses)])
+        rays = pass_rays(field, scam, fm, ids, 6000, spasses, depth)
+        print(f"[time] {card}, sphere_field {label}, {spasses} passes "
+              f"through render_sample per run, median of 5: "
+              f"{med / spasses:.4f} ms/pass, {rays / (med / 1e3):.6g} rays/s "
+              f"({rays} rays + shadow rays per run; runs {_runs(ts)} ms)",
+              flush=True)
+    prof = profile_render(field, scam, sfilm, 2, 5, 1)
+    print(f"[time] {card}, sphere_field profile_render 512x512 depth 5, 2 "
+          f"spp, one per pass: wall {prof['wall_ms']:.3f} ms, device "
+          f"{prof['device_ms']:.3f} ms, idle share {prof['idle']:.4f}",
+          flush=True)
+    # bare K2 on the six bounces of one pass (the matte core), and the
+    # plain sphere walk each bounce pays: its closest hit on the bounce's
+    # rays and its any hit on the bounce's shadow rays
+    tab_s = sk.shade_tables(field)
+    k2s_calls = [(tab_s.data_ptr(), tab_s.numel(),
+                  field.materials.mat_type.shape[0],
+                  field.lights.light_type.shape[0], st[1].data_ptr(),
+                  hit.point.data_ptr(), hit.normal.data_ptr(),
+                  hit.dpdu.data_ptr(), st[2].data_ptr(), hit.t.data_ptr(),
+                  hit.mat_id.data_ptr(), st[5].data_ptr(), st[6].data_ptr(),
+                  st[10].data_ptr(), sspp.data_ptr(), 0, st[1].shape[0],
+                  cfg.seed, b, 5, sk.RR_START, 0,
+                  empty(7, st[1].shape[0], 3), empty(2, st[1].shape[0]),
+                  empty(4, st[1].shape[0], dtype=torch.int32), stream)
+                 for b, (st, hit, _) in enumerate(srecs)]
+    med2s, ts2s = _median5(lambda: [lib2.k2_shade_launch(*a)
+                                    for a in k2s_calls])
+    nl = sum(st[1].shape[0] for st, _, _ in srecs)
+    b2s = _bound(nl * K2_LANE_BYTES, nl * SHADE_OPS)
+    walk_c = _timed(lambda: [bvh4s_closest_hit(sbvh, st[0], st[1])
+                             for st, _, _ in srecs])[0] / len(srecs)
+    walk_a = _timed(lambda: [bvh4s_any_hit(sbvh, out["shadow_o"],
+                                           out["shadow_d"],
+                                           out["dist_adj_t"])
+                             for _, _, out in srecs])[0] / len(srecs)
+    print(f"[time] {card}, sphere_field bare K2 (matte core) on the 6 "
+          f"bounces of one 512x512 pass: {med2s / 6:.4f} ms/launch (runs of "
+          f"6 {_runs(ts2s)} ms), bound {b2s[0] / 6:.4f} ms/launch "
+          f"({b2s[1]}); the plain sphere walk per bounce (timed once): "
+          f"closest hit {walk_c:.3f} ms, shadow any hit {walk_a:.3f} ms",
+          flush=True)
+
+    # ---- 34. MIS on the fullscene through K3/K4, main path, times
+    for depth in (0, 2, 5):
+        spp = torch.zeros_like(fids)
+        o, d = generate_rays(fcam, ffilm, fids,
+                             stratified_jitter(cfg.seed, fids, spp))
+        check_general(f"fullscene mis 512x512 Morton spp 0", full, o, d,
+                      fids, spp, depth, ("general", False), mis=True)
+    n_p, got = main_path("fullscene_mis", full, fcam, ffilm,
+                         config=RenderConfig(num_samples=16, max_depth=5,
+                                             estimator="mis"))
+    expect("fullscene mis", got, k3_bvh4_closest=6 * n_p,
+           k4_bvh4_any=6 * n_p)
+    for name in ("k3_bvh4_closest", "k4_bvh4_any"):
+        kernels[name]["launches"] += got[name]
+    mpasses_f = 4
+
+    def est_passes(est):
+        return lambda: [wf.render_sample(full, fcam, ffilm, fids, cfg.seed,
+                                         7000 + k, 5, est)
+                        for k in range(mpasses_f)][-1]
+
+    fns = {est: est_passes(est) for est in ("mis", "physical")}
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for k, fn in fns.items():
+            times[k].append(_timed(fn)[0])
+    print(f"[time] {card}, fullscene 512x512 depth 5, {mpasses_f} passes "
+          f"through render_sample per run, in turns, median of 5: "
+          + "; ".join(f"{k} {statistics.median(v) / mpasses_f:.4f} ms/pass "
+                      f"(runs {_runs(v)} ms)" for k, v in times.items())
+          + f"; mis / physical "
+          f"{statistics.median(times['mis']) / statistics.median(times['physical']):.4f}",
+          flush=True)
+
+    # ---- 35. MIS unbiased on the card: tests/test_mis.py's glossy scene
+    gb = SceneBuilder()
+    eye, look, fov = tex_scenes.glossy_lamp(gb, 4.0)
+    gls = gb.build(device=dev)
+    gcam = make_camera(eye, look, device=dev)
+    gfilm = Film(fov=torch.tensor(fov, dtype=torch.float32, device=dev),
+                 width=size, height=size)
+    means = {}
+    for est in ("mis", "physical"):
+        groute = wf.production_fast_shade(gls, gcam, gfilm, est)
+        r = Renderer(gls, gcam, gfilm, RenderConfig(
+            num_samples=64, max_depth=3, seed=11, estimator=est))
+        reset_counts()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        img = r.raw_mean()
+        means[est] = float(img.mean())
+        print(f"[mis] glossy 4 x 4 lamp 512x512 64 spp depth 3, {est}: "
+              f"route {groute}, {dt:.2f} s, {r.passes} passes, launches "
+              f"{got}, {r.nan_count} NaN, mean {means[est]:.6f}", flush=True)
+        if r.nan_count or not np.isfinite(img).all():
+            fails.append(f"glossy {est}: {r.nan_count} NaN")
+        expect(f"glossy {est}", got,
+               **({"k1_pass": r.passes} if groute == "bounce" else {}))
+    rel = abs(means["mis"] - means["physical"]) / means["physical"]
+    print(f"[mis] glossy image means: mis {means['mis']:.6f}, physical "
+          f"{means['physical']:.6f}, relative difference {rel:.4f} (bar 0.12,"
+          f" tests/test_mis.py:58)" + (" FAIL" if rel > 0.12 else ""),
+          flush=True)
+    if rel > 0.12:
+        fails.append(f"glossy: MIS mean off physical by {rel:.4f}")
 
     if fails:
         for f in fails:

@@ -15,8 +15,9 @@ the general torch-op step per bounce, with K3 and K4 for a mesh, for
 scenes no kernel shades, such as materials_scene (a constant env light),
 parity_textured and fullscene (textures, normal maps, a texture env
 light, mesh lights, MTL materials) or one with disk, point or
-directional lights. On the CPU the plain
-PyTorch versions run instead. `--thin-lens` swaps the scene file's
+directional lights. `--estimator mis` takes the general step on every
+scene (K3 and K4 for a mesh). On the CPU the plain PyTorch versions run
+instead. `--thin-lens` swaps the scene file's
 pinhole for a thin-lens camera (make_camera's lens radius 0.2 and focal
 length 3.0). Prints one summary line with the route and each kernel's
 launches.
@@ -47,7 +48,7 @@ def main(argv=None):
                     help="square image size (0 = the scene file's)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--estimator", default="reference",
-                    choices=("reference", "physical"))
+                    choices=("reference", "physical", "mis"))
     ap.add_argument("--spp-batch", type=int, default=1)
     ap.add_argument("--thin-lens", action="store_true",
                     help="render through a thin lens (depth of field): "

@@ -11,16 +11,16 @@ craytracer_tpu/integrator/pallas_shade.py `production_fast_shade` :1490,
   (integrator/wavefront.py);
 - "general": per bounce, the same closest hit and shadow any hit around
   the torch-op shading of every lobe and light (the JAX XLA bounce step,
-  integrator/wavefront.py `_general_step`), for the scenes the JAX gate
-  answers False: a material type or lobe form K2 lacks (anisotropic or
-  Trowbridge-Reitz microfacets), textures or normal maps, a texture env
-  light or texel importance, light rows other than rect and sphere area
-  lights (a constant env light with intensity > 0, disk, point,
-  directional and mesh lights), no light or more than 16 lights, or more
-  than 64 materials. One scene differs: the JAX gate lets a mesh light
-  through when the reference power mode gives it power 0 beside another
-  light (fast_shade_ok reads the powers), where the port sends every
-  scene with a mesh-light row to "general".
+  integrator/wavefront.py `_general_step`), for the MIS estimator on
+  every scene (the JAX package keeps MIS off its kernels, wavefront.py
+  :439, :602) and for the scenes the JAX gate answers False: a material
+  type or lobe form K2 lacks (anisotropic or Trowbridge-Reitz
+  microfacets), textures or normal maps, a texture env light or texel
+  importance, a light row that can be picked (power > 0) other than a
+  rect or sphere area light (a constant env light with intensity > 0,
+  disk, point, directional lights, and mesh lights but for one at power
+  0 beside another light, which the power CDF never picks), no light or
+  more than 16 lights, or more than 64 materials.
 
 "bounce" and "shade" cover spheres, planes, rects, disks, triangles and
 the instanced boxes, cylinders and tori, all seven material types (MATTE
@@ -31,14 +31,16 @@ and thin-lens cameras. A scene leaves K1's gate for "shade" by its
 geometry only: an instanced row that is not a box (a torus, an open
 cylinder, a solid cylinder's caps: no kernel intersects them,
 pallas_shade.py:1535-1540), more than 64 rows of spheres, planes, rects,
-disks, triangles and boxes together, a bvh4 accelerator, smooth
-triangles, a sphere clip outside the domain where the kernel's
+disks, triangles and boxes together, a bvh4 accelerator, a sphere BVH4,
+smooth triangles, a sphere clip outside the domain where the kernel's
 cosine-space window equals the atan2/acos one (pallas_shade.py
-:1541-1553), or depth 31 and over. Estimators other than reference and
-physical (slice F), other accelerators (slice I) and other camera types
-raise NotImplementedError naming their ROADMAP item. The plain versions ask
-the same gate, so they cover the same scenes. The gate reads only static
-fields and table shapes, so asking costs no device sync.
+:1541-1557), or depth 31 and over. Other accelerators raise
+NotImplementedError naming their ROADMAP item, an estimator other than
+reference, physical and mis raises ValueError, and a camera type other
+than PINHOLE and THINLENS, which neither package has, raises
+NotImplementedError. The plain versions ask the same gate, so they cover
+the same scenes. The gate reads only static fields and table shapes, so
+asking costs no device sync.
 
 `shade_features` is the scene's feature mask (pallas_shade.py:1793-1802):
 which of the material and light branches the shading core needs. The
@@ -55,7 +57,7 @@ MAX_LIGHTS = 16
 MAX_PRIMS = 64
 MAX_MATS = 64
 MAX_DEPTH = 30  # K1's alive-per-bounce bitmask is one 32-bit word
-ESTIMATORS = ("reference", "physical")
+ESTIMATORS = ("reference", "physical", "mis")
 
 # the shading core's feature mask (the has_* flags of pallas_shade.py
 # :1793-1802)
@@ -79,15 +81,12 @@ def shade_features(scene: T.Scene) -> int:
     return f
 
 
-def _refuse(reason: str):
-    raise NotImplementedError(
-        f"craytracer_tpu_torch cannot render this yet: {reason}")
-
-
 def check_estimator(estimator: str):
-    """Raise NotImplementedError for an estimator the port lacks."""
+    """Raise ValueError for an estimator other than the three of root
+    render.py:31 (`--estimator`)."""
     if estimator not in ESTIMATORS:
-        _refuse(f"estimator {estimator!r} (ROADMAP queue 1, slice F)")
+        raise ValueError(f"estimator {estimator!r}: not one of "
+                         f"{', '.join(ESTIMATORS)}")
 
 
 def unported(scene: T.Scene):
@@ -100,19 +99,21 @@ def unported(scene: T.Scene):
 
 def kernels_shade(scene: T.Scene) -> bool:
     """K1 and K2 can shade this scene (fast_shade_ok, pallas_shade.py
-    :1566-1610): no texture, no texture env or texel importance, and a
-    light table of rect and sphere area lights only (the JAX gate looks
-    at per-row powers; the port's builder emits a row of another type
-    with nonzero power but for a mesh light in the reference power mode,
-    which the port sends to "general" too)."""
+    :1566-1610): no texture, no texture env or texel importance, and
+    every light row that can be picked (power > 0) a rect or sphere area
+    light. A row of power 0 (a mesh light in the reference power mode)
+    spans a zero-width interval of the power CDF, which the kernels'
+    side="right" count never lands in; past the last entry the clip can
+    land on it, with pick probability 0, and the sample is discarded as
+    invalid, in the kernels as in the JAX ones."""
     n_lights = scene.lights.light_type.shape[0]
     return (set(scene.mat_types_present) <= _MATERIALS
             and scene.textures.texels.shape[0] <= 1
             and scene.env.kind in (0, 1) and not scene.env.importance
             and scene.microfacet_iso_beckmann
             and 1 <= n_lights <= MAX_LIGHTS
-            and set(scene.light_types_present) <= {T.LIGHT_AREA_RECT,
-                                                    T.LIGHT_AREA_SPHERE}
+            and set(scene.light_types_picked) <= {T.LIGHT_AREA_RECT,
+                                                   T.LIGHT_AREA_SPHERE}
             and scene.materials.mat_type.shape[0] <= MAX_MATS)
 
 
@@ -123,9 +124,11 @@ _GEOMETRY = ("spheres", "planes", "rects", "disks", "triangles",
 def fast_shade_mode(scene: T.Scene, max_depth: int = 5) -> str:
     """"bounce" when K1 takes the whole pass, "shade" when the scene
     leaves K1's gate by geometry only (fast_shade_mode :1521-1563): the
-    box table joins K1's rows only when every instanced row is a box."""
+    box table joins K1's rows only when every instanced row is a box, and
+    a scene with a bvh4 or a sphere BVH4 table is never K1's."""
     n_rows = sum(getattr(scene, g).mat_id.shape[0] for g in _GEOMETRY)
     if (not scene.instanced_aabox_only or scene.tri_bvh is not None
+            or scene.sph_bvh is not None
             or n_rows > MAX_PRIMS or scene.smooth_triangles
             or not scene.sphere_clips_in_domain or max_depth > MAX_DEPTH):
         return "shade"
@@ -140,11 +143,13 @@ def production_fast_shade(scene: T.Scene, camera=None, film=None,
     quietly traced another way."""
     check_estimator(estimator)
     if camera is not None and camera.camera_type not in (PINHOLE, THINLENS):
-        _refuse(f"camera type {camera.camera_type}, neither PINHOLE nor "
-                "THINLENS (ROADMAP queue 1, item 3)")
+        raise NotImplementedError(
+            f"camera type {camera.camera_type}: craytracer_tpu_torch, like "
+            "the reference package, has only PINHOLE and THINLENS")
     reason = unported(scene)
     if reason is not None:
-        _refuse(reason)
-    if not kernels_shade(scene):
+        raise NotImplementedError(
+            f"craytracer_tpu_torch cannot render this yet: {reason}")
+    if estimator == "mis" or not kernels_shade(scene):
         return "general"
     return fast_shade_mode(scene, max_depth)

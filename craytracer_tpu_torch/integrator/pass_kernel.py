@@ -61,7 +61,7 @@ def _k1_gate(scene, camera, film, max_depth):
                              max_depth=max_depth) != "bounce":
         raise NotImplementedError(
             "outside K1's gate (an instanced row that is not a box, a bvh4 "
-            "accel, more than 64 rows, smooth triangles, a sphere clip "
+            "accel or a sphere BVH4, more than 64 rows, smooth triangles, a sphere clip "
             "outside the kernel's domain, depth > 30, or shading only the "
             "general route does): render_sample traces it per bounce; "
             "ROADMAP queue 2, K1")

@@ -13,7 +13,7 @@ shades: textures and normal maps, disk, point, directional and mesh
 lights, a constant or texture env light, anisotropic or
 Trowbridge-Reitz microfacets, more than 16 lights or 64 materials) and
 accumulates into an f32 buffer on the scene's device. Under the
-physical estimator a texture env with a texel CDF is sampled by
+physical and MIS estimators a texture env with a texel CDF is sampled by
 importance even where the scene did not ask (the JAX Renderer's
 measured default: lower variance, and the cosine strategy carries the
 reference's rotated-env pdf quirk, trace.h:307); the reference
@@ -53,7 +53,7 @@ class RenderConfig:
 class Renderer:
     def __init__(self, scene, camera, film, config: RenderConfig):
         env = scene.env
-        if (config.estimator == "physical" and env.kind == 2
+        if (config.estimator in ("physical", "mis") and env.kind == 2
                 and not env.importance and env.flat_cdf is not None):
             scene = dataclasses.replace(
                 scene, env=dataclasses.replace(env, importance=1))

@@ -62,9 +62,10 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     (numpy arrays) plus the static fields. The bvh4 table `tri_bvh` (fat
     rows, n_tris, leaf_size, stack_size) and its parts `tri_parts` are
     carried, each held to `check_leaf_slots` as the port's own builders
-    hold theirs; a scene holding any other accel table is refused (ROADMAP
-    queue 1, slice I)."""
-    for name in ("tri_shadow", "tri_cam", "sph_bvh"):
+    hold theirs, and so is the sphere BVH4 `sph_bvh` (fat rows, n_prims,
+    leaf_size, stack_size); a scene holding any other accel table is
+    refused (ROADMAP queue 1, slice I)."""
+    for name in ("tri_shadow", "tri_cam"):
         if leaves.get(name) is not None:
             raise NotImplementedError(
                 f"scene carries {name}; that accelerator is not ported "
@@ -81,10 +82,14 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     if leaves.get("tri_parts") is not None:
         kw["tri_parts"] = tuple(_build(T.BVH4Arrays, p, device)
                                 for p in leaves["tri_parts"])
+    if leaves.get("sph_bvh") is not None:
+        kw["sph_bvh"] = _build(T.SphereBVH4, leaves["sph_bvh"], device)
     for name in _STATIC:
         kw[name] = leaves[name]
     kw["mat_types_present"] = tuple(kw["mat_types_present"])
     kw["light_types_present"] = tuple(kw["light_types_present"])
+    kw["light_types_picked"] = T.light_types_picked(
+        leaves["lights"]["light_type"], leaves["lights"]["power"])
     kw["smooth_triangles"] = bool(np.asarray(
         leaves["triangles"]["smooth"]).any())
     m, s = leaves["materials"], leaves["spheres"]

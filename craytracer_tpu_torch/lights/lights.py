@@ -1,7 +1,7 @@
 """Light sampling for next-event estimation over hit queues, the general
 route's (counterpart of craytracer_tpu/lights/lights.py: `LightSample`
-:29, `env_radiance` :37, `sample_one_light` :164, `sample_light_index`
-:191).
+:29, `env_radiance` :37, `light_pdf_for_hit` :54, `env_pdf` :129,
+`sample_one_light` :164, `sample_light_index` :191).
 
 `uniformSampleOneLight` + `estimateDirect` (trace.h:221-397) as one
 masked computation: the light is picked by the normalized power CDF
@@ -13,9 +13,9 @@ otherwise, mesh lights :326-368, directional and point :397-420), with
 the area -> solid-angle pdf and the facing rejections of the reference.
 Types absent from Scene.light_types_present are skipped, not evaluated
 and masked, as the JAX code compiles them away. The caller fires the
-shadow ray. `light_pdf_for_hit` and `env_pdf` (:54, :129) serve MIS
-only and wait for ROADMAP slice F, whose estimator the gate refuses
-(integrator/gate.py).
+shadow ray. `light_pdf_for_hit` and `env_pdf` give the MIS estimator the
+light strategy's density for a direction the BSDF sampled: the density
+with which `sample_one_light` would have produced it.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ from dataclasses import dataclass
 
 import torch
 
-from craytracer_tpu_torch.bsdf.texture import tex_lookup_nearest
+from craytracer_tpu_torch.bsdf.texture import (nearest_texel_xy,
+                                               tex_lookup_nearest)
 from craytracer_tpu_torch.constants import (INV_PI, JITTERED_UP, PI, TMAX,
                                             TWO_PI)
 from craytracer_tpu_torch.core import math as vm
@@ -62,6 +63,107 @@ def env_radiance(env: T.EnvLight, textures: T.TexturePack, direction):
 def env_transform(env: T.EnvLight, d):
     """env.transform @ d per lane (the einsum "ij,nj->ni")."""
     return d @ env.transform.T
+
+
+def light_pdf_for_hit(scene: T.Scene, hit_group, hit_prim, hit_point,
+                      prev_point, wi, hit_normal=None):
+    """The solid-angle density times the pick probability with which
+    `sample_one_light` from `prev_point` would have produced direction
+    `wi` landing on primitive (hit_group, hit_prim) at `hit_point`; 0
+    where the hit is not a light row (the row whose src_group/src_prim
+    match, or for a mesh triangle its tri_light_id). One-sided area
+    lights use the signed cosine (no density on their back), mesh lights
+    |cos| against `hit_normal`."""
+    lights = scene.lights
+    n_lights = lights.light_type.shape[0]
+    if n_lights == 0:
+        return torch.zeros(hit_group.shape, dtype=hit_point.dtype,
+                           device=hit_point.device)
+    match = ((lights.src_group[None, :] == hit_group[:, None])
+             & (lights.src_prim[None, :] == hit_prim[:, None]))  # [N, L]
+    idx = match.to(torch.int32).argmax(dim=1)
+    found = match.any(dim=1)
+    ml = scene.mesh_lights
+    if ml.surface_area.shape[0] > 0:
+        tri_lid = ml.tri_light_id[torch.clamp(
+            hit_prim.to(torch.int64), 0, ml.tri_light_id.shape[0] - 1)]
+        mesh_found = (hit_group == T.GROUP_TRIANGLE) & (tri_lid >= 0)
+        idx = torch.where(mesh_found, torch.clamp(tri_lid, min=0).to(
+            idx.dtype), idx)
+        found = found | mesh_found
+    ltype, p0, v1, v2 = (lights.light_type[idx], lights.p0[idx],
+                         lights.v1[idx], lights.v2[idx])
+    lnormal, radius, pick_p = (lights.normal[idx], lights.radius[idx],
+                               lights.power[idx])
+    present = scene.light_types_present
+
+    def use(*codes):
+        return not present or any(c in present for c in codes)
+
+    # the area density each type's sampler has at the hit point
+    pdf_area = torch.zeros_like(hit_point[:, 0])
+    sn = lnormal
+    if use(T.LIGHT_AREA_RECT):
+        pdf_rect = 1.0 / torch.clamp(vm.length(v1) * vm.length(v2),
+                                     min=1e-12)
+        pdf_area = torch.where(ltype == T.LIGHT_AREA_RECT, pdf_rect,
+                               pdf_area)
+    if use(T.LIGHT_AREA_SPHERE):
+        n_s = vm.normalize(hit_point - p0)  # the sphere's normal at the hit
+        z_axis = vm.normalize(prev_point - p0)
+        cos_local = torch.clamp(vm.dot(n_s, z_axis), min=0.0)
+        pdf_sph = cos_local / torch.clamp(2.0 * PI * PI * radius * radius,
+                                          min=1e-12)
+        is_sph = ltype == T.LIGHT_AREA_SPHERE
+        pdf_area = torch.where(is_sph, pdf_sph, pdf_area)
+        sn = torch.where(is_sph[:, None], n_s, sn)
+    if use(T.LIGHT_AREA_DISK):
+        pdf_dsk = 1.0 / (PI * torch.clamp(radius * radius, min=1e-12))
+        pdf_area = torch.where(ltype == T.LIGHT_AREA_DISK, pdf_dsk,
+                               pdf_area)
+    if ml.surface_area.shape[0] > 0 and use(T.LIGHT_MESH):
+        mlid = torch.clamp(lights.mesh_light_id[idx], min=0).to(torch.int64)
+        pdf_msh = 1.0 / torch.clamp(ml.surface_area[mlid], min=1e-9)
+        pdf_area = torch.where(ltype == T.LIGHT_MESH, pdf_msh, pdf_area)
+
+    is_mesh = ltype == T.LIGHT_MESH
+    if hit_normal is not None:
+        sn = torch.where(is_mesh[:, None], hit_normal, sn)
+    to_hit = hit_point - prev_point
+    cos_signed = vm.dot(sn, -wi)
+    cos_l = torch.where(is_mesh, torch.abs(cos_signed), cos_signed)
+    pdf_sa = pdf_area * vm.length_sq(to_hit) / torch.clamp(cos_l, min=1e-6)
+    return torch.where(found & (cos_l > 0.0), pdf_sa * pick_p, 0.0)
+
+
+def env_pdf(scene: T.Scene, wi, prev_normal):
+    """The env light's NEE density for escape direction `wi` from a vertex
+    with shading normal `prev_normal`, times its pick probability: the
+    texel CDF's density of the looked-up texel over its solid angle when
+    env.importance is set (0 below the horizon, where that sampler
+    rejects), else the cosine hemisphere about the normal, `wi` taken
+    back through the env transform."""
+    lights = scene.lights
+    if lights.light_type.shape[0] == 0 or scene.env.kind == 0:
+        return torch.zeros(wi.shape[:-1], dtype=wi.dtype, device=wi.device)
+    env_pick = torch.where(lights.light_type == T.LIGHT_ENV, lights.power,
+                           0.0).sum()
+    env = scene.env
+    if env.importance:
+        H, W = env.imp_h, env.imp_w
+        theta, phi = vm.cartesian_to_spherical(env_transform(env, wi))
+        u, v = vm.spherical_to_uv(theta, phi)
+        x, y = nearest_texel_xy(
+            torch.tensor(W, dtype=torch.int32, device=wi.device),
+            torch.tensor(H, dtype=torch.int32, device=wi.device), u, v)
+        p_tex = env.flat_pdf[(y * W + x).to(torch.int64)]
+        omega = (TWO_PI / W) * (PI / H) * torch.clamp(torch.sin(theta),
+                                                      min=1e-6)
+        facing = vm.dot(wi, prev_normal) >= 0.0
+        return torch.where(facing, p_tex / omega * env_pick, 0.0)
+    wi_local = wi @ env.transform  # the einsum "ji,nj->ni"
+    cos_t = torch.clamp(vm.dot(wi_local, prev_normal), min=0.0)
+    return cos_t * INV_PI * env_pick
 
 
 def sample_one_light(scene: T.Scene, u_pick, u2, hit_point, shading_normal,

@@ -1,6 +1,6 @@
 """ctypes binding to the native runtime, native/craynative.cpp (the port's
 own copy of craytracer_tpu/native.py: `load_obj_native` :95,
-`build_bvh4_fat_native` :211).
+`build_bvh_native` :140, `build_bvh4_fat_native` :211).
 
 The C++ source sits outside both packages and is shared as it is. The port
 builds it with g++ at first use into craytracer_tpu_torch/_build/, keyed
@@ -8,7 +8,10 @@ by a hash of the source and the flags (the same flags as native/Makefile,
 so the tree matches the JAX package's build bit for bit), and never writes
 into native/. There is no numpy fallback: where the JAX package quietly
 builds a median-split tree without the library (accel/bvh4.py:229-239),
-the port raises, so a scene always gets the SAH tree.
+the port raises, so a scene always gets the SAH tree. The sphere BVH4
+(accel/bvh4_sphere.py) takes the binary tree itself, in the median split
+the JAX sphere build asks for (accel/bvh4.py:135 `collapse4` calls
+`build_bvh_native` with its default split).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ SOURCE = _ROOT / "native" / "craynative.cpp"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 _NAME_STRIDE = 256
-_SPLIT_SAH = 1  # crn_build_bvh's split mode: exact-sweep SAH
+_SPLIT_MEDIAN = 0  # crn_build_bvh's split modes: object median,
+_SPLIT_SAH = 1  # exact-sweep SAH
 
 _LIB = None
 
@@ -72,6 +76,10 @@ def library() -> ctypes.CDLL:
     lib.crn_obj_free.argtypes = [c.c_void_p]
     lib.crn_build_bvh.restype = c.c_void_p
     lib.crn_build_bvh.argtypes = [fp] * 3 + [c.c_int64, c.c_int32, c.c_int32]
+    lib.crn_bvh_counts.restype = c.c_int64
+    lib.crn_bvh_counts.argtypes = [c.c_void_p, i64p, i64p]
+    lib.crn_bvh_copy.restype = c.c_int64
+    lib.crn_bvh_copy.argtypes = [c.c_void_p, fp, fp] + [ip] * 5
     lib.crn_bvh_free.argtypes = [c.c_void_p]
     lib.crn_bvh4_collapse.restype = c.c_int64
     lib.crn_bvh4_collapse.argtypes = [c.c_void_p, i64p]
@@ -126,6 +134,33 @@ def load_obj_native(path: str):
                 mtllib.value.decode("latin-1"))
     finally:
         lib.crn_obj_free(h)
+
+
+def build_bvh_native(v0, v1, v2, leaf_size: int):
+    """Median-split binary BVH over [T, 3] corner triples, each cast to
+    f32 (the builder reads only their min, max and centroid): (node_min [M, 3],
+    node_max [M, 3] f32, right, axis, first, count [M] int32, order [T]
+    int32), nodes in depth-first order, a leaf's count > 0."""
+    lib = library()
+    v0, v1, v2 = (np.ascontiguousarray(v, np.float32) for v in (v0, v1, v2))
+    h = lib.crn_build_bvh(_fptr(v0), _fptr(v1), _fptr(v2), v0.shape[0],
+                          leaf_size, _SPLIT_MEDIAN)
+    if not h:
+        raise RuntimeError("native BVH build failed")
+    try:
+        n_nodes, n_order = ctypes.c_int64(), ctypes.c_int64()
+        lib.crn_bvh_counts(h, ctypes.byref(n_nodes), ctypes.byref(n_order))
+        m, t = n_nodes.value, n_order.value
+        node_min = np.empty((m, 3), np.float32)
+        node_max = np.empty((m, 3), np.float32)
+        right, axis, first, count = (np.empty(m, np.int32) for _ in range(4))
+        order = np.empty(max(t, 1), np.int32)
+        lib.crn_bvh_copy(h, _fptr(node_min), _fptr(node_max), _iptr(right),
+                         _iptr(axis), _iptr(first), _iptr(count),
+                         _iptr(order))
+        return node_min, node_max, right, axis, first, count, order[:t]
+    finally:
+        lib.crn_bvh_free(h)
 
 
 def build_bvh4_fat_native(v0, v1, v2, leaf_size: int):

@@ -25,7 +25,10 @@ for the shadow any hit behind a ray_key argsort (:737-747); a scene whose
 table was cut into parts (Scene.tri_parts, accel/bvh4_parts.py) walks
 the parts instead, K3 `_init` part after part inside the same sort
 (:583-616) and K4 per part behind it (:752-766); with `kernels=False`,
-the plain traversal of the monolithic table. The tracer
+the plain traversal of the monolithic table. Spheres go through the
+sphere BVH4 (accel/bvh4_sphere.py, torch ops on every device) when the
+scene carries one (Scene.sph_bvh; :553-556 closest, :702-706 any hit),
+and are brute force otherwise. The tracer
 (integrator/wavefront.py) asks for the kernels only for rays on the
 card. No Pallas kernel intersects the instanced shapes (pallas_shade.py
 :1536-1537): they stay torch ops on every route. Affine products are
@@ -41,6 +44,8 @@ import torch
 
 from craytracer_tpu_torch.accel import bvh4_kernel, bvh4_parts
 from craytracer_tpu_torch.accel.bvh4 import bvh4_any_hit, bvh4_closest_hit
+from craytracer_tpu_torch.accel.bvh4_sphere import (bvh4s_any_hit,
+                                                    bvh4s_closest_hit)
 from craytracer_tpu_torch.constants import K_EPSILON, PI, TMAX, TWO_PI
 from craytracer_tpu_torch.core import math as vm
 from craytracer_tpu_torch.core.aabb import ray_aabb
@@ -469,6 +474,9 @@ def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
             continue
         if gid == T.GROUP_TRIANGLE:
             gmin, gidx = _tri_closest(scene, o, d, kernels)
+        elif gid == T.GROUP_SPHERE and scene.sph_bvh is not None:
+            gmin, gidx = bvh4s_closest_hit(scene.sph_bvh, o, d)
+            gidx = torch.clamp(gidx, min=0).to(torch.int64)
         else:
             gmin, gidx = torch.min(ts_fn(o, d, group), dim=1)
         better = gmin < best_t
@@ -510,19 +518,20 @@ def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
 def shadow_distance(scene: T.Scene, o, d, max_dist=None,
                     kernels: bool = False):
     """Hit distance for shadow rays: the minimum over the brute-force
-    groups, and for a bvh4 scene's triangles the any hit under `max_dist`
-    (t < max_dist when occluded, TMAX otherwise). `kernels` routes that
-    any hit through K4 in ray_key order (per part when the table was cut
-    into parts)."""
+    groups, and for a bvh4 scene's triangles and a sphere BVH4's spheres
+    the any hit under `max_dist` (t < max_dist when occluded, TMAX
+    otherwise). `kernels` routes the triangles' any hit through K4 in
+    ray_key order (per part when the table was cut into parts)."""
     n = o.shape[0]
     best_t = torch.full((n,), TMAX, dtype=o.dtype, device=o.device)
+    md = torch.full_like(best_t, TMAX) if max_dist is None else max_dist
     for gid, name, ts_fn, _ in _GROUPS:
         group = getattr(scene, name)
         if group.mat_id.shape[0] == 0:
             continue
-        if gid == T.GROUP_TRIANGLE and scene.accel == "bvh4":
-            md = (torch.full_like(best_t, TMAX) if max_dist is None
-                  else max_dist)
+        if gid == T.GROUP_SPHERE and scene.sph_bvh is not None:
+            t = bvh4s_any_hit(scene.sph_bvh, o, d, md)
+        elif gid == T.GROUP_TRIANGLE and scene.accel == "bvh4":
             if kernels and scene.tri_parts is not None:
                 t = sorted_traversal(
                     lambda oo, dd, mm: bvh4_parts.parts_any_hit_kernel(

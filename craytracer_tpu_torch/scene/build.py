@@ -24,10 +24,11 @@ mesh lights at 0; "principled": mean color x intensity x area for every
 area and mesh light), the normalized power CDF, the env light (constant,
 or a texture with the fixed rot-y and its texel CDF), the env world
 radius (instanced shapes bounded through their affines), mesh triangles
-baked to world space (flat or smooth) and the SAH fat-row BVH4
-(accel/bvh4.py). A mesh's triangles are baked in one numpy pass; their
-face normals equal the JAX builder's per-triangle ones bit for bit
-(`_face_normals`). The other accelerators (the sphere BVH4 included)
+baked to world space (flat or smooth), the SAH fat-row BVH4
+(accel/bvh4.py) and, for 256 or more spheres with an accelerator asked
+for, the sphere BVH4 (accel/bvh4_sphere.py). A mesh's triangles are
+baked in one numpy pass; their face normals equal the JAX builder's
+per-triangle ones bit for bit (`_face_normals`). The other accelerators
 raise NotImplementedError naming the ROADMAP item that will port them.
 """
 
@@ -43,19 +44,6 @@ import torch
 from craytracer_tpu_torch.constants import METAL_PRESETS, PI
 from craytracer_tpu_torch.core.math import euler_to_mat3, rotate_y
 from craytracer_tpu_torch.scene import types as T
-
-_TODO = {
-    "accelerator": "ROADMAP queue 1, slice I",
-    "sphere BVH4 (256 or more spheres with an accelerator)":
-        "ROADMAP queue 1, slice I",
-}
-
-
-def not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to craytracer_tpu_torch yet "
-        f"({_TODO[feature]})")
-
 
 def beckmann_roughness_to_alpha(roughness: float) -> float:
     """BeckmannRoughnessToAlpha (microfacet.h:26-32; build.py:31-41)."""
@@ -472,7 +460,8 @@ class SceneBuilder:
     def build(self, accel: str = "auto", light_power: str = "reference",
               device=None) -> T.Scene:
         """accel: 'none', 'bvh4', or 'auto' (bvh4 from 64 triangles, as
-        build.py:485-487 resolves it). light_power: 'reference' (the
+        build.py:485-487 resolves it); unless it is 'none', 256 or more
+        spheres also get the sphere BVH4. light_power: 'reference' (the
         reference's preprocessLights: product-of-components area power,
         mesh lights at 0, buildscene.h:875-923) or 'principled' (mean
         color x intensity x area for every area and mesh light, so mesh
@@ -484,11 +473,9 @@ class SceneBuilder:
         device = T.resolve_device(device)
         f32 = np.float32
         n_tris = self.num_triangles()
-        if accel != "none" and len(self._spheres) >= 256:
-            # the JAX builder indexes such spheres with a sphere BVH4
-            # (build.py:578-590); the port never brute-forces them quietly
-            raise not_ported(
-                "sphere BVH4 (256 or more spheres with an accelerator)")
+        # the sphere BVH4 keys off the request, not the triangle count
+        # (build.py:483, :578-590)
+        index_spheres = accel != "none" and len(self._spheres) >= 256
         if accel == "auto":
             accel = "bvh4" if n_tris >= 64 else "none"
         if n_tris == 0:
@@ -496,7 +483,7 @@ class SceneBuilder:
         if accel not in ("none", "bvh4"):
             raise NotImplementedError(
                 f"accel={accel!r} is not ported to craytracer_tpu_torch yet "
-                f"({_TODO['accelerator']})")
+                "(ROADMAP queue 1, slice I)")
 
         def soa(rows, spec):
             if not rows:
@@ -538,6 +525,15 @@ class SceneBuilder:
             budget = bvh4_parts.PART_BUDGET_BYTES
             if tri_bvh.fat.numel() * 4 > budget:
                 tri_parts = bvh4_parts.partition_bvh4(tri_bvh, budget)
+        sph_bvh = None
+        if index_spheres:
+            from craytracer_tpu_torch.accel.bvh4_sphere import (
+                build_bvh4_spheres)
+
+            sph_bvh = build_bvh4_spheres(
+                spheres.center.numpy(), spheres.radius.numpy(),
+                spheres.phi.numpy(), spheres.min_theta.numpy(),
+                spheres.max_theta.numpy())
         instanced = tensors(T.Instanced, soa(
             self._instanced, [((3, 4), f32), ((3, 3), f32), ((), np.int32),
                               ((4,), f32), ((), np.int32), ((), np.int32)]))
@@ -564,11 +560,13 @@ class SceneBuilder:
             triangles=triangles, instanced=instanced, materials=materials,
             lights=lights, mesh_lights=mesh_lights, env=env,
             textures=self._build_textures(), tri_bvh=tri_bvh,
-            tri_parts=tri_parts, accel=accel,
+            tri_parts=tri_parts, sph_bvh=sph_bvh, accel=accel,
             mat_types_present=tuple(sorted(int(t) for t in
                                            np.unique(mat_type))),
             light_types_present=tuple(sorted(
                 int(t) for t in np.unique(lights.light_type.numpy()))),
+            light_types_picked=T.light_types_picked(
+                lights.light_type.numpy(), lights.power.numpy()),
             matte_lambertian=bool(np.all(
                 materials.on_b.numpy()[mat_type == T.MAT_MATTE] == 0.0)),
             smooth_triangles=bool(tv[10].any()),

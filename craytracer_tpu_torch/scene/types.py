@@ -9,10 +9,11 @@ one-texel empty pack), exactly as the JAX builder emits it. The static fields `a
 plain Python values, as do BVH4Arrays' `n_tris`, `leaf_size` and
 `stack_size` (accel/bvh4.py:56-72). `smooth_triangles` (not in the JAX
 Scene) records whether any triangle is smooth, and
-`microfacet_iso_beckmann`, `sphere_clips_in_domain` and
-`instanced_aabox_only` (not in the JAX Scene either) record what the JAX gate reads from table values
-(pallas_shade.py:1538-1553, :1580-1589), so the route gate reads them
-without a device sync.
+`microfacet_iso_beckmann`, `sphere_clips_in_domain`,
+`instanced_aabox_only` and `light_types_picked` (not in the JAX Scene
+either) record what the JAX gate reads from table values
+(pallas_shade.py:1538-1553, :1580-1589, :1601-1609), so the route gate
+reads them without a device sync.
 """
 
 from __future__ import annotations
@@ -116,6 +117,14 @@ def instanced_aabox_only(kind) -> bool:
     """Every instanced row is a box, the only kind K1's table holds
     (fast_shade_mode, pallas_shade.py:1535-1540)."""
     return bool((np.asarray(kind) == INST_AABOX).all())
+
+
+def light_types_picked(light_type, power) -> tuple:
+    """The sorted types of the light rows with power > 0, the rows the
+    power-CDF pick can land on (fast_shade_ok, pallas_shade.py
+    :1601-1609)."""
+    lt = np.asarray(light_type)[np.asarray(power) > 0.0]
+    return tuple(sorted(int(t) for t in np.unique(lt)))
 
 
 @dataclass(frozen=True)
@@ -279,13 +288,32 @@ class BVH4Arrays:
 
 
 @dataclass(frozen=True)
+class SphereBVH4:
+    """The 4-wide fat-row BVH over spheres (accel/bvh4_sphere.py
+    SphereBVH4 :35): one f32 row per node, [0:24) the four child boxes,
+    [24:28) child ids (-1: leaf or empty slot), then per slot `leaf_size`
+    inlined spheres of 8 columns (center, radius, phi, min_theta,
+    max_theta, id; a pad has radius 0 and id -1), the row padded to 128
+    columns. `stack_size` bounds the traversal stack."""
+
+    fat: torch.Tensor  # [M, 128] f32
+    n_prims: int = 0
+    leaf_size: int = 2
+    stack_size: int = 128
+
+
+@dataclass(frozen=True)
 class Scene:
     """The whole scene. Of the JAX Scene's accel slots the port carries
     `tri_bvh` (accel="bvh4") and, for a fat table past the part budget,
     `tri_parts` (accel/bvh4_parts.py), the table cut into a tuple of
     BVH4Arrays beside the monolithic one, as the JAX Scene does
-    (scene/types.py:265-271); tri_shadow/tri_cam/sph_bvh belong to
-    accelerators the port does not build (ROADMAP slice I)."""
+    (scene/types.py:265-271), and `sph_bvh`, the sphere BVH4 of a scene
+    with 256 or more spheres and an accelerator; tri_shadow/tri_cam belong
+    to accelerators the port does not build (ROADMAP slice I).
+    `light_types_picked` (not in the JAX Scene) holds the types of the
+    light rows that can be picked (power > 0), which the JAX gate reads
+    from the powers (pallas_shade.py:1601-1609)."""
 
     spheres: Spheres
     planes: Planes
@@ -300,9 +328,11 @@ class Scene:
     textures: TexturePack
     tri_bvh: Optional[BVH4Arrays] = None
     tri_parts: Optional[tuple] = None  # of BVH4Arrays: (top, subtrees...)
+    sph_bvh: Optional[SphereBVH4] = None
     accel: str = "none"
     mat_types_present: tuple = ()
     light_types_present: tuple = ()
+    light_types_picked: tuple = ()
     matte_lambertian: bool = False
     smooth_triangles: bool = False  # any triangle interpolates normals
     microfacet_iso_beckmann: bool = True

@@ -1,6 +1,7 @@
 """K1-K6 and P1 on the card: each CUDA kernel against its plain PyTorch
-version, the launch counts, and the wrappers' refusals; and the general
-route, whose traversal is K3 and K4. These
+version, the launch counts, and the wrappers' refusals; the general
+route, whose traversal is K3 and K4, under the MIS estimator too; and the
+sphere field's "shade" route through K2. These
 cases carry the
 `cuda` marker (pytest.ini) and need a CUDA card and nvcc; without a card
 they skip. The file imports no JAX, so on a machine with the card (and
@@ -594,3 +595,42 @@ def test_p1_matches_plain_probe(cuda, mode):
     assert torch.equal(t, t_p) and torch.equal(sink, sink_p)
     with pytest.raises(ValueError):
         pp.pop_probe_kernel(scene.tri_bvh.fat, o[:100], d[:100], mode, 48)
+
+
+def test_sphere_field_shade_route_through_k2(cuda):
+    """The 2,000-sphere field (its sphere BVH4 walked in torch ops) through
+    trace_paths with K2 against the plain trace_paths at depth 5, on every
+    lane; K2 launches once a bounce and nothing else."""
+    from craytracer_tpu_torch.scene.sphere_field import (sphere_field,
+                                                         sphere_field_view)
+
+    scene = sphere_field(2000, device=cuda)
+    cam, film = sphere_field_view(2000, 32, device=cuda)
+    assert scene.sph_bvh is not None
+    assert production_fast_shade(scene, cam, film) == "shade"
+    pix = torch.arange(film.num_pixels, dtype=torch.int32, device=cuda)
+    o, d = generate_rays(cam, film, pix, stratified_jitter(3, pix, 1))
+    counts = (pk.KERNEL, sk.KERNEL, bk.CLOSEST, bk.ANY)
+    before = [c.launches for c in counts]
+    out = wf.trace_paths(scene, o, d, 3, pix, 1, 5, with_metrics=True,
+                         fast_shade="shade")
+    assert [c.launches - b0 for c, b0 in zip(counts, before)] == [0, 6, 0, 0]
+    ref = wf.trace_paths(scene, o, d, 3, pix, 1, 5, with_metrics=True)
+    _assert_pass_bars(out, ref)
+    assert int(out[2]["shadow_rays"]) > 0
+
+
+@pytest.mark.parametrize("depth", [2, 5])
+def test_mis_general_route_matches_plain_pass(cuda, depth):
+    """The MIS estimator through K3 and K4 against the same estimator with
+    the plain traversal on the mesh, on every lane."""
+    scene, _, _, pix, o, d = _mesh(cuda)
+    assert production_fast_shade(scene, estimator="mis") == "general"
+    before = (bk.CLOSEST.launches, bk.ANY.launches, sk.KERNEL.launches)
+    out = wf.trace_paths(scene, o, d, 3, pix, 1, depth, with_metrics=True,
+                         fast_shade="shade", mis=True)
+    assert (bk.CLOSEST.launches, bk.ANY.launches, sk.KERNEL.launches) == (
+        before[0] + depth + 1, before[1] + depth + 1, before[2])
+    ref = wf.trace_paths(scene, o, d, 3, pix, 1, depth, with_metrics=True,
+                         mis=True)
+    _assert_pass_bars(out, ref)

@@ -147,18 +147,20 @@ SLICE_E = {
 
 @pytest.mark.parametrize("feature", sorted(SLICE_E))
 def test_gate_routes_slice_e_general(feature):
-    """Textures, normal maps, texture env lights and mesh lights take the
-    general route beside a rect lamp that alone takes K1 (a mesh light
-    at reference power 0 too, where the JAX gate would shade it)."""
+    """Textures, normal maps and texture env lights take the general route
+    beside a rect lamp that alone takes K1; a mesh light at reference
+    power 0 there stays on K1, as the JAX gate shades it (the power CDF
+    never picks its row)."""
     assert production_fast_shade(_scene(_lamp)) == "bounce"
-    assert production_fast_shade(_scene(_lamp, SLICE_E[feature])) == \
-        "general"
+    assert production_fast_shade(_scene(_lamp, SLICE_E[feature])) == (
+        "bounce" if feature == "mesh light" else "general")
 
 
 REFUSED = {
     "grid accel": (lambda s: dataclasses.replace(s, accel="grid"), {},
-                   "slice I"),
-    "mis": (lambda s: s, {"estimator": "mis"}, "slice F"),
+                   NotImplementedError, "slice I"),
+    "unknown estimator": (lambda s: s, {"estimator": "bdpt"}, ValueError,
+                          "reference, physical, mis"),
 }
 
 
@@ -166,9 +168,9 @@ REFUSED = {
 def test_gate_still_refuses(feature):
     """Refused whether the scene would take "general" (a disk light) or
     a kernel route."""
-    edit, kw, slice_ = REFUSED[feature]
+    edit, kw, exc, match = REFUSED[feature]
     for base in (_scene(GENERAL["disk light"]), _scene(_lamp)):
-        with pytest.raises(NotImplementedError, match=slice_):
+        with pytest.raises(exc, match=match):
             production_fast_shade(edit(base), **kw)
 
 

@@ -129,11 +129,13 @@ def test_thinlens_rays_agree(both, size):
     assert np.abs(np.asarray(jo) - np.asarray(jc.position)).max() > 0.01
 
 
-# a sphere is refused only where the JAX builder would index it with a
-# sphere BVH4 (256 or more with an accelerator)
-UNPORTED = {
+# 256 or more spheres with an accelerator get the sphere BVH4, as in the
+# JAX builder, and take the "shade" route beside a rect lamp
+SHADE = {
     "sphere": "OBJECT SPHERE\nRADIUS 0.1\nCENTER 0 0 0\nMATERIAL m\n"
-              * 256,
+              * 256 + "MATERIAL EMISSIVE\nNAME lamp\nINTENSITY 5\nEND\n"
+              "OBJECT RECTANGLE\nPOINT 0 2 0\nWIDTH 1 0 0\nHEIGHT 0 0 1\n"
+              "MATERIAL lamp\n",
 }
 # disk, point and directional lights take the general route
 # (tests/test_torch_general.py holds it against the JAX package); so do
@@ -152,18 +154,16 @@ GENERAL = {
 }
 
 
-@pytest.mark.parametrize("feature", sorted(UNPORTED) + sorted(GENERAL))
+@pytest.mark.parametrize("feature", sorted(SHADE) + sorted(GENERAL))
 def test_unported_features_raise(tmp_path, feature):
-    """The parser, the builder or the gate refuses it, naming its
-    ROADMAP item; what the general route renders gets "general"."""
+    """What the general route renders gets "general"; 256 spheres get
+    the sphere BVH4 and "shade"."""
     p = tmp_path / "scene.txt"
-    p.write_text({**UNPORTED, **GENERAL}[feature])
-    if feature in GENERAL:
-        assert production_fast_shade(*load_scene_file(
-            str(p), device="cpu")) == "general"
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        production_fast_shade(*load_scene_file(str(p), device="cpu"))
+    p.write_text({**SHADE, **GENERAL}[feature])
+    scene, camera, film = load_scene_file(str(p), device="cpu")
+    route = "general" if feature in GENERAL else "shade"
+    assert production_fast_shade(scene, camera, film) == route
+    assert (scene.sph_bvh is not None) == (feature in SHADE)
 
 
 def test_gate_admits_cornell_and_refuses_the_rest(both):
@@ -173,9 +173,9 @@ def test_gate_admits_cornell_and_refuses_the_rest(both):
     assert production_fast_shade(ts, tc, tf, max_depth=31) == "shade"
     # a plane and a thin-lens camera stay in K1's gate
     assert production_fast_shade(_with_plane(ts), _thin(tc), tf) == "bounce"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        production_fast_shade(ts, tc, tf, estimator="mis")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the MIS estimator runs on the general step only
+    assert production_fast_shade(ts, tc, tf, estimator="mis") == "general"
+    with pytest.raises(NotImplementedError, match="PINHOLE and THINLENS"):
         production_fast_shade(ts, dataclasses.replace(tc, camera_type=2), tf)
     # no kernel shades an anisotropic microfacet
     assert production_fast_shade(_anisotropic(ts), tc, tf) == "general"
@@ -215,30 +215,30 @@ ENTRIES = ["render_sample", "fused_pass", "fused_pass_reference"]
 def test_every_entry_refuses_outside_the_gate(both, entry, refused):
     """Each entry point asks the gate (integrator/gate.py) before it traces
     anything: a refused scene raises and never reaches the plain tracer.
-    Depth 31 and an anisotropic metal are outside K1's gate only: K1's
-    entries refuse them, while render_sample traces them per bounce (the
-    "shade" and "general" routes)."""
+    Depth 31, an anisotropic metal and the MIS estimator are outside K1's
+    gate only: K1's entries refuse them, while render_sample traces them
+    per bounce (the "shade" and "general" routes)."""
     _, (ts, tc, tf) = both
     depth, est = 2, "reference"
-    if (entry, refused) in (("render_sample", "depth"),
-                            ("render_sample", "anisotropic")):
+    if entry == "render_sample" and refused != "camera":
         pix = torch.arange(16, dtype=torch.int32)
         if refused == "depth":
             out = render_sample(ts, tc, tf, pix, 0, 0, 31, est)
+        elif refused == "estimator":
+            out = render_sample(ts, tc, tf, pix, 0, 0, 2, "mis")
         else:
             out = render_sample(_anisotropic(ts), tc, tf, pix, 0, 0, 2, est)
         assert out.shape == (16, 3) and bool(torch.isfinite(out).all())
         return
-    if refused == "estimator":
-        est = "mis"
-    elif refused == "camera":
+    if refused == "camera":
         tc = dataclasses.replace(tc, camera_type=2)
     elif refused == "anisotropic":
         ts = _anisotropic(ts)
     else:
         depth = 31
     pix = torch.arange(16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    match = "PINHOLE and THINLENS" if refused == "camera" else "ROADMAP"
+    with pytest.raises(NotImplementedError, match=match):
         if entry == "render_sample":
             render_sample(ts, tc, tf, pix, 0, 0, depth, est)
         else:

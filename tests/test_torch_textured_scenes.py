@@ -137,7 +137,10 @@ def built():
 def test_textured_pass_matches_jax(built, tmp_path_factory, name, depth):
     if name not in built:
         js, ts, jc, jf = _build(name, tmp_path_factory.mktemp(name))
-        assert production_fast_shade(ts) == "general"
+        # the quad's mesh light has power 0 beside the rect lamp in the
+        # reference power mode, so the gate keeps that scene on K1
+        assert production_fast_shade(ts) == (
+            "bounce" if name == "quad_lamp_reference" else "general")
         built[name] = (js, ts, jax_rays(jc, jf))
     js, ts, rays = built[name]
     L, m = check_general(js, ts, rays, depth, EXCUSED.get((name, depth), ()))

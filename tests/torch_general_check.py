@@ -11,7 +11,10 @@ unrolled (trace_paths_logged) into different fusions, with different
 multiply-adds contracted into FMAs, and on a few lanes the two JAX
 programs differ by more than the bar themselves. Each test names those
 lanes (`excused`, measured on an x86 CPU); on them the port is held to
-the unrolled program at the same bar.
+the unrolled program at the same bar. With `mis=True` both sides trace
+the MIS estimator (the JAX `trace_paths(..., mis=True)`), and the
+unrolled program is `_make_bounce_step(..., mis=True)` stepped bounce by
+bounce (`trace_paths_logged` takes no `mis`).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import jax.numpy as jnp
 import torch
 
 from craytracer_tpu.camera import generate_rays as j_generate_rays
+from craytracer_tpu.integrator.wavefront import _init_state as j_init_state
+from craytracer_tpu.integrator.wavefront import _make_bounce_step
 from craytracer_tpu.integrator.wavefront import trace_paths as j_trace
 from craytracer_tpu.integrator.wavefront import trace_paths_logged
 from craytracer_tpu.sampling.multijitter import stratified_jitter as j_strat
@@ -42,16 +47,30 @@ def jax_rays(jcam, jfilm):
     return np.array(jo), np.array(jd), pix, spp
 
 
-def check_general(js, ts, rays, depth, excused=()):
+def _unrolled(js, o, d, pix, spp, depth, mis):
+    """L of JAX's bounce step run bounce by bounce, outside the fori."""
+    if not mis:
+        return np.asarray(trace_paths_logged(
+            js, jnp.asarray(o), jnp.asarray(d), SEED, jnp.asarray(pix),
+            jnp.asarray(spp), depth)[0])
+    step = _make_bounce_step(js, SEED, jnp.asarray(spp), depth, mis=True)
+    state = j_init_state(jnp.asarray(o), jnp.asarray(d), depth,
+                         jnp.asarray(pix))
+    for bounce in range(depth + 1):
+        state = step(bounce, state)[0]
+    return np.asarray(state[3])
+
+
+def check_general(js, ts, rays, depth, excused=(), mis=False):
     """Hold the port's general trace_paths against the JAX XLA one."""
     o, d, pix, spp = rays
     ref = j_trace(js, jnp.asarray(o), jnp.asarray(d), SEED, jnp.asarray(pix),
                   jnp.asarray(spp), depth, with_metrics=True,
-                  fast_shade=False)
+                  fast_shade=False, mis=mis)
     L, good, m = trace_paths(ts, torch.from_numpy(o), torch.from_numpy(d),
                              SEED, torch.from_numpy(pix),
                              torch.from_numpy(spp), depth, with_metrics=True,
-                             general=True)
+                             general=True, mis=mis)
     L, Lr = L.numpy(), np.asarray(ref[0])
     np.testing.assert_array_equal(good.numpy(), np.asarray(ref[1]))
     assert int(m["rays"]) == int(ref[2]["rays"])
@@ -62,8 +81,6 @@ def check_general(js, ts, rays, depth, excused=()):
     keep[list(excused)] = False
     np.testing.assert_allclose(L[keep], Lr[keep], **BAR)
     if excused:
-        unrolled = np.asarray(trace_paths_logged(
-            js, jnp.asarray(o), jnp.asarray(d), SEED, jnp.asarray(pix),
-            jnp.asarray(spp), depth)[0])
+        unrolled = _unrolled(js, o, d, pix, spp, depth, mis)
         np.testing.assert_allclose(L[~keep], unrolled[~keep], **BAR)
     return L, m

@@ -1,6 +1,7 @@
 """Slice-E test scenes (textures, normal maps, texture env lights, mesh
-lights) that both packages' builders make from one call sequence; the
-port's tests and chip_smoke.py build them.
+lights) and the glossy MIS scene of tests/test_mis.py, which both
+packages' builders make from one call sequence; the port's tests and
+chip_smoke.py build them.
 
 Each scene function takes a SceneBuilder (the port's, or the JAX
 package's: they share these methods) and, where it needs an image, that
@@ -22,6 +23,18 @@ def _image(load, name):
     img = load(os.path.join(SCENES, name))
     assert img is not None, name
     return img
+
+
+def glossy_lamp(b, light_size=1.0):
+    """tests/test_mis.py:13-27: a rough SILVER floor under a small bright
+    lamp of constant power (400 / light_size^2)."""
+    b.add_metal("floor", preset="SILVER", roughness=0.25)
+    b.add_matte("wall", (0.4, 0.4, 0.4))
+    b.add_emissive("lamp", (1, 1, 1), 400.0 / (light_size * light_size))
+    b.add_rect((-20, 0, -20), (40, 0, 0), (0, 0, 40), "floor")
+    b.add_rect((-light_size / 2, 8, -light_size / 2), (light_size, 0, 0),
+               (0, 0, light_size), "lamp")
+    return (0, 4, 14), (0, 0, 0), math.radians(40.0)
 
 
 def quad_lamp(b):
