@@ -15,8 +15,10 @@ never JAX or the JAX package. Phases, each printing its own lines:
    craytracer_tpu_torch/_build/;
    prints each build's seconds and ptxas' registers and spills for every
    kernel and instantiation (K1's eight: the matte-only or the full core,
-   with or without plane/disk rows, with or without box rows; K2 as the
-   matte-only core, `<false>`, and the full core, `<true>`); then builds
+   with or without plane/disk rows, with or without box rows; K2 once
+   per feature mask the run meets: 0, the matte-only core, and
+   parity_mix's and glass_spheres' masks, each with its lobes only); then
+   builds
    the native scene runtime (native/craynative.cpp, g++).
 3. K1 vs plain: K1 against its plain PyTorch version on the card, on
    scenes/parity_cornell.txt at 64x64, depth 0, 2 and 5, scalar and
@@ -79,9 +81,9 @@ never JAX or the JAX package. Phases, each printing its own lines:
    tests/torch_sphere_scenes.py (mirror and clipped sphere, sphere light, Oren-Nayar /
    plastic / metal, glass / transparent) at 512x512, depth 0 and their
    own depth; phase 3's K1 bars.
-12. K2's full core vs plain on the bounce 0, 1 and 4 hit records of a
-   plain 512x512 pass over parity_mix and over glass_spheres; phase 7's
-   bars.
+12. K2 with lobes (each scene's mask) vs plain on the bounce 0, 1 and 4
+   hit records of a plain 512x512 pass over parity_mix and over
+   glass_spheres; phase 7's bars.
 13. parity_mix through trace_paths(fast_shade="shade") (K2 with the plain
    sphere and rect intersection, K2 launched once per bounce and nothing
    else) against the plain trace_paths at depth 0, 2 and 5; phase 8's
@@ -98,9 +100,9 @@ never JAX or the JAX package. Phases, each printing its own lines:
    lanes leave idle on Cornell's and parity_mix's plain passes (per 32
    consecutive Morton lanes, 32 x the longest path's bounces minus the
    sum; the schedule K1 had before its persistent warps); Cornell's bare
-   K1 on the matte-only and the full core in turns; bare K2's full core
-   on the six bounces of a parity_mix pass against its plain version and
-   bound.
+   K1 on the matte-only and the full core in turns; bare K2 (parity_mix's
+   mask) on the six bounces of a parity_mix pass against its plain version
+   and bound.
 16. K1 vs plain on planes, disks, boxes and the thin lens: the plane/disk
    and the AABOX scenes of tests/torch_prim_scenes.py and parity_cornell
    with a thin-lens camera (lens_radius 0.2, focal_length 3.0; both
@@ -244,6 +246,16 @@ never JAX or the JAX package. Phases, each printing its own lines:
    512x512 x 64 spp, depth 3, under "mis" (the general route, no launch)
    and "physical" (K1, one launch per pass): no NaN, and the image means
    within tests/test_mis.py:58's rtol 0.12.
+36. (run right after phase 15, before the process's first torch.profiler
+   session) K2's design: every mask variant built so far, with ptxas'
+   registers and spills; on the six bounce records of parity_mesh_mid
+   (the matte core), parity_mix and glass_spheres (cores with lobes): the
+   device events of six fused_shade calls on a warmed
+   scene, which must be exactly one K2 kernel a call (torch.profiler, CPU
+   and CUDA activities; a trace that lost events is taken again); bare K2
+   ms per launch, fused_shade's device ms per call (CUDA events, the run
+   enqueued behind a device-side sleep) and wall ms per call, beside the
+   177-byte-per-lane bound.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
@@ -251,7 +263,9 @@ sphere field's, K3 and K4 plus the fullscene's under both estimators, K3
 `_init` on the 7M city's; K3 and K4 also carry the general route's
 traversal (phases 25-30, 34), which adds no kernel; K5, K6 and P1 lie on
 no path: 0;
-max_abs_err over its checks, ms per bare launch, the plain version's ms,
+max_abs_err over its checks, ms per bare launch (K2's launches enqueued
+behind a device-side sleep, so the events time the card alone), the
+plain version's ms,
 and bound_ms: the larger of the bytes it must move over 3.35 TB/s and
 the operations this run's inputs need over 67 TFLOP/s f32, counted from
 the CUDA sources; for K3, K3 `_init`, K4 and K5 both are counted from
@@ -315,7 +329,10 @@ ROW_OPS = (SPHERE_OPS, PLANE_OPS, RECT_OPS, DISK_OPS, TRI_OPS, AABOX_OPS)
 # branch
 OREN_OPS, MIRROR_OPS, PLASTIC_OPS, METAL_OPS = 90, 10, 170, 250
 TRANSPARENT_OPS, GLASS_OPS = 45, 330
-K2_LANE_BYTES = 15 * 4 + 4 + 4 + 1 + 1 + 4 + 4 + 23 * 4 + 4 * 4
+# K2 per lane: 78 bytes in (five 3-vectors, t, material id, two flags,
+# pixel, spp), 99 out (seven 3-vectors, two floats, an int32 count, three
+# bool flags)
+K2_LANE_BYTES = 15 * 4 + 4 + 4 + 1 + 1 + 4 + 4 + 23 * 4 + 4 + 3
 ROW_BYTES = 108 * 4  # the columns K3/K4 load of a row: boxes, children, slots
 BOX_BYTES = 28 * 4  # a row's boxes and child ids (K5's topology row)
 SLOT_BYTES = 10 * 4  # one filled slot: a triangle's 9 floats and its id
@@ -324,6 +341,7 @@ CITY_TRIS = 7_000_000  # the 7M class the partitioned BVH4 was built for
 CITY_SPP = 4
 FIELD_SPHERES = 10_000  # bench_spheres.py's default field
 WIDE = 16  # spp per K1 launch of the second timed launch size
+SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock
 
 
 def _bound(nbytes, ops):
@@ -449,9 +467,14 @@ def _events():
             torch.cuda.Event(enable_timing=True))
 
 
-def _timed(fn):
-    """ms of fn() between CUDA events (fn's own return value too)."""
+def _timed(fn, queued=False):
+    """ms of fn() between CUDA events (fn's own return value too); with
+    `queued`, the card first sleeps ~10 ms so that the host has enqueued
+    all of fn's launches before the first starts, and the events time the
+    device alone."""
     start, stop = _events()
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     out = fn()
     stop.record()
@@ -459,11 +482,11 @@ def _timed(fn):
     return start.elapsed_time(stop), out
 
 
-def _median5(fn):
+def _median5(fn, queued=False):
     """Warm-up, then the median of 5 timed runs and the five times."""
     fn()
     torch.cuda.synchronize()
-    ts = [_timed(fn)[0] for _ in range(5)]
+    ts = [_timed(fn, queued)[0] for _ in range(5)]
     return statistics.median(ts), ts
 
 
@@ -489,6 +512,7 @@ def main() -> int:
     from craytracer_tpu_torch.integrator import pass_kernel as pk
     from craytracer_tpu_torch.integrator import shade_kernel as sk
     from craytracer_tpu_torch.integrator import wavefront as wf
+    from craytracer_tpu_torch.integrator.gate import shade_features
     from craytracer_tpu_torch.integrator.render import RenderConfig, Renderer
     from craytracer_tpu_torch.io.image import write_ppm
     from craytracer_tpu_torch.io.scenefile import load_scene_file
@@ -526,7 +550,17 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     # ---- 2. build
-    libs = {"k1_pass": pk.LIBRARY, "k2_shade": sk.LIBRARY,
+    # K2 once per feature mask this run meets: the matte scenes' 0,
+    # parity_mix's and glass_spheres'
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_sphere_scenes as sphere_scenes
+
+    gb = SceneBuilder()
+    sphere_scenes.glass_spheres(gb)
+    k2_masks = sorted({0, shade_features(gb.build(device="cpu")),
+                       shade_features(load_scene_file(MIX, device="cpu")[0])})
+    libs = {"k1_pass": pk.LIBRARY,
+            **{f"k2_shade mask {m}": sk.library(m) for m in k2_masks},
             "k3_bvh4_closest + k3_init + k4_bvh4_any": bk.LIBRARY,
             "k5_bvh4_split": sp.LIBRARY,
             "k6_tri_closest": tri_kernel.LIBRARY,
@@ -778,6 +812,18 @@ def main() -> int:
                                     kernels=False)
         return recs
 
+    def k2_bare(scn, recs_, spp):
+        """Bare K2 on each bounce of a plain pass's records: launches on
+        prebuilt inputs and outputs, not counted (a list of error codes per
+        call)."""
+        calls = []
+        for b, (st, hit, _) in enumerate(recs_):
+            v, args, out = sk.prepare_launch(scn, st[1], hit, st[2], st[5],
+                                             st[6], st[10], spp, cfg.seed, b,
+                                             5)
+            calls.append((v.load().k2_shade_launch, args, out))
+        return lambda: [fn(*args) for fn, args, _ in calls]
+
     mspp = torch.zeros_like(mmorton)
     o_cam, d_cam = generate_rays(mcam, mfilm, mmorton,
                                  stratified_jitter(cfg.seed, mmorton, mspp))
@@ -955,7 +1001,7 @@ def main() -> int:
         keep.append(torch.empty(shape, dtype=dtype, device=dev))
         return keep[-1].data_ptr()
 
-    lib3, lib2 = bk.LIBRARY.load(), sk.LIBRARY.load()
+    lib3 = bk.LIBRARY.load()
     fat_args = (bvh.fat.data_ptr(), bvh.fat.shape[0], bvh.stack_size)
     k3_calls = [fat_args + (o.data_ptr(), d.data_ptr(), o.shape[0],
                             empty(o.shape[0]),
@@ -964,21 +1010,10 @@ def main() -> int:
     k4_calls = [fat_args + (o.data_ptr(), d.data_ptr(), md.data_ptr(),
                             o.shape[0], empty(o.shape[0]), stream)
                 for o, d, md in k4_in]
-    tab2 = sk.shade_tables(mesh)
-    k2_calls = [(tab2.data_ptr(), tab2.numel(),
-                 mesh.materials.mat_type.shape[0],
-                 mesh.lights.light_type.shape[0], d.data_ptr(),
-                 hit.point.data_ptr(), hit.normal.data_ptr(),
-                 hit.dpdu.data_ptr(), beta.data_ptr(), hit.t.data_ptr(),
-                 hit.mat_id.data_ptr(), al.data_ptr(), psg.data_ptr(),
-                 px.data_ptr(), sp.data_ptr(), 0, d.shape[0], seed, bo, dp,
-                 sk.RR_START, 0, empty(7, d.shape[0], 3), empty(2, d.shape[0]),
-                 empty(4, d.shape[0], dtype=torch.int32), stream)
-                for d, hit, beta, al, psg, px, sp, seed, bo, dp in k2_in]
     bare = {
         "k3_bvh4_closest": lambda: [lib3.k3_closest_launch(*a)
                                     for a in k3_calls],
-        "k2_shade": lambda: [lib2.k2_shade_launch(*a) for a in k2_calls],
+        "k2_shade": k2_bare(mesh, recs, mspp),
         "k4_bvh4_any": lambda: [lib3.k4_any_launch(*a) for a in k4_calls]}
     plain = {
         "k3_bvh4_closest": lambda: [bvh4_closest_hit_stats(bvh, *a)
@@ -1019,7 +1054,7 @@ def main() -> int:
     row_bounds = {"k3_bvh4_closest": [b for *_, b in k3_pb],
                   "k4_bvh4_any": [b for *_, b in k4_pb]}
     for name in ("k3_bvh4_closest", "k2_shade", "k4_bvh4_any"):
-        med, ts = _median5(bare[name])
+        med, ts = _median5(bare[name], queued=name == "k2_shade")
         if any(bare[name]()):
             fails.append(f"bare {name} launch failed")
         ms_plain = _timed(plain[name])[0] / len(recs)
@@ -1094,9 +1129,6 @@ def main() -> int:
     # ---- 11. parity_mix: K1's full core vs plain
     from craytracer_tpu_torch.integrator.gate import F_OREN
     from craytracer_tpu_torch.scene import types as T
-
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    import torch_sphere_scenes as sphere_scenes
 
     mix, xcam, xfilm0 = load_scene_file(MIX, device=dev)
     xfilm = Film(fov=xfilm0.fov, width=size, height=size)
@@ -1246,21 +1278,9 @@ def main() -> int:
           f"ms/pass (runs {_runs(t_c0)} ms), full core "
           f"{statistics.median(t_cf) / passes:.4f} ms/pass (runs "
           f"{_runs(t_cf)} ms)", flush=True)
-    # bare K2 (full core) on the six bounces of parity_mix's plain pass
-    tab2x = sk.shade_tables(mix)
-    k2x_calls = [(tab2x.data_ptr(), tab2x.numel(),
-                  mix.materials.mat_type.shape[0],
-                  mix.lights.light_type.shape[0], st[1].data_ptr(),
-                  hit.point.data_ptr(), hit.normal.data_ptr(),
-                  hit.dpdu.data_ptr(), st[2].data_ptr(), hit.t.data_ptr(),
-                  hit.mat_id.data_ptr(), st[5].data_ptr(), st[6].data_ptr(),
-                  st[10].data_ptr(), zspp.data_ptr(), 0, st[1].shape[0],
-                  cfg.seed, b, 5, sk.RR_START, int(xfeat != 0),
-                  empty(7, st[1].shape[0], 3), empty(2, st[1].shape[0]),
-                  empty(4, st[1].shape[0], dtype=torch.int32), stream)
-                 for b, (st, hit, _) in enumerate(xrecs["parity_mix"])]
-    med2x, ts2x = _median5(lambda: [lib2.k2_shade_launch(*a)
-                                    for a in k2x_calls])
+    # bare K2 (parity_mix's mask) on the six bounces of its plain pass
+    med2x, ts2x = _median5(k2_bare(mix, xrecs["parity_mix"], zspp),
+                           queued=True)
     ms2x_plain = _timed(lambda: [
         sk.fused_shade_reference(mix, st[1], hit, st[2], st[5], st[6],
                                  st[10], zspp, cfg.seed, b, 5)
@@ -1270,10 +1290,78 @@ def main() -> int:
              == m).sum()) * v for m, v in extra.items())
         for st, hit, _ in xrecs["parity_mix"])
     b2x = _bound(6 * size * size * K2_LANE_BYTES, ops2x)
-    print(f"[time] {card}, k2_shade (full core) on the 6 bounces of one "
+    print(f"[time] {card}, k2_shade (mask {xfeat}) on the 6 bounces of one "
           f"parity_mix 512x512 pass: bare {med2x / 6:.4f} ms/launch (runs of "
           f"6 {_runs(ts2x)} ms), plain {ms2x_plain:.4f} ms/launch (timed "
           f"once), bound {b2x[0] / 6:.4f} ms/launch ({b2x[1]})", flush=True)
+
+    # ---- 36. K2: its builds, one launch per warmed fused_shade call, bare
+    # and wrapper times on the matte core and the cores with lobes; run
+    # here, before this process's first torch.profiler session (phase 32):
+    # after several sessions in one process the traces may lose device
+    # events
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for mask, lib in sorted(sk.variants().items()):
+        regs = " | ".join(line.strip() for line in lib.ptxas_log.splitlines()
+                          if "registers" in line or "spill" in line)
+        secs = ("cached" if lib.build_seconds is None
+                else f"{lib.build_seconds:.2f} s")
+        print(f"[k2] variant mask {mask} ({lib.name}, built {secs}): ptxas "
+              f"{regs}", flush=True)
+    for label, scn, recs_, spp_ in (
+            ("parity_mesh_mid", mesh, recs, mspp),
+            ("parity_mix", mix, xrecs["parity_mix"], zspp),
+            ("glass_spheres", lib_scenes["glass_spheres"][0],
+             xrecs["glass_spheres"], zspp)):
+        calls = [(scn, st[1], hit, st[2], st[5], st[6], st[10], spp_,
+                  cfg.seed, b, 5) for b, (st, hit, _) in enumerate(recs_)]
+        sk.fused_shade(*calls[0])  # a warmed scene: its build and table
+        torch.cuda.synchronize()
+        for _ in range(3):  # a trace that lost events is taken again
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for a in calls:
+                    sk.fused_shade(*a)
+                torch.cuda.synchronize()
+            on_dev = [e.name for e in prof.events()
+                      if e.device_type == DeviceType.CUDA]
+            if len(on_dev) >= len(calls):
+                break
+        one = (len(on_dev) == len(calls)
+               and all("k2_shade_kernel" in x for x in on_dev))
+        if not one:
+            fails.append(f"{label}: {len(calls)} warmed fused_shade calls "
+                         f"ran {on_dev}")
+        med_b, ts_b = _median5(k2_bare(scn, recs_, spp_), queued=True)
+        _, t_dev = _median5(lambda: [sk.fused_shade(*a) for a in calls],
+                            queued=True)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            for a in calls:
+                sk.fused_shade(*a)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / (20 * len(calls))
+        lobes = lobe_ops(scn)
+        nl = sum(st[1].shape[0] for st, _, _ in recs_)
+        ops = sum(int(st[5].sum()) * SHADE_OPS + sum(
+            int((scn.materials.mat_type[hit.mat_id.long()][
+                st[5] & (hit.t < TMAX)] == m).sum()) * v
+            for m, v in lobes.items()) for st, hit, _ in recs_)
+        bnd = _bound(nl * K2_LANE_BYTES, ops)
+        print(f"[k2] {card}, {label} (mask {shade_features(scn)}) 512x512, "
+              f"the 6 bounces of one plain pass: {len(on_dev)} device "
+              f"events in {len(calls)} warmed fused_shade calls "
+              f"({', '.join(sorted({x[:40] for x in on_dev}))}); bare K2 "
+              f"{med_b / 6:.4f} ms/launch "
+              f"(runs of 6 {_runs(ts_b)} ms); fused_shade "
+              f"{statistics.median(t_dev) / 6:.4f} ms/call on the device "
+              f"(runs of 6 {_runs(t_dev)} ms), wall {wall:.4f} ms/call; "
+              f"bound {bnd[0] / 6:.4f} ms/launch ({bnd[1]}, "
+              f"{K2_LANE_BYTES} B/lane)" + ("" if one else " FAIL"),
+              flush=True)
+
     kernels["k1_pass"].update(
         launches=launches_mix["k1_pass"], ms=mxk / passes,
         plain_ms=mxp / passes, bound_ms=kx_bound[0], bound_by=kx_bound[1],
@@ -2198,7 +2286,6 @@ def main() -> int:
     # walk, then K2) against its plain version, main path, times
     from craytracer_tpu_torch.accel.bvh4_sphere import (bvh4s_any_hit,
                                                         bvh4s_closest_hit)
-    from craytracer_tpu_torch.integrator.gate import shade_features
     from craytracer_tpu_torch.scene.sphere_field import (sphere_field,
                                                          sphere_field_view)
 
@@ -2271,20 +2358,7 @@ def main() -> int:
     # bare K2 on the six bounces of one pass (the matte core), and the
     # plain sphere walk each bounce pays: its closest hit on the bounce's
     # rays and its any hit on the bounce's shadow rays
-    tab_s = sk.shade_tables(field)
-    k2s_calls = [(tab_s.data_ptr(), tab_s.numel(),
-                  field.materials.mat_type.shape[0],
-                  field.lights.light_type.shape[0], st[1].data_ptr(),
-                  hit.point.data_ptr(), hit.normal.data_ptr(),
-                  hit.dpdu.data_ptr(), st[2].data_ptr(), hit.t.data_ptr(),
-                  hit.mat_id.data_ptr(), st[5].data_ptr(), st[6].data_ptr(),
-                  st[10].data_ptr(), sspp.data_ptr(), 0, st[1].shape[0],
-                  cfg.seed, b, 5, sk.RR_START, 0,
-                  empty(7, st[1].shape[0], 3), empty(2, st[1].shape[0]),
-                  empty(4, st[1].shape[0], dtype=torch.int32), stream)
-                 for b, (st, hit, _) in enumerate(srecs)]
-    med2s, ts2s = _median5(lambda: [lib2.k2_shade_launch(*a)
-                                    for a in k2s_calls])
+    med2s, ts2s = _median5(k2_bare(field, srecs, sspp), queued=True)
     nl = sum(st[1].shape[0] for st, _, _ in srecs)
     b2s = _bound(nl * K2_LANE_BYTES, nl * SHADE_OPS)
     walk_c = _timed(lambda: [bvh4s_closest_hit(sbvh, st[0], st[1])

@@ -673,10 +673,10 @@ k1_pass_kernel(const float* __restrict__ tables, int n_floats,
 
     // ---- the bounce's shading and shadow ray
     ShadeOut s;
-    shade_core<FULL>(seed, b, max_depth, rr_start, env, mt, n_mats, lt,
-                     n_lights, h_lane, dx, dy, dz, px, py, pz, fnx, fny, fnz,
-                     ndx, ndy, ndz, bx, by, bz, mat_id, hitm, true, prev_sg,
-                     s);
+    shade_lane<FULL ? F_ALL : 0u>(seed, b, max_depth, rr_start, env, mt,
+                                  n_mats, lt, n_lights, h_lane, dx, dy, dz,
+                                  px, py, pz, fnx, fny, fnz, ndx, ndy, ndz,
+                                  bx, by, bz, mat_id, hitm, true, prev_sg, s);
     lr = lr + s.l_add[0];
     lg = lg + s.l_add[1];
     lb = lb + s.l_add[2];

@@ -15,13 +15,14 @@
 // specular or glossy lobe. Visibility is the caller's: K1 tests the shadow
 // ray in the same thread, K2 hands it to K4.
 //
-// `shade_core<FULL>` is instantiated twice: `shade_core<false>`, the
-// matte-only core, for a scene of Lambertian matte and emissive materials
-// with rect lights (Cornell, the meshes), which pays no registers for the
-// other lobes, and `shade_core<true>`, every lobe and the sphere light.
-// The launchers pick one from the scene's feature mask (integrator/gate.py
-// `shade_features`, the has_* flags of pallas_shade.py:1793-1802): zero
-// takes the matte-only core.
+// `shade_lane<MASK>` is specialized on the scene's feature mask
+// (integrator/gate.py `shade_features`, the seven has_* flags of
+// pallas_shade.py:1793-1802, the F_* bits below), as the JAX kernel is
+// traced once per flag set: a branch whose bit is clear is not compiled.
+// Mask 0 is the matte-only core (Lambertian matte and emissive materials,
+// rect lights: Cornell, the meshes), F_ALL every lobe and the sphere
+// light. K2 builds one variant per mask it meets; K1 instantiates the two
+// ends (0 and F_ALL).
 //
 // Every formula keeps the JAX kernel's expression tree and epsilons; the
 // kernels are built with --fmad=false, -prec-div=true, -prec-sqrt=true, so
@@ -53,6 +54,13 @@ constexpr int MAT_METAL = 7;
 constexpr int LIGHT_AREA_SPHERE = 1;
 constexpr int MT_COLS = 19;  // material row (pallas_shade.py _meta_operands)
 constexpr int LT_COLS = 19;  // light row
+// the feature mask's bits (integrator/gate.py F_*)
+constexpr uint32_t F_MIRROR = 1u, F_SPHERE_LIGHT = 2u, F_OREN = 4u,
+                   F_PLASTIC = 8u, F_METAL = 16u, F_GLASS = 32u,
+                   F_TRANSPARENT = 64u, F_ALL = 127u;
+// the bits whose lobe samples a direction other than MATTE's
+constexpr uint32_t F_LOBES = F_MIRROR | F_PLASTIC | F_METAL | F_GLASS
+                             | F_TRANSPARENT;
 
 // murmur3 fmix32 (sampling/rng.py hash_u32)
 __device__ __forceinline__ uint32_t fmix(uint32_t x) {
@@ -457,12 +465,16 @@ struct ShadeOut {
   bool new_prev_sg;
 };
 
-// One lane's shading, with every lobe if FULL. d: ray direction; p, n, du:
-// hit point, hit normal (faced as the fill faced it) and dpdu; hitm: the
-// ray hit something. env: 3 floats of constant env radiance; mt / lt:
-// n_mats / n_lights rows.
-template <bool FULL>
-__device__ __forceinline__ void shade_core(
+// One lane's shading, with the branches of the feature mask MASK. d: ray
+// direction; p, n, du: hit point, hit normal (faced as the fill faced it)
+// and dpdu; hitm: the ray hit something. env: 3 floats of constant env
+// radiance; mt / lt: n_mats / n_lights rows. With SKIP_ENDED a lane whose
+// path ends here (dead, missed, on an emitter or at max_depth) skips the
+// BSDF sample: every output it would feed is then a constant or an input
+// (the next ray escapes, beta passes through), so the outputs are the
+// same bits; K2 takes it, K1 never shades an ended path.
+template <uint32_t MASK, bool SKIP_ENDED = false>
+__device__ __forceinline__ void shade_lane(
     uint32_t seed, int bounce, int max_depth, int rr_start,
     const float* env, const float* mt, int n_mats, const float* lt,
     int n_lights, uint32_t h_lane, float dx, float dy, float dz, float px,
@@ -531,7 +543,7 @@ __device__ __forceinline__ void shade_core(
                                    1e-20f));
   float pdf_area = 1.0f / fmaxf(len_v1 * len_v2, 1e-12f);
   float lnx = l[9], lny = l[10], lnz = l[11];
-  if constexpr (FULL) {
+  if constexpr ((MASK & F_SPHERE_LIGHT) != 0) {
     if ((int)l[18] == LIGHT_AREA_SPHERE) {
       // cosine hemisphere about the center -> hit axis (trace.h:230-243)
       const float rad = l[15];
@@ -581,13 +593,13 @@ __device__ __forceinline__ void shade_core(
   const float abs_cos_nee = fabsf(fnx * wix + fny * wiy + fnz * wiz);
   float f_fac = 0.0f;
   if (is_matte) {
-    if constexpr (FULL)
+    if constexpr ((MASK & F_OREN) != 0)
       f_fac = on_scale(wix, wiy, wiz, -dx, -dy, -dz, on_a, m[6]);
     else
       f_fac = on_a * INV_PI_F;
   }
   float f_r = cr * f_fac, f_g = cg * f_fac, f_b = cb * f_fac;
-  if constexpr (FULL) {
+  if constexpr ((MASK & F_PLASTIC) != 0) {
     if (mtype == MAT_PLASTIC) {
       const float fbd = fb_diffuse_scale(wiz, -dz);
       f_r = cr * (1.0f - m[8]) * fbd;
@@ -620,6 +632,20 @@ __device__ __forceinline__ void shade_core(
   o.contrib[0] = o.want_shadow ? bx * (f_r * l[12] * inv_pdf) : 0.0f;
   o.contrib[1] = o.want_shadow ? by * (f_g * l[13] * inv_pdf) : 0.0f;
   o.contrib[2] = o.want_shadow ? bz * (f_b * l[14] * inv_pdf) : 0.0f;
+  if constexpr (SKIP_ENDED) {
+    if (!cont) {
+      o.new_beta[0] = bx;
+      o.new_beta[1] = by;
+      o.new_beta[2] = bz;
+      o.new_alive = false;
+      o.new_o[0] = o.new_o[1] = o.new_o[2] = 3.0e18f;
+      o.new_d[0] = 1.0f;
+      o.new_d[1] = 0.0f;
+      o.new_d[2] = 0.0f;
+      o.new_prev_sg = prev_sg;
+      return;
+    }
+  }
 
   // ---- BSDF sample: MATTE's cosine hemisphere (dims 5,6), then the lobe
   // of the lane's material type
@@ -628,19 +654,22 @@ __device__ __forceinline__ void shade_core(
   s.pdf = is_matte ? s.wl[2] * INV_PI_F : 0.0f;
   float fs_fac = on_a * INV_PI_F;
   float wox = 0.0f, woy = 0.0f, woz = 0.0f;  // wo in the shading frame
-  if constexpr (FULL) {
+  if constexpr ((MASK & (F_LOBES | F_OREN)) != 0) {
     wox = -(dx * ftx + dy * fty + dz * ftz);
     woy = -(dx * fbx + dy * fby + dz * fbz);
     woz = -(dx * fnx + dy * fny + dz * fnz);
-    if (is_matte)
-      fs_fac = on_scale(s.wl[0], s.wl[1], s.wl[2], wox, woy, woz, on_a, m[6]);
+    if constexpr ((MASK & F_OREN) != 0) {
+      if (is_matte)
+        fs_fac = on_scale(s.wl[0], s.wl[1], s.wl[2], wox, woy, woz, on_a,
+                          m[6]);
+    }
   }
   s.f[0] = is_matte ? cr * fs_fac : 0.0f;
   s.f[1] = is_matte ? cg * fs_fac : 0.0f;
   s.f[2] = is_matte ? cb * fs_fac : 0.0f;
   if (!is_matte) { s.wl[0] = 0.0f; s.wl[1] = 0.0f; s.wl[2] = 1.0f; }
   bool spec_or_glossy = false;
-  if constexpr (FULL) {
+  if constexpr ((MASK & F_MIRROR) != 0) {
     if (mtype == MAT_MIRROR) {  // SpecularReflection_sample_f
       const float inv_cos = 1.0f / fmaxf(fabsf(woz), 1e-7f);
       s.wl[0] = -wox;
@@ -652,19 +681,27 @@ __device__ __forceinline__ void shade_core(
       s.pdf = 1.0f;
       spec_or_glossy = true;
     }
+  }
+  if constexpr ((MASK & F_PLASTIC) != 0) {
     if (mtype == MAT_PLASTIC) {
       bool pick_spec;
       plastic_sample(m, cr, cg, cb, wox, woy, woz, u_b0, u_b1, s, pick_spec);
       spec_or_glossy = pick_spec;
     }
+  }
+  if constexpr ((MASK & F_METAL) != 0) {
     if (mtype == MAT_METAL) {
       metal_sample(m, wox, woy, woz, u_b0, u_b1, s);
       spec_or_glossy = true;
     }
+  }
+  if constexpr ((MASK & F_TRANSPARENT) != 0) {
     if (mtype == MAT_TRANSPARENT) {
       transparent_sample(m, wox, woy, woz, uni(h, 7), s);
       spec_or_glossy = true;
     }
+  }
+  if constexpr ((MASK & F_GLASS) != 0) {
     if (mtype == MAT_GLASS) {
       glass_sample(m, wox, woy, woz, u_b0, u_b1, uni(h, 7), s);
       spec_or_glossy = true;

@@ -45,12 +45,15 @@ def nvcc() -> str:
 
 class CudaLibrary:
     """One csrc/ source built into one shared library. `bind(lib)` sets the
-    ctypes signatures of its entry points."""
+    ctypes signatures of its entry points. `defines` ((name, value) pairs)
+    go to nvcc as -D flags: one source built with other defines is another
+    library (`name` tells the builds apart)."""
 
-    def __init__(self, stem: str, headers=(), bind=None):
-        self.stem = stem
+    def __init__(self, stem: str, headers=(), bind=None, defines=()):
+        self.name = stem + "".join(f"_{k.lower()}{v}" for k, v in defines)
         self.source = CSRC / f"{stem}.cu"
         self.headers = tuple(CSRC / h for h in headers)
+        self.defines = tuple(f"-D{k}={v}" for k, v in defines)
         self.ptxas_log = ""
         self.build_seconds = None
         self._bind = bind
@@ -61,11 +64,11 @@ class CudaLibrary:
         h = hashlib.sha256(self.source.read_bytes())
         for p in self.headers:
             h.update(p.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(NVCC_FLAGS + self.defines).encode())
         tag = h.hexdigest()[:16]
-        return (BUILD_DIR / f"lib{self.stem}_{tag}.so",
-                BUILD_DIR / f"{self.stem}_{tag}.log",
-                BUILD_DIR / f".lib{self.stem}_{tag}.{os.getpid()}.so")
+        return (BUILD_DIR / f"lib{self.name}_{tag}.so",
+                BUILD_DIR / f"{self.name}_{tag}.log",
+                BUILD_DIR / f".lib{self.name}_{tag}.{os.getpid()}.so")
 
     def start(self):
         """Start nvcc in the background unless this source was built."""
@@ -77,8 +80,8 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self._t0 = time.perf_counter()
         self._proc = subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-             str(self.source)],
+            [nvcc(), *NVCC_FLAGS, *self.defines, "-I", str(CSRC), "-o",
+             str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def load(self) -> ctypes.CDLL:

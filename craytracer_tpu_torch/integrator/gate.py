@@ -44,8 +44,8 @@ asking costs no device sync.
 
 `shade_features` is the scene's feature mask (pallas_shade.py:1793-1802):
 which of the material and light branches the shading core needs. The
-plain version skips the branches it lacks; the kernels take their
-matte-only core when it is 0 and their full core otherwise.
+plain version skips the branches it lacks; K2 is built once per mask, and
+K1 takes its matte-only core when it is 0 and its full core otherwise.
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ ESTIMATORS = ("reference", "physical", "mis")
 # :1793-1802)
 F_MIRROR, F_SPHERE_LIGHT, F_OREN, F_PLASTIC, F_METAL, F_GLASS, \
     F_TRANSPARENT = (1 << i for i in range(7))
+F_ALL = (1 << 7) - 1
 _MAT_FEATURE = ((T.MAT_MIRROR, F_MIRROR), (T.MAT_PLASTIC, F_PLASTIC),
                 (T.MAT_METAL, F_METAL), (T.MAT_GLASS, F_GLASS),
                 (T.MAT_TRANSPARENT, F_TRANSPARENT))

@@ -7,11 +7,14 @@ craytracer_tpu/integrator/pallas_shade.py: `fused_shade` :1846 with
 `fused_shade_reference`; for CUDA tensors it launches K2
 (csrc/shade_kernel.cu, whose shading is csrc/shade_core.cuh, shared with
 K1) or raises. It never falls back. `KERNEL.launches` counts K2
-launches. Both return the dict of `_unpack_outputs`: L_add, shadow_o,
-shadow_d, dist_adj, dist_adj_t, contrib_cand, new_o, new_d, new_beta
-([N, 3] / [N] f32), good_inc ([N] int32), want_shadow, new_alive,
-new_prev_sg ([N] bool). Forward-only, as in the JAX package
-(pallas_shade.py:47).
+launches. On a scene it has seen, the wrapper launches K2 and nothing
+else: the material and light table is cached per Scene
+(`cached_shade_tables`, rebuilt when one of its tensors changes) and the
+kernel writes every output in its final dtype. Both return the dict of
+`_unpack_outputs`: L_add, shadow_o, shadow_d, dist_adj, dist_adj_t,
+contrib_cand, new_o, new_d, new_beta ([N, 3] / [N] f32), good_inc ([N]
+int32), want_shadow, new_alive, new_prev_sg ([N] bool). Forward-only,
+as in the JAX package (pallas_shade.py:47).
 
 Covers everything the port's gate admits (integrator/gate.py): all seven
 material types (Lambertian and Oren-Nayar MATTE, MIRROR, PLASTIC's
@@ -20,13 +23,14 @@ rough GLASS, EMISSIVE) with isotropic Beckmann lobes, rect and sphere
 area lights, a constant or black env light. As in the JAX kernels, the
 scene's feature mask (`gate.shade_features`: mirror, sphere lights,
 Oren-Nayar, plastic, metal, glass, transparent) decides which branches
-are computed: the plain version skips absent ones, and the kernels take
-the matte-only core when the mask is 0 and the full core otherwise.
+are computed: the plain version skips absent ones, and K2 is built once
+per mask (`library`), as the JAX kernel is traced once per flag set.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -553,16 +557,67 @@ def fused_shade_reference(scene: T.Scene, d, hit, beta, alive, prev_sg, pix,
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.k2_shade_launch.argtypes = ([vp, ci, ci, ci] + [vp] * 11
-                                    + [ci, ci, ctypes.c_uint, ci, ci, ci, ci]
-                                    + [vp] * 4)
+                                    + [ci, ci, ctypes.c_uint, ci, ci, ci]
+                                    + [vp] * 5)
     lib.k2_shade_launch.restype = ci
+    lib.k2_shade_mask.argtypes = []
+    lib.k2_shade_mask.restype = ci
 
 
-LIBRARY = CudaLibrary("shade_kernel", headers=("shade_core.cuh",),
-                      bind=_bind)
+_VARIANTS: dict = {}  # feature mask -> its CudaLibrary
+
+
+def library(mask: int) -> CudaLibrary:
+    """K2 built for one feature mask (`gate.shade_features`): the branches
+    of csrc/shade_core.cuh the mask's bits name and no other. Built at
+    first `load()` into craytracer_tpu_torch/_build/, keyed on the sources'
+    hash and the mask."""
+    if not 0 <= mask <= G.F_ALL:
+        raise ValueError(f"feature mask {mask} out of range")
+    if mask not in _VARIANTS:
+        _VARIANTS[mask] = CudaLibrary(
+            "shade_kernel", headers=("shade_core.cuh",), bind=_bind,
+            defines=(("K2_MASK", mask),))
+    return _VARIANTS[mask]
+
+
+def variants() -> dict:
+    """{mask: CudaLibrary} of every variant asked for in this process."""
+    return dict(_VARIANTS)
 
 
 KERNEL = LaunchCount()  # K2 launches through `fused_shade`
+
+# id(scene) -> (weak reference to the scene, key, table): each Scene's
+# table, built once per scene and rebuilt when a tensor it reads changes
+_TABLES: dict = {}
+
+
+def _table_key(scene: T.Scene):
+    """What `shade_tables` reads, as (data_ptr, _version) pairs: an
+    in-place change bumps a tensor's version, a new tensor has another
+    pointer or version."""
+    m, li, env = scene.materials, scene.lights, scene.env
+    ts = (m.mat_type, m.color, m.on_a, m.intensity, m.on_b, m.alphax, m.ks,
+          m.eta, m.k, m.ior_in, m.ior_out, li.p0, li.v1, li.v2, li.normal,
+          li.color, li.intensity, li.radius, li.power_cdf, li.power,
+          li.light_type, env.color, env.intensity)
+    return (env.kind,) + tuple((t.data_ptr(), t._version) for t in ts)
+
+
+def cached_shade_tables(scene: T.Scene):
+    """`shade_tables(scene)`, built once per Scene and rebuilt when a
+    material, light or env tensor has changed since (in place or
+    replaced)."""
+    key = _table_key(scene)
+    entry = _TABLES.get(id(scene))
+    if entry is not None and entry[0]() is scene and entry[1] == key:
+        return entry[2]
+    for k in [k for k, e in _TABLES.items() if e[0]() is None]:
+        del _TABLES[k]
+    tab = shade_tables(scene)
+    _TABLES[id(scene)] = (weakref.ref(scene), key, tab)
+    return tab
 
 
 def _check_lanes(n, dev, floats3=(), lanes=()):
@@ -578,21 +633,16 @@ def _check_lanes(n, dev, floats3=(), lanes=()):
                              f"tensor on {dev}")
 
 
-@torch.no_grad()
-def fused_shade(scene: T.Scene, d, hit, beta, alive, prev_sg, pix, spp,
-                seed: int, bounce: int, max_depth: int,
-                rr_start: int = RR_START):
-    """One bounce's shading: the dict described in the module docstring.
-    `d`'s device decides: a CPU tensor takes the plain version, a CUDA
-    tensor launches K2. `spp` is an int or a per-lane [N] tensor."""
+def prepare_launch(scene: T.Scene, d, hit, beta, alive, prev_sg, pix, spp,
+                   seed: int, bounce: int, max_depth: int,
+                   rr_start: int = RR_START):
+    """Check K2's inputs (CUDA tensors) and allocate its outputs: (the
+    variant's CudaLibrary, built and loaded, the arguments of its
+    `k2_shade_launch`, the output dict). `fused_shade` launches with them;
+    a timing loop may launch the same arguments again (such launches are
+    not counted)."""
     dev = d.device
     n = d.shape[0]
-    for x in (d, hit.point, hit.normal, hit.dpdu, beta):
-        if x.requires_grad:
-            raise ValueError("K2 is forward-only: an input requires grad")
-    if dev.type == "cpu":
-        return fused_shade_reference(scene, d, hit, beta, alive, prev_sg, pix,
-                                     spp, seed, bounce, max_depth, rr_start)
     if dev.type != "cuda":
         raise ValueError(f"K2 runs on CUDA tensors, not {dev}")
     if scene.device != dev:
@@ -611,24 +661,47 @@ def fused_shade(scene: T.Scene, d, hit, beta, alive, prev_sg, pix, spp,
                   ("prev_sg", prev_sg, torch.bool),
                   ("pix", pix, torch.int32))
                  + ((("spp", spp, torch.int32),) if per_lane else ()))
-    tab = shade_tables(scene)
+    tab = cached_shade_tables(scene)
+    variant = library(G.shade_features(scene))
+    variant.load()
     f3 = torch.empty((7, n, 3), dtype=torch.float32, device=dev)
     f1 = torch.empty((2, n), dtype=torch.float32, device=dev)
-    io = torch.empty((4, n), dtype=torch.int32, device=dev)
-    lib = LIBRARY.load()
-    err = lib.k2_shade_launch(
-        tab.data_ptr(), tab.numel(), n_mats, n_lights, d.data_ptr(),
-        hit.point.data_ptr(), hit.normal.data_ptr(), hit.dpdu.data_ptr(),
-        beta.data_ptr(), hit.t.data_ptr(), hit.mat_id.data_ptr(),
-        alive.data_ptr(), prev_sg.data_ptr(), pix.data_ptr(),
-        spp.data_ptr() if per_lane else None, 0 if per_lane else int(spp),
-        n, int(seed) & MASK32, int(bounce), int(max_depth), int(rr_start),
-        int(G.shade_features(scene) != 0), f3.data_ptr(), f1.data_ptr(),
-        io.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    LIBRARY.check(err, "K2")
-    KERNEL.launches += 1
+    good = torch.empty(n, dtype=torch.int32, device=dev)
+    flags = torch.empty((3, n), dtype=torch.bool, device=dev)
+    args = (tab.data_ptr(), tab.numel(), n_mats, n_lights, d.data_ptr(),
+            hit.point.data_ptr(), hit.normal.data_ptr(), hit.dpdu.data_ptr(),
+            beta.data_ptr(), hit.t.data_ptr(), hit.mat_id.data_ptr(),
+            alive.data_ptr(), prev_sg.data_ptr(), pix.data_ptr(),
+            spp.data_ptr() if per_lane else None,
+            0 if per_lane else int(spp), n, int(seed) & MASK32, int(bounce),
+            int(max_depth), int(rr_start), f3.data_ptr(), f1.data_ptr(),
+            good.data_ptr(), flags.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     out = dict(zip(_F3, f3.unbind(0)))
-    out.update(dist_adj=f1[0], dist_adj_t=f1[1], good_inc=io[0],
-               want_shadow=io[1] != 0, new_alive=io[2] != 0,
-               new_prev_sg=io[3] != 0)
+    out.update(dist_adj=f1[0], dist_adj_t=f1[1], good_inc=good,
+               want_shadow=flags[0], new_alive=flags[1], new_prev_sg=flags[2])
+    return variant, args, out
+
+
+@torch.no_grad()
+def fused_shade(scene: T.Scene, d, hit, beta, alive, prev_sg, pix, spp,
+                seed: int, bounce: int, max_depth: int,
+                rr_start: int = RR_START):
+    """One bounce's shading: the dict described in the module docstring.
+    `d`'s device decides: a CPU tensor takes the plain version, a CUDA
+    tensor launches K2 (the variant of the scene's feature mask), and
+    nothing else: the table is the scene's cached one and every output is
+    written in its final dtype. `spp` is an int or a per-lane [N]
+    tensor."""
+    for x in (d, hit.point, hit.normal, hit.dpdu, beta):
+        if x.requires_grad:
+            raise ValueError("K2 is forward-only: an input requires grad")
+    if d.device.type == "cpu":
+        return fused_shade_reference(scene, d, hit, beta, alive, prev_sg, pix,
+                                     spp, seed, bounce, max_depth, rr_start)
+    variant, args, out = prepare_launch(scene, d, hit, beta, alive, prev_sg,
+                                        pix, spp, seed, bounce, max_depth,
+                                        rr_start)
+    variant.check(variant.load().k2_shade_launch(*args), "K2")
+    KERNEL.launches += 1
     return out

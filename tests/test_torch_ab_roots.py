@@ -67,7 +67,8 @@ def test_run_roots_stops_at_a_failing_root(tmp_path, capsys):
     assert "FAIL" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("name", ["ab_k1", "ab_bvh4", "ab_render"])
+@pytest.mark.parametrize("name", ["ab_k1", "ab_bvh4", "ab_render",
+                                  "ab_k2"])
 def test_ab_scripts_start_as_module_and_by_path(name):
     path = os.path.join(REPO, "craytracer_tpu_torch", "profiling",
                         f"{name}.py")

@@ -23,8 +23,9 @@ soup's parts bit for bit: K3 `_init` part after part with the best hit
 carried, K4 part after part with max_dist 0 on the lanes an earlier part
 occluded. Every table build_bvh4 and partition_bvh4 make keeps its
 internal children's slots empty (the kernels skip them), and
-check_leaf_slots raises on a doctored row. K2's float outputs
-within 1e-5 (absolute + relative) of
+check_leaf_slots raises on a doctored row. K2's mask-0 build
+(tests/torch_k2_host.py): its float outputs within 1e-5 (absolute +
+relative) of
 fused_shade_reference and its int outputs equal on every lane, at
 bounces 0, 2 and 5 with per-lane spp (the host libm's sinf/cosf may
 differ from torch's by an ulp). Measured: every K3/K4 lane bit-equal.
@@ -62,6 +63,7 @@ from craytracer_tpu_torch.ops.intersect import intersect_scene
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 
 from torch_cuda_host import host_build
+from torch_k2_host import check_k2, k2_lib, run_k2
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,9 +77,7 @@ def host_libs(tmp_path_factory):
     from craytracer_tpu_torch.accel.bvh4_kernel import _bind
 
     _bind(trav)
-    shade = host_build(tmp_path_factory, "shade_kernel", 1)
-    sk._bind(shade)
-    return trav, shade
+    return trav, k2_lib(tmp_path_factory, 0)
 
 
 @pytest.fixture(scope="module")
@@ -288,28 +288,8 @@ def test_k2_source_matches_plain_shade(host_libs, mesh, bounce):
     scene, cam, film = mesh
     state, hit, spp = _pass_records(scene, cam, film, (bounce,))[bounce]
     o, d, beta, _, _, alive, prev_sg, _, _, _, pix = state
-    ref = sk.fused_shade_reference(scene, d, hit, beta, alive, prev_sg, pix,
-                                   spp, SEED, bounce, 5)
-    n = d.shape[0]
-    tab = sk.shade_tables(scene)
-    f3 = torch.empty((7, n, 3), dtype=torch.float32)
-    f1 = torch.empty((2, n), dtype=torch.float32)
-    io = torch.empty((4, n), dtype=torch.int32)
-    args = [x.contiguous() for x in (d, hit.point, hit.normal, hit.dpdu,
-                                     beta, hit.t, hit.mat_id, alive,
-                                     prev_sg, pix, spp)]
-    assert shade.k2_shade_launch(
-        tab.data_ptr(), tab.numel(), scene.materials.mat_type.shape[0],
-        scene.lights.light_type.shape[0], *[a.data_ptr() for a in args],
-        0, n, SEED, bounce, 5, sk.RR_START, 0, f3.data_ptr(), f1.data_ptr(),
-        io.data_ptr(), None) == 0
-    got = dict(zip(sk._F3, f3.unbind(0)))
-    got.update(dist_adj=f1[0], dist_adj_t=f1[1])
-    for key, val in got.items():
-        assert torch.allclose(val, ref[key], rtol=1e-5, atol=1e-5), key
-    for row, key in enumerate(("good_inc", "want_shadow", "new_alive",
-                               "new_prev_sg")):
-        assert torch.equal(io[row], ref[key].to(torch.int32)), key
+    args = (scene, d, hit, beta, alive, prev_sg, pix, spp, SEED, bounce, 5)
+    check_k2(run_k2(shade, *args), sk.fused_shade_reference(*args))
     assert bool(alive.any())
 
 

@@ -20,8 +20,10 @@ is not a multiple of the warp or the block, with the outputs prefilled.
 K1 is held to the card's bars: on every lane `good`, the ray and
 shadow-ray counts and the alive mask equal the plain version's, L within
 2e-5 (absolute + relative), and the per-bounce histogram of live lanes
-equal. K2 is held to its card bar: floats within 1e-5, the int outputs
-equal on every lane. Built with -ffp-contract=off, as the card build uses
+equal. K2, built once per feature mask it is run with
+(tests/torch_k2_host.py: parity_mix's, glass_spheres' and every bit), is
+held to its card bar: floats within 1e-5, the count and the flags equal
+on every lane. Built with -ffp-contract=off, as the card build uses
 --fmad=false; the host libm's sinf/cosf/expf/logf may differ from
 torch's by an ulp, and K1 tests the sphere clip window in cosine space
 where the plain version uses atan2/acos.
@@ -36,9 +38,10 @@ import torch
 
 from craytracer_tpu_torch.camera import (THINLENS, Film, generate_rays,
                                         make_camera)
+from craytracer_tpu_torch.constants import TMAX
 from craytracer_tpu_torch.integrator import pass_kernel as pk
 from craytracer_tpu_torch.integrator import shade_kernel as sk
-from craytracer_tpu_torch.integrator.gate import shade_features
+from craytracer_tpu_torch.integrator.gate import F_ALL, shade_features
 from craytracer_tpu_torch.integrator.wavefront import _bounce_step, _init_state
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.ops.intersect import intersect_scene
@@ -48,6 +51,7 @@ from craytracer_tpu_torch.scene.build import SceneBuilder
 import torch_prim_scenes as prim_scenes
 import torch_sphere_scenes as sphere_scenes
 from torch_cuda_host import host_build
+from torch_k2_host import check_k2, k2_lib, run_k2
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,13 +64,6 @@ L_TOL = 2e-5
 def k1_host(tmp_path_factory):
     so = host_build(tmp_path_factory, "pass_kernel", 1)
     pk._bind(so)
-    return so
-
-
-@pytest.fixture(scope="module")
-def k2_host(tmp_path_factory):
-    so = host_build(tmp_path_factory, "shade_kernel", 1)
-    sk._bind(so)
     return so
 
 
@@ -253,44 +250,86 @@ def test_host_stub_barrier_gives_up(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", ["parity_mix", "glass_spheres"])
-def test_k2_source_full_core_matches_plain_shade(k2_host, name):
-    """K2's full core on the hit records of bounces 0, 2 and 4 of one
-    plain pass."""
+def test_k2_source_full_core_matches_plain_shade(tmp_path_factory, name):
+    """K2 built for the scene's feature mask, on the hit records of bounces
+    0, 2 and 4 of one plain pass."""
     scene, cam, film, _ = _scene(name)
+    lib = k2_lib(tmp_path_factory, shade_features(scene))
     n = film.num_pixels
     pix = torch.arange(n, dtype=torch.int32)
     spp = torch.full((n,), 2, dtype=torch.int32)
     o, d = generate_rays(cam, film, pix, stratified_jitter(7, pix, spp))
     state = _init_state(o, d, 5, pix)
-    tab = sk.shade_tables(scene)
     for bounce in range(5):
         hit = intersect_scene(scene, state[0], state[1])
         if bounce in (0, 2, 4):
             _, dd, beta, _, _, alive, prev_sg, _, _, _, _ = state
-            ref = sk.fused_shade_reference(scene, dd, hit, beta, alive,
-                                           prev_sg, pix, spp, 7, bounce, 5)
-            f3 = torch.empty((7, n, 3), dtype=torch.float32)
-            f1 = torch.empty((2, n), dtype=torch.float32)
-            io = torch.empty((4, n), dtype=torch.int32)
-            args = [x.contiguous() for x in (dd, hit.point, hit.normal,
-                                             hit.dpdu, beta, hit.t,
-                                             hit.mat_id, alive, prev_sg, pix,
-                                             spp)]
-            assert k2_host.k2_shade_launch(
-                tab.data_ptr(), tab.numel(),
-                scene.materials.mat_type.shape[0],
-                scene.lights.light_type.shape[0],
-                *[a.data_ptr() for a in args], 0, n, 7, bounce, 5,
-                sk.RR_START, 1, f3.data_ptr(), f1.data_ptr(),
-                io.data_ptr(), None) == 0
-            got = dict(zip(sk._F3, f3.unbind(0)))
-            got.update(dist_adj=f1[0], dist_adj_t=f1[1])
-            for key, val in got.items():
-                assert torch.allclose(val, ref[key], rtol=1e-5,
-                                      atol=1e-5), (bounce, key)
-            for row, key in enumerate(("good_inc", "want_shadow",
-                                       "new_alive", "new_prev_sg")):
-                assert torch.equal(io[row], ref[key].to(torch.int32)), (
-                    bounce, key)
+            args = (scene, dd, hit, beta, alive, prev_sg, pix, spp, 7,
+                    bounce, 5)
+            check_k2(run_k2(lib, *args), sk.fused_shade_reference(*args),
+                     bounce)
             assert bool(alive.any())
         state = _bounce_step(scene, 7, spp, 5, bounce, state, kernels=False)
+
+
+def every_material(b):
+    """glossy_spheres (Oren-Nayar and Lambertian matte, plastic, mirror,
+    metal, a rect lamp) with glass_spheres' glass and thin balls and an
+    emissive ball (a sphere light): every material type and mask bit."""
+    eye, look, fov, _ = sphere_scenes.glossy_spheres(b)
+    b.add_glass("glass", ior_in=1.5, ior_out=1.0, roughness=0.05)
+    b.add_transparent("thin", ior_in=1.5, ior_out=1.0)
+    b.add_emissive("bulb", (1.0, 0.8, 0.6), 30.0)
+    b.add_sphere((-1.2, 2.6, 1.6), 0.5, "glass")
+    b.add_sphere((1.4, 2.4, 1.8), 0.5, "thin")
+    b.add_sphere((0.0, 3.0, -1.5), 0.4, "bulb")
+    return eye, look, fov
+
+
+def test_k2_source_every_material_type_in_each_block(tmp_path_factory):
+    """K2 with every branch (mask F_ALL), on bounce-1 hit records reordered
+    so that each full block of 128 lanes holds every material type and
+    misses, and lanes whose path ends beside live ones; 2,299 lanes (a
+    ragged last block) handed in as views 4 bytes (1 for the flags) past
+    an aligned start."""
+    b = SceneBuilder()
+    eye, look, fov = every_material(b)
+    scene = b.build(device="cpu")
+    assert shade_features(scene) == F_ALL
+    cam = make_camera(eye, look, device="cpu")
+    film = Film(fov=torch.tensor(fov), width=48, height=48)
+    n = film.num_pixels
+    pix = torch.arange(n, dtype=torch.int32)
+    spp = torch.full((n,), 1, dtype=torch.int32)
+    o, d = generate_rays(cam, film, pix, stratified_jitter(7, pix, spp))
+    state = _init_state(o, d, 5, pix)
+    state = _bounce_step(scene, 7, spp, 5, 0, state, kernels=False)
+    hit = intersect_scene(scene, state[0], state[1])
+    # round robin over the kinds (material types, misses 0), each kind's
+    # lanes in their order
+    kind = torch.where(hit.t < TMAX, scene.materials.mat_type[
+        hit.mat_id.long()], 0)
+    rank = torch.zeros_like(kind)
+    for k in kind.unique():
+        sel = kind == k
+        rank[sel] = torch.arange(int(sel.sum()), dtype=kind.dtype)
+    order = torch.argsort(rank * 8 + kind, stable=True)[:n - 5]
+    windows = kind[order][:(n - 5) // 128 * 128].reshape(-1, 128)
+    assert all(len(w.unique()) == 8 for w in windows[:4])
+
+    def off16(x):
+        """`x` reordered, as a contiguous view 4 bytes past an aligned
+        start."""
+        buf = torch.empty(x[order].numel() + 1, dtype=x.dtype)
+        view = buf[1:].view(x[order].shape)
+        view.copy_(x[order])
+        return view
+
+    _, dd, beta, _, _, alive, prev_sg, _, _, _, _ = state
+    hit_o = type(hit)(**{f: off16(getattr(hit, f)) if f in (
+        "t", "point", "normal", "dpdu", "mat_id") else getattr(hit, f)[order]
+        for f in hit.__dataclass_fields__})
+    args = (scene, off16(dd), hit_o, off16(beta), off16(alive),
+            off16(prev_sg), off16(pix), off16(spp), 7, 1, 5)
+    lib = k2_lib(tmp_path_factory, F_ALL)
+    check_k2(run_k2(lib, *args), sk.fused_shade_reference(*args))

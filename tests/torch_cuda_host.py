@@ -339,13 +339,15 @@ def host_source(text: str):
 
 def host_build(tmp_path_factory, stem: str, n_launches: int,
                timeout_s: float = 20.0, text: str = None,
-               l2_bytes: int = 50 * 1024 * 1024):
+               l2_bytes: int = 50 * 1024 * 1024, defines: dict = None):
     """csrc/`stem`.cu (or the source `text`) built for the CPU with the
-    stub, whose device has an L2 of `l2_bytes`; asserts that it has
-    `n_launches` launches. Skips when no C++ compiler is on the PATH."""
+    stub, whose device has an L2 of `l2_bytes`, and `defines` as -D flags;
+    asserts that it has `n_launches` launches. Skips when no C++ compiler
+    is on the PATH."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel sources")
+    flags = [f"-D{k}={v}" for k, v in (defines or {}).items()]
     d = tmp_path_factory.mktemp(f"{stem}_host")
     (d / "cuda_runtime.h").write_text(STUB)
     src, n = host_source(text or (CSRC / f"{stem}.cu").read_text())
@@ -355,7 +357,8 @@ def host_build(tmp_path_factory, stem: str, n_launches: int,
     subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off",
                     "-fno-fast-math", "-shared", "-fPIC", "-pthread",
                     f"-DCRAY_HOST_TIMEOUT_S={timeout_s}",
-                    f"-DCRAY_HOST_L2_BYTES={l2_bytes}", "-I", str(d),
-                    "-I", str(CSRC), "-o", str(lib), str(d / f"{stem}.cpp")],
+                    f"-DCRAY_HOST_L2_BYTES={l2_bytes}", *flags, "-I",
+                    str(d), "-I", str(CSRC), "-o", str(lib),
+                    str(d / f"{stem}.cpp")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
