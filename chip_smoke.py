@@ -256,13 +256,37 @@ never JAX or the JAX package. Phases, each printing its own lines:
    ms per launch, fused_shade's device ms per call (CUDA events, the run
    enqueued behind a device-side sleep) and wall ms per call, beside the
    177-byte-per-lane bound.
+37. the inverse path (slice G) on the inverse mesh demo's scene
+   (craytracer_tpu_torch/examples/inverse_mesh_demo.py: a 320-triangle
+   bvh4 GOLD icosphere on a 64x64 textured floor, 12,289 parameters,
+   MIS, depth 2): (a) the target at 512x512 x 8 spp without grad, route
+   "general", K3 and K4 24 launches each; this path's camera and bounce-1
+   rays through K3 and K4 against the plain traversal (phase 6's bars)
+   and its whole pass (phase 8's); (b) one gradient at the starting
+   parameters through the kernels and through the plain traversal
+   (kernels=False): the loss bit-equal, alpha's and every texel's
+   gradient within rtol 1e-5 + 1e-5 max|g|, finite, the route "general"
+   under autograd, K3 = K4 = 24 and K1 = K2 = 0 (0 for the plain
+   version); then, in turns, five deterministic gradients as
+   InverseRenderer takes them and five of the same loss with the
+   default atomic accumulation, for the cost of the deterministic one;
+   (c) four InverseRenderer steps at
+   512x512 x 8 spp: loss, grad norm, seconds and peak memory a step, the
+   launches set to 0 just before each step and read just after, K3 = K4
+   = spp x (depth + 1) (no remat), K1 = K2 = 0; (d) at 128x128, 2
+   steps + save + load + 2 steps equal 4 straight steps bit for bit
+   (params and optimizer state); (e) one gradient on the fullscene at
+   512x512 x 1 spp, MIS, depth 2, with respect to texture 0's texels and
+   a METAL row's roughness, through K3/K4: finite, seconds and peak
+   memory.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
 sphere field's, K3 and K4 plus the fullscene's under both estimators, K3
 `_init` on the 7M city's; K3 and K4 also carry the general route's
-traversal (phases 25-30, 34), which adds no kernel; K5, K6 and P1 lie on
-no path: 0;
+traversal (phases 25-30, 34) and the inverse path's detached search
+(phase 37's four steps), which adds no kernel; K5, K6 and P1 lie on no
+path: 0;
 max_abs_err over its checks, ms per bare launch (K2's launches enqueued
 behind a device-side sleep, so the events time the card alone), the
 plain version's ms,
@@ -282,6 +306,7 @@ non-zero without them.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -500,6 +525,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from craytracer_tpu_torch import cuda_build, native
+    from craytracer_tpu_torch.inverse import CUBLAS_CONFIG
+    # before the first cuBLAS call: phase 37's bit-exact resume
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_CONFIG)
     from craytracer_tpu_torch.accel import bvh4_kernel as bk
     from craytracer_tpu_torch.accel import bvh4_parts
     from craytracer_tpu_torch.accel import bvh4_split_kernel as sp
@@ -2445,6 +2473,246 @@ def main() -> int:
           flush=True)
     if rel > 0.12:
         fails.append(f"glossy: MIS mean off physical by {rel:.4f}")
+
+    # ---- 37. the inverse path: gradients through the general route, the
+    # search detached through K3/K4, and InverseRenderer
+    from craytracer_tpu_torch.examples import inverse_mesh_demo as demo
+    from craytracer_tpu_torch.inverse import (InverseRenderer, deterministic,
+                                              render_mean)
+    from craytracer_tpu_torch.scene import types as T
+
+    def peak_reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    isize, steps_c = 512, 4
+    t0 = time.perf_counter()
+    reset_counts()
+    dm = demo.demo(size=isize, tex=64, steps=steps_c, device=dev)
+    torch.cuda.synchronize()
+    got = counts()
+    icfg, iscene, icam, ifilm = (dm["config"], dm["scene"], dm["cam"],
+                                 dm["film"])
+    per_pass = icfg.max_depth + 1
+    with torch.no_grad():
+        troute = wf.production_fast_shade(dm["scene_true"], icam, ifilm,
+                                          icfg.estimator, icfg.max_depth)
+    target = dm["target"]
+    print(f"[inverse] (a) demo scene {iscene.tri_bvh.n_tris} triangles "
+          f"(bvh4, {iscene.tri_bvh.fat.shape[0]} fat rows), 64x64x3 texels "
+          f"+ alpha = {3 * 64 * 64 + 1} parameters; target {isize}x{isize} "
+          f"x 8 spp, {icfg.estimator}, depth {icfg.max_depth}, no grad: "
+          f"route {troute}, {time.perf_counter() - t0:.2f} s, launches "
+          f"{got}, mean {float(target.mean()):.5f}", flush=True)
+    expect("inverse target", got, k3_bvh4_closest=8 * per_pass,
+           k4_bvh4_any=8 * per_pass)
+    if troute != "general" or not bool(torch.isfinite(target).all()):
+        fails.append(f"inverse target: route {troute} or not finite")
+
+    # this path's own rays through K3 and K4 against the plain traversal
+    ipix = torch.arange(ifilm.num_pixels, dtype=torch.int32, device=dev)
+    ispp = torch.zeros_like(ipix)
+    o_i, d_i = generate_rays(icam, ifilm, ipix,
+                             stratified_jitter(7, ipix, ispp))
+    ibvh = iscene.tri_bvh
+    check_k3("inverse demo 512x512 camera rays", o_i, d_i, bvh_=ibvh)
+    t_i = bvh4_closest_hit_stats(ibvh, o_i, d_i)[0]
+    check_k4("inverse demo camera rays, max_dist around the hit", o_i, d_i,
+             torch.where(t_i < TMAX, t_i * 0.999, 5.0), bvh_=ibvh)
+    st1 = wf._general_step(iscene, 7, ispp, icfg.max_depth, 0,
+                           wf._init_state(o_i, d_i, icfg.max_depth, ipix,
+                                          True), kernels=False, mis=True)
+    check_k3("inverse demo bounce-1 rays", st1[0], st1[1], bvh_=ibvh)
+    check_general("inverse demo 512x512 spp 0", iscene, o_i, d_i, ipix,
+                  ispp, icfg.max_depth, ("general", False), mis=True)
+
+    def renderer(kernels=None, config=None, size_scene=None):
+        dd = size_scene or dm
+        return InverseRenderer(dd["scene"], dd["cam"], dd["film"],
+                               dd["target"], dd["params0"], dd["apply_fn"],
+                               config=config or dd["config"],
+                               clip_fn=demo.clip_fn, kernels=kernels)
+
+    # (b) one gradient at the starting parameters: kernels vs plain
+    grads, grad_s = {}, {}
+    for label, kern in (("kernels", None), ("plain", False)):
+        inv = renderer(kern)
+        with torch.enable_grad():
+            groute = wf.production_fast_shade(
+                dm["apply_fn"](iscene, inv.params), icam, ifilm,
+                icfg.estimator, icfg.max_depth)
+        peak_reset()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, g = inv.value_and_grad()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        ga, gt = g  # params sorted by name: alpha, texels
+        grads[label] = (loss, ga, gt)
+        grad_s[label] = dt
+        print(f"[inverse] (b) gradient through the {label}: route {groute}, "
+              f"loss {float(loss):.9g}, d/d alpha {float(ga):.6g}, "
+              f"|d/d texels| max {float(gt.abs().max()):.6g}, "
+              f"{int((gt != 0).any(-1).sum())} texels with a gradient, "
+              f"{dt:.3f} s, peak "
+              f"{peak_gb():.2f} GB, launches {got}", flush=True)
+        want = ({} if kern is False else {"k3_bvh4_closest": 8 * per_pass,
+                                          "k4_bvh4_any": 8 * per_pass})
+        expect(f"inverse gradient {label}", got, **want)
+        if groute != "general" or not (bool(torch.isfinite(gt).all())
+                                       and bool(torch.isfinite(ga))):
+            fails.append(f"inverse gradient {label}: route {groute} or a "
+                         "non-finite gradient")
+    # times after the warm-up, in turns, median of 5: the gradient through
+    # the kernels as InverseRenderer takes it (deterministic accumulation)
+    # and the same loss's backward with the default atomic accumulation;
+    # then the forward pass alone (the loss's graph built, no backward)
+    inv = renderer()
+    t_det, t_atom, g_atom = [], [], None
+    for _ in range(5):
+        t0 = time.perf_counter()
+        inv.value_and_grad()
+        torch.cuda.synchronize()
+        t_det.append(time.perf_counter() - t0)
+        for p in inv._leaves:
+            p.grad = None
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            inv.loss(inv.params, 0).backward()
+        torch.cuda.synchronize()
+        t_atom.append(time.perf_counter() - t0)
+        g_atom = inv.params["texels"].grad
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        fwd = inv.loss(inv.params, 0)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    del fwd
+    t_again = statistics.median(t_det)
+    print(f"[time] {card}, one inverse gradient at {isize}x{isize} x "
+          f"{icfg.spp_per_step} spp after the warm-up, in turns, median of "
+          f"5: deterministic {t_again:.3f} s (runs {_runs(t_det)} s), "
+          f"atomic accumulation {statistics.median(t_atom):.3f} s (runs "
+          f"{_runs(t_atom)} s), deterministic / atomic "
+          f"{t_again / statistics.median(t_atom):.4f}; the forward pass "
+          f"alone {t_fwd:.3f} s, so the backward {t_again - t_fwd:.3f} s; "
+          f"the plain traversal's single run above {grad_s['plain']:.3f} s",
+          flush=True)
+    (lk, gak, gtk), (lp, gap, gtp) = grads["kernels"], grads["plain"]
+    dgt = (gtk - gtp).abs()
+    bar_t = 1e-5 * float(gtp.abs().max()) + 1e-5 * gtp.abs()
+    bar_a = 1e-5 * abs(float(gap)) * 2
+    ok_b = (torch.equal(lk, lp) and bool((dgt <= bar_t).all())
+            and abs(float(gak - gap)) <= bar_a)
+    print(f"[inverse] (b) kernels vs plain: loss bit-equal "
+          f"{torch.equal(lk, lp)}, |d alpha| {abs(float(gak - gap)):.3g} "
+          f"(bar {bar_a:.3g}), max |d texel grad| {float(dgt.max()):.3g} "
+          f"(bar rtol 1e-5 + 1e-5 max|g| = "
+          f"{1e-5 * float(gtp.abs().max()):.3g}); deterministic vs atomic "
+          f"accumulation: max |d texel grad| "
+          f"{float((g_atom - gtk).abs().max()):.3g}"
+          + ("" if ok_b else " FAIL"), flush=True)
+    if not ok_b:
+        fails.append("inverse gradient: kernels and plain disagree")
+
+    # (c) InverseRenderer: four steps at 512x512, 8 spp each
+    inv = renderer()
+    step_launch = icfg.spp_per_step * per_pass
+    step_s, step_gb = [], []
+    for k in range(steps_c):
+        peak_reset()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, gnorm = inv.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        step_s.append(dt)
+        step_gb.append(peak_gb())
+        print(f"[inverse] (c) step {k + 1}: loss {loss:.9g}, grad norm "
+              f"{gnorm:.6g}, alpha {float(inv.params['alpha']):.6f}, "
+              f"{dt:.3f} s, peak {step_gb[-1]:.2f} GB, launches {got} "
+              f"(derived: K3 = K4 = spp {icfg.spp_per_step} x (depth "
+              f"{icfg.max_depth} + 1), no remat, = {step_launch})",
+              flush=True)
+        expect(f"inverse step {k + 1}", got, k3_bvh4_closest=step_launch,
+               k4_bvh4_any=step_launch)
+        for name in ("k3_bvh4_closest", "k4_bvh4_any"):
+            kernels[name]["launches"] += got[name]
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fails.append(f"inverse step {k + 1}: loss {loss}, norm {gnorm}")
+    print(f"[time] {card}, inverse step at {isize}x{isize} x "
+          f"{icfg.spp_per_step} spp, MIS depth {icfg.max_depth}, "
+          f"{3 * 64 * 64 + 1} parameters, deterministic: "
+          f"{statistics.median(step_s):.3f} s/step (median of "
+          f"{steps_c}: {_runs(step_s)} s), peak memory "
+          f"{max(step_gb):.2f} GB", flush=True)
+
+    # (d) resume on the card: 2 + save + load + 2 == 4 straight
+    small = demo.demo(size=128, tex=64, steps=4, device=dev)
+    a = renderer(size_scene=small)
+    for _ in range(4):
+        a.step()
+    b = renderer(size_scene=small)
+    for _ in range(2):
+        b.step()
+    ck = str(cuda_build.BUILD_DIR / "inverse_resume.pt")
+    b.save_state(ck)
+    c = renderer(size_scene=small).load_state(ck)
+    for _ in range(2):
+        c.step()
+    same = all(torch.equal(a.params[k], c.params[k]) for k in a.params)
+    sa, sc = a.opt.state_dict()["state"], c.opt.state_dict()["state"]
+    same_opt = all(torch.equal(sa[i][n].cpu(), sc[i][n].cpu())
+                   for i in sa for n in sa[i])
+    print(f"[inverse] (d) 128x128: 2 steps + save + load + 2 steps vs 4 "
+          f"straight: params bit-equal {same}, optimizer state bit-equal "
+          f"{same_opt}, losses {[round(h[0], 9) for h in a.history]} / "
+          f"{[round(h[0], 9) for h in c.history]}"
+          + ("" if same and same_opt else " FAIL"), flush=True)
+    if not (same and same_opt and a.history == c.history):
+        fails.append("inverse resume on the card is not bit-exact")
+
+    # (e) the fullscene: one gradient at 512x512, 1 spp, MIS, depth 2
+    tid = 0
+    t_off = int(full.textures.offset[tid])
+    t_n = int(full.textures.width[tid]) * int(full.textures.height[tid])
+    metal = int(torch.nonzero(full.materials.mat_type == T.MAT_METAL)[0])
+    fparams = {"texels": full.textures.texels[t_off:t_off + t_n].clone()
+               .requires_grad_(True),
+               "alpha": full.materials.alphax[metal].clone()
+               .requires_grad_(True)}
+    fgraft = demo.grafter(full, metal)
+    fcfg = dataclasses.replace(icfg, spp_per_step=1)
+    fpix = torch.arange(ffilm.num_pixels, dtype=torch.int32, device=dev)
+    peak_reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    with deterministic():
+        fimg = render_mean(fgraft(full, fparams), fcam, ffilm, fpix, 7, 0,
+                           fcfg)
+        fimg.mean().backward()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counts()
+    fg_t, fg_a = fparams["texels"].grad, fparams["alpha"].grad
+    print(f"[inverse] (e) fullscene {fbvh.n_tris} triangles 512x512 x 1 "
+          f"spp, MIS depth 2: gradient of the mean image w.r.t. texture "
+          f"{tid}'s {t_n} texels and material {metal}'s (METAL) alpha "
+          f"{float(fparams['alpha']):.4f}: d/d alpha {float(fg_a):.6g}, "
+          f"|d/d texels| max {float(fg_t.abs().max()):.6g}, "
+          f"{int((fg_t != 0).any(-1).sum())} texels with a gradient; "
+          f"{dt:.3f} s, peak {peak_gb():.2f} GB, launches {got}",
+          flush=True)
+    expect("fullscene gradient", got, k3_bvh4_closest=per_pass,
+           k4_bvh4_any=per_pass)
+    if not (bool(torch.isfinite(fg_t).all()) and bool(torch.isfinite(fg_a))
+            and float(fg_t.abs().max()) > 0.0):
+        fails.append("fullscene gradient: not finite or all zero")
 
     if fails:
         for f in fails:

@@ -88,8 +88,8 @@ def gather_params(materials: T.Materials, textures: T.TexturePack, mat_id,
         on_b=materials.on_b[idx], ior_in=materials.ior_in[idx],
         ior_out=materials.ior_out[idx], eta3=materials.eta[idx],
         k3=materials.k[idx],
-        alphax=torch.clamp(materials.alphax[idx], min=1e-4),
-        alphay=torch.clamp(materials.alphay[idx], min=1e-4),
+        alphax=vm.maximum(materials.alphax[idx], 1e-4),
+        alphay=vm.maximum(materials.alphay[idx], 1e-4),
         distrib=materials.distrib[idx], intensity=materials.intensity[idx],
         lambertian_only=lambertian_only, color_raw=color_raw,
         normal_tex=materials.normal_tex[idx])
@@ -107,13 +107,13 @@ def _oren_nayar_f(wi, wo, color, a, b, lambertian_only: bool = False):
     sin_to = vm.sin_theta(wo)
     d_cos = vm.cos_phi(wi) * vm.cos_phi(wo) + vm.sin_phi(wi) * vm.sin_phi(wo)
     max_cos = torch.where((sin_ti > 1e-4) & (sin_to > 1e-4),
-                          torch.clamp(d_cos, min=0.0), 0.0)
+                          vm.maximum(d_cos, 0.0), 0.0)
     aci = vm.abs_cos_theta(wi)
     aco = vm.abs_cos_theta(wo)
     wi_bigger = aci > aco
     sin_alpha = torch.where(wi_bigger, sin_to, sin_ti)
-    tan_beta = torch.where(wi_bigger, sin_ti / torch.clamp(aci, min=1e-7),
-                           sin_to / torch.clamp(aco, min=1e-7))
+    tan_beta = torch.where(wi_bigger, sin_ti / vm.maximum(aci, 1e-7),
+                           sin_to / vm.maximum(aco, 1e-7))
     return color * ((a + b * max_cos * sin_alpha * tan_beta)
                     * INV_PI)[..., None]
 
@@ -142,10 +142,10 @@ def _fb_specular_f(wi, wo, ks, ax, ay, dist):
     wh = vm.normalize(wh)
     cos_wh = vm.dot(wi, wh)
     fres = schlick_fresnel(cos_wh, ks)
-    denom = 4.0 * torch.abs(cos_wh) * torch.clamp(
-        torch.maximum(vm.abs_cos_theta(wi), vm.abs_cos_theta(wo)), min=1e-7)
+    denom = 4.0 * torch.abs(cos_wh) * vm.maximum(
+        torch.maximum(vm.abs_cos_theta(wi), vm.abs_cos_theta(wo)), 1e-7)
     f = fres * (mf.distribution_d(wh, ax, ay, dist)
-                / torch.clamp(denom, min=1e-12))[..., None]
+                / vm.maximum(denom, 1e-12))[..., None]
     return torch.where(degenerate[..., None], 0.0, f)
 
 
@@ -153,8 +153,8 @@ def _fb_specular_pdf(wi, wo, ax, ay, dist):
     """FresnelBlendSpecular_pdf, the reference's D / (2 wo.wh)
     (reflection.cpp:545-555)."""
     wh = vm.normalize(wi + wo)
-    pdf = mf.distribution_d(wh, ax, ay, dist) / torch.clamp(
-        2.0 * vm.dot(wo, wh), min=1e-7)
+    pdf = mf.distribution_d(wh, ax, ay, dist) / vm.maximum(
+        2.0 * vm.dot(wo, wh), 1e-7)
     return torch.where(vm.same_hemisphere(wi, wo), pdf, 0.0)
 
 
@@ -168,7 +168,7 @@ def _metal_f(wi, wo, color, eta3, k3, ax, ay, dist):
     fres = fr_conductor_rgb(vm.dot(wi, wh), eta3, torch.ones_like(eta3), k3)
     scale = (mf.distribution_d(wh, ax, ay, dist)
              * mf.distribution_g(wo, wi, ax, ay, dist)
-             / torch.clamp(4.0 * aci * aco, min=1e-12))
+             / vm.maximum(4.0 * aci * aco, 1e-12))
     return torch.where(degenerate[..., None], 0.0,
                        color * fres * scale[..., None])
 
@@ -176,8 +176,8 @@ def _metal_f(wi, wo, color, eta3, k3, ax, ay, dist):
 def _metal_pdf(wi, wo, ax, ay, dist):
     """MicrofacetReflection_pdf (reflection.cpp:346-353)."""
     wh = vm.normalize(wi + wo)
-    pdf = mf.distribution_pdf(wo, wh, ax, ay, dist) / torch.clamp(
-        4.0 * vm.dot(wo, wh), min=1e-7)
+    pdf = mf.distribution_pdf(wo, wh, ax, ay, dist) / vm.maximum(
+        4.0 * vm.dot(wo, wh), 1e-7)
     return torch.where(vm.same_hemisphere(wi, wo), pdf, 0.0)
 
 
@@ -192,7 +192,7 @@ def _glass_refl_f(wi, wo, color, ior_in, ior_out, ax, ay, dist):
     kr = 1.0 - fr_dielectric(vm.dot(wh, wi), ior_in, ior_out)
     scale = (mf.distribution_d(wh, ax, ay, dist)
              * mf.distribution_g(wo, wi, ax, ay, dist)
-             / torch.clamp(4.0 * aci * aco, min=1e-12))
+             / vm.maximum(4.0 * aci * aco, 1e-12))
     return torch.where(degenerate[..., None], 0.0,
                        color * (kr * scale)[..., None])
 
@@ -223,8 +223,8 @@ def _glass_trans_pdf(wi, wo, ior_in, ior_out, ax, ay, dist):
                       ior_out / ior_in)
     wh = vm.normalize(wo + wi * eta[..., None])
     sqrt_denom = vm.dot(wo, wh) + eta * vm.dot(wi, wh)
-    dwh_dwi = torch.abs(eta * eta * vm.dot(wi, wh)) / torch.clamp(
-        sqrt_denom * sqrt_denom, min=1e-12)
+    dwh_dwi = torch.abs(eta * eta * vm.dot(wi, wh)) / vm.maximum(
+        sqrt_denom * sqrt_denom, 1e-12)
     pdf = mf.distribution_pdf(wo, wh, ax, ay, dist) * dwh_dwi
     return torch.where(not_trans, 0.0, pdf)
 
@@ -286,7 +286,7 @@ def bsdf_f_nodelta(wi, wo, mp: MatParams, present=None):
         f_gr = _glass_refl_f(wi, wo, white, mp.ior_in, mp.ior_out,
                              mp.alphax, mp.alphay, mp.distrib)
         quirk = 1.0 - fr_dielectric(vm.dot(wh_r, wi), mp.ior_in, mp.ior_out)
-        f_gr = f_gr * (fr_r / torch.clamp(quirk, min=1e-6))[..., None]
+        f_gr = f_gr * (fr_r / vm.maximum(quirk, 1e-6))[..., None]
         f_gt = _glass_trans_f(wi, wo, white, mp.ior_in, mp.ior_out,
                               mp.alphax, mp.alphay, mp.distrib)
         f = _sel(mt == T.MAT_GLASS,
@@ -300,8 +300,8 @@ def _glass_pdf_mixture(wi, wo, mp: MatParams):
     wh_r = vm.normalize(wi + wo)
     kr_r = fr_dielectric(vm.dot(wh_r, wo), mp.ior_in, mp.ior_out)
     pdf_r = mf.distribution_pdf(wo, wh_r, mp.alphax, mp.alphay,
-                                mp.distrib) / torch.clamp(
-        4.0 * vm.dot(wo, wh_r), min=1e-7)
+                                mp.distrib) / vm.maximum(
+        4.0 * vm.dot(wo, wh_r), 1e-7)
     eta = torch.where(vm.cos_theta(wo) > 0.0, mp.ior_in / mp.ior_out,
                       mp.ior_out / mp.ior_in)
     wh_t = vm.normalize(wo + wi * eta[..., None])
@@ -378,8 +378,8 @@ def bsdf_sample(u, wo, mp: MatParams, balanced: bool = False, present=None):
     if _use(present, T.MAT_MIRROR):
         # SpecularReflection_sample_f (reflection.cpp:240-247)
         wi_r = torch.stack([-wo[:, 0], -wo[:, 1], wo[:, 2]], dim=-1)
-        take(T.MAT_MIRROR, mp.color / torch.clamp(
-            vm.abs_cos_theta(wi_r), min=1e-7)[..., None], wi_r,
+        take(T.MAT_MIRROR, mp.color / vm.maximum(
+            vm.abs_cos_theta(wi_r), 1e-7)[..., None], wi_r,
             torch.ones_like(pdf))
         is_specular = is_specular | (mtype == T.MAT_MIRROR)
 
@@ -391,8 +391,8 @@ def bsdf_sample(u, wo, mp: MatParams, balanced: bool = False, present=None):
                            torch.stack([-wo[:, 0], -wo[:, 1], wo[:, 2]],
                                        dim=-1), -wo)
         eta = mp.ior_out / mp.ior_in
-        mag = torch.where(refl, kr, (1.0 - kr) * eta * eta) / torch.clamp(
-            vm.abs_cos_theta(wi_t), min=1e-7)
+        mag = torch.where(refl, kr, (1.0 - kr) * eta * eta) / vm.maximum(
+            vm.abs_cos_theta(wi_t), 1e-7)
         take(T.MAT_TRANSPARENT, mag[:, None].expand_as(wo), wi_t,
              torch.where(refl, kr, 1.0 - kr))
         is_specular = is_specular | (mtype == T.MAT_TRANSPARENT)
@@ -403,7 +403,7 @@ def bsdf_sample(u, wo, mp: MatParams, balanced: bool = False, present=None):
         # (:789-811)
         ax, ay, dist = mp.alphax, mp.alphay, mp.distrib
         pick_spec = u2[:, 0] >= 0.5
-        u_remap = torch.clamp(torch.stack(
+        u_remap = vm.clip(torch.stack(
             [torch.where(pick_spec, 2.0 * (u2[:, 0] - 0.5), 2.0 * u2[:, 0]),
              u2[:, 1]], dim=-1), 0.0, 1.0 - 1e-7)
         wi_pd = map_to_hemisphere_cosine(u_remap)
@@ -436,8 +436,8 @@ def bsdf_sample(u, wo, mp: MatParams, balanced: bool = False, present=None):
         ok = vm.same_hemisphere(wo, wi_mt)
         f_mt = _metal_f(wi_mt, wo, torch.ones_like(mp.color), mp.eta3,
                         mp.k3, ax, ay, dist)
-        pdf_mt = mf.distribution_pdf(wo, wh, ax, ay, dist) / torch.clamp(
-            4.0 * vm.dot(wo, wh), min=1e-7)
+        pdf_mt = mf.distribution_pdf(wo, wh, ax, ay, dist) / vm.maximum(
+            4.0 * vm.dot(wo, wh), 1e-7)
         take(T.MAT_METAL, torch.where(ok[:, None], f_mt, 0.0), wi_mt,
              torch.where(ok, pdf_mt, 0.0))
         is_glossy = is_glossy | (mtype == T.MAT_METAL)
@@ -459,9 +459,9 @@ def bsdf_sample(u, wo, mp: MatParams, balanced: bool = False, present=None):
             quirk = 1.0 - fr_dielectric(vm.dot(wh_r, wi_gr), mp.ior_in,
                                         mp.ior_out)
             fr_r = fr_dielectric(vm.dot(wh_r, wo), mp.ior_in, mp.ior_out)
-            f_gr = f_gr * (fr_r / torch.clamp(quirk, min=1e-6))[:, None]
-        pdf_gr = mf.distribution_pdf(wo, wh, ax, ay, dist) / torch.clamp(
-            4.0 * vm.dot(wo, wh), min=1e-7)
+            f_gr = f_gr * (fr_r / vm.maximum(quirk, 1e-6))[:, None]
+        pdf_gr = mf.distribution_pdf(wo, wh, ax, ay, dist) / vm.maximum(
+            4.0 * vm.dot(wo, wh), 1e-7)
         if balanced:
             pdf_gr = kr * pdf_gr
         f_gr = torch.where(gr_ok[:, None], f_gr, 0.0)

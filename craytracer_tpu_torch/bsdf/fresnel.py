@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from craytracer_tpu_torch.core import math as vm
+
 
 def fr_dielectric(cos_theta_i, eta_t, eta_i):
     """Unpolarized dielectric reflectance (calcFresnelDielectric,
@@ -22,12 +24,12 @@ def fr_dielectric(cos_theta_i, eta_t, eta_i):
     ei = torch.where(flip, eta_t, eta_i)
     et = torch.where(flip, eta_i, eta_t)
     ci = torch.abs(cos_theta_i)
-    sin_i = torch.sqrt(torch.clamp(1.0 - ci * ci, min=1e-12))
+    sin_i = torch.sqrt(vm.maximum(1.0 - ci * ci, 1e-12))
     sin_t = ei / et * sin_i
     tir = sin_t >= 1.0
-    ct = torch.sqrt(torch.clamp(1.0 - sin_t * sin_t, min=1e-12))
-    r_parl = (et * ci - ei * ct) / torch.clamp(et * ci + ei * ct, min=1e-12)
-    r_perp = (ei * ci - et * ct) / torch.clamp(ei * ci + et * ct, min=1e-12)
+    ct = torch.sqrt(vm.maximum(1.0 - sin_t * sin_t, 1e-12))
+    r_parl = (et * ci - ei * ct) / vm.maximum(et * ci + ei * ct, 1e-12)
+    r_perp = (ei * ci - et * ct) / vm.maximum(ei * ci + et * ct, 1e-12)
     fr = 0.5 * (r_parl * r_parl + r_perp * r_perp)
     return torch.where(tir, 1.0, fr)
 
@@ -35,20 +37,20 @@ def fr_dielectric(cos_theta_i, eta_t, eta_i):
 def fr_conductor(c, eta, k):
     """Conductor reflectance of one channel (calcFresnelConductor,
     reflection.cpp:78-157, PBRT form) with eta_i = 1."""
-    cc = torch.clamp(c, -1.0, 1.0)
+    cc = vm.clip(c, -1.0, 1.0)
     c2 = cc * cc
     s2 = 1.0 - c2
     eta2 = eta * eta
     etak2 = k * k
     t0 = eta2 - etak2 - s2
-    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * eta2 * etak2, min=1e-12))
+    a2b2 = torch.sqrt(vm.maximum(t0 * t0 + 4.0 * eta2 * etak2, 1e-12))
     t1 = a2b2 + c2
-    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=1e-12))
+    a = torch.sqrt(vm.maximum(0.5 * (a2b2 + t0), 1e-12))
     t2 = 2.0 * cc * a
-    rs = (t1 - t2) / torch.clamp(t1 + t2, min=1e-12)
+    rs = (t1 - t2) / vm.maximum(t1 + t2, 1e-12)
     t3 = c2 * a2b2 + s2 * s2
     t4 = t2 * s2
-    rp = rs * (t3 - t4) / torch.clamp(t3 + t4, min=1e-12)
+    rp = rs * (t3 - t4) / vm.maximum(t3 + t4, 1e-12)
     return 0.5 * (rp + rs)
 
 

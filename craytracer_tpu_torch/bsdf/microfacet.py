@@ -135,7 +135,7 @@ def sample_wh_beckmann(wox, woy, woz, u0, u1, ax):
 
 
 def _clamp_alpha(a):
-    return torch.clamp(a, min=1e-4)
+    return vm.maximum(a, 1e-4)
 
 
 def distribution_d(wh, ax, ay, dist):
@@ -167,10 +167,10 @@ def distribution_lambda(w, ax, ay, dist):
     abs_tan = torch.abs(vm.tan_theta(w))
     finite = torch.isfinite(abs_tan)
     abs_tan = torch.where(finite, abs_tan, 0.0)
-    alpha = torch.sqrt(torch.clamp(
-        vm.cos2_phi(w) * ax * ax + vm.sin2_phi(w) * ay * ay, min=1e-12))
-    a = 1.0 / torch.clamp(alpha * abs_tan, min=1e-16)
-    a_c = torch.clamp(a, max=1.6)
+    alpha = torch.sqrt(vm.maximum(
+        vm.cos2_phi(w) * ax * ax + vm.sin2_phi(w) * ay * ay, 1e-12))
+    a = 1.0 / vm.maximum(alpha * abs_tan, 1e-16)
+    a_c = vm.minimum(a, 1.6)
     lam_beck = torch.where(
         a >= 1.6, 0.0,
         (1.0 - 1.259 * a_c + 0.396 * a_c * a_c)
@@ -196,7 +196,7 @@ def sample_wh(wo, u, ax, ay, dist):
     tan^2 = a^2 u / (1 - u) for TR rows."""
     ax = _clamp_alpha(ax)
     ay = _clamp_alpha(ay)
-    log_u = torch.log(torch.clamp(u[..., 0], min=1e-30))
+    log_u = torch.log(vm.maximum(u[..., 0], 1e-30))
     log_u = torch.where(torch.isfinite(log_u), log_u, 0.0)
     iso = ax == ay
     t2_iso = -ax * ax * log_u
@@ -207,10 +207,10 @@ def sample_wh(wo, u, ax, ay, dist):
     t2_an = -log_u / (cp * cp / (ax * ax) + sp * sp / (ay * ay))
     t2_beck = torch.where(iso, t2_iso, t2_an)
     phi = torch.where(iso, phi_iso, phi_an)
-    t2_tr = ax * ax * u[..., 0] / torch.clamp(1.0 - u[..., 0], min=1e-7)
+    t2_tr = ax * ax * u[..., 0] / vm.maximum(1.0 - u[..., 0], 1e-7)
     t2 = torch.where(dist == DIST_BECKMANN, t2_beck, t2_tr)
     cos_t = 1.0 / torch.sqrt(1.0 + t2)
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
+    sin_t = torch.sqrt(vm.maximum(1.0 - cos_t * cos_t, 1e-12))
     wh = vm.spherical_direction(sin_t, cos_t, phi)
     flip = ~vm.same_hemisphere(wo, wh)
     return torch.where(flip[..., None], -wh, wh)

@@ -1,5 +1,6 @@
 """Camera + film: batched primary-ray generation (counterpart of
-craytracer_tpu/camera.py: `make_camera` :60, `film_dims` :110,
+craytracer_tpu/camera.py: `make_camera` :60, `make_camera_jax` :89 as
+`make_camera_torch`, `film_dims` :110,
 `generate_rays` :118 with its pinhole :127-144 and thin-lens :146-169
 branches).
 
@@ -77,6 +78,32 @@ def make_camera(position, look_point, up=(0.0, 1.0, 0.0),
                   z_axis=t(z), focal_dist=t(focal_dist),
                   focal_length=t(focal_length), lens_radius=t(lens_radius),
                   camera_type=camera_type)
+
+
+def make_camera_torch(position, look_point, up=(0.0, 1.0, 0.0),
+                      focal_dist=0.035, camera_type: int = PINHOLE,
+                      focal_length=3.0, lens_radius=0.2) -> Camera:
+    """Differentiable lookAt in torch ops (make_camera_jax,
+    camera.py:89-107): gradients flow from the basis into `position` and
+    `look_point`, so the camera's position and orientation can be
+    optimized. Tensor arguments keep their graph; the others become f32
+    tensors on the device of the first tensor argument, else on the CPU.
+    `make_camera` is the host-side numpy twin."""
+    given = [v for v in (position, look_point, up, focal_dist,
+                         focal_length, lens_radius)
+             if isinstance(v, torch.Tensor)]
+    dev = given[0].device if given else torch.device("cpu")
+
+    def t(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    position, look, upv = t(position), t(look_point), t(up)
+    z = vm.normalize(position - look)
+    x = vm.normalize(vm.cross(upv, z))
+    y = vm.cross(z, x)
+    return Camera(position=position, x_axis=x, y_axis=y, z_axis=z,
+                  focal_dist=t(focal_dist), focal_length=t(focal_length),
+                  lens_radius=t(lens_radius), camera_type=camera_type)
 
 
 def film_dims(film: Film, camera: Camera):

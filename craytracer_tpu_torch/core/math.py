@@ -13,6 +13,11 @@ epsilons) so the two packages round alike: `dot` :16, `cross` :30,
 :219, `spherical_to_uv` :232, `rotate_y` :239, and the host-side
 `euler_to_mat3` :246 for mesh and instance placement. Integer powers
 are products, as XLA lowers `x ** 2`.
+
+Bounds against a constant go through `maximum`, `minimum` and `clip`,
+the counterparts of `jnp.maximum`, `jnp.minimum` and `jnp.clip`: where
+the value equals the bound they pass half the gradient, as JAX does,
+where `torch.clamp` passes all of it. The values are `torch.clamp`'s.
 """
 
 from __future__ import annotations
@@ -23,6 +28,37 @@ import numpy as np
 import torch
 
 from craytracer_tpu_torch.constants import INV_PI, PI, TWO_PI
+
+
+_CONSTS: dict = {}
+
+
+def _const(c: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim tensor holding c, in `like`'s dtype and on its device,
+    made once per (c, dtype, device)."""
+    key = (c, like.dtype, like.device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(c, dtype=like.dtype,
+                                        device=like.device)
+    return t
+
+
+def maximum(x, c: float):
+    """jnp.maximum(x, c) for a constant c: a tie passes half the
+    gradient."""
+    return torch.maximum(x, _const(c, x))
+
+
+def minimum(x, c: float):
+    """jnp.minimum(x, c) for a constant c: a tie passes half the
+    gradient."""
+    return torch.minimum(x, _const(c, x))
+
+
+def clip(x, lo: float, hi: float):
+    """jnp.clip(x, lo, hi): minimum(maximum(x, lo), hi)."""
+    return minimum(maximum(x, lo), hi)
 
 
 def dot(a, b, keepdims: bool = False):
@@ -43,7 +79,7 @@ def max3(a, keepdims: bool = False):
 
 
 def length(a, keepdims: bool = False):
-    return torch.sqrt(torch.clamp(dot(a, a, keepdims=keepdims), min=1e-20))
+    return torch.sqrt(maximum(dot(a, a, keepdims=keepdims), 1e-20))
 
 
 def length_sq(a, keepdims: bool = False):
@@ -53,7 +89,7 @@ def length_sq(a, keepdims: bool = False):
 def normalize(a, eps: float = 1e-20):
     """Safe normalize: `a/|a|`, or zeros for (near-)zero vectors."""
     n2 = dot(a, a, keepdims=True)
-    inv = torch.where(n2 > eps, 1.0 / torch.sqrt(torch.clamp(n2, min=eps)),
+    inv = torch.where(n2 > eps, 1.0 / torch.sqrt(maximum(n2, eps)),
                       torch.zeros_like(n2))
     return a * inv
 
@@ -68,12 +104,12 @@ def refract(wi, n, eta):
     surface, `n` is on its side, `eta` = incident / transmitted IOR.
     Returns (ok, wt)."""
     cos_theta_i = dot(n, wi, keepdims=True)
-    sin2_theta_i = torch.clamp(1.0 - cos_theta_i * cos_theta_i, min=0.0)
+    sin2_theta_i = maximum(1.0 - cos_theta_i * cos_theta_i, 0.0)
     if eta.dim() < n.dim():
         eta = eta[..., None]
     sin2_theta_t = eta * eta * sin2_theta_i
     ok = (sin2_theta_t < 1.0)[..., 0]
-    cos_theta_t = torch.sqrt(torch.clamp(1.0 - sin2_theta_t, min=1e-12))
+    cos_theta_t = torch.sqrt(maximum(1.0 - sin2_theta_t, 1e-12))
     return ok, -eta * wi + (eta * cos_theta_i - cos_theta_t) * n
 
 
@@ -125,11 +161,11 @@ def abs_cos_theta(w):
 
 
 def sin2_theta(w):
-    return torch.clamp(1.0 - cos2_theta(w), min=0.0)
+    return maximum(1.0 - cos2_theta(w), 0.0)
 
 
 def sin_theta(w):
-    return torch.sqrt(torch.clamp(sin2_theta(w), min=1e-16))
+    return torch.sqrt(maximum(sin2_theta(w), 1e-16))
 
 
 def tan_theta(w):
@@ -140,19 +176,19 @@ def tan_theta(w):
 
 
 def tan2_theta(w):
-    return sin2_theta(w) / torch.clamp(cos2_theta(w), min=1e-6)
+    return sin2_theta(w) / maximum(cos2_theta(w), 1e-6)
 
 
 def cos_phi(w):
     s = sin_theta(w)
     return torch.where(s < 1e-6, 1.0,
-                       torch.clamp(w[..., 0] / _safe(s), -1.0, 1.0))
+                       clip(w[..., 0] / _safe(s), -1.0, 1.0))
 
 
 def sin_phi(w):
     s = sin_theta(w)
     return torch.where(s < 1e-6, 0.0,
-                       torch.clamp(w[..., 1] / _safe(s), -1.0, 1.0))
+                       clip(w[..., 1] / _safe(s), -1.0, 1.0))
 
 
 def cos2_phi(w):
@@ -179,7 +215,7 @@ def cartesian_to_spherical(d):
     """Direction -> (theta, phi) (cartesianToSpherical, util/math.h:95-101;
     math.py:219): theta = acos(y) with y clipped 1e-6 inside [-1, 1],
     phi = atan2(z, x) + pi."""
-    theta = torch.arccos(torch.clamp(d[..., 1], -1.0 + 1e-6, 1.0 - 1e-6))
+    theta = torch.arccos(clip(d[..., 1], -1.0 + 1e-6, 1.0 - 1e-6))
     phi = torch.atan2(d[..., 2], d[..., 0]) + PI
     return theta, phi
 

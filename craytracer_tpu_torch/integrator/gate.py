@@ -13,7 +13,11 @@ craytracer_tpu/integrator/pallas_shade.py `production_fast_shade` :1490,
   the torch-op shading of every lobe and light (the JAX XLA bounce step,
   integrator/wavefront.py `_general_step`), for the MIS estimator on
   every scene (the JAX package keeps MIS off its kernels, wavefront.py
-  :439, :602) and for the scenes the JAX gate answers False: a material
+  :439, :602), for a pass under autograd (`needs_grad`: a tensor of the
+  scene, camera or film requires grad while autograd records; K1 and K2 are
+  forward-only, and the JAX package differentiates its XLA step, the
+  render_sample default fast_shade=False, wavefront.py:585) and for the
+  scenes the JAX gate answers False: a material
   type or lobe form K2 lacks (anisotropic or Trowbridge-Reitz
   microfacets), textures or normal maps, a texture env light or texel
   importance, a light row that can be picked (power > 0) other than a
@@ -49,6 +53,8 @@ K1 takes its matte-only core when it is 0 and its full core otherwise.
 """
 
 from __future__ import annotations
+
+import torch
 
 from craytracer_tpu_torch.camera import PINHOLE, THINLENS
 from craytracer_tpu_torch.scene import types as T
@@ -88,6 +94,14 @@ def check_estimator(estimator: str):
     if estimator not in ESTIMATORS:
         raise ValueError(f"estimator {estimator!r}: not one of "
                          f"{', '.join(ESTIMATORS)}")
+
+
+def needs_grad(*objs) -> bool:
+    """Autograd records and a tensor leaf of `objs` (scenes, cameras,
+    tensors) requires grad: the pass must be differentiable, so it takes
+    the general step, whose search alone is detached."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for obj in objs for t in T.tensor_leaves(obj))
 
 
 def unported(scene: T.Scene):
@@ -140,8 +154,9 @@ def production_fast_shade(scene: T.Scene, camera=None, film=None,
                           estimator: str = "reference", max_depth: int = 5):
     """THE production decision (pallas_shade.py:1490): "bounce",
     "shade" or "general", or NotImplementedError naming the ROADMAP item
-    that will cover the scene. The port has no other route, so nothing is
-    quietly traced another way."""
+    that will cover the scene. It is static: table shapes, static fields
+    and whether a tensor requires grad, never a caught exception. The
+    port has no other route, so nothing is quietly traced another way."""
     check_estimator(estimator)
     if camera is not None and camera.camera_type not in (PINHOLE, THINLENS):
         raise NotImplementedError(
@@ -151,6 +166,7 @@ def production_fast_shade(scene: T.Scene, camera=None, film=None,
     if reason is not None:
         raise NotImplementedError(
             f"craytracer_tpu_torch cannot render this yet: {reason}")
-    if estimator == "mis" or not kernels_shade(scene):
+    if (estimator == "mis" or needs_grad(scene, camera, film)
+            or not kernels_shade(scene)):
         return "general"
     return fast_shade_mode(scene, max_depth)

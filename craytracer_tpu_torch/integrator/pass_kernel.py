@@ -29,7 +29,6 @@ back. `KERNEL.launches` counts K1 launches.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import torch
 
@@ -234,15 +233,6 @@ def table_counts(scene: T.Scene):
                 "instanced")))
 
 
-def _leaves(obj):
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if isinstance(v, torch.Tensor):
-            yield v
-        elif dataclasses.is_dataclass(v):
-            yield from _leaves(v)
-
-
 @torch.no_grad()
 def fused_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
                seed: int, max_depth: int, raygen: str = "strat"):
@@ -266,7 +256,8 @@ def _admitted_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
     pixel_ids = torch.as_tensor(pixel_ids)
     if raygen not in ("strat", "plain"):
         raise ValueError(f"raygen must be 'strat' or 'plain', not {raygen!r}")
-    for t in (*_leaves(scene), *_leaves(camera), *_leaves(film)):
+    for t in (*T.tensor_leaves(scene), *T.tensor_leaves(camera),
+              *T.tensor_leaves(film)):
         if t.requires_grad:
             raise ValueError("K1 is forward-only: an input requires grad")
         if t.device != pixel_ids.device:

@@ -31,8 +31,21 @@ through K3 closest hit (bvh4 scenes, in ray_key order) and K4 any hit
 table cut into parts (Scene.tri_parts), and `_bounce_step` shades
 through K2; `_general_step` has no kernel of its own, and the MIS
 estimator runs on it only, as the JAX package keeps MIS off its kernels
-(wavefront.py:439, :602). No stream compaction, logged trace or remat:
-those wait for ROADMAP slices F and G.
+(wavefront.py:439, :602). No stream compaction or logged trace: those
+wait for ROADMAP slice F.
+
+Gradients (the JAX package's differentiable XLA step, slice G): under
+autograd, with a tensor of the scene, camera or film that requires grad, the
+gate answers "general" and the bounce loop is plain autograd over
+`_general_step`. Its search is detached (ops/intersect.py: K3 and K4 on
+the card still find which primitive, at what distance, and whether a
+shadow ray is blocked, launched on detached rays) and the fills carry
+the gradient. `remat=True` checkpoints each bounce
+(torch.utils.checkpoint, the counterpart of jax.checkpoint,
+wavefront.py:418-449, :474-493): the backward pass runs the bounce again,
+K3 and K4 included, instead of keeping its intermediates. The RNG is a
+counter hash of (seed, pixel, spp, bounce, dim), so the recompute draws
+the same numbers and needs no RNG state.
 
 `render_sample` is the production entry: it asks the gate
 (integrator/gate.py) once per pass and runs the whole pass through K1
@@ -45,6 +58,7 @@ generate_rays, wavefront.py:624-633) and the per-bounce loop for
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from craytracer_tpu_torch.bsdf.bxdf import (bsdf_f_direct, bsdf_f_nodelta,
                                             bsdf_pdf_balanced, bsdf_sample,
@@ -53,7 +67,8 @@ from craytracer_tpu_torch.bsdf.texture import tex_lookup_nearest
 from craytracer_tpu_torch.camera import THINLENS, generate_rays
 from craytracer_tpu_torch.constants import K_EPSILON
 from craytracer_tpu_torch.core import math as vm
-from craytracer_tpu_torch.integrator.gate import production_fast_shade
+from craytracer_tpu_torch.integrator.gate import (needs_grad,
+                                                  production_fast_shade)
 from craytracer_tpu_torch.integrator.shade_kernel import (
     RR_START, fused_shade, fused_shade_reference)
 from craytracer_tpu_torch.lights.lights import (env_pdf, env_radiance,
@@ -151,15 +166,15 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
         pp_s = torch.where(no_compete | ~torch.isfinite(prev_pdf), 1.0,
                            prev_pdf)
         pl_s = torch.where(no_compete | ~torch.isfinite(p_l), 0.0, p_l)
-        w_emit = torch.where(no_compete, 1.0, pp_s * pp_s / torch.clamp(
-            pp_s * pp_s + pl_s * pl_s, min=1e-20))
+        w_emit = torch.where(no_compete, 1.0, pp_s * pp_s / vm.maximum(
+            pp_s * pp_s + pl_s * pl_s, 1e-20))
         add_emit = alive & emissive_hit
         L = L + torch.where(add_emit[:, None],
                             beta * emitted * w_emit[:, None], 0.0)
         p_env = env_pdf(scene, d, prev_n)
         pe_s = torch.where(no_compete | ~torch.isfinite(p_env), 0.0, p_env)
-        w_env = torch.where(no_compete, 1.0, pp_s * pp_s / torch.clamp(
-            pp_s * pp_s + pe_s * pe_s, min=1e-20))
+        w_env = torch.where(no_compete, 1.0, pp_s * pp_s / vm.maximum(
+            pp_s * pp_s + pe_s * pe_s, 1e-20))
         add_env = alive & ~hitm
         L = L + torch.where(add_env[:, None], beta * env_li * w_env[:, None],
                             0.0)
@@ -220,8 +235,8 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
     t_shadow = shadow_distance(scene, shadow_o, ls.wi,
                                torch.where(want_shadow, dist_adj, 0.0),
                                kernels=kernels)
-    lit = t_shadow >= dist_adj - torch.clamp(1e-3 * dist_adj, min=K_EPSILON)
-    nee_scale = f_nee * ls.li / torch.clamp(ls.pdf, min=1e-12)[:, None]
+    lit = t_shadow >= dist_adj - vm.maximum(1e-3 * dist_adj, K_EPSILON)
+    nee_scale = f_nee * ls.li / vm.maximum(ls.pdf, 1e-12)[:, None]
     if mis:
         # the power heuristic against the balanced BSDF density; a delta
         # light (the row the pick lands on) keeps weight 1. The pdf takes
@@ -237,8 +252,8 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
                                 wo_local, mp, present=present)
         pb_s = torch.where(skip_w | ~torch.isfinite(p_b), 0.0, p_b)
         pl2_s = torch.where(skip_w, 1.0, ls.pdf)
-        w_l = torch.where(is_delta_l, 1.0, pl2_s * pl2_s / torch.clamp(
-            pl2_s * pl2_s + pb_s * pb_s, min=1e-20))
+        w_l = torch.where(is_delta_l, 1.0, pl2_s * pl2_s / vm.maximum(
+            pl2_s * pl2_s + pb_s * pb_s, 1e-20))
         nee_scale = nee_scale * w_l[:, None]
     contrib = torch.where((want_shadow & lit)[:, None], beta * nee_scale,
                           0.0)
@@ -253,15 +268,15 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
     dead = (pdf_s <= 0.0) | (f_s == 0.0).all(dim=1)
     wi_world = vm.to_world(wi_local, ft, fb, fn)
     weight = f_s * (torch.abs(vm.dot(wi_world, fn))
-                    / torch.clamp(pdf_s, min=1e-12))[:, None]
+                    / vm.maximum(pdf_s, 1e-12))[:, None]
     new_beta = torch.where(cont[:, None], beta * weight, beta)
 
     # ---- Russian roulette (trace.h:512-525)
-    q = torch.clamp(1.0 - vm.max3(new_beta), min=0.05)
+    q = vm.maximum(1.0 - vm.max3(new_beta), 0.05)
     rr_active = cont & (bounce > RR_START)
     rr_kill = rr_active & (u_all[:, 8] < q)
     new_beta = torch.where((rr_active & ~rr_kill)[:, None],
-                           new_beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
+                           new_beta / vm.maximum(1.0 - q, 1e-6)[:, None],
                            new_beta)
     new_alive = cont & ~dead & ~rr_kill
     # retired lanes carry an escape ray: a far origin heading +x
@@ -307,20 +322,26 @@ def _init_state(origin, direction, max_depth, pixel_ids, mis: bool = False):
     return state
 
 
-@torch.no_grad()
 def _trace(scene: T.Scene, origin, direction, seed: int, pixel_ids,
            spp_index, max_depth: int, kernels: bool, general: bool = False,
-           mis: bool = False):
+           mis: bool = False, remat: bool = False):
     """trace_paths' bounce loop for a scene the gate has admitted, through
-    `_general_step` (with the MIS estimator when `mis`) when `general` or
-    `mis`, else `_bounce_step`: (L, good, metrics)."""
+    `_general_step` (with the MIS estimator when `mis`) when `general`,
+    `mis` or `remat`, else `_bounce_step`: (L, good, metrics). `remat`
+    checkpoints each bounce (module docstring)."""
     if isinstance(spp_index, torch.Tensor) and spp_index.dim() > 0:
         spp_index = spp_index.to(device=origin.device,
                                  dtype=torch.int32).contiguous()
     state = _init_state(origin.contiguous(), direction.contiguous(),
                         max_depth, pixel_ids, mis)
     for bounce in range(max_depth + 1):
-        if general or mis:
+        if remat:
+            # no torch RNG runs inside, so no RNG state to keep
+            state = torch.utils.checkpoint.checkpoint(
+                _general_step, scene, seed, spp_index, max_depth, bounce,
+                state, kernels, mis, use_reentrant=False,
+                preserve_rng_state=False)
+        elif general or mis:
             state = _general_step(scene, seed, spp_index, max_depth, bounce,
                                   state, kernels=kernels, mis=mis)
         else:
@@ -335,7 +356,8 @@ def _trace(scene: T.Scene, origin, direction, seed: int, pixel_ids,
 
 def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
                 spp_index, max_depth: int, with_metrics: bool = False,
-                fast_shade=None, general: bool = False, mis: bool = False):
+                fast_shade=None, general: bool = False, mis: bool = False,
+                remat: bool = False):
     """Trace one path per lane. Returns (L[N,3], good_paths[N] int32),
     plus {rays, shadow_rays, bounce_live[depth+1], and the per-lane
     lane_rays and lane_shadow_rays [N] int32} when `with_metrics`.
@@ -343,8 +365,11 @@ def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
     the plain versions, "shade" for the kernels on the card (module
     docstring). A "general" scene takes `_general_step`; `general=True`
     asks for it on any admitted scene (the JAX trace_paths'
-    fast_shade=False). `mis=True` traces the MIS estimator, which only
-    the general step has. A scene outside the gate raises
+    fast_shade=False), and so does a trace under autograd whose scene,
+    origins or directions require grad. `mis=True` traces the MIS
+    estimator, which only the general step has. `remat=True` checkpoints
+    each bounce of the general step (the JAX trace_paths' remat, which
+    forces its XLA step). A scene outside the gate raises
     NotImplementedError."""
     if fast_shade not in (None, "shade"):
         raise ValueError(f"fast_shade must be None or 'shade', not "
@@ -354,19 +379,24 @@ def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
     L, good, metrics = _trace(
         scene, origin, direction, seed, pixel_ids, spp_index, max_depth,
         kernels=fast_shade == "shade" and origin.device.type == "cuda",
-        general=general or mode == "general", mis=mis)
+        general=(general or mode == "general"
+                 or needs_grad(origin, direction)), mis=mis, remat=remat)
     return (L, good, metrics) if with_metrics else (L, good)
 
 
 def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
                   spp_index, max_depth: int, estimator: str = "reference",
-                  general: bool = False):
+                  general: bool = False, kernels=None):
     """One progressive pass (raygen + trace) for `pixel_ids`, through the
     route the gate picks: K1 for "bounce" scenes, the per-bounce K3 -> K2
     -> K4 route for "shade" scenes, the per-bounce general step (with K3
     and K4 for a bvh4 scene) for "general" scenes. `general=True` asks
     for the general step on any admitted scene (the JAX render_sample's
-    fast_shade=False). estimator="reference" divides L by good_paths
+    fast_shade=False). Under autograd, with a scene, camera or film tensor
+    that requires grad, the gate answers "general" (module docstring).
+    `kernels` applies to the per-bounce routes: None launches their
+    kernels for rays on the card, False runs their plain versions on any
+    device. estimator="reference" divides L by good_paths
     (trace.h:528-529); "physical" and "mis" (always the general step)
     return plain L. A scene outside the gate raises NotImplementedError
     naming the ROADMAP item."""
@@ -374,15 +404,19 @@ def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
 
     mode = production_fast_shade(scene, camera, film, estimator, max_depth)
     if mode == "bounce" and not general:
-        L, good, _ = _admitted_pass(scene, camera, film, pixel_ids,
-                                    spp_index, seed, max_depth,
-                                    raygen="strat")
+        # no autograd here (the gate said so): a leaf that requires grad
+        # reaches K1 detached
+        L, good, _ = _admitted_pass(T.detached(scene), T.detached(camera),
+                                    T.detached(film), pixel_ids, spp_index,
+                                    seed, max_depth, raygen="strat")
     else:
         pixel_ids = torch.as_tensor(pixel_ids)
         o, d = camera_rays(camera, film, pixel_ids, seed, spp_index,
                            stratified_jitter(seed, pixel_ids, spp_index))
+        on_card = o.device.type == "cuda"
         L, good, _ = _trace(scene, o, d, seed, pixel_ids, spp_index,
-                            max_depth, kernels=o.device.type == "cuda",
+                            max_depth, kernels=on_card if kernels is None
+                            else kernels and on_card,
                             general=general or mode == "general",
                             mis=estimator == "mis")
     if estimator in ("physical", "mis"):

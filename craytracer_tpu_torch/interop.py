@@ -4,8 +4,10 @@ The JAX package's Scene / Camera / Film are dataclasses; `numpy_leaves`
 flattens one into nested mappings of numpy arrays (`np.asarray` on every
 leaf, static fields as plain values), and the `*_from_numpy` functions
 rebuild the port's dataclasses from such mappings, so both packages
-compute on identical data. This module imports neither JAX nor the JAX
-package: it only reads dataclass fields.
+compute on identical data. `with_grad` hands the same parameters to
+autograd: the named leaves of a port object as fresh tensors that require
+grad. This module imports neither JAX nor the JAX package: it only reads
+dataclass fields.
 """
 
 from __future__ import annotations
@@ -108,3 +110,12 @@ def camera_from_numpy(leaves: Mapping, device="cpu") -> Camera:
 
 def film_from_numpy(leaves: Mapping, device="cpu") -> Film:
     return _build(Film, leaves, device)
+
+
+def with_grad(obj, *names: str):
+    """(copy of the dataclass `obj` whose fields `names` are fresh leaf
+    tensors that require grad, those leaves in order): the parameters a
+    gradient is taken with respect to, e.g. a camera's position."""
+    leaves = tuple(getattr(obj, n).detach().clone().requires_grad_(True)
+                   for n in names)
+    return dataclasses.replace(obj, **dict(zip(names, leaves))), leaves

@@ -104,26 +104,25 @@ def light_pdf_for_hit(scene: T.Scene, hit_group, hit_prim, hit_point,
     pdf_area = torch.zeros_like(hit_point[:, 0])
     sn = lnormal
     if use(T.LIGHT_AREA_RECT):
-        pdf_rect = 1.0 / torch.clamp(vm.length(v1) * vm.length(v2),
-                                     min=1e-12)
+        pdf_rect = 1.0 / vm.maximum(vm.length(v1) * vm.length(v2), 1e-12)
         pdf_area = torch.where(ltype == T.LIGHT_AREA_RECT, pdf_rect,
                                pdf_area)
     if use(T.LIGHT_AREA_SPHERE):
         n_s = vm.normalize(hit_point - p0)  # the sphere's normal at the hit
         z_axis = vm.normalize(prev_point - p0)
-        cos_local = torch.clamp(vm.dot(n_s, z_axis), min=0.0)
-        pdf_sph = cos_local / torch.clamp(2.0 * PI * PI * radius * radius,
-                                          min=1e-12)
+        cos_local = vm.maximum(vm.dot(n_s, z_axis), 0.0)
+        pdf_sph = cos_local / vm.maximum(2.0 * PI * PI * radius * radius,
+                                         1e-12)
         is_sph = ltype == T.LIGHT_AREA_SPHERE
         pdf_area = torch.where(is_sph, pdf_sph, pdf_area)
         sn = torch.where(is_sph[:, None], n_s, sn)
     if use(T.LIGHT_AREA_DISK):
-        pdf_dsk = 1.0 / (PI * torch.clamp(radius * radius, min=1e-12))
+        pdf_dsk = 1.0 / (PI * vm.maximum(radius * radius, 1e-12))
         pdf_area = torch.where(ltype == T.LIGHT_AREA_DISK, pdf_dsk,
                                pdf_area)
     if ml.surface_area.shape[0] > 0 and use(T.LIGHT_MESH):
         mlid = torch.clamp(lights.mesh_light_id[idx], min=0).to(torch.int64)
-        pdf_msh = 1.0 / torch.clamp(ml.surface_area[mlid], min=1e-9)
+        pdf_msh = 1.0 / vm.maximum(ml.surface_area[mlid], 1e-9)
         pdf_area = torch.where(ltype == T.LIGHT_MESH, pdf_msh, pdf_area)
 
     is_mesh = ltype == T.LIGHT_MESH
@@ -132,7 +131,7 @@ def light_pdf_for_hit(scene: T.Scene, hit_group, hit_prim, hit_point,
     to_hit = hit_point - prev_point
     cos_signed = vm.dot(sn, -wi)
     cos_l = torch.where(is_mesh, torch.abs(cos_signed), cos_signed)
-    pdf_sa = pdf_area * vm.length_sq(to_hit) / torch.clamp(cos_l, min=1e-6)
+    pdf_sa = pdf_area * vm.length_sq(to_hit) / vm.maximum(cos_l, 1e-6)
     return torch.where(found & (cos_l > 0.0), pdf_sa * pick_p, 0.0)
 
 
@@ -157,12 +156,11 @@ def env_pdf(scene: T.Scene, wi, prev_normal):
             torch.tensor(W, dtype=torch.int32, device=wi.device),
             torch.tensor(H, dtype=torch.int32, device=wi.device), u, v)
         p_tex = env.flat_pdf[(y * W + x).to(torch.int64)]
-        omega = (TWO_PI / W) * (PI / H) * torch.clamp(torch.sin(theta),
-                                                      min=1e-6)
+        omega = (TWO_PI / W) * (PI / H) * vm.maximum(torch.sin(theta), 1e-6)
         facing = vm.dot(wi, prev_normal) >= 0.0
         return torch.where(facing, p_tex / omega * env_pick, 0.0)
     wi_local = wi @ env.transform  # the einsum "ji,nj->ni"
-    cos_t = torch.clamp(vm.dot(wi_local, prev_normal), min=0.0)
+    cos_t = vm.maximum(vm.dot(wi_local, prev_normal), 0.0)
     return cos_t * INV_PI * env_pick
 
 
@@ -185,8 +183,7 @@ def sample_one_light(scene: T.Scene, u_pick, u2, hit_point, shading_normal,
     pick_p = lights.power[idx]
     ls = sample_light_index(scene, idx, u2, hit_point, shading_normal,
                             frame_t, frame_b)
-    return dataclasses.replace(ls, pdf=ls.pdf * torch.clamp(pick_p,
-                                                            min=1e-12),
+    return dataclasses.replace(ls, pdf=ls.pdf * vm.maximum(pick_p, 1e-12),
                                valid=ls.valid & (pick_p > 0.0))
 
 
@@ -219,8 +216,7 @@ def sample_light_index(scene: T.Scene, idx, u2, hit_point, shading_normal,
     if use(T.LIGHT_AREA_RECT):
         # RECT (trace.h:244-254): a uniform point, pdf 1 / (|w| |h|)
         sp_rect = p0 + u2[:, 0:1] * v1 + u2[:, 1:2] * v2
-        pdf_rect = 1.0 / torch.clamp(vm.length(v1) * vm.length(v2),
-                                     min=1e-12)
+        pdf_rect = 1.0 / vm.maximum(vm.length(v1) * vm.length(v2), 1e-12)
         sp = torch.where(is_rect[:, None], sp_rect, sp)
         sn = torch.where(is_rect[:, None], lnormal, sn)
         pdf_area = torch.where(is_rect, pdf_rect, pdf_area)
@@ -232,7 +228,7 @@ def sample_light_index(scene: T.Scene, idx, u2, hit_point, shading_normal,
         zt, zb, _ = vm.orthonormal_basis(z_axis)
         h = map_to_hemisphere_cosine(u2)
         h_world = vm.to_world(h, zt, zb, z_axis)
-        pdf_sph = (1.0 / (2.0 * PI * torch.clamp(radius * radius, min=1e-12))
+        pdf_sph = (1.0 / (2.0 * PI * vm.maximum(radius * radius, 1e-12))
                    * vm.abs_cos_theta(h) * INV_PI)
         sp = torch.where(is_sph[:, None], p0 + h_world * radius[:, None], sp)
         sn = torch.where(is_sph[:, None], h_world, sn)
@@ -248,7 +244,7 @@ def sample_light_index(scene: T.Scene, idx, u2, hit_point, shading_normal,
         dsk = map_to_disk_polar(u2)
         sp_dsk = p0 + (dsk[:, 0:1] * x_axis
                        + dsk[:, 1:2] * y_axis) * radius[:, None]
-        pdf_dsk = 1.0 / (PI * torch.clamp(radius * radius, min=1e-12))
+        pdf_dsk = 1.0 / (PI * vm.maximum(radius * radius, 1e-12))
         sp = torch.where(is_dsk[:, None], sp_dsk, sp)
         sn = torch.where(is_dsk[:, None], lnormal, sn)
         pdf_area = torch.where(is_dsk, pdf_dsk, pdf_area)
@@ -269,8 +265,8 @@ def sample_light_index(scene: T.Scene, idx, u2, hit_point, shading_normal,
     to_sample = sp - hit_point
     wi = vm.normalize(to_sample)
     dist = vm.length(to_sample)
-    pdf = pdf_area * (vm.length_sq(to_sample) / torch.clamp(
-        torch.abs(vm.dot(sn, -wi)), min=1e-12))
+    pdf = pdf_area * (vm.length_sq(to_sample) / vm.maximum(
+        torch.abs(vm.dot(sn, -wi)), 1e-12))
     li = color * intensity[:, None]
     reject = ((vm.dot(to_sample, sn) > 0.0)
               | (vm.dot(to_sample, shading_normal) < 0.0))
@@ -300,8 +296,8 @@ def sample_light_index(scene: T.Scene, idx, u2, hit_point, shading_normal,
         # radius slot holds its 1/d^2 attenuation flag (lights.cpp:41-55)
         wi_pnt_raw = p0 - hit_point
         dist_pnt = vm.length(wi_pnt_raw)
-        atten = torch.where(radius > 0.0, 1.0 / torch.clamp(
-            dist_pnt * dist_pnt, min=1e-6), 1.0)
+        atten = torch.where(radius > 0.0, 1.0 / vm.maximum(
+            dist_pnt * dist_pnt, 1e-6), 1.0)
         wi = torch.where(is_dir[:, None], vm.normalize(p0), wi)
         li = torch.where(is_dir[:, None], color * intensity[:, None], li)
         wi = torch.where(is_pnt[:, None], vm.normalize(wi_pnt_raw), wi)
@@ -342,8 +338,8 @@ def _sample_mesh(scene: T.Scene, mlid_raw, u2):
     prev_cdf = torch.where(pos > start,
                            ml.cdf[torch.clamp(pos - 1, 0, n_cdf - 1)], 0.0)
     cur_cdf = ml.cdf[torch.clamp(pos, 0, n_cdf - 1)]
-    r1 = torch.clamp((u_cdf - prev_cdf) / torch.clamp(cur_cdf - prev_cdf,
-                                                      min=1e-9), 0.0, 1.0)
+    r1 = vm.clip((u_cdf - prev_cdf) / vm.maximum(cur_cdf - prev_cdf, 1e-9),
+                 0.0, 1.0)
     tri = ml.tri_index[torch.clamp(pos, 0, ml.tri_index.shape[0] - 1)].to(
         torch.int64)
     tr = scene.triangles
@@ -351,7 +347,7 @@ def _sample_mesh(scene: T.Scene, mlid_raw, u2):
     r2 = u2[:, 1:2]
     sp = ((1.0 - sqrt_r1) * tr.v0[tri] + sqrt_r1 * (1.0 - r2) * tr.v1[tri]
           + sqrt_r1 * r2 * tr.v2[tri])
-    pdf = 1.0 / torch.clamp(ml.surface_area[mlid], min=1e-9)
+    pdf = 1.0 / vm.maximum(ml.surface_area[mlid], 1e-9)
     return sp, tr.face_normal[tri], pdf
 
 
@@ -371,15 +367,13 @@ def _sample_env_texels(scene: T.Scene, u2):
     p_tex = env.flat_pdf[tix]
     prev_cdf = torch.where(tix > 0, env.flat_cdf[torch.clamp(tix - 1,
                                                              min=0)], 0.0)
-    ju = torch.clamp((u_cdf - prev_cdf) / torch.clamp(p_tex, min=1e-12),
-                     0.0, 1.0)
+    ju = vm.clip((u_cdf - prev_cdf) / vm.maximum(p_tex, 1e-12), 0.0, 1.0)
     r = (tix // W).to(u_cdf.dtype)
     c = (tix % W).to(u_cdf.dtype)
     u_ll = torch.fmod((c - 0.5 + ju) / W, 1.0)
     u_ll = torch.where(u_ll < 0.0, u_ll + 1.0, u_ll)  # jnp.mod's sign rule
     v_raw = (r - 0.5 + u2[:, 1]) / H
-    v_ll = torch.clamp(torch.where(v_raw < 0.0, 1.0 + v_raw, v_raw),
-                       0.0, 1.0)
+    v_ll = vm.clip(torch.where(v_raw < 0.0, 1.0 + v_raw, v_raw), 0.0, 1.0)
     theta = v_ll * PI
     phi = u_ll * TWO_PI - PI
     st = torch.sin(theta)
@@ -387,5 +381,5 @@ def _sample_env_texels(scene: T.Scene, u2):
                           st * torch.sin(phi)], dim=-1)
     wi = d_look @ env.transform  # the einsum "ji,nj->ni"
     li = env_radiance(env, scene.textures, d_look)
-    omega = (TWO_PI / W) * (PI / H) * torch.clamp(st, min=1e-6)
+    omega = (TWO_PI / W) * (PI / H) * vm.maximum(st, 1e-6)
     return wi, li, p_tex / omega

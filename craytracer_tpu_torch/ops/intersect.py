@@ -12,9 +12,16 @@ finds the closest primitive per group and keeps the earlier group on a
 tie (strict < across groups, in the group order spheres, planes, rects,
 disks, triangles, instanced), and a fill that re-derives t (one Newton
 step for spheres and instanced shapes), normal, dpdu and uv for the
-winning primitive only. Planes, disks and instanced shapes give the
-Duff tangent of their (faced) normal as dpdu. Every group but triangles
-is brute force over [N, M] (ray, primitive) pairs; an instanced row runs
+winning primitive only. Under autograd the search is detached (it runs
+under torch.no_grad on detached rays and accelerator tables: which
+primitive, at what distance) and the fills carry the gradient: the
+Newton step's derivative is detached, so t's gradient is the implicit
+function's -F_theta / F_t (intersect.py:311-322), and the box face an
+instanced hit lies on is chosen on detached values (:418-423).
+`shadow_distance` is detached as a whole (:695-697). Planes, disks and
+instanced shapes give the Duff tangent of their (faced) normal as dpdu.
+Every group but triangles is brute force over [N, M] (ray, primitive)
+pairs; an instanced row runs
 every kind's formula in its object space (box slab test, open cylinder,
 solid-cylinder cap, torus quartic) and keeps its own kind's. Triangles
 are brute force too in an accel="none" scene; in an accel="bvh4" scene
@@ -37,6 +44,7 @@ written out as ((a0 x + a1 y) + a2 z) + b, the order K1 uses.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -278,24 +286,30 @@ def instanced_ts(o, d, inst: T.Instanced):
                        _cap_ts(oo, od, p[..., 0], p[..., 1]), t)
 
 
+def _newton_t(t0, F, Fp):
+    """One implicit-function step t0 - F / Fp along the ray, its
+    derivative Fp detached: the value is the step's, the gradient
+    -F_theta / F_t (_newton_t, intersect.py:318-322)."""
+    return t0 - F / vm._safe(Fp.detach())
+
+
 def _fill_sphere(o, d, t, idx, s: T.Spheres):
     """Sphere attributes (fillShadeRecSphere, shapes/sphere.cpp:4-31): one
-    Newton step on F(t) = |o + t d - c|^2 - r^2 (the JAX fill's
-    `_newton_t`, whose detached derivative changes no value), the normal
-    from the refined point, uv from atan2/acos, dpdu ~ (-(z-cz), 0,
-    x-cx)."""
+    Newton step on F(t) = |o + t d - c|^2 - r^2, the normal from the
+    refined point, uv from atan2/acos, dpdu ~ (-(z-cz), 0, x-cx)."""
     c, r, mat_id = s.center[idx], s.radius[idx], s.mat_id[idx]
     oc = o + t[:, None] * d - c
     F = vm.dot(oc, oc) - r * r
     Fp = 2.0 * vm.dot(oc, d)
-    t_diff = t - F / vm._safe(Fp)
+    t_diff = _newton_t(t, F, Fp)
     hp = o + t_diff[:, None] * d
     n = vm.normalize(hp - c)
     rel = hp - c
     phi = torch.atan2(rel[:, 0], rel[:, 2])
     phi_w = torch.where(phi < 0, phi + TWO_PI, phi)
-    theta = torch.acos(torch.clamp(rel[:, 1] / vm._safe(r), -1.0 + 1e-6,
-                                   1.0 - 1e-6))
+    # strictly inside [-1, 1]: acos' is infinite at +-1
+    theta = torch.acos(vm.clip(rel[:, 1] / vm._safe(r), -1.0 + 1e-6,
+                               1.0 - 1e-6))
     uv = torch.stack([phi_w / TWO_PI, theta / PI], dim=-1)
     dpdu = vm.normalize(torch.stack([-rel[:, 2], torch.zeros_like(t),
                                      rel[:, 0]], dim=-1))
@@ -373,7 +387,8 @@ def _fill_instanced(o, d, t, idx, inst: T.Instanced):
     the dominant face; cylinder: per normal_type; torus: the gradient,
     faced toward the ray; cap: sign(y) y-hat), pushed to world space
     through normal_mat; boxes and caps face the ray; the open cylinder's
-    uv."""
+    uv. The Newton step's box face is picked on detached values, as
+    intersect.py:421-423 picks it."""
     a, nm, kind = inst.inv_transform[idx], inst.normal_mat[idx], inst.kind[idx]
     p, ntype = inst.params[idx], inst.normal_type[idx]
     oo = _affine(a[:, :, :3], o, a[:, :, 3])
@@ -381,7 +396,7 @@ def _fill_instanced(o, d, t, idx, inst: T.Instanced):
     hp = oo + t[:, None] * od
     swept, tube = p[:, 0], p[:, 1]
     half = p[:, 0:3] / 2.0
-    nf = _dominant_axis(hp / vm._safe(half))
+    nf = _dominant_axis(hp.detach() / vm._safe(half.detach()))
     F_box = vm.dot(hp, nf) - vm.dot(half, torch.abs(nf))
     Fp_box = vm.dot(od, nf)
     F_cyl = hp[:, 0] * hp[:, 0] + hp[:, 2] * hp[:, 2] - 1.0
@@ -399,7 +414,7 @@ def _fill_instanced(o, d, t, idx, inst: T.Instanced):
                        (T.INST_DISK, F_cap, od[:, 1])):
         F = torch.where(kind == k, Fk, F)
         Fp = torch.where(kind == k, Fpk, Fp)
-    t_diff = t - F / vm._safe(Fp)
+    t_diff = _newton_t(t, F, Fp)
     hp = oo + t_diff[:, None] * od
 
     n_box = _dominant_axis(hp / vm._safe(half))
@@ -458,11 +473,9 @@ def _tri_closest(scene: T.Scene, o, d, kernels: bool):
 
 
 @torch.no_grad()
-def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
-    """Closest hit across the primitive groups: first minimum within a
-    group, strict < across groups (the reference's tie-break order).
-    `kernels` routes a bvh4 scene's triangles through K3 (K3 `_init` per
-    part when the table was cut into parts)."""
+def _search(scene: T.Scene, o, d, kernels: bool):
+    """The closest hit's (t, group, index) per ray: first minimum within a
+    group, strict < across groups (the reference's tie-break order)."""
     n = o.shape[0]
     best_t = torch.full((n,), TMAX, dtype=o.dtype, device=o.device)
     best_group = torch.full((n,), T.GROUP_NONE, dtype=torch.int32,
@@ -483,7 +496,26 @@ def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
         best_t = torch.where(better, gmin, best_t)
         best_group = torch.where(better, gid, best_group)
         best_idx = torch.where(better, gidx, best_idx)
+    return best_t, best_group, best_idx
 
+
+def _detached_tables(scene: T.Scene) -> T.Scene:
+    """The scene with its accelerator tables detached (intersect.py
+    :535-545): the search never carries a gradient."""
+    return dataclasses.replace(scene, tri_bvh=T.detached(scene.tri_bvh),
+                               tri_parts=T.detached(scene.tri_parts),
+                               sph_bvh=T.detached(scene.sph_bvh))
+
+
+def intersect_scene(scene: T.Scene, o, d, kernels: bool = False) -> Hit:
+    """Closest hit across the primitive groups. `kernels` routes a bvh4
+    scene's triangles through K3 (K3 `_init` per part when the table was
+    cut into parts). The search runs detached; the fills re-derive t,
+    normal, dpdu and uv with the gradient of `o`, `d` and the scene's
+    rows (module docstring)."""
+    n = o.shape[0]
+    best_t, best_group, best_idx = _search(
+        _detached_tables(scene), o.detach(), d.detach(), kernels)
     hit = best_t < TMAX
     normal = torch.zeros_like(o)
     normal[:, 2] = 1.0
@@ -521,7 +553,11 @@ def shadow_distance(scene: T.Scene, o, d, max_dist=None,
     groups, and for a bvh4 scene's triangles and a sphere BVH4's spheres
     the any hit under `max_dist` (t < max_dist when occluded, TMAX
     otherwise). `kernels` routes the triangles' any hit through K4 in
-    ray_key order (per part when the table was cut into parts)."""
+    ray_key order (per part when the table was cut into parts). Detached
+    as a whole, rays and tables alike."""
+    scene = _detached_tables(scene)
+    o, d = o.detach(), d.detach()
+    max_dist = None if max_dist is None else max_dist.detach()
     n = o.shape[0]
     best_t = torch.full((n,), TMAX, dtype=o.dtype, device=o.device)
     md = torch.full_like(best_t, TMAX) if max_dist is None else max_dist

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from craytracer_tpu_torch.constants import TWO_PI
+from craytracer_tpu_torch.core import math as vm
 
 
 def map_to_disk_polar(u):
@@ -18,6 +19,6 @@ def map_to_disk_polar(u):
 def map_to_hemisphere_cosine(u):
     """[..., 2] uniforms -> [..., 3] cosine-weighted local directions."""
     d = map_to_disk_polar(u)
-    z = torch.sqrt(torch.clamp(1.0 - d[..., 0] * d[..., 0]
-                               - d[..., 1] * d[..., 1], min=1e-12))
+    z = torch.sqrt(vm.maximum(1.0 - d[..., 0] * d[..., 0]
+                              - d[..., 1] * d[..., 1], 1e-12))
     return torch.cat([d, z[..., None]], dim=-1)

@@ -93,6 +93,32 @@ def to_device(obj, device):
     return obj
 
 
+def tensor_leaves(obj):
+    """Every tensor leaf of a tensor, a (nested) dataclass or a tuple."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, tuple):
+        for x in obj:
+            yield from tensor_leaves(x)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from tensor_leaves(getattr(obj, f.name))
+
+
+def detached(obj):
+    """`obj` itself when no tensor leaf requires grad, else a copy with
+    every tensor leaf detached."""
+    if not any(t.requires_grad for t in tensor_leaves(obj)):
+        return obj
+    if isinstance(obj, torch.Tensor):
+        return obj.detach()
+    if isinstance(obj, tuple):
+        return tuple(detached(x) for x in obj)
+    return dataclasses.replace(obj, **{
+        f.name: detached(getattr(obj, f.name))
+        for f in dataclasses.fields(obj)})
+
+
 def microfacet_iso_beckmann(mat_type, alphax, alphay, distrib) -> bool:
     """Every PLASTIC, METAL and GLASS row is isotropic Beckmann
     (alphax == alphay, DIST_BECKMANN): the only microfacet form the

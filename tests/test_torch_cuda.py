@@ -27,6 +27,7 @@ from craytracer_tpu_torch.integrator import shade_kernel as sk
 from craytracer_tpu_torch.integrator import wavefront as wf
 from craytracer_tpu_torch.integrator.gate import production_fast_shade
 from craytracer_tpu_torch.interop import numpy_leaves, scene_from_numpy
+from craytracer_tpu_torch.inverse import CUBLAS_CONFIG
 from craytracer_tpu_torch.io.objloader import load_obj
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.ops.intersect import intersect_scene
@@ -39,6 +40,9 @@ import torch_prim_scenes as prim_scenes
 import torch_sphere_scenes as sphere_scenes
 
 pytestmark = pytest.mark.cuda
+# before the first cuBLAS call: the env light's matmul in the bit-exact
+# resume case (craytracer_tpu_torch/inverse.py)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_CONFIG)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(REPO, "scenes", "parity_cornell.txt")
 PRIMS = os.path.join(REPO, "scenes", "parity_prims.txt")
@@ -634,3 +638,124 @@ def test_mis_general_route_matches_plain_pass(cuda, depth):
     ref = wf.trace_paths(scene, o, d, 3, pix, 1, depth, with_metrics=True,
                          mis=True)
     _assert_pass_bars(out, ref)
+
+
+def _mesh_mid_grad(dev, kernels, remat=False, estimator="physical"):
+    """(loss, d loss / d material colors, d loss / d camera position,
+    launches) of the mean 64x64 image of scenes/parity_mesh_mid.txt, 2
+    spp, depth 2, through the kernels (kernels=True) or the plain
+    traversal, trace_paths on render_sample's camera rays."""
+    from craytracer_tpu_torch.interop import with_grad
+
+    scene, cam, film = load_scene_file(
+        os.path.join(REPO, "scenes", "parity_mesh_mid.txt"), device=dev)
+    film = Film(fov=film.fov, width=64, height=64)
+    mats, (color,) = with_grad(scene.materials, "color")
+    scene = dataclasses.replace(scene, materials=mats)
+    cam, (pos,) = with_grad(cam, "position")
+    assert production_fast_shade(scene, cam, film, estimator) == "general"
+    pix = torch.arange(film.num_pixels, dtype=torch.int32, device=dev)
+    before = (bk.CLOSEST.launches, bk.ANY.launches, pk.KERNEL.launches,
+              sk.KERNEL.launches)
+    loss = 0.0
+    for k in range(2):
+        o, d = wf.camera_rays(cam, film, pix, 5, k,
+                              stratified_jitter(5, pix, k))
+        L, _ = wf.trace_paths(scene, o, d, 5, pix, k, 2,
+                              fast_shade="shade" if kernels else None,
+                              mis=estimator == "mis", remat=remat)
+        loss = loss + L.mean()
+    gc, gp = torch.autograd.grad(loss, [color, pos])
+    after = (bk.CLOSEST.launches, bk.ANY.launches, pk.KERNEL.launches,
+             sk.KERNEL.launches)
+    return loss.detach(), gc, gp, tuple(a - b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("estimator", ["physical", "mis"])
+def test_grad_through_kernels_matches_plain_traversal(cuda, estimator):
+    """One gradient on parity_mesh_mid at 64x64 under autograd: the route
+    is "general", K3 and K4 search (detached) once per bounce and pass,
+    K1 and K2 never launch; the loss equals the plain traversal's bit for
+    bit, and the gradients agree within rtol 1e-5 + 1e-5 max|g| (the
+    backward's atomic sums may add in another order)."""
+    lk, gck, gpk, nk = _mesh_mid_grad(cuda, True, estimator=estimator)
+    lp, gcp, gpp, np_ = _mesh_mid_grad(cuda, False, estimator=estimator)
+    assert nk == (6, 6, 0, 0) and np_ == (0, 0, 0, 0)
+    assert torch.equal(lk, lp)
+    for gk, gp in ((gck, gcp), (gpk, gpp)):
+        assert torch.isfinite(gk).all() and float(gk.abs().max()) > 0.0
+        tol = 1e-5 * float(gp.abs().max())
+        assert ((gk - gp).abs() <= tol + 1e-5 * gp.abs()).all()
+
+
+def test_remat_grad_on_card(cuda):
+    """remat=True checkpoints each bounce: K3 and K4 launch again in the
+    recompute (twice per bounce and pass), and the gradients equal the
+    stored graph's (rtol 1e-5 + 1e-5 max|g|)."""
+    lk, gck, gpk, nk = _mesh_mid_grad(cuda, True)
+    lr, gcr, gpr, nr = _mesh_mid_grad(cuda, True, remat=True)
+    assert nk == (6, 6, 0, 0) and nr == (12, 12, 0, 0)
+    assert torch.equal(lk, lr)
+    for a, b in ((gcr, gck), (gpr, gpk)):
+        assert ((a - b).abs() <= 1e-5 * float(b.abs().max())
+                + 1e-5 * b.abs()).all()
+
+
+def _assert_resume_bit_exact(d, ck):
+    """InverseRenderer on `d` (inverse_mesh_demo.demo's pieces): 2 steps +
+    save + load + 2 steps equal 4 straight steps bit for bit, params and
+    the optimizer's state."""
+    from craytracer_tpu_torch.examples import inverse_mesh_demo as demo
+    from craytracer_tpu_torch.inverse import InverseRenderer
+
+    def fresh():
+        return InverseRenderer(d["scene"], d["cam"], d["film"], d["target"],
+                               d["params0"], d["apply_fn"], d["config"],
+                               clip_fn=demo.clip_fn)
+
+    a = fresh()
+    for _ in range(4):
+        a.step()
+    b = fresh()
+    for _ in range(2):
+        b.step()
+    b.save_state(ck)
+    c = fresh().load_state(ck)
+    for _ in range(2):
+        c.step()
+    for k in a.params:
+        assert torch.equal(a.params[k], c.params[k]), k
+    sa, sc = a.opt.state_dict()["state"], c.opt.state_dict()["state"]
+    for k in sa:
+        for name, v in sa[k].items():
+            assert torch.equal(v.cpu(), sc[k][name].cpu()), name
+    assert a.history == c.history and a.nan_steps == 0
+
+
+def test_inverse_resume_bit_exact_on_card(cuda, tmp_path):
+    """InverseRenderer on the card at 32x32 on the inverse mesh demo's
+    scene: 2 steps + save + load + 2 steps equal 4 straight steps bit for
+    bit, params and the optimizer's state (deterministic accumulation)."""
+    from craytracer_tpu_torch.examples import inverse_mesh_demo as demo
+
+    d = demo.demo(size=32, tex=64, steps=4, device=cuda)
+    _assert_resume_bit_exact(d, str(tmp_path / "inv.pt"))
+
+
+def test_inverse_resume_bit_exact_env_light_on_card(cuda, tmp_path,
+                                                    monkeypatch):
+    """The same resume with a constant env light added to the demo's
+    scene: its rotation is a cuBLAS matmul in the forward and the
+    backward pass, bit-exact with CUBLAS_WORKSPACE_CONFIG set before the
+    first cuBLAS call (this module sets it at import)."""
+    from craytracer_tpu_torch.examples import inverse_mesh_demo as demo
+
+    class EnvBuilder(SceneBuilder):
+        def build(self, *args, **kwargs):
+            self.set_env_light("constant", (0.6, 0.7, 0.9), 0.5)
+            return super().build(*args, **kwargs)
+
+    monkeypatch.setattr(demo, "SceneBuilder", EnvBuilder)
+    d = demo.demo(size=32, tex=64, steps=4, device=cuda)
+    assert d["scene"].env.kind == 1
+    _assert_resume_bit_exact(d, str(tmp_path / "inv.pt"))
