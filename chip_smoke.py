@@ -279,14 +279,50 @@ never JAX or the JAX package. Phases, each printing its own lines:
    512x512 x 1 spp, MIS, depth 2, with respect to texture 0's texels and
    a METAL row's roughness, through K3/K4: finite, seconds and peak
    memory.
+38-43. slice F (`slice_f_phases`, run before phase 37; `python3
+   chip_smoke.py --slice-f` builds the kernels and runs these alone,
+   with no result line), each at 512x512 with the launches set to 0
+   just before each main path and read just after:
+38. compaction: parity_mesh_mid at depth 8, `trace_paths(compact_at=2)`
+   through K3 -> K2 -> K4 against the dense trace (L, good, the lane
+   counters and the live histogram bit-equal) and against its plain
+   version (phase 8's bars), K3 = K2 = K4 = 2 + 7 x (1 + hi) where hi
+   says whether the second half ran; the Renderer at 4 spp compacted
+   (the auto policy) and with compact_at=0 (accum bit-equal), and with
+   spp_batch=0 (B = 7: one pass, compacted and dense bit-equal, within
+   1e-6 of seven passes of one spp); ms/pass compacted and dense through
+   render_sample, in turns, median of 5.
+39. tiles, order, resume on Cornell (K1) and parity_mesh_mid (K3 -> K2
+   -> K4), 8 spp: tile_pixels=65536 within 1e-6 of untiled with 4x the
+   launches, raster bit-equal with Morton, 4 + 4 spp resumed from the
+   saved .npz bit-equal with 8 straight.
+40. the NaN scene of tests/test_nan_log.py through K1 (2 spp, depth 3):
+   the Renderer's NaN samples equal K1's NaN lanes and the plain pass's
+   (> 0), the NaN lanes and `good` equal per lane, raw_mean finite, the
+   log written with a non-finite retraced L.
+41. a multijittered table (64 x 83): K1's external-ray mode against its
+   plain version on Cornell and parity_mix (spp 0 and 63, depth 0 and
+   5, phase 3's bars); the Renderer with the table launches it once a
+   pass (`k1_pass_rays`); bare K1 on the table's rays and with its own
+   raygen, in turns, and the bound (24 B of rays a lane more).
+42. WHITTED (depth 3) and RAYCAST on parity_mesh_mid through K3 / K4
+   against the plain traversal (the camera rays' hits bit-equal, L
+   within 2e-5), K3 once a bounce and K4 once a bounce and light, also
+   through the Renderer; `render_aovs` through K3 bit-equal with the
+   plain AOVs.
+43. the command line in a subprocess: a config.txt (parity_mesh_mid),
+   --spp-batch 0 (B = 7), --stats, --probe, -o .exr; then -s resume
+   (7 + 7 spp) bit-equal with 14 straight; the summary lines' route,
+   launches and B checked.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
 sphere field's, K3 and K4 plus the fullscene's under both estimators, K3
 `_init` on the 7M city's; K3 and K4 also carry the general route's
 traversal (phases 25-30, 34) and the inverse path's detached search
-(phase 37's four steps), which adds no kernel; K5, K6 and P1 lie on no
-path: 0;
+(phase 37's four steps), which adds no kernel, and K2-K4 phase 38's
+compacted Renderer; `k1_pass_rays`, K1's external-ray mode, on Cornell
+with a multijittered table (phase 41); K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch (K2's launches enqueued
 behind a device-side sleep, so the events time the card alone), the
 plain version's ms,
@@ -313,6 +349,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -519,6 +556,416 @@ def _runs(ts):
     return ", ".join(f"{t:.3f}" for t in ts)
 
 
+def slice_f_phases(ctx) -> None:
+    """Phases 38-43: slice F on the card (module docstring). `ctx` carries
+    the run's device, card line, failure list, error and kernel tables,
+    the launch counters, and the seed; failures are appended."""
+    from craytracer_tpu_torch import cuda_build
+    from craytracer_tpu_torch.accel import bvh4_kernel as bk
+    from craytracer_tpu_torch.accel.bvh4 import (bvh4_any_hit_stats,
+                                                 bvh4_closest_hit_stats)
+    from craytracer_tpu_torch.camera import Film, make_camera
+    from craytracer_tpu_torch.constants import TMAX
+    from craytracer_tpu_torch.integrator import pass_kernel as pk
+    from craytracer_tpu_torch.integrator import wavefront as wf
+    from craytracer_tpu_torch.integrator.aov import render_aovs
+    from craytracer_tpu_torch.integrator.render import (RenderConfig,
+                                                        Renderer)
+    from craytracer_tpu_torch.integrator.whitted import trace_whitted
+    from craytracer_tpu_torch.io.imagestate import (load_image_state,
+                                                    save_image_state)
+    from craytracer_tpu_torch.io.scenefile import load_scene_file
+    from craytracer_tpu_torch.sampling.tables import make_sample_table
+    from craytracer_tpu_torch.scene.build import SceneBuilder
+
+    dev, card, fails, err, kernels = (ctx.dev, ctx.card, ctx.fails, ctx.err,
+                                      ctx.kernels)
+    counters, seed, size = ctx.counters, 0, getattr(ctx, "size", 512)
+    out_dir = cuda_build.BUILD_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    def expect(label, got, **want):
+        w = {k: want.get(k, 0) for k in counters}
+        if got != w:
+            fails.append(f"{label} launches {got}, want {w}")
+
+    def render(scn, c, fm, **kw):
+        """A Renderer run, counts set to 0 just before and read just
+        after: (renderer, seconds, launches)."""
+        r = Renderer(scn, c, fm, RenderConfig(**kw))
+        reset()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, counts()
+
+    def check(label, ok, detail=""):
+        print(f"[slice-f] {label}: {detail}" + ("" if ok else " FAIL"),
+              flush=True)
+        if not ok:
+            fails.append(f"{label}: {detail}")
+
+    mesh, mcam, mf0 = load_scene_file(MESH_MID, device=dev)
+    mfilm = Film(fov=mf0.fov, width=size, height=size)
+    corn, ccam, cf0 = load_scene_file(SCENE, device=dev)
+    cfilm = Film(fov=cf0.fov, width=size, height=size)
+    morton = torch.from_numpy(Renderer(
+        mesh, mcam, mfilm, RenderConfig()).pixel_order()).to(dev)
+
+    # ---- 38. compaction on parity_mesh_mid at depth 8
+    depth = 8
+    spp = torch.full_like(morton, 5)
+    o, d = wf.camera_rays(mcam, mfilm, morton, seed, spp,
+                          wf.film_jitter(seed, morton, spp))
+    reset()
+    comp = wf.trace_paths(mesh, o, d, seed, morton, spp, depth,
+                          with_metrics=True, fast_shade="shade", compact_at=2)
+    got_c = counts()
+    dense = wf.trace_paths(mesh, o, d, seed, morton, spp, depth,
+                           with_metrics=True, fast_shade="shade")
+    plain = wf.trace_paths(mesh, o, d, seed, morton, spp, depth,
+                           with_metrics=True, compact_at=2)
+    torch.cuda.synchronize()
+    hi = int(comp[2]["compact_hi"])
+    same = (torch.equal(comp[0], dense[0]) and torch.equal(comp[1], dense[1])
+            and all(torch.equal(comp[2][k], dense[2][k]) for k in (
+                "lane_rays", "lane_shadow_rays", "bounce_live")))
+    per = 2 + (depth - 1) * (1 + hi)
+    bad, e_same, e_all, f = _compare(comp, plain)
+    check("38 compaction trace 512x512 depth 8", same and not f
+          and got_c == {**dict.fromkeys(counters, 0), "k2_shade": per,
+                        "k3_bvh4_closest": per, "k4_bvh4_any": per},
+          f"compacted vs dense: L, good, lane counters, histogram bit-equal "
+          f"{same}; compacted kernels vs compacted plain: max|dL| "
+          f"{e_all:.3g} {f}; live per bounce "
+          f"{comp[2]['bounce_live'].tolist()}; hi {hi}; launches {got_c} "
+          f"(derived: K3 = K2 = K4 = 2 + 7 x (1 + hi) = {per})")
+    mspp = 4
+    runs = {}
+    for label, at in (("compacted", None), ("dense", 0)):
+        hi0 = wf.COMPACTION.hi
+        r, dt, got = render(mesh, mcam, mfilm, num_samples=mspp,
+                            max_depth=depth, compact_at=at)
+        his = wf.COMPACTION.hi - hi0
+        runs[label] = r
+        want = (2 * r.passes + (depth - 1) * (r.passes + his)
+                if at is None else (depth + 1) * r.passes)
+        expect(f"38 Renderer {label}", got, k2_shade=want,
+               k3_bvh4_closest=want, k4_bvh4_any=want)
+        print(f"[slice-f] 38 Renderer parity_mesh_mid {size}x{size} {mspp} "
+              f"spp depth {depth} {label}: {dt:.3f} s, {r.passes} passes, "
+              f"second halves run {his}, launches {got}", flush=True)
+        if at is None:
+            for k in ("k2_shade", "k3_bvh4_closest", "k4_bvh4_any"):
+                if k in kernels:
+                    kernels[k]["launches"] += got[k]
+    check("38 Renderer compacted vs dense", torch.equal(
+        runs["compacted"].accum, runs["dense"].accum), "accum bit-equal")
+    batched = {}
+    for label, at in (("compacted", None), ("dense", 0)):
+        hi0 = wf.COMPACTION.hi
+        r, dt, got = render(mesh, mcam, mfilm, num_samples=7,
+                            max_depth=depth, spp_batch=0, compact_at=at)
+        his = wf.COMPACTION.hi - hi0
+        batched[label] = r
+        want = (2 + (depth - 1) * (1 + his) if at is None else depth + 1)
+        expect(f"38 Renderer B=0 {label}", got, k2_shade=want,
+               k3_bvh4_closest=want, k4_bvh4_any=want)
+        print(f"[slice-f] 38 Renderer spp_batch=0 -> B={r.spp_batch}, 7 spp "
+              f"{label}: {dt:.3f} s, {r.passes} passes, hi {his}, launches "
+              f"{got}", flush=True)
+    straight = Renderer(mesh, mcam, mfilm, RenderConfig(
+        num_samples=7, max_depth=depth, spp_batch=1))
+    straight.render()
+    check("38 spp_batch=0", batched["compacted"].spp_batch == 7
+          and batched["compacted"].passes == 1
+          and torch.equal(batched["compacted"].accum, batched["dense"].accum)
+          and torch.allclose(batched["compacted"].accum, straight.accum,
+                             rtol=1e-6, atol=1e-6),
+          "B=7 in one pass; compacted vs dense accum bit-equal, vs 7 passes "
+          "of B=1 within 1e-6 (summation order)")
+    tms = {"compacted": [], "dense": []}
+    for rep in range(5):
+        for label, at in (("compacted", 2), ("dense", 0)):
+            t0 = time.perf_counter()
+            for k in range(4):
+                wf.render_sample(mesh, mcam, mfilm, morton, seed,
+                                 100 + 4 * rep + k, depth, compact_at=at)
+            torch.cuda.synchronize()
+            tms[label].append((time.perf_counter() - t0) * 1e3 / 4)
+    mc, md = (statistics.median(tms[k]) for k in ("compacted", "dense"))
+    print(f"[time] {card}, parity_mesh_mid {size}x{size} depth {depth} "
+          f"through render_sample, 4 passes per run, in turns, median of 5: "
+          f"compacted {mc:.4f} ms/pass (runs {_runs(tms['compacted'])}), "
+          f"dense {md:.4f} ms/pass (runs {_runs(tms['dense'])}), compacted "
+          f"/ dense {mc / md:.4f}", flush=True)
+
+    # ---- 39. tiles, order, resume
+    for name, scn, c, fm, depth, per_pass in (
+            ("cornell", corn, ccam, cfilm, 5, {"k1_pass": 1}),
+            ("parity_mesh_mid", mesh, mcam, mfilm, 5,
+             {"k2_shade": 6, "k3_bvh4_closest": 6, "k4_bvh4_any": 6})):
+        base, _, got = render(scn, c, fm, num_samples=8, max_depth=depth)
+        expect(f"39 {name} untiled", got,
+               **{k: v * base.passes for k, v in per_pass.items()})
+        tiled, _, got_t = render(scn, c, fm, num_samples=8, max_depth=depth,
+                                 tile_pixels=65536)
+        expect(f"39 {name} tiled", got_t,
+               **{k: 4 * v * base.passes for k, v in per_pass.items()})
+        raster, _, _ = render(scn, c, fm, num_samples=8, max_depth=depth,
+                              ray_order="raster")
+        half, _, _ = render(scn, c, fm, num_samples=4, max_depth=depth)
+        path = str(out_dir / f"resume_{name}")
+        save_image_state(path, half.accum, half.spp_done, seed)
+        acc, spp_done, s = load_image_state(path)
+        resumed = Renderer(scn, c, fm, RenderConfig(num_samples=4,
+                                                    max_depth=depth, seed=s))
+        resumed.resume_from(acc, spp_done)
+        resumed.render()
+        dt_max = (tiled.accum - base.accum).abs().max().item() / 8
+        check(f"39 {name} {size}x{size} 8 spp", dt_max <= 1e-6
+              and torch.equal(raster.accum, base.accum)
+              and torch.equal(resumed.accum, base.accum)
+              and resumed.spp_done == 8,
+              f"tiled (65,536 pixels, launches {got_t}) vs untiled max |d "
+              f"mean| {dt_max:.3g}; raster vs Morton bit-equal "
+              f"{torch.equal(raster.accum, base.accum)}; 4 + 4 resumed from "
+              f"the .npz vs 8 straight bit-equal "
+              f"{torch.equal(resumed.accum, base.accum)}")
+
+    # ---- 40. the NaN scene through K1 and its retrace
+    nb = SceneBuilder()
+    nb.add_matte("floor", (0.7, 0.7, 0.7))
+    nb.add_emissive("bad", (float("nan"), 1.0, 1.0), intensity=5.0)
+    nb.add_emissive("lamp", (1.0, 0.95, 0.9), intensity=10.0)
+    nb.add_rect((-4, 0, -4), (8, 0, 0), (0, 0, 8), "floor")
+    nb.add_sphere((0.0, 0.8, 0.0), 0.6, "bad")
+    nb.add_rect((-1, 3, -1), (2, 0, 0), (0, 0, 2), "lamp")
+    nscene = nb.build(device=dev)
+    ncam = make_camera((0, 2, 4), (0, 0.6, 0), device=dev)
+    nfilm = Film(fov=torch.tensor(np.radians(45.0), dtype=torch.float32,
+                                  device=dev), width=size, height=size)
+    log_path = out_dir / "trace_log.txt"
+    log_path.unlink(missing_ok=True)
+    route = wf.production_fast_shade(nscene, ncam, nfilm, max_depth=3)
+    r, dt, got = render(nscene, ncam, nfilm, num_samples=2, max_depth=3,
+                        nan_log_path=str(log_path), nan_log_max=4)
+    expect("40 NaN scene", got, k1_pass=r.passes)
+    nids = torch.arange(size * size, dtype=torch.int32, device=dev)
+    plain_nan = kern_nan = 0
+    lanes_ok = True
+    for s in range(2):
+        kout = pk.fused_pass(nscene, ncam, nfilm, nids, s, seed, 3)
+        pout = pk.fused_pass_reference(nscene, ncam, nfilm, nids, s, seed, 3)
+        kn, pn = torch.isnan(kout[0]), torch.isnan(pout[0])
+        kern_nan += int(kn.any(dim=1).sum())
+        plain_nan += int(pn.any(dim=1).sum())
+        fin = ~(kn | pn).any(dim=1)
+        lanes_ok &= (torch.equal(kn, pn) and torch.equal(kout[1], pout[1])
+                     and bool(((kout[0] - pout[0]).abs()[fin] <= L_TOL
+                               + L_TOL * pout[0].abs()[fin]).all()))
+    text = log_path.read_text() if log_path.exists() else ""
+    check(f"40 NaN retrace {size}x{size} 2 spp depth 3 (route {route})",
+          route == "bounce" and r.nan_count == plain_nan == kern_nan > 0
+          and lanes_ok and np.isfinite(r.raw_mean()).all()
+          and text.count("NaN/Inf sample") == 2 * 4 and "L=(nan" in text,
+          f"{dt:.3f} s, launches {got}; NaN samples {r.nan_count}, K1's NaN "
+          f"lanes {kern_nan}, the plain pass's {plain_nan}, NaN lanes and "
+          f"good equal per lane {lanes_ok}; raw_mean finite "
+          f"{bool(np.isfinite(r.raw_mean()).all())}; log "
+          f"{text.count('NaN/Inf sample')} samples, a non-finite retraced L "
+          f"{'L=(nan' in text}")
+
+    # ---- 41. table sampler: K1's external-ray mode
+    table = make_sample_table("multijittered", 64, 83, seed=seed,
+                              device=dev)
+    cmorton = torch.from_numpy(Renderer(
+        corn, ccam, cfilm, RenderConfig()).pixel_order()).to(dev)
+    mix, xcam, xf0 = load_scene_file(MIX, device=dev)
+    xfilm = Film(fov=xf0.fov, width=size, height=size)
+    for name, scn, c, fm in (("cornell", corn, ccam, cfilm),
+                             ("parity_mix", mix, xcam, xfilm)):
+        for s in (0, 63):
+            sp = torch.full_like(cmorton, s)
+            o, d = wf.camera_rays(c, fm, cmorton, seed, sp,
+                                  wf.film_jitter(seed, cmorton, sp, table))
+            for depth in (0, 5):
+                args = (scn, c, fm, cmorton, sp, seed, depth)
+                kout = pk.fused_pass(*args, raygen=None, rays=(o, d))
+                pout = pk.fused_pass_reference(*args, raygen=None,
+                                               rays=(o, d))
+                torch.cuda.synchronize()
+                bad, e_same, e_all, f = _compare(kout, pout)
+                err["k1_pass_rays"] = max(err["k1_pass_rays"], e_all)
+                check(f"41 K1 rays vs plain {name} {size}x{size} Morton spp "
+                      f"{s} depth {depth}", not f,
+                      f"good differs on {bad:.5f}, max|dL| {e_all:.3g}, rays "
+                      f"{int(kout[2]['rays'])}/{int(pout[2]['rays'])} {f}")
+        r, dt, got = render(scn, c, fm, num_samples=16, max_depth=5,
+                            sampler=table)
+        expect(f"41 {name} Renderer with a sampler", got,
+               k1_pass_rays=r.passes)
+        print(f"[slice-f] 41 Renderer {name} {size}x{size} 16 spp depth 5, "
+              f"multijittered table: {dt:.3f} s, launches {got}, "
+              f"{r.nan_count} NaN, mean {r.raw_mean().mean():.5f}",
+              flush=True)
+        if name == "cornell":
+            launches_rays = got["k1_pass_rays"]
+        if r.nan_count or not np.isfinite(r.raw_mean()).all():
+            fails.append(f"41 {name}: not finite")
+    # bare launch times on prebuilt inputs, rays vs in-kernel raygen
+    tab = pk.kernel_tables(corn, ccam, cfilm)
+    cnt = pk.table_counts(corn)
+    passes = 16
+    spps = [torch.full_like(cmorton, 200 + k) for k in range(passes)]
+    rays = []
+    for sp in spps:
+        o, d = wf.camera_rays(ccam, cfilm, cmorton, seed, sp,
+                              wf.film_jitter(seed, cmorton, sp, table))
+        rays.append((o.contiguous(), d.contiguous()))
+
+    def bare(ext):
+        return lambda: [
+            (pk.RAYS_KERNEL if ext else pk.KERNEL).launch(
+                tab, cnt, cmorton, sp, seed, 5, True, size, False, False,
+                rays[k] if ext else None)
+            for k, sp in enumerate(spps)]
+
+    def plain_passes():
+        return [pk.fused_pass_reference(corn, ccam, cfilm, cmorton, sp, seed,
+                                        5, raygen=None, rays=rays[k])
+                for k, sp in enumerate(spps)]
+
+    ts = {"rays": [], "strat": [], "plain": []}
+    fns = {"rays": bare(True), "strat": bare(False), "plain": plain_passes}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    outs = None
+    for _ in range(5):
+        for k, fn in fns.items():
+            ms, out = _timed(fn)
+            ts[k].append(ms)
+            if k == "rays":
+                outs = out
+    n_rays = sum(int(g[1].sum()) for _, g in outs)
+    n_shadow = sum(int(g[2].sum()) for _, g in outs)
+    med = {k: statistics.median(v) / passes for k, v in ts.items()}
+    prim_ops = 8 * RECT_OPS + 20 * TRI_OPS
+    bound = _bound(tab.numel() * 4 + size * size * (8 + 24 + 28),
+                   (n_rays * (prim_ops + SHADE_OPS)
+                    + n_shadow * prim_ops) / passes)
+    print(f"[time] {card}, cornell {size}x{size} depth 5, multijittered "
+          f"table, {passes} launches per run, in turns, median of 5: bare K1 "
+          f"on external rays {med['rays']:.4f} ms/launch (runs "
+          f"{_runs(ts['rays'])} ms), bare K1 with its raygen (strat) "
+          f"{med['strat']:.4f} ms/launch (runs {_runs(ts['strat'])} ms), "
+          f"plain {med['plain']:.4f} ms/pass; bound {bound[0]:.4f} ms "
+          f"({bound[1]}: 24 B of rays a lane more than strat; "
+          f"{n_rays} rays + {n_shadow} shadow rays per run)", flush=True)
+    kernels["k1_pass_rays"] = {
+        "name": "k1_pass_rays", "route": "cuda",
+        "source": "craytracer_tpu_torch/csrc/pass_kernel.cu",
+        "replaces": "craytracer_tpu/integrator/pallas_shade.py:781",
+        "launches": launches_rays, "ms": med["rays"],
+        "plain_ms": med["plain"], "bound_ms": bound[0],
+        "bound_by": bound[1], "library_ms": None}
+
+    # ---- 42. WHITTED, RAYCAST and AOVs on parity_mesh_mid
+    n_lights = mesh.lights.light_type.shape[0]
+    sp = torch.full_like(morton, 3)
+    o, d = wf.camera_rays(mcam, mfilm, morton, seed, sp,
+                          wf.film_jitter(seed, morton, sp))
+    t_k, tri_k = bk.bvh4_closest_hit_kernel(mesh.tri_bvh, o, d)
+    t_p, tri_p = bvh4_closest_hit_stats(mesh.tri_bvh, o, d)[:2]
+    md = torch.where(t_p < TMAX, t_p * 0.999, 5.0)
+    k4_same = torch.equal(bk.bvh4_any_hit_kernel(mesh.tri_bvh, o, d, md),
+                          bvh4_any_hit_stats(mesh.tri_bvh, o, d, md)[0])
+    check("42 K3/K4 on the camera rays", torch.equal(t_k, t_p)
+          and torch.equal(tri_k, tri_p) and k4_same,
+          "t and ids bit-equal with the plain traversal; K4 bit-equal")
+    for mode, depth in (("WHITTED", 3), ("RAYCAST", 0)):
+        cont = mode == "WHITTED"
+        reset()
+        Lk = trace_whitted(mesh, o, d, seed, morton, sp, depth, cont,
+                           kernels=True)
+        got = counts()
+        Lp = trace_whitted(mesh, o, d, seed, morton, sp, depth, cont)
+        torch.cuda.synchronize()
+        e = (Lk - Lp).abs().max().item()
+        iters = depth + 1
+        check(f"42 {mode} {size}x{size} depth {depth} kernels vs plain",
+              bool(torch.allclose(Lk, Lp, rtol=L_TOL, atol=L_TOL))
+              and bool(torch.isfinite(Lk).all())
+              and got == {**dict.fromkeys(counters, 0),
+                          "k3_bvh4_closest": iters,
+                          "k4_bvh4_any": iters * n_lights},
+              f"max|dL| {e:.3g}, mean {Lk.mean().item():.5f}, launches "
+              f"{got} (K3 = {iters} bounces, K4 = bounces x {n_lights} "
+              f"lights)")
+        r, dt, got = render(mesh, mcam, mfilm, num_samples=2,
+                            max_depth=depth, trace_type=mode)
+        expect(f"42 Renderer {mode}", got,
+               k3_bvh4_closest=iters * r.passes,
+               k4_bvh4_any=iters * n_lights * r.passes)
+        print(f"[slice-f] 42 Renderer {mode} 2 spp depth {depth}: {dt:.3f} "
+              f"s, launches {got}, mean {r.raw_mean().mean():.5f}",
+              flush=True)
+    reset()
+    ak = render_aovs(mesh, mcam, mfilm)
+    got = counts()
+    ap = render_aovs(mesh, mcam, mfilm, kernels=False)
+    check("42 AOVs kernels vs plain", all(torch.equal(ak[k], ap[k])
+                                          for k in ak)
+          and got == {**dict.fromkeys(counters, 0), "k3_bvh4_closest": 1},
+          f"every buffer bit-equal, launches {got}")
+
+    # ---- 43. the command line in a subprocess on the card
+    cfg_path = out_dir / "config_smoke.txt"
+    cfg_path.write_text(f"# chip_smoke phase 43\nscene_file {MESH_MID}\n"
+                        "num_samples 7\nnum_sample_sets 83\nmax_depth 5\n"
+                        "trace_type PATHTRACE\naccel_struct BVH4\n")
+    cli = [sys.executable, "-m", "craytracer_tpu_torch", "--config",
+           str(cfg_path), "--size", str(size), "--spp-batch", "0"]
+    out_a, out_b, out_c = (str(out_dir / f"cli_{k}.exr") for k in "abc")
+    lines = {}
+    for key, extra in (("a", ["--stats", "--probe", "100,200", "-o",
+                              out_a]),
+                       ("b", ["-s", out_a[:-4] + "_state.npz", "-o", out_b]),
+                       ("c", ["--spp", "14", "-o", out_c])):
+        t0 = time.perf_counter()
+        p = subprocess.run(cli + extra, capture_output=True, text=True,
+                           cwd=REPO, timeout=300)
+        lines[key] = p.stdout
+        summary = (p.stdout.strip().splitlines() or [""])[-1]
+        print(f"[slice-f] 43 CLI {key} ({time.perf_counter() - t0:.2f} s, "
+              f"exit {p.returncode}): {summary}", flush=True)
+        if p.returncode:
+            fails.append(f"43 CLI {key} exit {p.returncode}: "
+                         f"{p.stderr[-2000:]}")
+    if any(f.startswith("43 CLI") for f in fails):
+        return
+    a = load_image_state(out_a[:-4] + "_state.npz")
+    b = load_image_state(out_b[:-4] + "_state.npz")
+    c = load_image_state(out_c[:-4] + "_state.npz")
+    ok = (a[1] == 7 and b[1] == c[1] == 14
+          and np.array_equal(b[0], c[0])
+          and "route shade" in lines["a"] and "spp batch 7" in lines["a"]
+          and "launches K1 0, K2 6, K3 6, K4 6, K1 rays 0" in lines["a"]
+          and "K2 12, K3 12, K4 12" in lines["c"]
+          and "bvh4:" in lines["a"] and "probe (100,200)" in lines["a"]
+          and "resumed from" in lines["b"])
+    check("43 CLI", ok, f"states spp {a[1]}, {b[1]}, {c[1]}; 7 + 7 resumed "
+          f"vs 14 straight bit-equal {np.array_equal(b[0], c[0])}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (this smoke test needs the card)")
@@ -559,7 +1006,7 @@ def main() -> int:
                 "k3_init_bvh4_closest": bk.CLOSEST_INIT,
                 "k5_bvh4_split": sp.SPLIT,
                 "k6_tri_closest": tri_kernel.KERNEL,
-                "p1_pop_probe": pp.KERNEL}
+                "p1_pop_probe": pp.KERNEL, "k1_pass_rays": pk.RAYS_KERNEL}
     err = dict.fromkeys(counters, 0.0)  # max |kernel - plain| per kernel
 
     def reset_counts():
@@ -611,6 +1058,17 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 print(f"[build]   ptxas: {line.strip()}")
+
+    ctx = SimpleNamespace(dev=dev, card=card, fails=fails, err=err,
+                          kernels={}, counters=counters)
+    if sys.argv[1:] == ["--slice-f"]:
+        # phases 38-43 alone, to try them out: no result line
+        slice_f_phases(ctx)
+        for f in fails:
+            print(f"FAIL: {f}")
+        print(json.dumps({"slice_f_only": True, "failures": len(fails),
+                          "k1_pass_rays": ctx.kernels.get("k1_pass_rays")}))
+        return 1 if fails else 0
 
     scene, cam, film0 = load_scene_file(SCENE, device=dev)
 
@@ -2473,6 +2931,11 @@ def main() -> int:
           flush=True)
     if rel > 0.12:
         fails.append(f"glossy: MIS mean off physical by {rel:.4f}")
+
+    # ---- 38-43. slice F: compaction, tiles, resume, the NaN retrace, K1 on
+    # a sampler's rays, WHITTED / RAYCAST / AOVs, the command line
+    ctx.kernels = kernels
+    slice_f_phases(ctx)
 
     # ---- 37. the inverse path: gradients through the general route, the
     # search detached through K3/K4, and InverseRenderer

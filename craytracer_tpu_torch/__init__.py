@@ -11,7 +11,8 @@ Layout (same module names as the JAX package where that helps):
   sampling/                       counter RNG, stratified jitter, warps
   scene/                          tensor dataclasses, SceneBuilder, the
                                   procedural city (city.py)
-  io/                             tokenizer, scene-file parser, OBJ, PPM, .is
+  io/                             tokenizer, scene-file parser, OBJ, MTL,
+                                  PPM, PNG, EXR
   camera.py                       pinhole and thin-lens camera + film,
                                   raygen
   ops/                            brute-force intersection of every
@@ -25,12 +26,19 @@ Layout (same module names as the JAX package where that helps):
                                   general route's lobes (bxdf.py)
   lights/                         the general route's light sampling
   integrator/wavefront.py         torch-op path tracer: the "shade" and
-                                  "general" bounce steps
+                                  "general" bounce steps, stream
+                                  compaction, the logged trace
+  integrator/whitted.py, aov.py   WHITTED / RAYCAST, first-hit AOVs
   integrator/gate.py              which scenes the port covers, by which
                                   route, and the shading feature mask
   integrator/pass_kernel.py       K1: the whole-pass kernel wrapper
   integrator/shade_kernel.py      K2: the per-bounce shading (plain + wrapper)
-  integrator/render.py            progressive Renderer
+  integrator/render.py            progressive Renderer: tiles, order,
+                                  spp batching, resume, the NaN log
+  io/config.py, io/imagestate.py  config.txt, .npz checkpoints, .is
+  sampling/tables.py              regular / multijittered / Hammersley
+                                  sample tables
+  utils/                          tone map, pass metrics, intersect stats
   csrc/                           K1-K6 and P1 CUDA C++ sources (sm_90a)
   cuda_build.py, native.py        nvcc / g++ builds at first use, ctypes
   interop.py                      numpy leaves -> port objects

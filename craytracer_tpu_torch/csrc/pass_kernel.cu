@@ -10,8 +10,10 @@
 // boxes, <= 64 rows in all; all seven material types with isotropic
 // Beckmann lobes; rect and sphere area lights (<= 16 rows); a constant or
 // black env light; a pinhole or thin-lens camera with the stratified or
-// the plain CAMERA_BOUNCE film jitter; depth < 31; the reference and the
-// physical estimators (the wrapper normalizes).
+// the plain CAMERA_BOUNCE film jitter, or external rays (`_pass_kernel`
+// with raygen=None, pallas_shade.py:806-808: the camera rays of a table
+// sampler, made outside); depth < 31; the reference and the physical
+// estimators (the wrapper normalizes).
 //
 // What bounds it on an H100: arithmetic and divergence, not memory. A path
 // reads two ints and writes seven words; everything else is ~20-80 flops
@@ -22,7 +24,8 @@
 //     card at once; each thread holds one path's state and steps it one
 //     bounce per iteration. A thread whose path has ended writes that
 //     path's outputs and takes the next path index, with the raygen
-//     inline, so no lane idles in a live warp while paths remain, and the
+//     inline (or, with external rays, the path's o and d read from the
+//     launch's [N, 3] inputs: 24 more bytes a path), so no lane idles in a live warp while paths remain, and the
 //     grid has no partial last wave. A warp takes its indices with one
 //     atomicAdd on a counter of the launch (zeroed on the launch's
 //     stream), aggregated with __ballot_sync / __popc; a lane with no path
@@ -538,7 +541,8 @@ template <bool FULL, bool PD, bool BOX>
 __global__ void __launch_bounds__(THREADS)
 k1_pass_kernel(const float* __restrict__ tables, int n_floats,
                const int* __restrict__ pix_in, const int* __restrict__ spp_in,
-               int n, int n_mats, int n_lights, int n_sph, int n_pl,
+               const float* __restrict__ o_in,
+               const float* __restrict__ d_in, int n, int n_mats, int n_lights, int n_sph, int n_pl,
                int n_rects, int n_dsk, int n_tris, int n_box, uint32_t seed,
                int max_depth, int rr_start, int strat, int thinlens,
                int width, int* __restrict__ next_path,
@@ -605,8 +609,15 @@ k1_pass_kernel(const float* __restrict__ tables, int n_floats,
           const int ipix = pix_in[path];
           const uint32_t spp = (uint32_t)spp_in[path];
           h_lane = lane_hash((uint32_t)ipix, spp);
-          raygen(cam, ipix, spp, h_lane, seed, strat, thinlens, width, ox,
-                 oy, oz, dx, dy, dz);
+          if (o_in != nullptr) {  // external rays: no padding lanes
+            ox = o_in[3 * path]; oy = o_in[3 * path + 1];
+            oz = o_in[3 * path + 2];
+            dx = d_in[3 * path]; dy = d_in[3 * path + 1];
+            dz = d_in[3 * path + 2];
+          } else {
+            raygen(cam, ipix, spp, h_lane, seed, strat, thinlens, width, ox,
+                   oy, oz, dx, dy, dz);
+          }
           b = 0;
           bx = 1.0f; by = 1.0f; bz = 1.0f;
           lr = 0.0f; lg = 0.0f; lb = 0.0f;
@@ -719,7 +730,7 @@ k1_pass_kernel(const float* __restrict__ tables, int n_floats,
 
 template <bool FULL, bool PD, bool BOX>
 int launch(const float* tables, int n_floats, const int* pix, const int* spp,
-           int n, const int* counts, unsigned int seed, int max_depth,
+           const float* o_in, const float* d_in, int n, const int* counts, unsigned int seed, int max_depth,
            int rr_start, int strat, int thinlens, int width, int* next_path,
            float* L_out, int* g_out, cudaStream_t stream) {
   const size_t smem = (size_t)n_floats * sizeof(float);
@@ -737,14 +748,15 @@ int launch(const float* tables, int n_floats, const int* pix, const int* spp,
   const int needed = (n + THREADS - 1) / THREADS;
   const int blocks = resident < needed ? resident : needed;
   k1_pass_kernel<FULL, PD, BOX><<<blocks, THREADS, smem, stream>>>(
-      tables, n_floats, pix, spp, n, counts[0], counts[1], counts[2],
+      tables, n_floats, pix, spp, o_in, d_in, n, counts[0], counts[1],
+      counts[2],
       counts[3], counts[4], counts[5], counts[6], counts[7], seed, max_depth,
       rr_start, strat, thinlens, width, next_path, L_out, g_out);
   return (int)cudaGetLastError();
 }
 
-typedef int (*Launch)(const float*, int, const int*, const int*, int,
-                      const int*, unsigned int, int, int, int, int, int, int*,
+typedef int (*Launch)(const float*, int, const int*, const int*,
+                      const float*, const float*, int, const int*, unsigned int, int, int, int, int, int, int*,
                       float*, int*, cudaStream_t);
 
 // the eight instantiations, indexed by full * 4 + pd * 2 + box
@@ -775,8 +787,28 @@ extern "C" int k1_pass_launch(const float* tables, int n_floats,
   const int pd = (counts[3] + counts[5]) > 0;
   const int box = counts[7] > 0;
   return LAUNCHES[(full ? 4 : 0) + pd * 2 + box](
-      tables, n_floats, pix, spp, n, counts, seed, max_depth, rr_start, strat,
-      thinlens, width, next_path, L_out, g_out, (cudaStream_t)stream);
+      tables, n_floats, pix, spp, nullptr, nullptr, n, counts, seed,
+      max_depth, rr_start, strat, thinlens, width, next_path, L_out, g_out,
+      (cudaStream_t)stream);
+}
+
+// K1 on external rays (raygen=None): `o` and `d` are [n, 3] f32 device
+// arrays, row-major, the camera rays of path i at row i; `pix` and `spp`
+// still key each path's random numbers. The rest as k1_pass_launch.
+extern "C" int k1_pass_rays_launch(const float* tables, int n_floats,
+                                   const int* pix, const int* spp,
+                                   const float* o, const float* d, int n,
+                                   const int* counts, unsigned int seed,
+                                   int max_depth, int rr_start, int full,
+                                   int* next_path, float* L_out, int* g_out,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  if (o == nullptr || d == nullptr) return 1;  // cudaErrorInvalidValue
+  const int pd = (counts[3] + counts[5]) > 0;
+  const int box = counts[7] > 0;
+  return LAUNCHES[(full ? 4 : 0) + pd * 2 + box](
+      tables, n_floats, pix, spp, o, d, n, counts, seed, max_depth, rr_start,
+      0, 0, 1, next_path, L_out, g_out, (cudaStream_t)stream);
 }
 
 extern "C" const char* cray_error_string(int code) {

@@ -64,6 +64,7 @@ MAX_PRIMS = 64
 MAX_MATS = 64
 MAX_DEPTH = 30  # K1's alive-per-bounce bitmask is one 32-bit word
 ESTIMATORS = ("reference", "physical", "mis")
+TRACE_TYPES = ("PATHTRACE", "WHITTED", "RAYCAST")  # config.h trace_type
 
 # the shading core's feature mask (the has_* flags of pallas_shade.py
 # :1793-1802)
@@ -151,13 +152,21 @@ def fast_shade_mode(scene: T.Scene, max_depth: int = 5) -> str:
 
 
 def production_fast_shade(scene: T.Scene, camera=None, film=None,
-                          estimator: str = "reference", max_depth: int = 5):
+                          estimator: str = "reference", max_depth: int = 5,
+                          trace_type: str = "PATHTRACE"):
     """THE production decision (pallas_shade.py:1490): "bounce",
     "shade" or "general", or NotImplementedError naming the ROADMAP item
     that will cover the scene. It is static: table shapes, static fields
     and whether a tensor requires grad, never a caught exception. The
-    port has no other route, so nothing is quietly traced another way."""
+    port has no other route, so nothing is quietly traced another way.
+    A `trace_type` other than PATHTRACE gets no kernel route
+    (pallas_shade.py:1505): "general", and render_sample traces it
+    through integrator/whitted.py, whose search takes K3 and K4 for a
+    bvh4 mesh on the card."""
     check_estimator(estimator)
+    if trace_type not in TRACE_TYPES:
+        raise ValueError(f"trace_type {trace_type!r}: not one of "
+                         f"{', '.join(TRACE_TYPES)}")
     if camera is not None and camera.camera_type not in (PINHOLE, THINLENS):
         raise NotImplementedError(
             f"camera type {camera.camera_type}: craytracer_tpu_torch, like "
@@ -166,7 +175,7 @@ def production_fast_shade(scene: T.Scene, camera=None, film=None,
     if reason is not None:
         raise NotImplementedError(
             f"craytracer_tpu_torch cannot render this yet: {reason}")
-    if (estimator == "mis" or needs_grad(scene, camera, film)
-            or not kernels_shade(scene)):
+    if (estimator == "mis" or trace_type != "PATHTRACE"
+            or needs_grad(scene, camera, film) or not kernels_shade(scene)):
         return "general"
     return fast_shade_mode(scene, max_depth)

@@ -23,7 +23,15 @@ bound through a plain C ABI with ctypes (cuda_build.py).
 `fused_pass` is the wrapper: for CPU tensors it takes the plain version
 `fused_pass_reference` (the ported raygen followed by the plain
 `trace_paths`); for CUDA tensors it launches K1 or raises. It never falls
-back. `KERNEL.launches` counts K1 launches.
+back. `KERNEL.launches` counts K1's launches with the raygen inside.
+With `raygen=None` and `rays=(o, d)` K1 takes external rays, one [N, 3]
+origin and direction per lane, as the JAX kernel does with raygen=None
+(`fused_pass` :1758-1768, `_pass_kernel` :806-808): `render_sample` with
+a table sampler on a "bounce" scene traces the sampler's camera rays
+through it (wavefront.py:601, :456-468). Everything after the raygen is
+the same code; no lane is padded, where the JAX kernel pads its last
+block with escape rays. `RAYS_KERNEL.launches` counts that mode's
+launches (the C entry `k1_pass_rays_launch`).
 """
 
 from __future__ import annotations
@@ -72,26 +80,39 @@ def _k1_gate(scene, camera, film, max_depth):
 
 @torch.no_grad()
 def fused_pass_reference(scene: T.Scene, camera, film, pixel_ids, spp_index,
-                         seed: int, max_depth: int, raygen: str = "strat"):
+                         seed: int, max_depth: int, raygen: str = "strat",
+                         rays=None):
     """Plain PyTorch version of K1: the ported raygen (stratified_jitter
     or the plain CAMERA_BOUNCE jitter, a thin-lens camera's lens samples,
-    then generate_rays) followed by the ported trace_paths in torch ops.
-    Same contract as `fused_pass`; a scene outside the K1 gate raises
+    then generate_rays), or with raygen=None the external `rays` (o, d),
+    followed by the ported trace_paths in torch ops. Same contract as
+    `fused_pass`; a scene outside the K1 gate raises
     NotImplementedError."""
     _k1_gate(scene, camera, film, max_depth)
     return _pass_reference(scene, camera, film, pixel_ids, spp_index, seed,
-                           max_depth, raygen)
+                           max_depth, raygen, rays)
+
+
+def _check_raygen(raygen, rays):
+    if raygen not in ("strat", "plain", None):
+        raise ValueError(f"raygen must be 'strat', 'plain' or None, not "
+                         f"{raygen!r}")
+    if (raygen is None) != (rays is not None):
+        raise ValueError("external rays go with raygen=None, and only there")
 
 
 def _pass_reference(scene, camera, film, pixel_ids, spp_index, seed,
-                    max_depth, raygen):
+                    max_depth, raygen, rays=None):
     """fused_pass_reference for a scene the gate has admitted."""
+    _check_raygen(raygen, rays)
+    if raygen is None:
+        o, d = rays
+        return _trace(scene, o, d, seed, pixel_ids, spp_index, max_depth,
+                      kernels=False)
     if raygen == "strat":
         jitter = stratified_jitter(seed, pixel_ids, spp_index)
     elif raygen == "plain":
         jitter = uniforms(seed, pixel_ids, spp_index, CAMERA_BOUNCE, 2, 0)
-    else:
-        raise ValueError(f"raygen must be 'strat' or 'plain', not {raygen!r}")
     o, d = camera_rays(camera, film, pixel_ids, seed, spp_index, jitter)
     return _trace(scene, o, d, seed, pixel_ids, spp_index, max_depth,
                   kernels=False)
@@ -107,6 +128,10 @@ def _bind(lib):
                                    ctypes.c_uint, ci, ci, ci, ci, ci, ci, vp,
                                    vp, vp, vp]
     lib.k1_pass_launch.restype = ci
+    lib.k1_pass_rays_launch.argtypes = [vp, ci, vp, vp, vp, vp, ci,
+                                        ctypes.c_int * 8, ctypes.c_uint, ci,
+                                        ci, ci, vp, vp, vp, vp]
+    lib.k1_pass_rays_launch.restype = ci
 
 
 LIBRARY = CudaLibrary("pass_kernel", headers=("shade_core.cuh",), bind=_bind)
@@ -118,12 +143,15 @@ class PassKernel(LaunchCount):
     launches made through `launch`."""
 
     def launch(self, tables, counts, pix, spp, seed: int, max_depth: int,
-               strat: bool, width: int, full: bool, thinlens: bool = False):
+               strat: bool, width: int, full: bool, thinlens: bool = False,
+               rays=None):
         """One K1 launch over len(pix) lanes on `tables` with the row
         `counts` of `table_counts`, with the full shading core (every
         lobe) if `full`, else the matte-only one, and the thin-lens raygen
-        if `thinlens`, else the pinhole. Returns (L [N,3] f32, counters
-        [4,N] i32: good, rays, shadow_rays, alive bitmask)."""
+        if `thinlens`, else the pinhole; with `rays` (o, d: contiguous f32
+        [N, 3] on the card) on those rays instead of the raygen. Returns
+        (L [N,3] f32, counters [4,N] i32: good, rays, shadow_rays, alive
+        bitmask)."""
         n = pix.shape[0]
         dev = pix.device
         n_mats, n_lights, *n_rows = counts
@@ -142,22 +170,37 @@ class PassKernel(LaunchCount):
                 and n_prims <= MAX_PRIMS
                 and 0 <= max_depth <= MAX_DEPTH and width > 0):
             raise ValueError("K1 table sizes or depth out of range")
+        if rays is not None and not all(
+                r.device == dev and r.dtype == torch.float32
+                and r.shape == (n, 3) and r.is_contiguous() for r in rays):
+            raise ValueError("K1's external rays are contiguous f32 [N, 3] "
+                             "CUDA tensors on the lanes' device")
         lib = LIBRARY.load()
         L = torch.empty((n, 3), dtype=torch.float32, device=dev)
         g = torch.empty((4, n), dtype=torch.int32, device=dev)
         next_path = torch.empty(1, dtype=torch.int32, device=dev)
-        err = lib.k1_pass_launch(
-            tables.data_ptr(), tables.numel(), pix.data_ptr(), spp.data_ptr(),
-            n, (ctypes.c_int * 8)(*counts), int(seed) & MASK32, max_depth,
-            RR_START, int(strat), int(thinlens), width, int(full),
-            next_path.data_ptr(), L.data_ptr(), g.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if rays is None:
+            err = lib.k1_pass_launch(
+                tables.data_ptr(), tables.numel(), pix.data_ptr(),
+                spp.data_ptr(), n, (ctypes.c_int * 8)(*counts),
+                int(seed) & MASK32, max_depth, RR_START, int(strat),
+                int(thinlens), width, int(full), next_path.data_ptr(),
+                L.data_ptr(), g.data_ptr(), stream)
+        else:
+            err = lib.k1_pass_rays_launch(
+                tables.data_ptr(), tables.numel(), pix.data_ptr(),
+                spp.data_ptr(), rays[0].data_ptr(), rays[1].data_ptr(), n,
+                (ctypes.c_int * 8)(*counts), int(seed) & MASK32, max_depth,
+                RR_START, int(full), next_path.data_ptr(), L.data_ptr(),
+                g.data_ptr(), stream)
         LIBRARY.check(err, "K1")
         self.launches += 1
         return L, g
 
 
-KERNEL = PassKernel()
+KERNEL = PassKernel()  # the raygen inside
+RAYS_KERNEL = PassKernel()  # external rays
 
 
 def kernel_tables(scene: T.Scene, camera, film):
@@ -235,29 +278,30 @@ def table_counts(scene: T.Scene):
 
 @torch.no_grad()
 def fused_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
-               seed: int, max_depth: int, raygen: str = "strat"):
+               seed: int, max_depth: int, raygen: str = "strat", rays=None):
     """Whole-pass wrapper: returns (L[N,3], good[N] int32, metrics dict
     with `rays`/`shadow_rays` scalars, the `bounce_live` histogram and the
     per-lane `lane_rays`/`lane_shadow_rays`) — the trace_paths contract.
-    `pixel_ids` decides the device: a CPU tensor takes the plain version,
-    a CUDA tensor launches K1.
-    Forward-only, as in the JAX package (pallas_shade.py:47). A scene
+    `raygen` "strat" or "plain" makes the camera rays in the kernel;
+    None takes `rays` = (o, d), [N, 3] each. `pixel_ids` decides the
+    device: a CPU tensor takes the plain version, a CUDA tensor launches
+    K1. Forward-only, as in the JAX package (pallas_shade.py:47). A scene
     outside K1's gate raises NotImplementedError."""
     _k1_gate(scene, camera, film, max_depth)
     return _admitted_pass(scene, camera, film, pixel_ids, spp_index, seed,
-                          max_depth, raygen)
+                          max_depth, raygen, rays)
 
 
 @torch.no_grad()
 def _admitted_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
-                   seed: int, max_depth: int, raygen: str = "strat"):
+                   seed: int, max_depth: int, raygen: str = "strat",
+                   rays=None):
     """fused_pass for a scene the gate has admitted as "bounce"
     (render_sample asks the gate once per pass)."""
     pixel_ids = torch.as_tensor(pixel_ids)
-    if raygen not in ("strat", "plain"):
-        raise ValueError(f"raygen must be 'strat' or 'plain', not {raygen!r}")
+    _check_raygen(raygen, rays)
     for t in (*T.tensor_leaves(scene), *T.tensor_leaves(camera),
-              *T.tensor_leaves(film)):
+              *T.tensor_leaves(film), *(rays or ())):
         if t.requires_grad:
             raise ValueError("K1 is forward-only: an input requires grad")
         if t.device != pixel_ids.device:
@@ -265,7 +309,7 @@ def _admitted_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
                              f"{pixel_ids.device}")
     if pixel_ids.device.type == "cpu":
         return _pass_reference(scene, camera, film, pixel_ids, spp_index,
-                               seed, max_depth, raygen)
+                               seed, max_depth, raygen, rays)
     if pixel_ids.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, not {pixel_ids.device}")
     n = pixel_ids.shape[0]
@@ -277,10 +321,12 @@ def _admitted_pass(scene: T.Scene, camera, film, pixel_ids, spp_index,
     else:
         spp = torch.full((n,), int(spp_index), dtype=torch.int32,
                          device=pix.device)
-    L, g = KERNEL.launch(
+    if rays is not None:
+        rays = tuple(r.to(torch.float32).contiguous() for r in rays)
+    L, g = (KERNEL if rays is None else RAYS_KERNEL).launch(
         kernel_tables(scene, camera, film), table_counts(scene), pix, spp,
         seed, max_depth, raygen == "strat", int(film.width),
-        shade_features(scene) != 0, camera.camera_type == THINLENS)
+        shade_features(scene) != 0, camera.camera_type == THINLENS, rays)
     bits = torch.arange(max_depth + 1, dtype=torch.int32, device=pix.device)
     bounce_live = ((g[3][:, None] >> bits) & 1).sum(dim=0)
     metrics = {"rays": g[1].sum(), "shadow_rays": g[2].sum(),

@@ -1,8 +1,11 @@
 """Wavefront path tracer with next-event estimation (counterpart of
 craytracer_tpu/integrator/wavefront.py: `_offset_ray` :50,
 `_make_bounce_step` :59 with its fast branch :97-134 and its general
-branch :136-384, MIS included, `_init_state` :394, `trace_paths` :416,
-`render_sample` :581).
+branch :136-384, MIS included and its per-bounce log record :372-380,
+`_init_state` :394, `trace_paths` :416 with stream compaction :499-560,
+`trace_paths_logged` :562, `render_sample` :581 with the table sampler
+:615-622, the trace-type dispatch :634-638 and the compaction policy
+:639-650).
 
 A bounce is four stages over [N] lanes with liveness masks: intersect
 (ops/intersect.py) -> shade -> shadow_distance -> combine (the `lit`
@@ -31,8 +34,18 @@ through K3 closest hit (bvh4 scenes, in ray_key order) and K4 any hit
 table cut into parts (Scene.tri_parts), and `_bounce_step` shades
 through K2; `_general_step` has no kernel of its own, and the MIS
 estimator runs on it only, as the JAX package keeps MIS off its kernels
-(wavefront.py:439, :602). No stream compaction or logged trace: those
-wait for ROADMAP slice F.
+(wavefront.py:439, :602).
+
+Stream compaction (`compact_at`, `_trace`): after bounce B - 1 the lanes
+are permuted alive-first and the rest of the bounces run on the first
+half, and on the second only when one of its lanes lives; the halves
+scatter back by lane id. `render_sample` compacts at bounce 2 on traces
+of depth 8 or more over a mesh of at least 4,096 triangles in an
+accelerator, on the "shade" and "general" routes (`compact_policy`, the
+JAX policy; measured on a TPU, so the card's is ROADMAP queue 3 item 6);
+K1's pass is dense by construction. `trace_paths_logged` is the non-MIS
+general step bounce by bounce with its per-bounce record, which the
+Renderer's NaN log writes out.
 
 Gradients (the JAX package's differentiable XLA step, slice G): under
 autograd, with a tensor of the scene, camera or film that requires grad, the
@@ -94,7 +107,8 @@ def camera_rays(camera, film, pixel_ids, seed: int, spp_index, jitter):
 def _bounce_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
                  bounce: int, state, kernels: bool):
     """One wavefront bounce: intersect -> shade -> shadow -> combine."""
-    o, d, beta, L, good, alive, prev_sg, rays, shadows, live_hist, pix = state
+    o, d, beta, L, good, alive, prev_sg, rays, shadows, live_hist, pix = \
+        state[:11]
     hit = intersect_scene(scene, o, d, kernels=kernels)
     shade = fused_shade if kernels else fused_shade_reference
     out = shade(scene, d, hit, beta, alive, prev_sg, pix, spp_index, seed,
@@ -112,7 +126,7 @@ def _bounce_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
     live_hist[bounce] += alive.sum()
     return (out["new_o"], out["new_d"], out["new_beta"], L, good,
             out["new_alive"], out["new_prev_sg"], rays + alive,
-            shadows + out["want_shadow"], live_hist, pix)
+            shadows + out["want_shadow"], live_hist, pix) + state[11:]
 
 
 def _offset_ray(point, normal, direction):
@@ -125,7 +139,8 @@ def _offset_ray(point, normal, direction):
 
 
 def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
-                  bounce: int, state, kernels: bool, mis: bool = False):
+                  bounce: int, state, kernels: bool, mis: bool = False,
+                  log=None):
     """One bounce of the JAX XLA branch (wavefront.py :136-384): intersect
     -> emitted / env add -> NEE through a shadow ray -> BSDF sample ->
     Russian roulette. Same state tuple as `_bounce_step`. `mis` takes the
@@ -133,11 +148,15 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
     :328-332): emission and env weighted by the power heuristic against
     the light strategy at every bounce, NEE on GLASS too, through the
     local wi with the non-delta lobes, weighted against the balanced BSDF
-    density, and the balanced BSDF sample."""
+    density, and the balanced BSDF sample. A list `log` gets the bounce's
+    record appended (the JAX step's `aux`, wavefront.py:372-380: the hit's
+    t, the throughput entering the bounce, the emitted, env and NEE
+    contributions, the BSDF sample's pdf, liveness); asking for it leaves
+    every output as it was."""
     o, d, beta, L, good, alive, prev_sg, rays, shadows, live_hist, pix = \
         state[:11]
     if mis:
-        prev_pdf, prev_delta, prev_n = state[11:]
+        prev_pdf, prev_delta, prev_n = state[11:14]
     present = frozenset(scene.mat_types_present)
     hit = intersect_scene(scene, o, d, kernels=kernels)
     hitm = hit.hit_mask
@@ -182,8 +201,10 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
         add_cond = alive & (prev_sg | (bounce == 0))
         add_emit = add_cond & emissive_hit
         add_env = add_cond & ~hitm
-        L = L + torch.where(add_emit[:, None], beta * emitted, 0.0)
-        L = L + torch.where(add_env[:, None], beta * env_li, 0.0)
+        emit_c = torch.where(add_emit[:, None], beta * emitted, 0.0)
+        env_c = torch.where(add_env[:, None], beta * env_li, 0.0)
+        L = L + emit_c
+        L = L + env_c
     good = good + (add_emit | add_env).to(torch.int32)
     cont = alive & hitm & ~emissive_hit & (bounce < max_depth)
 
@@ -285,19 +306,32 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
     new_d = torch.where(new_alive[:, None], wi_world, ex)
     live_hist = live_hist.clone()
     live_hist[bounce] += alive.sum()
-    state = (new_o, new_d, new_beta, L, good, new_alive,
-             torch.where(cont, is_spec | is_glossy, prev_sg), rays + alive,
-             shadows + want_shadow, live_hist, pix)
+    if log is not None:
+        if mis:
+            emit_c = torch.where(add_emit[:, None], beta * emitted, 0.0)
+            env_c = torch.where(add_env[:, None], beta * env_li, 0.0)
+        log.append({"t": hit.t, "beta": beta,
+                    "emissive_indirect_contrib": emit_c,
+                    "env_indirect_contrib": env_c, "direct_contrib": contrib,
+                    "new_sample_pdf": pdf_s, "alive": alive})
+    new = (new_o, new_d, new_beta, L, good, new_alive,
+           torch.where(cont, is_spec | is_glossy, prev_sg), rays + alive,
+           shadows + want_shadow, live_hist, pix)
     if mis:
-        state += (torch.where(cont, pdf_s, prev_pdf),
-                  torch.where(cont, is_spec, prev_delta),
-                  torch.where(cont[:, None], fn, prev_n))
-    return state
+        new += (torch.where(cont, pdf_s, prev_pdf),
+                torch.where(cont, is_spec, prev_delta),
+                torch.where(cont[:, None], fn, prev_n))
+    return new + state[len(new):]
 
 
-def _init_state(origin, direction, max_depth, pixel_ids, mis: bool = False):
-    """The bounce loop's state tuple, with the MIS estimator's three
-    fields at its end when `mis`."""
+def _init_state(origin, direction, max_depth, pixel_ids, mis: bool = False,
+                lanes: bool = False):
+    """The bounce loop's state tuple: o, d, beta, L, good, alive, prev_sg,
+    the per-lane ray and shadow-ray counts, the live histogram and the
+    pixel ids; then the MIS estimator's three fields when `mis`, and last
+    the lane ids when `lanes` (the JAX state's `lane`, by which stream
+    compaction scatters back). Every field but the histogram is per lane;
+    the steps carry the fields past their own through unchanged."""
     n = origin.shape[0]
     dev = origin.device
     zero = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -319,48 +353,125 @@ def _init_state(origin, direction, max_depth, pixel_ids, mis: bool = False):
                   torch.ones((n,), dtype=torch.bool, device=dev),
                   torch.tensor([0.0, 0.0, 1.0], dtype=origin.dtype,
                                device=dev).expand(n, 3))
+    if lanes:
+        state += (torch.arange(n, dtype=torch.int32, device=dev),)
     return state
+
+
+class CompactionCount:
+    """How many traces compacted (`traces`), and in how many of them the
+    second half had a live lane and ran (`hi`)."""
+
+    def __init__(self):
+        self.traces = 0
+        self.hi = 0
+
+
+COMPACTION = CompactionCount()
+
+
+def compact_policy(scene: T.Scene, max_depth: int) -> int:
+    """The bounce after which a trace compacts, 0 for none: the JAX
+    render_sample's policy (wavefront.py:639-650), 2 for a trace of depth
+    8 or more on a scene whose at least 4,096 triangles sit in an
+    accelerator, else 0. It was measured on a TPU; the card's own policy
+    is ROADMAP queue 3 item 6."""
+    n_tris = scene.triangles.mat_id.shape[0]
+    return 2 if (max_depth >= 8 and scene.accel != "none"
+                 and n_tris >= 4096) else 0
 
 
 def _trace(scene: T.Scene, origin, direction, seed: int, pixel_ids,
            spp_index, max_depth: int, kernels: bool, general: bool = False,
-           mis: bool = False, remat: bool = False):
+           mis: bool = False, remat: bool = False, compact_at: int = 0):
     """trace_paths' bounce loop for a scene the gate has admitted, through
     `_general_step` (with the MIS estimator when `mis`) when `general`,
     `mis` or `remat`, else `_bounce_step`: (L, good, metrics). `remat`
-    checkpoints each bounce (module docstring)."""
-    if isinstance(spp_index, torch.Tensor) and spp_index.dim() > 0:
+    checkpoints each bounce (module docstring).
+
+    `compact_at` = B > 0 compacts the stream (the JAX
+    trace_paths(compact_at=B), wavefront.py:499-560): after bounce B - 1
+    every per-lane field is permuted alive lanes first (a stable argsort
+    of ~alive), the per-lane spp with them; bounces B..max_depth run on
+    the first half, then on the second half only if any of its lanes is
+    alive (one host read on the card); the halves are scattered back by
+    lane id. Every lane still runs its own bounces on its own random
+    numbers, so L, good and the counters equal the dense trace's, and the
+    live histogram adds each half's live lanes into the same slot."""
+    per_lane = isinstance(spp_index, torch.Tensor) and spp_index.dim() > 0
+    if per_lane:
         spp_index = spp_index.to(device=origin.device,
                                  dtype=torch.int32).contiguous()
+    n = origin.shape[0]
+    compact = bool(compact_at) and compact_at <= max_depth and n >= 2
     state = _init_state(origin.contiguous(), direction.contiguous(),
-                        max_depth, pixel_ids, mis)
-    for bounce in range(max_depth + 1):
-        if remat:
-            # no torch RNG runs inside, so no RNG state to keep
-            state = torch.utils.checkpoint.checkpoint(
-                _general_step, scene, seed, spp_index, max_depth, bounce,
-                state, kernels, mis, use_reentrant=False,
-                preserve_rng_state=False)
-        elif general or mis:
-            state = _general_step(scene, seed, spp_index, max_depth, bounce,
-                                  state, kernels=kernels, mis=mis)
-        else:
-            state = _bounce_step(scene, seed, spp_index, max_depth, bounce,
-                                 state, kernels=kernels)
-    return state[3], state[4], {"rays": state[7].sum(),
-                                "shadow_rays": state[8].sum(),
-                                "bounce_live": state[9],
-                                "lane_rays": state[7],
-                                "lane_shadow_rays": state[8]}
+                        max_depth, pixel_ids, mis, lanes=compact)
+
+    def run(state, spp, bounces):
+        for bounce in bounces:
+            if remat:
+                # no torch RNG runs inside, so no RNG state to keep
+                state = torch.utils.checkpoint.checkpoint(
+                    _general_step, scene, seed, spp, max_depth, bounce,
+                    state, kernels, mis, use_reentrant=False,
+                    preserve_rng_state=False)
+            elif general or mis:
+                state = _general_step(scene, seed, spp, max_depth, bounce,
+                                      state, kernels=kernels, mis=mis)
+            else:
+                state = _bounce_step(scene, seed, spp, max_depth, bounce,
+                                     state, kernels=kernels)
+        return state
+
+    metrics = {}
+    if not compact:
+        state = run(state, spp_index, range(max_depth + 1))
+        L, good, lane_rays, lane_shadows = state[3], state[4], state[7], \
+            state[8]
+    else:
+        state = run(state, spp_index, range(compact_at))
+        order = torch.argsort((~state[5]).to(torch.uint8), stable=True)
+        state = tuple(x if i == 9 else x[order] for i, x in enumerate(state))
+        spp_c = spp_index[order] if per_lane else spp_index
+        half = n // 2
+        tail = range(compact_at, max_depth + 1)
+
+        def part(sl, hist):
+            return tuple(hist if i == 9 else x[sl]
+                         for i, x in enumerate(state))
+
+        lo = run(part(slice(0, half), state[9]),
+                 spp_c[:half] if per_lane else spp_c, tail)
+        hi = part(slice(half, n), lo[9])
+        hi_ran = bool(hi[5].any())
+        if hi_ran:
+            hi = run(hi, spp_c[half:] if per_lane else spp_c, tail)
+        COMPACTION.traces += 1
+        COMPACTION.hi += int(hi_ran)
+        metrics["compact_hi"] = hi_ran
+        lane = torch.cat([lo[-1], hi[-1]]).long()
+        inv = torch.empty_like(lane)
+        inv[lane] = torch.arange(n, device=lane.device)
+
+        def back(i):
+            return torch.cat([lo[i], hi[i]])[inv]
+
+        L, good, lane_rays, lane_shadows = back(3), back(4), back(7), back(8)
+        state = hi
+    metrics.update({"rays": lane_rays.sum(), "shadow_rays": lane_shadows.sum(),
+                    "bounce_live": state[9], "lane_rays": lane_rays,
+                    "lane_shadow_rays": lane_shadows})
+    return L, good, metrics
 
 
 def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
                 spp_index, max_depth: int, with_metrics: bool = False,
                 fast_shade=None, general: bool = False, mis: bool = False,
-                remat: bool = False):
+                remat: bool = False, compact_at: int = 0):
     """Trace one path per lane. Returns (L[N,3], good_paths[N] int32),
     plus {rays, shadow_rays, bounce_live[depth+1], and the per-lane
-    lane_rays and lane_shadow_rays [N] int32} when `with_metrics`.
+    lane_rays and lane_shadow_rays [N] int32, and compact_hi when the
+    trace compacted} when `with_metrics`.
     `spp_index` is an int or a per-lane [N] tensor. `fast_shade`: None for
     the plain versions, "shade" for the kernels on the card (module
     docstring). A "general" scene takes `_general_step`; `general=True`
@@ -369,7 +480,8 @@ def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
     origins or directions require grad. `mis=True` traces the MIS
     estimator, which only the general step has. `remat=True` checkpoints
     each bounce of the general step (the JAX trace_paths' remat, which
-    forces its XLA step). A scene outside the gate raises
+    forces its XLA step). `compact_at=B` compacts the stream after bounce
+    B - 1 (`_trace`). A scene outside the gate raises
     NotImplementedError."""
     if fast_shade not in (None, "shade"):
         raise ValueError(f"fast_shade must be None or 'shade', not "
@@ -380,13 +492,48 @@ def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
         scene, origin, direction, seed, pixel_ids, spp_index, max_depth,
         kernels=fast_shade == "shade" and origin.device.type == "cuda",
         general=(general or mode == "general"
-                 or needs_grad(origin, direction)), mis=mis, remat=remat)
+                 or needs_grad(origin, direction)), mis=mis, remat=remat,
+        compact_at=compact_at)
     return (L, good, metrics) if with_metrics else (L, good)
+
+
+@torch.no_grad()
+def trace_paths_logged(scene: T.Scene, origin, direction, seed: int,
+                       pixel_ids, spp_index, max_depth: int):
+    """The logging tracer (the JAX trace_paths_logged, wavefront.py
+    :562-578, the wavefront form of pathTraceLogging + SampleLog,
+    trace.h:176-219, 535-684): the non-MIS general step, bounce by bounce,
+    with its per-bounce record. Returns (L, good, log), log mapping each
+    SampleLog field to a [max_depth + 1, N, ...] tensor. On the card the
+    search of a bvh4 mesh goes through K3 and K4."""
+    production_fast_shade(scene, max_depth=max_depth)
+    kernels = origin.device.type == "cuda"
+    state = _init_state(origin.contiguous(), direction.contiguous(),
+                        max_depth, pixel_ids)
+    records = []
+    for bounce in range(max_depth + 1):
+        state = _general_step(scene, seed, spp_index, max_depth, bounce,
+                              state, kernels=kernels, log=records)
+    log = {k: torch.stack([r[k] for r in records]) for k in records[0]}
+    return state[3], state[4], log
+
+
+def film_jitter(seed: int, pixel_ids, spp_index, sampler=None):
+    """The camera rays' film jitter: the table `sampler`'s points
+    (sampling/tables.py) when given, else stratified_jitter
+    (wavefront.py:615-622)."""
+    if sampler is None:
+        return stratified_jitter(seed, pixel_ids, spp_index)
+    from craytracer_tpu_torch.sampling.tables import table_sample
+
+    return table_sample(sampler, seed, pixel_ids, spp_index, dim=0)
 
 
 def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
                   spp_index, max_depth: int, estimator: str = "reference",
-                  general: bool = False, kernels=None):
+                  general: bool = False, kernels=None,
+                  trace_type: str = "PATHTRACE", sampler=None,
+                  compact_at=None):
     """One progressive pass (raygen + trace) for `pixel_ids`, through the
     route the gate picks: K1 for "bounce" scenes, the per-bounce K3 -> K2
     -> K4 route for "shade" scenes, the per-bounce general step (with K3
@@ -399,26 +546,54 @@ def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
     device. estimator="reference" divides L by good_paths
     (trace.h:528-529); "physical" and "mis" (always the general step)
     return plain L. A scene outside the gate raises NotImplementedError
-    naming the ROADMAP item."""
+    naming the ROADMAP item.
+
+    `sampler` (sampling/tables.py SampleTable) takes the film jitter from
+    its table: on a "bounce" scene K1 then traces the camera rays made
+    here (its external-ray mode, wavefront.py:601, :456-468).
+    `trace_type` "WHITTED" or "RAYCAST" traces integrator/whitted.py
+    instead of the path tracer (wavefront.py:634-638). `compact_at` None
+    takes `compact_policy` on the per-bounce routes; an int forces it.
+    K1's pass is dense by construction."""
     from craytracer_tpu_torch.integrator.pass_kernel import _admitted_pass
 
-    mode = production_fast_shade(scene, camera, film, estimator, max_depth)
-    if mode == "bounce" and not general:
+    mode = production_fast_shade(scene, camera, film, estimator, max_depth,
+                                 trace_type)
+    pixel_ids = torch.as_tensor(pixel_ids)
+    if mode == "bounce" and not general and sampler is None:
         # no autograd here (the gate said so): a leaf that requires grad
         # reaches K1 detached
         L, good, _ = _admitted_pass(T.detached(scene), T.detached(camera),
                                     T.detached(film), pixel_ids, spp_index,
                                     seed, max_depth, raygen="strat")
+        return _normalize(L, good, estimator)
+    o, d = camera_rays(camera, film, pixel_ids, seed, spp_index,
+                       film_jitter(seed, pixel_ids, spp_index, sampler))
+    on_card = o.device.type == "cuda"
+    kernels = on_card if kernels is None else kernels and on_card
+    if trace_type != "PATHTRACE":
+        from craytracer_tpu_torch.integrator.whitted import trace_whitted
+
+        return trace_whitted(scene, o, d, seed, pixel_ids, spp_index,
+                             max_depth, trace_type == "WHITTED",
+                             kernels=kernels)
+    if mode == "bounce" and not general:
+        L, good, _ = _admitted_pass(T.detached(scene), T.detached(camera),
+                                    T.detached(film), pixel_ids, spp_index,
+                                    seed, max_depth, raygen=None,
+                                    rays=(o.detach(), d.detach()))
     else:
-        pixel_ids = torch.as_tensor(pixel_ids)
-        o, d = camera_rays(camera, film, pixel_ids, seed, spp_index,
-                           stratified_jitter(seed, pixel_ids, spp_index))
-        on_card = o.device.type == "cuda"
         L, good, _ = _trace(scene, o, d, seed, pixel_ids, spp_index,
-                            max_depth, kernels=on_card if kernels is None
-                            else kernels and on_card,
+                            max_depth, kernels=kernels,
                             general=general or mode == "general",
-                            mis=estimator == "mis")
+                            mis=estimator == "mis",
+                            compact_at=(compact_policy(scene, max_depth)
+                                        if compact_at is None
+                                        else compact_at))
+    return _normalize(L, good, estimator)
+
+
+def _normalize(L, good, estimator):
     if estimator in ("physical", "mis"):
         return L
     norm = torch.where(good > 0, 1.0 / torch.clamp(good, min=1).to(L.dtype),

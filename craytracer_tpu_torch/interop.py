@@ -112,6 +112,15 @@ def film_from_numpy(leaves: Mapping, device="cpu") -> Film:
     return _build(Film, leaves, device)
 
 
+def sample_table_from_numpy(leaves: Mapping, device="cpu"):
+    """A JAX SampleTable's leaves (`points`, `kind`) -> the port's
+    sampling.tables.SampleTable. A JAX `.npz` image state needs no
+    conversion: io/imagestate.py reads it as it is."""
+    from craytracer_tpu_torch.sampling.tables import SampleTable
+
+    return _build(SampleTable, leaves, device)
+
+
 def with_grad(obj, *names: str):
     """(copy of the dataclass `obj` whose fields `names` are fresh leaf
     tensors that require grad, those leaves in order): the parameters a

@@ -759,3 +759,116 @@ def test_inverse_resume_bit_exact_env_light_on_card(cuda, tmp_path,
     d = demo.demo(size=32, tex=64, steps=4, device=cuda)
     assert d["scene"].env.kind == 1
     _assert_resume_bit_exact(d, str(tmp_path / "inv.pt"))
+
+
+# ---- slice F: K1 on external rays, compaction, WHITTED / RAYCAST,
+# AOVs, the Renderer's resume and the command line on the card
+
+MESH_MID = os.path.join(REPO, "scenes", "parity_mesh_mid.txt")
+MIX = os.path.join(REPO, "scenes", "parity_mix.txt")
+
+
+@pytest.mark.parametrize("path", [CORNELL, MIX])
+def test_k1_external_rays_match_plain_version(cuda, path):
+    """K1's external-ray mode on a multijittered table's camera rays,
+    against its plain version: the pass bars; one count on RAYS_KERNEL."""
+    from craytracer_tpu_torch.sampling.tables import make_sample_table
+
+    scene, cam, film = load_scene_file(path, device=cuda)
+    film = Film(fov=film.fov, width=40, height=24)
+    n = film.num_pixels
+    pix = torch.arange(n, dtype=torch.int32, device=cuda).repeat(2)
+    spp = 3 + torch.arange(2, dtype=torch.int32,
+                           device=cuda).repeat_interleave(n)
+    table = make_sample_table("multijittered", 16, 5, seed=1, device=cuda)
+    o, d = wf.camera_rays(cam, film, pix, 7, spp,
+                          wf.film_jitter(7, pix, spp, table))
+    before = (pk.KERNEL.launches, pk.RAYS_KERNEL.launches)
+    out = pk.fused_pass(scene, cam, film, pix, spp, 7, 5, raygen=None,
+                        rays=(o, d))
+    assert (pk.KERNEL.launches, pk.RAYS_KERNEL.launches) == (
+        before[0], before[1] + 1)
+    _assert_pass_bars(out, pk.fused_pass_reference(
+        scene, cam, film, pix, spp, 7, 5, raygen=None, rays=(o, d)))
+
+
+def test_compaction_on_card_equals_dense(cuda):
+    """parity_mesh_mid at depth 8 through K3 -> K2 -> K4: compacted after
+    bounce 2 bit-equal with dense (L, good, lane counters, histogram), the
+    launches 2 + 7 x (1 + hi) each; compacted against its plain version
+    within the pass bars."""
+    scene, cam, film = load_scene_file(MESH_MID, device=cuda)
+    film = Film(fov=film.fov, width=64, height=64)
+    pix = torch.arange(film.num_pixels, dtype=torch.int32,
+                       device=cuda).repeat(2)
+    spp = torch.arange(2, dtype=torch.int32,
+                       device=cuda).repeat_interleave(film.num_pixels)
+    o, d = wf.camera_rays(cam, film, pix, 7, spp,
+                          stratified_jitter(7, pix, spp))
+    before = (bk.CLOSEST.launches, sk.KERNEL.launches, bk.ANY.launches)
+    comp = wf.trace_paths(scene, o, d, 7, pix, spp, 8, with_metrics=True,
+                          fast_shade="shade", compact_at=2)
+    per = 2 + 7 * (1 + int(comp[2]["compact_hi"]))
+    assert (bk.CLOSEST.launches, sk.KERNEL.launches, bk.ANY.launches) == (
+        before[0] + per, before[1] + per, before[2] + per)
+    dense = wf.trace_paths(scene, o, d, 7, pix, spp, 8, with_metrics=True,
+                           fast_shade="shade")
+    assert torch.equal(comp[0], dense[0]) and torch.equal(comp[1], dense[1])
+    for k in ("lane_rays", "lane_shadow_rays", "bounce_live"):
+        assert torch.equal(comp[2][k], dense[2][k]), k
+    _assert_pass_bars(comp, wf.trace_paths(
+        scene, o, d, 7, pix, spp, 8, with_metrics=True, compact_at=2))
+
+
+def test_whitted_raycast_and_aovs_on_card(cuda):
+    """WHITTED and RAYCAST through K3 / K4 against the plain traversal (L
+    within 2e-5), the AOVs through K3 bit-equal with the plain ones."""
+    from craytracer_tpu_torch.integrator.aov import render_aovs
+    from craytracer_tpu_torch.integrator.whitted import trace_whitted
+
+    scene, cam, film = load_scene_file(MESH_MID, device=cuda)
+    film = Film(fov=film.fov, width=48, height=40)
+    pix = torch.arange(film.num_pixels, dtype=torch.int32, device=cuda)
+    o, d = wf.camera_rays(cam, film, pix, 7, 2, stratified_jitter(7, pix, 2))
+    for depth, cont in ((3, True), (0, False)):
+        before = bk.CLOSEST.launches
+        Lk = trace_whitted(scene, o, d, 7, pix, 2, depth, cont, kernels=True)
+        assert bk.CLOSEST.launches == before + depth + 1
+        Lp = trace_whitted(scene, o, d, 7, pix, 2, depth, cont)
+        assert torch.allclose(Lk, Lp, rtol=2e-5, atol=2e-5)
+    ak = render_aovs(scene, cam, film)
+    ap = render_aovs(scene, cam, film, kernels=False)
+    assert all(torch.equal(ak[k], ap[k]) for k in ak)
+
+
+def test_renderer_resume_and_cli_on_card(cuda, tmp_path):
+    """The Renderer on the card: 2 + 2 spp resumed from its .npz bit-equal
+    with 4 straight, tiles within 1e-6; the command line's --spp-batch 0
+    resolves to B = 7 at 512x512 on parity_mesh_mid."""
+    from craytracer_tpu_torch.integrator.render import (RenderConfig,
+                                                        Renderer,
+                                                        auto_spp_batch)
+    from craytracer_tpu_torch.io.imagestate import (load_image_state,
+                                                    save_image_state)
+
+    scene, cam, film = _cornell(cuda, 64)
+    cfg = dict(max_depth=5, seed=3)
+    straight = Renderer(scene, cam, film, RenderConfig(num_samples=4, **cfg))
+    straight.render()
+    half = Renderer(scene, cam, film, RenderConfig(num_samples=2, **cfg))
+    half.render()
+    save_image_state(str(tmp_path / "s"), half.accum, half.spp_done, 3)
+    acc, spp, seed = load_image_state(str(tmp_path / "s"))
+    resumed = Renderer(scene, cam, film, RenderConfig(num_samples=2, **cfg))
+    resumed.resume_from(acc, spp)
+    resumed.render()
+    assert torch.equal(resumed.accum, straight.accum)
+    tiled = Renderer(scene, cam, film, RenderConfig(num_samples=4,
+                                                    tile_pixels=1000, **cfg))
+    tiled.render()
+    assert ((tiled.accum - straight.accum).abs() <= 4e-6).all()
+    mesh, mcam, mfilm = load_scene_file(MESH_MID, device=cuda)
+    mfilm = Film(fov=mfilm.fov, width=512, height=512)
+    r = Renderer(mesh, mcam, mfilm, RenderConfig(spp_batch=0))
+    assert r.spp_batch == 7 == auto_spp_batch("cuda", "bvh4", 20480,
+                                              512 * 512)
