@@ -34,8 +34,8 @@ never JAX or the JAX package. Phases, each printing its own lines:
    substituted; the image must match tests/goldens/golden_cornell.is by
    tone-mapped 8x8 block means (the thresholds of
    tests/test_reference_parity.py).
-5. Cornell time: 512x512, depth 5, 16 passes per timed run, CUDA events
-   after a warm-up, median of 5, in turns: bare K1 launches on prebuilt
+5. Cornell time: 512x512, depth 5, 8 passes per timed run, CUDA events
+   after a warm-up, median of 3, in turns: bare K1 launches on prebuilt
    inputs, K1 through fused_pass, and the plain version; the last timed
    passes of K1 and of the plain version are held against each other;
    then bare K1 at 16 spp per launch (4,194,304 lanes, 2 launches per
@@ -61,7 +61,7 @@ never JAX or the JAX package. Phases, each printing its own lines:
    the image against tests/goldens/golden_mesh_mid.is, and parity_mesh
    the same way against golden_mesh.is. PPMs go to
    craytracer_tpu_torch/_build/.
-10. mesh time (CUDA events after a warm-up, median of 5): parity_mesh_mid
+10. mesh time (CUDA events after a warm-up, median of 3): parity_mesh_mid
    512x512 depth 5 rays/s through render_sample over 16 passes (live
    closest-hit rays + shadow rays, from the counters); bare K3, K2 and K4
    per launch on the six bounces of one pass's real inputs, and the plain
@@ -131,7 +131,7 @@ never JAX or the JAX package. Phases, each printing its own lines:
    512x512, depth 5, CITY_SPP spp (one per pass), counts set to 0 just
    before and read just after: K2 passes x 6, K3 `_init` and K4 passes x
    6 x parts, nothing else, no NaN, a finite image. Then ms/pass and
-   rays/s through render_sample, median of 5.
+   rays/s through render_sample, median of 3.
 21. K3 `_init` vs plain on the city: 512x512 camera rays and bounce-1
    rays in the route's order (ray_key sort, then the part sort), every
    part with the best hit of the parts before it carried: t and ids
@@ -179,7 +179,7 @@ never JAX or the JAX package. Phases, each printing its own lines:
    constant env light and an anisotropic Trowbridge-Reitz metal
    (tests/torch_general_scenes.py `mesh_env_disk`: K3 and K4 passes x 6,
    nothing else); no NaN, a finite image.
-28. times, in turns, median of 5: ms/pass and rays/s through
+28. times, in turns, median of 3: ms/pass and rays/s through
    render_sample of the "shade" and the general route on
    parity_mesh_mid and of the general route on phase 27's mesh scene.
 
@@ -216,7 +216,7 @@ never JAX or the JAX package. Phases, each printing its own lines:
    each through the Renderer (16 spp, physical estimator): one K1 launch
    per pass on the "bounce" scene, no launch on the others, no NaN, a lit
    image.
-32. times, in turns, median of 5: ms/pass and rays/s through
+32. times, in turns, median of 3: ms/pass and rays/s through
    render_sample of the fullscene and of parity_textured at 512x512,
    depth 5, with profile_render's wall, device time and idle share at 2
    spp, one per pass, depth 1 (depth 5 before PR 15: the trace's event
@@ -229,12 +229,12 @@ never JAX or the JAX package. Phases, each printing its own lines:
    sphere walk, then K2); trace_paths through K2 against the plain
    trace_paths at 512x512 Morton lanes, depth 0, 2, 5 (spp 0) and 5 (spp
    63), phase 8's bars; K2 vs plain on the bounce 0, 1 and 4 hit records,
-   phase 7's bars; main path: the Renderer at 512x512, depth 5, 16 spp,
+   phase 7's bars; main path: the Renderer at 512x512, depth 5, 4 spp,
    counts set to 0 just before and read just after: K2 passes x 6 and
    nothing else, no NaN; then ms/pass and rays/s through render_sample at
    512x512 and at bench_spheres.py's 256x256, both depth 3 (depth 5 at
-   512x512 before PR 15), median of 5, profile_render's wall, device time
-   and idle share at 256x256 depth 1 (512x512 depth 5 before PR 15: 85 s
+   512x512 before PR 15), median of 3, profile_render's wall, device time
+   and idle share at 256x256 depth 1, 1 spp (512x512 depth 5 before PR 15: 85 s
    of event processing), bare K2 on the
    six bounces of one pass with its bound, and the plain sphere walk per
    bounce (closest hit and shadow any hit).
@@ -243,7 +243,7 @@ never JAX or the JAX package. Phases, each printing its own lines:
    phase 8's bars; main path: the Renderer at 512x512, depth 5, 16 spp,
    estimator "mis", counts set to 0 just before and read just after: K3
    and K4 passes x 6 and nothing else, no NaN; ms/pass through
-   render_sample of "mis" and "physical" in turns, median of 5.
+   render_sample of "mis" and "physical" in turns, median of 3.
 35. the MIS estimator unbiased on the card: tests/test_mis.py's glossy
    scene (a rough SILVER floor, a 4 x 4 lamp) through the Renderer at
    512x512 x 64 spp, depth 3, under "mis" (the general route, no launch)
@@ -270,10 +270,10 @@ never JAX or the JAX package. Phases, each printing its own lines:
    (kernels=False): the loss bit-equal, alpha's and every texel's
    gradient within rtol 1e-5 + 1e-5 max|g|, finite, the route "general"
    under autograd, K3 = K4 = 24 and K1 = K2 = 0 (0 for the plain
-   version); then, in turns, five deterministic gradients as
-   InverseRenderer takes them and five of the same loss with the
+   version); then, in turns, three deterministic gradients as
+   InverseRenderer takes them and three of the same loss with the
    default atomic accumulation, for the cost of the deterministic one;
-   (c) four InverseRenderer steps at
+   (c) two InverseRenderer steps at
    512x512 x 8 spp: loss, grad norm, seconds and peak memory a step, the
    launches set to 0 just before each step and read just after, K3 = K4
    = spp x (depth + 1) (no remat), K1 = K2 = 0; (d) at 128x128, 2
@@ -294,7 +294,7 @@ never JAX or the JAX package. Phases, each printing its own lines:
    (the auto policy) and with compact_at=0 (accum bit-equal), and with
    spp_batch=0 (B = 7: one pass, compacted and dense bit-equal, within
    1e-6 of seven passes of one spp); ms/pass compacted and dense through
-   render_sample, in turns, median of 5.
+   render_sample, in turns, median of 3.
 39. tiles, order, resume on Cornell (K1) and parity_mesh_mid (K3 -> K2
    -> K4), 8 spp: tile_pixels=65536 within 1e-6 of untiled with 4x the
    launches, raster bit-equal with Morton, 4 + 4 spp resumed from the
@@ -313,10 +313,10 @@ never JAX or the JAX package. Phases, each printing its own lines:
    within 2e-5), K3 once a bounce and K4 once a bounce and light, also
    through the Renderer; `render_aovs` through K3 bit-equal with the
    plain AOVs.
-43. the command line in a subprocess: a config.txt (parity_mesh_mid),
+43. the command line in subprocesses: a config.txt (parity_mesh_mid),
    --spp-batch 0 (B = 7), --stats, --probe, -o .exr; then -s resume
-   (7 + 7 spp) bit-equal with 14 straight; the summary lines' route,
-   launches and B checked.
+   (7 + 7 spp) bit-equal with 14 straight (run beside the first); the
+   summary lines' route, launches and B checked.
 44-48. slice I part 2 and slice F part 3 (`slice_i_phases`, after
    phase 43; `python3 chip_smoke.py --slice-i` builds the kernels and
    runs these alone, with no result line), at 512x512 on
@@ -330,14 +330,14 @@ never JAX or the JAX package. Phases, each printing its own lines:
    whose ids differ must hit both triangles at one distance within that
    bar: a ray through a shared edge), their any hits on that pass's
    shadow rays against K4 (verdicts equal); ms per traversal, median of
-   5, K3 and K4 beside them for scale; hybrid's closest-hit table
+   3, K3 and K4 beside them for scale; hybrid's closest-hit table
    bit-equal with the bvh4 scene's.
 45. each accelerator's `trace_paths` at depth 5 through the kernels
    against its plain version (phase 8's bars): K2 = 6, K3 = 6 on hybrid
    and 0 elsewhere, K4 = K1 = 0.
 46. the Renderer on each (`spp_batch=0`: B = 7) against
-   golden_mesh_mid.is: hybrid and bvh at 64 spp, grid, bvh4q and binned
-   at 16; no NaN; ms/pass; K2 = passes x 6 (and K3 on hybrid).
+   golden_mesh_mid.is, each at 16 spp; no NaN; ms/pass; K2 = passes x 6
+   (and K3 on hybrid).
 47. `ao_test` at the camera hits through K4 (one launch) bit-equal with
    the plain any hit.
 48. the command line in subprocesses: Cornell through K1 with --serve,
@@ -346,14 +346,52 @@ never JAX or the JAX package. Phases, each printing its own lines:
    PNG in this process, a config's GRID (bvh4 with the warning) and
    --accel grid (K2 only), and a `caustic_map yes` scene's `proj map:`
    line; the three batch runs go side by side with the live one.
+49-50. slice H (`slice_h_phases`, after phase 48; `python3 chip_smoke.py
+   --slice-h` builds the kernels and runs these alone, with no result
+   line):
+49. two rank processes (parallel/dryrun.py `launch`), both on cuda:0
+   over gloo, which reduces CUDA tensors through the host (NCCL refuses
+   two ranks on one GPU), the kernels built here first; depth 5. (a)
+   scenes/parity_cornell.txt at 512x512 through sharded_render_pass, 2
+   ray ranks, six passes (spp 0, 63, 1-4): one K1 launch per rank per
+   pass and nothing else (counts set to 0 in the rank just before each
+   pass and read just after, sent back); at spp 0 and 63 L, good and the
+   ray and shadow-ray counts of every lane bit-equal with this process's
+   render_sample. (b) scenes/parity_mesh_mid.txt at 512x512 through
+   geom_sharded_render_pass, 2 geometry shards (bvh4, the "shade"
+   route): K3 = K2 = K4 = 6 per rank per pass, K1 0; at spp 0 and 63
+   `good` and the counters equal and L within 2e-5 (absolute + relative)
+   of render_sample on every lane; the lanes whose bounce-0 winning
+   triangle differs from the unsharded search's, counted. (c)
+   sharded_train_step and bucketed_train_step on 2 ray ranks and
+   geom_sharded_train_step on a (1, 2) mesh, the inverse demo's scene at
+   128x128, depth 2, zero target, three steps each: loss and every float
+   leaf's gradient within 1e-4 / 1e-6 of this process's autograd of the
+   same loss (of the geometry step, the mean of the two ranks' gradients:
+   under JAX's convention each geometry rank's own differs), seconds per
+   step. (d) NCCL at world size 1 in this
+   process through (a)'s code: bit-equal with render_sample. ms per pass
+   of (a) and (b) (host clock, median of the last four passes) and the
+   ranks' setup seconds.
+50. the XL fullscene: scene/fullscene.py writes scenes/fullscene_xl.obj
+   (450 spheres, timed; deleted in a finally), scenes/fullscene_xl.txt
+   loaded and built (timed): 2,568,192 triangles, fat rows, table MB, part
+   count (past PART_BUDGET_BYTES: parts), route "general"; the general
+   route through K3 `_init` and K4 per part against the plain traversal at
+   512x512 Morton lanes, depth 5, spp 0, phase 8's bars, K3 `_init` = K4 =
+   6 x parts; the Renderer at 512x512 x 4 spp, counts set to 0 just
+   before and read just after (K3 `_init` = K4 = 6 x parts x passes), no
+   NaN, a finite image.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
 sphere field's, K3 and K4 plus the fullscene's under both estimators, K3
 `_init` on the 7M city's; K3 and K4 also carry the general route's
 traversal (phases 25-30, 34) and the inverse path's detached search
-(phase 37's four steps), which adds no kernel, K2-K4 phase 38's
-compacted Renderer, and K2 (K3 on hybrid) phase 46's accelerators;
+(phase 37's two steps), which adds no kernel, K2-K4 phase 38's
+compacted Renderer, K2 (K3 on hybrid) phase 46's accelerators, K1 and
+K2-K4 the ranks' sharded passes of phase 49 (a) and (b), and K3 `_init`
+and K4 the XL Renderer of phase 50;
 `k1_pass_rays`, K1's external-ray mode, on Cornell
 with a multijittered table (phase 41); K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch (K2's launches enqueued
@@ -436,6 +474,7 @@ CITY_TRIS = 7_000_000  # the 7M class the partitioned BVH4 was built for
 CITY_SPP = 4
 FIELD_SPHERES = 10_000  # bench_spheres.py's default field
 WIDE = 16  # spp per K1 launch of the second timed launch size
+REPS = 3  # timed runs after the warm-up, of which every time is the median
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock
 
 
@@ -577,11 +616,11 @@ def _timed(fn, queued=False):
     return start.elapsed_time(stop), out
 
 
-def _median5(fn, queued=False):
-    """Warm-up, then the median of 5 timed runs and the five times."""
+def _median(fn, queued=False):
+    """Warm-up, then the median of REPS timed runs and their times."""
     fn()
     torch.cuda.synchronize()
-    ts = [_timed(fn, queued)[0] for _ in range(5)]
+    ts = [_timed(fn, queued)[0] for _ in range(REPS)]
     return statistics.median(ts), ts
 
 
@@ -725,7 +764,7 @@ def slice_f_phases(ctx) -> None:
           "B=7 in one pass; compacted vs dense accum bit-equal, vs 7 passes "
           "of B=1 within 1e-6 (summation order)")
     tms = {"compacted": [], "dense": []}
-    for rep in range(5):
+    for rep in range(REPS):
         for label, at in (("compacted", 2), ("dense", 0)):
             t0 = time.perf_counter()
             for k in range(4):
@@ -735,7 +774,7 @@ def slice_f_phases(ctx) -> None:
             tms[label].append((time.perf_counter() - t0) * 1e3 / 4)
     mc, md = (statistics.median(tms[k]) for k in ("compacted", "dense"))
     print(f"[time] {card}, parity_mesh_mid {size}x{size} depth {depth} "
-          f"through render_sample, 4 passes per run, in turns, median of 5: "
+          f"through render_sample, 4 passes per run, in turns, median of {REPS}: "
           f"compacted {mc:.4f} ms/pass (runs {_runs(tms['compacted'])}), "
           f"dense {md:.4f} ms/pass (runs {_runs(tms['dense'])}), compacted "
           f"/ dense {mc / md:.4f}", flush=True)
@@ -882,7 +921,7 @@ def slice_f_phases(ctx) -> None:
         fn()
     torch.cuda.synchronize()
     outs = None
-    for _ in range(5):
+    for _ in range(REPS):
         for k, fn in fns.items():
             ms, out = _timed(fn)
             ts[k].append(ms)
@@ -896,7 +935,7 @@ def slice_f_phases(ctx) -> None:
                    (n_rays * (prim_ops + SHADE_OPS)
                     + n_shadow * prim_ops) / passes)
     print(f"[time] {card}, cornell {size}x{size} depth 5, multijittered "
-          f"table, {passes} launches per run, in turns, median of 5: bare K1 "
+          f"table, {passes} launches per run, in turns, median of {REPS}: bare K1 "
           f"on external rays {med['rays']:.4f} ms/launch (runs "
           f"{_runs(ts['rays'])} ms), bare K1 with its raygen (strat) "
           f"{med['strat']:.4f} ms/launch (runs {_runs(ts['strat'])} ms), "
@@ -969,20 +1008,35 @@ def slice_f_phases(ctx) -> None:
            str(cfg_path), "--size", str(size), "--spp-batch", "0"]
     out_a, out_b, out_c = (str(out_dir / f"cli_{k}.exr") for k in "abc")
     lines = {}
-    for key, extra in (("a", ["--stats", "--probe", "100,200", "-o",
-                              out_a]),
-                       ("b", ["-s", out_a[:-4] + "_state.npz", "-o", out_b]),
-                       ("c", ["--spp", "14", "-o", out_c])):
-        t0 = time.perf_counter()
-        p = subprocess.run(cli + extra, capture_output=True, text=True,
-                           cwd=REPO, timeout=300)
-        lines[key] = p.stdout
-        summary = (p.stdout.strip().splitlines() or [""])[-1]
+
+    def report(key, t0, rc, out, err):
+        lines[key] = out
+        summary = (out.strip().splitlines() or [""])[-1]
         print(f"[slice-f] 43 CLI {key} ({time.perf_counter() - t0:.2f} s, "
-              f"exit {p.returncode}): {summary}", flush=True)
-        if p.returncode:
-            fails.append(f"43 CLI {key} exit {p.returncode}: "
-                         f"{p.stderr[-2000:]}")
+              f"exit {rc}): {summary}", flush=True)
+        if rc:
+            fails.append(f"43 CLI {key} exit {rc}: {err[-2000:]}")
+
+    # c (14 straight) runs beside a, then b (a's state resumed)
+    t_c = time.perf_counter()
+    pc = subprocess.Popen(cli + ["--spp", "14", "-o", out_c],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True, cwd=REPO)
+    try:
+        for key, extra in (("a", ["--stats", "--probe", "100,200", "-o",
+                                  out_a]),
+                           ("b", ["-s", out_a[:-4] + "_state.npz", "-o",
+                                  out_b])):
+            t0 = time.perf_counter()
+            p = subprocess.run(cli + extra, capture_output=True, text=True,
+                               cwd=REPO, timeout=300)
+            report(key, t0, p.returncode, p.stdout, p.stderr)
+        out, err = pc.communicate(timeout=300)
+        report("c", t_c, pc.returncode, out, err)
+    finally:
+        if pc.poll() is None:
+            pc.kill()
+            pc.wait()
     if any(f.startswith("43 CLI") for f in fails):
         return
     a = load_image_state(out_a[:-4] + "_state.npz")
@@ -1154,7 +1208,7 @@ def slice_i_phases(ctx) -> None:
                     if bool(hit.any()) else 0.0
                 rel = ((t_a - t_r).abs() / t_r.abs())[hit].max().item() \
                     if bool(hit.any()) else 0.0
-                runs = [_timed(lambda: fn(o, d))[0] for _ in range(5)]
+                runs = [_timed(lambda: fn(o, d))[0] for _ in range(REPS)]
                 ms = statistics.median(runs)
                 named = ", ".join(
                     f"lane {int(ln)}: {int(i_a[ln])} / K3 {int(i_r[ln])} "
@@ -1169,27 +1223,27 @@ def slice_i_phases(ctx) -> None:
                       f"{diff.numel()}, {int(ties.sum())} hit both "
                       f"triangles at one distance ({named}); max relative dt "
                       f"{rel:.3g} (bar {tol[0]:g} relative + {tol[1]:g}); "
-                      f"{ms:.3f} ms per traversal (median of 5: "
+                      f"{ms:.3f} ms per traversal (median of {REPS}: "
                       f"{_runs(runs)}), {card}")
         fn = any_fn(accel)
         t_a = fn(o_sh, d_sh, md_sh)
         same = torch.equal(t_a < md_sh, occl)
-        runs = [_timed(lambda: fn(o_sh, d_sh, md_sh))[0] for _ in range(5)]
+        runs = [_timed(lambda: fn(o_sh, d_sh, md_sh))[0] for _ in range(REPS)]
         ms = statistics.median(runs)
         check(f"44 {accel} any hit, shadow rays", same,
               f"verdicts equal to K4's {same} ({int(occl.sum())} of "
               f"{occl.numel()} occluded); {ms:.3f} ms per traversal "
-              f"(median of 5: {_runs(runs)}), {card}")
+              f"(median of {REPS}: {_runs(runs)}), {card}")
     for name, (o, d) in (("camera", (o_cam, d_cam)),
                          ("bounce 1", (o_b1, d_b1))):
-        ms, runs = _median5(lambda: bk.bvh4_closest_hit_kernel(
+        ms, runs = _median(lambda: bk.bvh4_closest_hit_kernel(
             mesh.tri_bvh, o, d))
         print(f"[slice-i] 44 bvh4 K3 for scale, {name} rays: {ms:.3f} ms "
-              f"(median of 5: {_runs(runs)}), {card}", flush=True)
-    ms, runs = _median5(lambda: bk.bvh4_any_hit_kernel(mesh.tri_bvh, o_sh,
+              f"(median of {REPS}: {_runs(runs)}), {card}", flush=True)
+    ms, runs = _median(lambda: bk.bvh4_any_hit_kernel(mesh.tri_bvh, o_sh,
                                                        d_sh, md_sh))
     print(f"[slice-i] 44 bvh4 K4 for scale, shadow rays: {ms:.3f} ms "
-          f"(median of 5: {_runs(runs)}), {card}", flush=True)
+          f"(median of {REPS}: {_runs(runs)}), {card}", flush=True)
 
     # ---- 45. each accelerator's pass: kernels against its plain version
     depth = 5
@@ -1213,8 +1267,8 @@ def slice_i_phases(ctx) -> None:
 
     # ---- 46. the Renderer on each accelerator against golden_mesh_mid
     golden = os.path.join(REPO, "tests", "goldens", "golden_mesh_mid.is")
-    for accel, spp in (("hybrid", 64), ("bvh", 64), ("grid", 16),
-                       ("bvh4q", 16), ("binned", 16)):
+    for accel in ("hybrid", "bvh", "grid", "bvh4q", "binned"):
+        spp = 16
         scn = scenes[accel]
         r = Renderer(scn, mcam, mfilm, RenderConfig(num_samples=spp,
                                                     max_depth=depth,
@@ -1397,6 +1451,298 @@ def slice_i_phases(ctx) -> None:
           f"exit {rc_c}: {lines}")
 
 
+def slice_h_phases(ctx) -> None:
+    """Phases 49-50: slice H on the card (module docstring). `ctx` as for
+    `slice_f_phases`; failures are appended."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from craytracer_tpu_torch.accel.bvh4_parts import PART_BUDGET_BYTES
+    from craytracer_tpu_torch.camera import Film, make_camera
+    from craytracer_tpu_torch.examples import inverse_mesh_demo as demo
+    from craytracer_tpu_torch.integrator import wavefront as wf
+    from craytracer_tpu_torch.integrator.render import (RenderConfig,
+                                                        Renderer)
+    from craytracer_tpu_torch.io.scenefile import load_scene_file
+    from craytracer_tpu_torch.parallel import dryrun
+    from craytracer_tpu_torch.parallel.sharded import (_grads, _mse,
+                                                       with_grad_leaves)
+    from craytracer_tpu_torch.scene import fullscene
+    from craytracer_tpu_torch.scene import types as T
+
+    dev, card, fails, kernels = ctx.dev, ctx.card, ctx.fails, ctx.kernels
+    counters, seed, size, depth = ctx.counters, 0, 512, 5
+    passes = [0, 63, 1, 2, 3, 4]  # checked: the first two; timed: the rest
+
+    def check(label, ok, detail=""):
+        print(f"[slice-h] {label}: {detail}" + ("" if ok else " FAIL"),
+              flush=True)
+        if not ok:
+            fails.append(f"{label}: {detail}")
+
+    def add_launches(got):
+        for name, n in got.items():
+            if name in kernels:
+                kernels[name]["launches"] += n
+
+    def close(a, b, rtol, atol):
+        """|a - b| <= atol + rtol |b| everywhere, and the worst excess."""
+        a, b = a.double().cpu(), b.double().cpu()
+        excess = ((a - b).abs() - atol - rtol * b.abs()).max().item() \
+            if a.numel() else 0.0
+        return a.shape == b.shape and excess <= 0.0, excess
+
+    # ---- 49. slice H: every rank on this card, gloo, kernels prebuilt
+    corn, ccam, cf0 = load_scene_file(SCENE, device="cpu")
+    mesh, mcam, mf0 = load_scene_file(MESH_MID, device="cpu")
+    cfilm = Film(fov=cf0.fov, width=size, height=size)
+    mfilm = Film(fov=mf0.fov, width=size, height=size)
+    dscene, _ = demo.build(demo.checker(64), device="cpu")
+    dcam = make_camera(demo.EYE, demo.LOOK, device="cpu")
+    dfilm = Film(fov=torch.tensor(np.radians(demo.FOV_DEG),
+                                  dtype=torch.float32), width=128,
+                 height=128)
+    t0 = time.perf_counter()
+    dryrun.prebuild([corn, mesh, dscene])
+    print(f"[slice-h] 49 kernels prebuilt in this process before the ranks "
+          f"start: {time.perf_counter() - t0:.2f} s", flush=True)
+    ray_case = dict(kind="render", mesh=(2, 1), scene=corn, camera=ccam,
+                    film=cfilm, depth=depth, seed=seed, spp=passes)
+    geom_case = dict(kind="render", mesh=(1, 2), scene=mesh, camera=mcam,
+                     film=mfilm, depth=depth, seed=seed, spp=passes,
+                     first_hit=True)
+    train = dict(kind="train", scene=dscene, camera=dcam, film=dfilm,
+                 depth=2, seed=7, spp=0, repeats=3,
+                 target=torch.zeros((dfilm.num_pixels, 3)))
+    trains = {"sharded (2, 1)": dict(train, mesh=(2, 1), step="sharded"),
+              "bucketed (2, 1)": dict(train, mesh=(2, 1), step="bucketed"),
+              "geometry (1, 2)": dict(train, mesh=(1, 2))}
+    cases = [ray_case, geom_case, *trains.values()]
+    t0 = time.perf_counter()
+    results, setup = dryrun.launch(2, cases, "gloo", None, timeout=400)
+    wall = time.perf_counter() - t0
+    print(f"[slice-h] 49 two rank processes, both on cuda:0 over gloo (its "
+          f"CUDA tensors reduce through the host; NCCL refuses two ranks on "
+          f"one GPU): {card}; process group up after {max(setup):.2f} s, "
+          f"the world's {len(cases)} cases done in {wall:.2f} s", flush=True)
+
+    def one_process(scn, c, fm, spp):
+        ids = torch.arange(fm.num_pixels, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            img, good, m = wf.render_sample(
+                T.to_device(scn, dev), T.to_device(c, dev),
+                T.to_device(fm, dev), ids, seed, spp, depth,
+                with_metrics=True)
+        return img, good, m["lane_rays"], m["lane_shadow_rays"]
+
+    def pass_ms(rank_out):
+        return statistics.median(p["seconds"] for p in rank_out["passes"][2:]
+                                 ) * 1e3
+
+    # (a) ray-sharded Cornell: one K1 launch per rank per pass, every lane
+    # equal to the one-process pass
+    for k, spp in enumerate(passes[:2]):
+        ref = one_process(corn, ccam, cfilm, spp)
+        for r in results:
+            p = r[0]["passes"][k]
+            same = [torch.equal(p[key], ref[i].cpu()) for i, key in
+                    enumerate(("L", "good", "lane_rays", "lane_shadow_rays"))]
+            check(f"49 (a) ray-sharded Cornell 512x512 R=2 spp {spp} rank "
+                  f"{r[0]['rank']}", all(same),
+                  f"L, good, rays, shadow rays bit-equal with the one-process"
+                  f" pass {same}")
+    for r in results:
+        got = [p["counts"] for p in r[0]["passes"]]
+        check(f"49 (a) launches rank {r[0]['rank']}", all(
+            g == dict(g, k1_pass=1) and sum(g.values()) == 1 for g in got),
+            f"{got[0]} per pass x {len(got)} (one K1 a pass, nothing else)")
+        add_launches({k: sum(g[k] for g in got) for k in got[0]})
+    print(f"[time] {card}, 49 (a) ray-sharded Cornell 512x512 depth 5, R=2 "
+          f"on one card: {pass_ms(results[0][0]):.3f} / "
+          f"{pass_ms(results[1][0]):.3f} ms per pass (rank 0 / 1, host clock"
+          f" around the pass and its all-reduce, median of {len(passes) - 2})",
+          flush=True)
+
+    # (b) geometry-sharded mesh: K3 = K2 = K4 = 6 per rank per pass, good
+    # and the counters equal to the one-process pass, L within 2e-5
+    for k, spp in enumerate(passes[:2]):
+        ref = one_process(mesh, mcam, mfilm, spp)
+        for r in results:
+            p = r[1]["passes"][k]
+            ok_l, excess = close(p["L"], ref[0], L_TOL, L_TOL)
+            same = [torch.equal(p[key], ref[i].cpu()) for i, key in
+                    enumerate(("good", "lane_rays", "lane_shadow_rays"), 1)]
+            check(f"49 (b) geometry-sharded parity_mesh_mid 512x512 G=2 spp "
+                  f"{spp} rank {r[1]['rank']}", ok_l and all(same),
+                  f"good, rays, shadow rays equal {same}; L within 2e-5 "
+                  f"{ok_l} (worst excess {excess:.3g})")
+    ids = torch.arange(mfilm.num_pixels, dtype=torch.int32, device=dev)
+    o, d = wf.camera_rays(T.to_device(mcam, dev), T.to_device(mfilm, dev),
+                          ids, seed, 0, wf.film_jitter(seed, ids, 0))
+    with torch.no_grad():
+        hit = wf._closest_hit(T.to_device(mesh, dev), o, d, True, None, 0)
+    ref_hit = torch.stack([hit.group, hit.prim], dim=1).cpu()
+    for r in results:
+        diff = int((r[1]["first_hit"] != ref_hit).any(dim=1).sum())
+        got = [p["counts"] for p in r[1]["passes"]]
+        check(f"49 (b) rank {r[1]['rank']} (tri_base {r[1]['tri_base']}, "
+              f"{r[1]['n_tris']} triangles)", all(
+                  g == dict(g, k2_shade=6, k3_bvh4_closest=6, k4_bvh4_any=6)
+                  and sum(g.values()) == 18 for g in got),
+              f"launches {got[0]} per pass x {len(got)} (K3 = K2 = K4 = 6, "
+              f"K1 0); bounce-0 winning triangle differs from the "
+              f"unsharded one on {diff} of {ids.shape[0]} lanes")
+        add_launches({k: sum(g[k] for g in got) for k in got[0]})
+    print(f"[time] {card}, 49 (b) geometry-sharded parity_mesh_mid 512x512 "
+          f"depth 5, G=2 on one card: {pass_ms(results[0][1]):.3f} / "
+          f"{pass_ms(results[1][1]):.3f} ms per pass (rank 0 / 1, host clock,"
+          f" the per-bounce hit reductions through the host included, "
+          f"median of {len(passes) - 2})", flush=True)
+
+    # (c) the train steps against the one-process gradient
+    dsc = T.to_device(dscene, dev)
+    scene_g, leaves = with_grad_leaves(dsc)
+    img = wf.render_sample(scene_g, T.to_device(dcam, dev),
+                           T.to_device(dfilm, dev),
+                           torch.arange(dfilm.num_pixels, dtype=torch.int32,
+                                        device=dev), 7, 0, 2,
+                           estimator="physical")
+    loss1 = _mse(img, torch.zeros_like(img))
+    grads1 = dict(zip(leaves, _grads(loss1, leaves)))
+    loss1 = float(loss1.detach())
+    for i, (name, case) in enumerate(trains.items(), 2):
+        outs = [r[i] for r in results]
+        if case["mesh"][1] > 1:
+            # JAX's convention (parallel/geom.py): each geometry rank's
+            # gradient is its own, the winner's fill taking G times the
+            # cotangent; their mean over the axis is the gradient, and of
+            # the triangle rows each shard's block
+            ps = [o["passes"][-1] for o in outs]
+            grads = {k: sum(p["grads"][k] for p in ps) / 2.0
+                     for k in ps[0]["grads"] if not k.startswith("triangles.")}
+            for k in ps[0]["grads"]:
+                if k.startswith("triangles."):
+                    grads[k] = torch.cat([p["grads"][k][:o["n_tris"]]
+                                          for p, o in zip(ps, outs)]) / 2.0
+            outs = [dict(outs[0], rank="0 + 1 (mean over the geometry "
+                         "axis)", passes=[dict(ps[0], grads=grads)])]
+        for o in outs:
+            p = o["passes"][-1]
+            bad = []
+            ok, ex = close(torch.tensor(p["loss"]), torch.tensor(loss1),
+                           1e-4, 1e-6)
+            if not ok:
+                bad.append(f"loss {p['loss']} vs {loss1}")
+            for leaf, g in p["grads"].items():
+                ok, ex = close(g, grads1[leaf].cpu(), 1e-4, 1e-6)
+                if not ok:
+                    bad.append(f"{leaf} (excess {ex:.3g})")
+            check(f"49 (c) {name} train step rank {o['rank']}", not bad,
+                  f"loss {p['loss']:.9g} vs one process {loss1:.9g}, "
+                  f"{len(p['grads'])} leaves within 1e-4 / 1e-6"
+                  + (f"; off: {bad}" if bad else ""))
+        secs = [q["seconds"] for q in results[0][i]["passes"]]
+        print(f"[time] {card}, 49 (c) {name} train step, demo scene 128x128 "
+              f"depth 2: {', '.join(f'{s:.3f}' for s in secs)} s per step "
+              f"(the first with the rank's warm-up)", flush=True)
+
+    # (d) NCCL at world size 1 through (a)'s code, in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rdv')}",
+            world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+        try:
+            out = dryrun.run_case(dict(ray_case, mesh=(1, 1),
+                                       spp=passes[:2]), None)
+        finally:
+            dist.destroy_process_group()
+    for k, spp in enumerate(passes[:2]):
+        ref = one_process(corn, ccam, cfilm, spp)
+        p = out["passes"][k]
+        same = [torch.equal(p[key], ref[i].cpu()) for i, key in
+                enumerate(("L", "good", "lane_rays", "lane_shadow_rays"))]
+        check(f"49 (d) NCCL world size 1, (a)'s code, spp {spp}", all(same)
+              and p["counts"]["k1_pass"] == 1,
+              f"bit-equal with the one-process pass {same}, launches "
+              f"{p['counts']}; {time.perf_counter() - t0:.2f} s with the "
+              f"group's setup")
+
+    # ---- 50. the XL fullscene through the parts route
+    xl_obj = fullscene.OBJ_XL
+    try:
+        t0 = time.perf_counter()
+        fullscene.write_obj(xl_obj, fullscene.SPHERES_XL, xl=True)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xl, xcam, xf0 = load_scene_file(
+            os.path.join(REPO, "scenes", "fullscene_xl.txt"), device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        if os.path.exists(xl_obj):
+            os.remove(xl_obj)
+    xfilm = Film(fov=xf0.fov, width=size, height=size)
+    table, parts = xl.tri_bvh, xl.tri_parts or ()
+    route = wf.production_fast_shade(xl, xcam, xfilm)
+    n_xl = xl.triangles.mat_id.shape[0]
+    check("50 XL fullscene", n_xl == fullscene.triangle_count(
+        fullscene.SPHERES_XL, xl=True) == 2_568_192 and route == "general"
+        and len(parts) > 1,
+        f"{card}; OBJ written in {write_s:.2f} s (then deleted), "
+        f"scenes/fullscene_xl.txt loaded and built in {load_s:.2f} s: "
+        f"{n_xl} triangles, {table.fat.shape[0]} fat rows, "
+        f"{table.fat.numel() * 4 / 1e6:.1f} MB table, {len(parts)} parts "
+        f"under the {PART_BUDGET_BYTES} B budget, route {route}")
+    xcfg = RenderConfig(num_samples=4, max_depth=depth,
+                        estimator="reference")
+    xids = torch.from_numpy(Renderer(xl, xcam, xfilm, xcfg).pixel_order()
+                            ).to(dev)
+    spp = torch.zeros_like(xids)
+    o, d = wf.camera_rays(xcam, xfilm, xids, seed, spp,
+                          wf.film_jitter(seed, xids, spp))
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out_k = wf.trace_paths(xl, o, d, seed, xids, spp, depth,
+                           with_metrics=True, fast_shade="shade",
+                           general=True)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    out_p = wf.trace_paths(xl, o, d, seed, xids, spp, depth,
+                           with_metrics=True, general=True)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    bad, err_same, err_all, f = _compare(out_k, out_p)
+    check("50 XL general route through K3 _init / K4 per part vs plain, "
+          "512x512 Morton lanes, depth 5, spp 0", not f and
+          got["k3_init_bvh4_closest"] == got["k4_bvh4_any"] == 6 * len(parts)
+          and got["k3_bvh4_closest"] == 0,
+          f"good differs on {bad:.5f}, max|dL| {err_same:.3g} (agreeing "
+          f"lanes) {err_all:.3g} (all), launches {got}; {t_k:.2f} s "
+          f"through the kernels, {t_p:.2f} s plain" + (f"; {f}" if f else ""))
+    r = Renderer(xl, xcam, xfilm, xcfg)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    img = r.raw_mean()
+    check("50 XL Renderer 512x512 x 4 spp depth 5", r.nan_count == 0 and
+          np.isfinite(img).all() and img.mean() > 0.0 and
+          got["k3_init_bvh4_closest"] == got["k4_bvh4_any"]
+          == 6 * len(parts) * r.passes,
+          f"{dt:.2f} s, {r.passes} passes, launches {got}, {r.nan_count} "
+          f"NaN, mean {img.mean():.4f}")
+    add_launches(got)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (this smoke test needs the card)")
@@ -1507,6 +1853,13 @@ def main() -> int:
             print(f"FAIL: {f}")
         print(json.dumps({"slice_i_only": True, "failures": len(fails)}))
         return 1 if fails else 0
+    if sys.argv[1:] == ["--slice-h"]:
+        # phases 49-50 alone, to try them out: no result line
+        slice_h_phases(ctx)
+        for f in fails:
+            print(f"FAIL: {f}")
+        print(json.dumps({"slice_h_only": True, "failures": len(fails)}))
+        return 1 if fails else 0
 
     scene, cam, film0 = load_scene_file(SCENE, device=dev)
 
@@ -1610,7 +1963,7 @@ def main() -> int:
 
     # ---- 5. Cornell time
     pix = torch.arange(size * size, dtype=torch.int32, device=dev)
-    passes = 16
+    passes = 8
 
     def timed_passes(fn, spp0, scn=scene, camera=cam, fm=film):
         """`passes` wrapper calls (tables, launch, counter sums) in a row;
@@ -1635,7 +1988,7 @@ def main() -> int:
 
     def timed_wide(scn=scene, camera=cam, fm=film):
         """Bare K1 at WIDE spp per launch (WIDE x 262,144 lanes), two
-        launches per run after a warm-up, median of 5: (ms per spp-pass,
+        launches per run after a warm-up, median of REPS: (ms per spp-pass,
         the runs' ms, rays + shadow rays per run)."""
         tab = pk.kernel_tables(scn, camera, fm)
         pw = pix.repeat(WIDE)
@@ -1644,7 +1997,7 @@ def main() -> int:
         f = pk.shade_features(scn) != 0
         thin = camera.camera_type == THINLENS
         runs = [[lane_spp + (6000 + WIDE * (2 * r + k)) for k in range(2)]
-                for r in range(6)]
+                for r in range(REPS + 1)]
 
         def run(spps):
             return [pk.KERNEL.launch(tab, pk.table_counts(scn), pw, sp, 0, 5,
@@ -1664,7 +2017,7 @@ def main() -> int:
         rate = rays / (ms * 2 * WIDE / 1e3)
         print(f"[time] {card}, {name} 512x512 depth 5, bare K1 at {WIDE} spp "
               f"per launch ({WIDE * size * size} lanes), 2 launches per run, "
-              f"median of 5: {ms:.4f} ms per spp-pass ({rate:.6g} rays/s; "
+              f"median of {REPS}: {ms:.4f} ms per spp-pass ({rate:.6g} rays/s; "
               f"runs {_runs(ts)} ms)", flush=True)
         return ms
 
@@ -1672,7 +2025,7 @@ def main() -> int:
     timed_passes(pk.fused_pass_reference, 1000)
     timed_kernel(1000)
     t_k, t_w, t_p, rays_k = [], [], [], []
-    for rep in range(5):
+    for rep in range(REPS):
         spp0 = 2000 + passes * rep
         ms, rays = timed_kernel(spp0)
         t_k.append(ms)
@@ -1693,7 +2046,7 @@ def main() -> int:
         (tab.numel() * 4 + size * size * (8 + 28)),
         (n_rays * (prim_ops + SHADE_OPS) + n_shadow * prim_ops) / passes)
     print(f"[time] {card}, cornell 512x512 depth 5, {passes} passes per "
-          f"run, median of 5: K1 launch {med_k / passes:.4f} ms/pass "
+          f"run, median of {REPS}: K1 launch {med_k / passes:.4f} ms/pass "
           f"({rays_med / (med_k / 1e3):.6g} rays/s; runs {_runs(t_k)} ms); "
           f"K1 through fused_pass {med_w / passes:.4f} ms/pass "
           f"({rays_med / (med_w / 1e3):.6g} rays/s; runs {_runs(t_w)} ms); "
@@ -1898,10 +2251,10 @@ def main() -> int:
             total += int(m["rays"]) + int(m["shadow_rays"])
         return total
 
-    med_m, t_m = _median5(lambda: mesh_passes(3000))
+    med_m, t_m = _median(lambda: mesh_passes(3000))
     rays_m = pass_rays(mesh, mcam, mfilm, mmorton, 3000, mpasses, 5)
     print(f"[time] {card}, parity_mesh_mid 512x512 depth 5, {mpasses} "
-          f"passes through render_sample per run, median of 5: "
+          f"passes through render_sample per run, median of {REPS}: "
           f"{med_m / mpasses:.4f} ms/pass, {rays_m / (med_m / 1e3):.6g} "
           f"rays/s ({rays_m} rays + shadow rays per run; runs "
           f"{_runs(t_m)} ms)", flush=True)
@@ -1978,7 +2331,7 @@ def main() -> int:
     row_bounds = {"k3_bvh4_closest": [b for *_, b in k3_pb],
                   "k4_bvh4_any": [b for *_, b in k4_pb]}
     for name in ("k3_bvh4_closest", "k2_shade", "k4_bvh4_any"):
-        med, ts = _median5(bare[name], queued=name == "k2_shade")
+        med, ts = _median(bare[name], queued=name == "k2_shade")
         if any(bare[name]()):
             fails.append(f"bare {name} launch failed")
         ms_plain = _timed(plain[name])[0] / len(recs)
@@ -2018,7 +2371,7 @@ def main() -> int:
     cids = torch.from_numpy(Renderer(city, ccam, cfilm, cfg).pixel_order()
                             ).to(dev)
     cpasses = 4
-    med_c, t_c = _median5(lambda: [
+    med_c, t_c = _median(lambda: [
         wf.render_sample(city, ccam, cfilm, cids, cfg.seed, 4000 + s, 4)
         for s in range(cpasses)])
     rays_c = pass_rays(city, ccam, cfilm, cids, 4000, cpasses, 4)
@@ -2026,7 +2379,7 @@ def main() -> int:
           f" fat rows, stack {city.tri_bvh.stack_size}, "
           f"{_children(city.tri_bvh)}): host build "
           f"{build_s:.2f} s; 256x256 depth 4, {cpasses} passes through "
-          f"render_sample per run, median of 5: {med_c / cpasses:.4f} "
+          f"render_sample per run, median of {REPS}: {med_c / cpasses:.4f} "
           f"ms/pass, {rays_c / (med_c / 1e3):.6g} rays/s ({rays_c} rays + "
           f"shadow rays per run; runs {_runs(t_c)} ms)", flush=True)
     s0 = torch.zeros_like(cids)
@@ -2037,9 +2390,9 @@ def main() -> int:
                           wf._init_state(oc, dc, 4, cids), kernels=True)
     for label, o, d in (("camera", oc, dc), ("bounce-1", st1[0], st1[1])):
         os_, ds_ = sorted_rays(o, d)
-        t_u = _median5(lambda: bk.bvh4_closest_hit_kernel(
+        t_u = _median(lambda: bk.bvh4_closest_hit_kernel(
             city.tri_bvh, o, d))[0]
-        t_s = _median5(lambda: bk.bvh4_closest_hit_kernel(
+        t_s = _median(lambda: bk.bvh4_closest_hit_kernel(
             city.tri_bvh, os_, ds_))[0]
         pops, cb, cb_rows = pops_and_bound(bvh4_closest_hit_stats,
                                            city.tri_bvh, o, d)
@@ -2129,7 +2482,7 @@ def main() -> int:
     timed_passes(pk.fused_pass_reference, 1000, mix, xcam, xfilm)
     timed_kernel(1000, mix, xcam, xfilm)
     tx_k, tx_w, tx_p, rays_x = [], [], [], []
-    for rep_ in range(5):
+    for rep_ in range(REPS):
         spp0 = 2000 + passes * rep_
         ms, rays = timed_kernel(spp0, mix, xcam, xfilm)
         tx_k.append(ms)
@@ -2172,7 +2525,7 @@ def main() -> int:
     tab_x = pk.kernel_tables(mix, xcam, xfilm)
     kx_bound = _bound(tab_x.numel() * 4 + size * size * (8 + 28), ops_x)
     print(f"[time] {card}, parity_mix 512x512 depth 5, {passes} passes per "
-          f"run, median of 5: K1 launch {mxk / passes:.4f} ms/pass "
+          f"run, median of {REPS}: K1 launch {mxk / passes:.4f} ms/pass "
           f"({(nx_rays + nx_shadow) / (mxk / 1e3):.6g} rays/s; runs "
           f"{_runs(tx_k)} ms); K1 through fused_pass {mxw / passes:.4f} "
           f"ms/pass ({(nx_rays + nx_shadow) / (mxw / 1e3):.6g} rays/s; runs "
@@ -2194,16 +2547,16 @@ def main() -> int:
     del crecs
     # Cornell on the full core against the matte-only core, in turns
     t_c0, t_cf = [], []
-    for rep_ in range(5):
+    for rep_ in range(REPS):
         for full, ts_ in ((False, t_c0), (True, t_cf)):
             ts_.append(timed_kernel(3000 + passes * rep_, full=full)[0])
     print(f"[time] {card}, cornell 512x512 depth 5, bare K1 in turns, median "
-          f"of 5: matte-only core {statistics.median(t_c0) / passes:.4f} "
+          f"of {REPS}: matte-only core {statistics.median(t_c0) / passes:.4f} "
           f"ms/pass (runs {_runs(t_c0)} ms), full core "
           f"{statistics.median(t_cf) / passes:.4f} ms/pass (runs "
           f"{_runs(t_cf)} ms)", flush=True)
     # bare K2 (parity_mix's mask) on the six bounces of its plain pass
-    med2x, ts2x = _median5(k2_bare(mix, xrecs["parity_mix"], zspp),
+    med2x, ts2x = _median(k2_bare(mix, xrecs["parity_mix"], zspp),
                            queued=True)
     ms2x_plain = _timed(lambda: [
         sk.fused_shade_reference(mix, st[1], hit, st[2], st[5], st[6],
@@ -2258,8 +2611,8 @@ def main() -> int:
         if not one:
             fails.append(f"{label}: {len(calls)} warmed fused_shade calls "
                          f"ran {on_dev}")
-        med_b, ts_b = _median5(k2_bare(scn, recs_, spp_), queued=True)
-        _, t_dev = _median5(lambda: [sk.fused_shade(*a) for a in calls],
+        med_b, ts_b = _median(k2_bare(scn, recs_, spp_), queued=True)
+        _, t_dev = _median(lambda: [sk.fused_shade(*a) for a in calls],
                             queued=True)
         t0 = time.perf_counter()
         for _ in range(20):
@@ -2355,7 +2708,7 @@ def main() -> int:
                      + size * size * (8 + 28), ops_)
         timed_kernel(1000, scn, c, fm)
         tk, rays_ = [], []
-        for rep_ in range(5):
+        for rep_ in range(REPS):
             ms, rays = timed_kernel(2000 + passes * rep_, scn, c, fm)
             tk.append(ms)
             rays_.append(rays)
@@ -2363,7 +2716,7 @@ def main() -> int:
         nr_, ns_ = rays_[tk.index(med)]
         ms_plain = timed_passes(pk.fused_pass_reference, 2000, scn, c, fm)[0]
         print(f"[time] {card}, {name} 512x512 depth 5, {passes} passes per "
-              f"run, median of 5: K1 launch {med / passes:.4f} ms/pass "
+              f"run, median of {REPS}: K1 launch {med / passes:.4f} ms/pass "
               f"({(nr_ + ns_) / (med / 1e3):.6g} rays/s; runs {_runs(tk)} "
               f"ms); plain PyTorch {ms_plain / passes:.4f} ms/pass (timed "
               f"once); {nr_} rays + {ns_} shadow rays per run; K1 bound "
@@ -2371,15 +2724,17 @@ def main() -> int:
               flush=True)
         print_wide(name, scn, c, fm)
 
+    ppasses = 4
+
     def prims_passes(s0):
         return [wf.render_sample(prims, pcam, pfilm, morton, cfg.seed, s0 + s,
-                                 5) for s in range(passes)][-1]
+                                 5) for s in range(ppasses)][-1]
 
-    med_pr, t_pr = _median5(lambda: prims_passes(3000))
-    rays_pr = pass_rays(prims, pcam, pfilm, morton, 3000, passes, 5)
-    print(f"[time] {card}, parity_prims 512x512 depth 5, {passes} passes "
-          f"through render_sample per run, median of 5: "
-          f"{med_pr / passes:.4f} ms/pass, {rays_pr / (med_pr / 1e3):.6g} "
+    med_pr, t_pr = _median(lambda: prims_passes(3000))
+    rays_pr = pass_rays(prims, pcam, pfilm, morton, 3000, ppasses, 5)
+    print(f"[time] {card}, parity_prims 512x512 depth 5, {ppasses} passes "
+          f"through render_sample per run, median of {REPS}: "
+          f"{med_pr / ppasses:.4f} ms/pass, {rays_pr / (med_pr / 1e3):.6g} "
           f"rays/s ({rays_pr} rays + shadow rays per run; runs "
           f"{_runs(t_pr)} ms)", flush=True)
 
@@ -2431,13 +2786,13 @@ def main() -> int:
     bids = torch.from_numpy(Renderer(big, bcam, bfilm, bcfg).pixel_order()
                             ).to(dev)
     bpasses = 3
-    med_b, t_b = _median5(lambda: [
+    med_b, t_b = _median(lambda: [
         wf.render_sample(big, bcam, bfilm, bids, cfg.seed, 5000 + s, 5)
         for s in range(bpasses)])
     rays_b = pass_rays(big, bcam, bfilm, bids, 5000, bpasses, 5)
     print(f"[time] {card}, city {n_big} triangles ({len(parts)} parts) "
           f"512x512 depth 5, {bpasses} passes through render_sample per run, "
-          f"median of 5: {med_b / bpasses:.4f} ms/pass, "
+          f"median of {REPS}: {med_b / bpasses:.4f} ms/pass, "
           f"{rays_b / (med_b / 1e3):.6g} rays/s ({rays_b} rays + shadow "
           f"rays per run; runs {_runs(t_b)} ms)", flush=True)
 
@@ -2553,12 +2908,12 @@ def main() -> int:
               + ("" if ok else " FAIL"), flush=True)
         if not ok:
             fails.append(f"city bounce-{b}: parts any hit")
-        k4_ms, k4_ts = _median5(lambda: [
+        k4_ms, k4_ts = _median(lambda: [
             bk.bvh4_any_hit_kernel(p, so, sd, m_) for p, m_ in k4_in])
         k4_city.append((k4_ms / len(parts), k4_bound))
         print(f"[time] {card}, city bounce-{b} shadow rays, bare K4 on each "
               f"of the {len(parts)} parts with the route's carried max_dist,"
-              f" median of 5: {k4_ms / len(parts):.4f} ms per part (runs of "
+              f" median of {REPS}: {k4_ms / len(parts):.4f} ms per part (runs of "
               f"{len(parts)} {_runs(k4_ts)} ms); bound {k4_bound:.4f} ms per "
               f"part (bytes or operations of the rows the plain any hit "
               f"pops; whole rows read: {k4_rows:.4f} ms); lane-pops idle in "
@@ -2620,16 +2975,16 @@ def main() -> int:
           + (f" FAIL {k5_bad}" if k5_bad else ""), flush=True)
     fails.extend(f"K5 city {x}" for x in k5_bad)
     del k5_checks, k5_out
-    t_k3m = _median5(lambda: bk.bvh4_closest_hit_kernel(big.tri_bvh, o, d))
-    t_k5m = _median5(lambda: sp.bvh4_closest_hit_split_kernel(
+    t_k3m = _median(lambda: bk.bvh4_closest_hit_kernel(big.tri_bvh, o, d))
+    t_k5m = _median(lambda: sp.bvh4_closest_hit_split_kernel(
         big.tri_bvh, o, d, topo=topo_m))
-    t_k3p = _median5(lambda: [bk.bvh4_closest_hit_init_kernel(
+    t_k3p = _median(lambda: [bk.bvh4_closest_hit_init_kernel(
         p, o, d, t_in, tri_in) for p, t_in, tri_in, *_ in steps])
-    t_k5p = _median5(lambda: [sp.bvh4_closest_hit_split_kernel(
+    t_k5p = _median(lambda: [sp.bvh4_closest_hit_split_kernel(
         p, o, d, t_in, tri_in, topo=topos[k])
         for k, (p, t_in, tri_in, *_) in enumerate(steps)])
     print(f"[time] {card}, city {o.shape[0]} camera rays (route order), "
-          f"median of 5: whole table bare K3 {t_k3m[0]:.4f} ms, bare K5 "
+          f"median of {REPS}: whole table bare K3 {t_k3m[0]:.4f} ms, bare K5 "
           f"{t_k5m[0]:.4f} ms; the {len(parts)} parts, the route's carried "
           f"hits: bare K3 _init {t_k3p[0]:.4f} ms, bare K5 {t_k5p[0]:.4f} ms "
           f"(all parts; runs K3 {_runs(t_k3m[1])}; K5 {_runs(t_k5m[1])}; "
@@ -2641,7 +2996,7 @@ def main() -> int:
     n_launch = 0
     for label in walks:
         o_, d_, steps_, _, _ = walks[label]
-        k3i_ms += _median5(lambda: [bk.bvh4_closest_hit_init_kernel(
+        k3i_ms += _median(lambda: [bk.bvh4_closest_hit_init_kernel(
             p, o_, d_, t_in, tri_in) for p, t_in, tri_in, *_ in steps_])[0]
         k3i_plain += _timed(lambda: [bvh4_closest_hit_init_stats(
             p, o_, d_, t_in, tri_in) for p, t_in, tri_in, *_ in steps_])[0]
@@ -2700,7 +3055,7 @@ def main() -> int:
     both = (t6 < TMAX) & (t6p < TMAX)
     err["k6_tri_closest"] = ((t6 - t6p)[both].abs().max().item()
                              if bool(both.any()) else 0.0)
-    med6, ts6 = _median5(
+    med6, ts6 = _median(
         lambda: tri_kernel.triangle_closest_kernel(o_cam, d_cam, soa))
     pairs = o_cam.shape[0] * soa.shape[1]
     b6 = _bound(soa.numel() * 4 + o_cam.shape[0] * 32, pairs * K6_OPS)
@@ -2708,7 +3063,7 @@ def main() -> int:
           f"({mesh.triangles.mat_id.shape[0]} triangles) x {o_cam.shape[0]} "
           f"camera rays: t and idx bit-equal on every lane {eq6}, hits "
           f"{int((i6p >= 0).sum())}" + ("" if eq6 else " FAIL"), flush=True)
-    print(f"[time] {card}, k6_tri_closest on those rays, median of 5: bare "
+    print(f"[time] {card}, k6_tri_closest on those rays, median of {REPS}: bare "
           f"{med6:.4f} ms (runs {_runs(ts6)} ms), plain {ms6_plain:.4f} ms "
           f"(timed once), bound {b6[0]:.4f} ms ({b6[1]}, {pairs} pair "
           f"tests)", flush=True)
@@ -2747,13 +3102,13 @@ def main() -> int:
     per_pop = pp.measure(fat_c, op, dp, pops=512)
     print(f"[time] {card}, p1_pop_probe on the city fat table, {packets} "
           f"packets of 32 camera rays, slope between 512 and 1536 pops "
-          f"(median of 5 each): ns per pop of the launch "
+          f"(median of {REPS} each): ns per pop of the launch "
           f"{json.dumps({k: round(v[0], 3) for k, v in per_pop.items()})}; "
           f"ns per packet-pop "
           f"{json.dumps({k: round(v[1], 5) for k, v in per_pop.items()})}",
           flush=True)
     p1_pops = 128
-    med_p1, ts_p1 = _median5(lambda: pp.pop_probe_kernel(fat_c, op, dp,
+    med_p1, ts_p1 = _median(lambda: pp.pop_probe_kernel(fat_c, op, dp,
                                                          "full", p1_pops))
     ms_p1_plain, (tpf, spf) = _timed(lambda: pp.pop_probe(
         fat_c, op, dp, "full", p1_pops))
@@ -2770,7 +3125,7 @@ def main() -> int:
                   op.shape[0] * p1_pops * (4 * BOX_OPS + 8 * SLOT_OPS
                                            + SORT_OPS))
     print(f"[time] {card}, p1_pop_probe full mode, {op.shape[0]} lanes x "
-          f"{p1_pops} pops, median of 5: bare {med_p1:.4f} ms (runs "
+          f"{p1_pops} pops, median of {REPS}: bare {med_p1:.4f} ms (runs "
           f"{_runs(ts_p1)} ms), plain {ms_p1_plain:.4f} ms (timed once), "
           f"bound {b_p1[0]:.4f} ms ({b_p1[1]}); t and sink bit-equal "
           f"with the plain version {eq_p1}" + ("" if eq_p1 else " FAIL"),
@@ -2947,7 +3302,7 @@ def main() -> int:
             expect(label, got, k3_bvh4_closest=6 * n_p, k4_bvh4_any=6 * n_p)
 
     # ---- 28. general route times, in turns
-    gpasses = 8
+    gpasses = 4
     runs = {
         "parity_mesh_mid shade route": (mesh, mcam, mfilm, mmorton, False),
         "parity_mesh_mid general route": (mesh, mcam, mfilm, mmorton, True),
@@ -2965,7 +3320,7 @@ def main() -> int:
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(REPS):
         for k, fn in fns.items():
             times[k].append(_timed(fn)[0])
     for k, (scn, c, fm, ids, general) in runs.items():
@@ -2979,7 +3334,7 @@ def main() -> int:
             rays += int(m["rays"]) + int(m["shadow_rays"])
         med = statistics.median(times[k])
         print(f"[time] {card}, {k} 512x512 depth 5, {gpasses} passes through "
-              f"render_sample per run, in turns, median of 5: "
+              f"render_sample per run, in turns, median of {REPS}: "
               f"{med / gpasses:.4f} ms/pass, {rays / (med / 1e3):.6g} rays/s "
               f"({rays} rays + shadow rays per run; runs "
               f"{_runs(times[k])} ms)", flush=True)
@@ -3165,7 +3520,7 @@ def main() -> int:
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(REPS):
         for k, fn in fns.items():
             times[k].append(_timed(fn)[0])
     for k, (scn, c, fm, ids, _) in truns.items():
@@ -3179,7 +3534,7 @@ def main() -> int:
         med = statistics.median(times[k])
         prof = profile_render(scn, c, fm, 2, 1, 1)
         print(f"[time] {card}, {k} 512x512 depth 5, {gpasses} passes through "
-              f"render_sample per run, in turns, median of 5: "
+              f"render_sample per run, in turns, median of {REPS}: "
               f"{med / gpasses:.4f} ms/pass, {rays / (med / 1e3):.6g} rays/s "
               f"({rays} rays + shadow rays per run; runs "
               f"{_runs(times[k])} ms); profile_render 2 spp, one per pass, "
@@ -3189,9 +3544,9 @@ def main() -> int:
     for b, (o_b, d_b, (so, sd, smd)) in enumerate(frecs):
         o_s, d_s = sorted_rays(o_b, d_b)
         so_s, sd_s, smd_s = sorted_rays(so, sd, smd)
-        med3, ts3 = _median5(lambda: bk.bvh4_closest_hit_kernel(fbvh, o_s,
+        med3, ts3 = _median(lambda: bk.bvh4_closest_hit_kernel(fbvh, o_s,
                                                                 d_s))
-        med4, ts4 = _median5(lambda: bk.bvh4_any_hit_kernel(fbvh, so_s, sd_s,
+        med4, ts4 = _median(lambda: bk.bvh4_any_hit_kernel(fbvh, so_s, sd_s,
                                                             smd_s))
         pops3, b3, rows3 = pops_and_bound(bvh4_closest_hit_stats, fbvh, o_s,
                                           d_s)
@@ -3254,37 +3609,37 @@ def main() -> int:
     srecs = plain_records(field, o, d, sids, sspp, 5)
     check_k2("sphere_field", field, srecs, sspp)
     n_p, got = main_path("sphere_field", field, scam, sfilm,
-                         config=RenderConfig(num_samples=16, max_depth=5,
+                         config=RenderConfig(num_samples=4, max_depth=5,
                                              estimator="reference"))
     expect("sphere_field", got, k2_shade=6 * n_p)
     kernels["k2_shade"]["launches"] += got["k2_shade"]
 
-    spasses = 2
+    spasses = 1
     for label, fm, depth in (("512x512 depth 3", sfilm, 3),
                              ("256x256 depth 3 (bench_spheres.py's shape)",
                               sphere_field_view(FIELD_SPHERES, 256,
                                                 device=dev)[1], 3)):
         ids = torch.from_numpy(Renderer(field, scam, fm, cfg).pixel_order()
                                ).to(dev)
-        med, ts = _median5(lambda: [
+        med, ts = _median(lambda: [
             wf.render_sample(field, scam, fm, ids, cfg.seed, 6000 + k, depth)
             for k in range(spasses)])
         rays = pass_rays(field, scam, fm, ids, 6000, spasses, depth)
         print(f"[time] {card}, sphere_field {label}, {spasses} passes "
-              f"through render_sample per run, median of 5: "
+              f"through render_sample per run, median of {REPS}: "
               f"{med / spasses:.4f} ms/pass, {rays / (med / 1e3):.6g} rays/s "
               f"({rays} rays + shadow rays per run; runs {_runs(ts)} ms)",
               flush=True)
     prof = profile_render(field, scam, sphere_field_view(
-        FIELD_SPHERES, 256, device=dev)[1], 2, 1, 1)
-    print(f"[time] {card}, sphere_field profile_render 256x256 depth 1, 2 "
-          f"spp, one per pass: wall {prof['wall_ms']:.3f} ms, device "
+        FIELD_SPHERES, 256, device=dev)[1], 1, 1, 1)
+    print(f"[time] {card}, sphere_field profile_render 256x256 depth 1, 1 "
+          f"spp: wall {prof['wall_ms']:.3f} ms, device "
           f"{prof['device_ms']:.3f} ms, idle share {prof['idle']:.4f}",
           flush=True)
     # bare K2 on the six bounces of one pass (the matte core), and the
     # plain sphere walk each bounce pays: its closest hit on the bounce's
     # rays and its any hit on the bounce's shadow rays
-    med2s, ts2s = _median5(k2_bare(field, srecs, sspp), queued=True)
+    med2s, ts2s = _median(k2_bare(field, srecs, sspp), queued=True)
     nl = sum(st[1].shape[0] for st, _, _ in srecs)
     b2s = _bound(nl * K2_LANE_BYTES, nl * SHADE_OPS)
     walk_c = _timed(lambda: [bvh4s_closest_hit(sbvh, st[0], st[1])
@@ -3314,7 +3669,7 @@ def main() -> int:
            k4_bvh4_any=6 * n_p)
     for name in ("k3_bvh4_closest", "k4_bvh4_any"):
         kernels[name]["launches"] += got[name]
-    mpasses_f = 4
+    mpasses_f = 2
 
     def est_passes(est):
         return lambda: [wf.render_sample(full, fcam, ffilm, fids, cfg.seed,
@@ -3326,11 +3681,11 @@ def main() -> int:
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(REPS):
         for k, fn in fns.items():
             times[k].append(_timed(fn)[0])
     print(f"[time] {card}, fullscene 512x512 depth 5, {mpasses_f} passes "
-          f"through render_sample per run, in turns, median of 5: "
+          f"through render_sample per run, in turns, median of {REPS}: "
           + "; ".join(f"{k} {statistics.median(v) / mpasses_f:.4f} ms/pass "
                       f"(runs {_runs(v)} ms)" for k, v in times.items())
           + f"; mis / physical "
@@ -3381,6 +3736,10 @@ def main() -> int:
     # binned and hybrid accelerators, AO, the command line's live views
     slice_i_phases(ctx)
 
+    # ---- 49-50. slice H: ray- and geometry-sharded passes and train steps
+    # as ranks on this card; the XL fullscene through the parts route
+    slice_h_phases(ctx)
+
     # ---- 37. the inverse path: gradients through the general route, the
     # search detached through K3/K4, and InverseRenderer
     from craytracer_tpu_torch.examples import inverse_mesh_demo as demo
@@ -3395,7 +3754,7 @@ def main() -> int:
     def peak_gb():
         return torch.cuda.max_memory_allocated() / 1e9
 
-    isize, steps_c = 512, 4
+    isize, steps_c = 512, 2
     t0 = time.perf_counter()
     reset_counts()
     dm = demo.demo(size=isize, tex=64, steps=steps_c, device=dev)
@@ -3474,13 +3833,13 @@ def main() -> int:
                                        and bool(torch.isfinite(ga))):
             fails.append(f"inverse gradient {label}: route {groute} or a "
                          "non-finite gradient")
-    # times after the warm-up, in turns, median of 5: the gradient through
+    # times after the warm-up, in turns, median of REPS: the gradient through
     # the kernels as InverseRenderer takes it (deterministic accumulation)
     # and the same loss's backward with the default atomic accumulation;
     # then the forward pass alone (the loss's graph built, no backward)
     inv = renderer()
     t_det, t_atom, g_atom = [], [], None
-    for _ in range(5):
+    for _ in range(REPS):
         t0 = time.perf_counter()
         inv.value_and_grad()
         torch.cuda.synchronize()
@@ -3502,7 +3861,7 @@ def main() -> int:
     t_again = statistics.median(t_det)
     print(f"[time] {card}, one inverse gradient at {isize}x{isize} x "
           f"{icfg.spp_per_step} spp after the warm-up, in turns, median of "
-          f"5: deterministic {t_again:.3f} s (runs {_runs(t_det)} s), "
+          f"{REPS}: deterministic {t_again:.3f} s (runs {_runs(t_det)} s), "
           f"atomic accumulation {statistics.median(t_atom):.3f} s (runs "
           f"{_runs(t_atom)} s), deterministic / atomic "
           f"{t_again / statistics.median(t_atom):.4f}; the forward pass "
@@ -3526,7 +3885,7 @@ def main() -> int:
     if not ok_b:
         fails.append("inverse gradient: kernels and plain disagree")
 
-    # (c) InverseRenderer: four steps at 512x512, 8 spp each
+    # (c) InverseRenderer: two steps at 512x512, 8 spp each
     inv = renderer()
     step_launch = icfg.spp_per_step * per_pass
     step_s, step_gb = [], []

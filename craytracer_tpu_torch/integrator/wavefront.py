@@ -60,6 +60,13 @@ K3 and K4 included, instead of keeping its intermediates. The RNG is a
 counter hash of (seed, pixel, spp, bounce, dim), so the recompute draws
 the same numbers and needs no RNG state.
 
+Geometry sharding (parallel/geom.py, the JAX hooks `geom_axis` and
+`tri_base`, wavefront.py:89-96, :115-116, :288-289): with a geometry axis
+both steps reduce the closest hit over the axis' shards right after the
+search (`reduce_hit`) and the shadow distance right after the any hit
+(an all-reduce MIN); the ray and shadow-ray counters and the live
+histogram stay per lane. Without one every path is what it was.
+
 `render_sample` is the production entry: it asks the gate
 (integrator/gate.py) once per pass and runs the whole pass through K1
 (integrator/pass_kernel.py) for "bounce" scenes, or raygen in torch ops
@@ -104,17 +111,43 @@ def camera_rays(camera, film, pixel_ids, seed: int, spp_index, jitter):
     return generate_rays(camera, film, pixel_ids, jitter, lens_u)
 
 
+def _closest_hit(scene: T.Scene, o, d, kernels: bool, geom_axis, tri_base):
+    """intersect_scene, and with a geometry axis the closest of its
+    shards' hits (parallel/geom.py `reduce_hit`, wavefront.py:89-96)."""
+    hit = intersect_scene(scene, o, d, kernels=kernels)
+    if geom_axis is None:
+        return hit
+    from craytracer_tpu_torch.parallel.geom import reduce_hit
+
+    return reduce_hit(hit, geom_axis, tri_base)
+
+
+def _shadow_t(scene: T.Scene, o, d, max_dist, kernels: bool, geom_axis):
+    """shadow_distance, and with a geometry axis the least over its shards
+    (wavefront.py:115-116, :288-289)."""
+    t = shadow_distance(scene, o, d, max_dist, kernels=kernels)
+    if geom_axis is None:
+        return t
+    from craytracer_tpu_torch.parallel.geom import reduce_shadow
+
+    return reduce_shadow(t, geom_axis)
+
+
 def _bounce_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
-                 bounce: int, state, kernels: bool):
-    """One wavefront bounce: intersect -> shade -> shadow -> combine."""
+                 bounce: int, state, kernels: bool, geom_axis=None,
+                 tri_base: int = 0):
+    """One wavefront bounce: intersect -> shade -> shadow -> combine.
+    `geom_axis` (parallel/sharded.py Axis) reduces the hits and shadow
+    distances over the geometry shards of its ranks; `tri_base` is this
+    shard's first global triangle row."""
     o, d, beta, L, good, alive, prev_sg, rays, shadows, live_hist, pix = \
         state[:11]
-    hit = intersect_scene(scene, o, d, kernels=kernels)
+    hit = _closest_hit(scene, o, d, kernels, geom_axis, tri_base)
     shade = fused_shade if kernels else fused_shade_reference
     out = shade(scene, d, hit, beta, alive, prev_sg, pix, spp_index, seed,
                 bounce, max_depth)
-    t_shadow = shadow_distance(scene, out["shadow_o"], out["shadow_d"],
-                               out["dist_adj_t"], kernels=kernels)
+    t_shadow = _shadow_t(scene, out["shadow_o"], out["shadow_d"],
+                         out["dist_adj_t"], kernels, geom_axis)
     dadj = out["dist_adj"]
     lit = t_shadow >= dadj - torch.clamp(1e-3 * dadj, min=K_EPSILON)
     contrib = torch.where((out["want_shadow"] & lit)[:, None],
@@ -140,7 +173,7 @@ def _offset_ray(point, normal, direction):
 
 def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
                   bounce: int, state, kernels: bool, mis: bool = False,
-                  log=None):
+                  log=None, geom_axis=None, tri_base: int = 0):
     """One bounce of the JAX XLA branch (wavefront.py :136-384): intersect
     -> emitted / env add -> NEE through a shadow ray -> BSDF sample ->
     Russian roulette. Same state tuple as `_bounce_step`. `mis` takes the
@@ -152,13 +185,14 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
     record appended (the JAX step's `aux`, wavefront.py:372-380: the hit's
     t, the throughput entering the bounce, the emitted, env and NEE
     contributions, the BSDF sample's pdf, liveness); asking for it leaves
-    every output as it was."""
+    every output as it was. `geom_axis` and `tri_base` as for
+    `_bounce_step`."""
     o, d, beta, L, good, alive, prev_sg, rays, shadows, live_hist, pix = \
         state[:11]
     if mis:
         prev_pdf, prev_delta, prev_n = state[11:14]
     present = frozenset(scene.mat_types_present)
-    hit = intersect_scene(scene, o, d, kernels=kernels)
+    hit = _closest_hit(scene, o, d, kernels, geom_axis, tri_base)
     hitm = hit.hit_mask
     textured = scene.textures.texels.shape[0] > 1
     mp = gather_params(scene.materials, scene.textures, hit.mat_id, hit.uv,
@@ -253,9 +287,9 @@ def _general_step(scene: T.Scene, seed: int, spp_index, max_depth: int,
     dist_adj = ls.distance - vm.dot(shadow_o - hit.point, ls.wi)
     # lanes that do not want the result shoot an escape ray
     shadow_o = torch.where(want_shadow[:, None], shadow_o, 3.0e18)
-    t_shadow = shadow_distance(scene, shadow_o, ls.wi,
-                               torch.where(want_shadow, dist_adj, 0.0),
-                               kernels=kernels)
+    t_shadow = _shadow_t(scene, shadow_o, ls.wi,
+                         torch.where(want_shadow, dist_adj, 0.0), kernels,
+                         geom_axis)
     lit = t_shadow >= dist_adj - vm.maximum(1e-3 * dist_adj, K_EPSILON)
     nee_scale = f_nee * ls.li / vm.maximum(ls.pdf, 1e-12)[:, None]
     if mis:
@@ -383,7 +417,8 @@ def compact_policy(scene: T.Scene, max_depth: int) -> int:
 
 def _trace(scene: T.Scene, origin, direction, seed: int, pixel_ids,
            spp_index, max_depth: int, kernels: bool, general: bool = False,
-           mis: bool = False, remat: bool = False, compact_at: int = 0):
+           mis: bool = False, remat: bool = False, compact_at: int = 0,
+           geom_axis=None, tri_base: int = 0):
     """trace_paths' bounce loop for a scene the gate has admitted, through
     `_general_step` (with the MIS estimator when `mis`) when `general`,
     `mis` or `remat`, else `_bounce_step`: (L, good, metrics). `remat`
@@ -397,7 +432,10 @@ def _trace(scene: T.Scene, origin, direction, seed: int, pixel_ids,
     alive (one host read on the card); the halves are scattered back by
     lane id. Every lane still runs its own bounces on its own random
     numbers, so L, good and the counters equal the dense trace's, and the
-    live histogram adds each half's live lanes into the same slot."""
+    live histogram adds each half's live lanes into the same slot. The
+    read of whether the second half runs agrees across a geometry axis:
+    its ranks hold the same lanes. `geom_axis` and `tri_base` as for
+    `_bounce_step`."""
     per_lane = isinstance(spp_index, torch.Tensor) and spp_index.dim() > 0
     if per_lane:
         spp_index = spp_index.to(device=origin.device,
@@ -414,13 +452,16 @@ def _trace(scene: T.Scene, origin, direction, seed: int, pixel_ids,
                 state = torch.utils.checkpoint.checkpoint(
                     _general_step, scene, seed, spp, max_depth, bounce,
                     state, kernels, mis, use_reentrant=False,
-                    preserve_rng_state=False)
+                    preserve_rng_state=False, geom_axis=geom_axis,
+                    tri_base=tri_base)
             elif general or mis:
                 state = _general_step(scene, seed, spp, max_depth, bounce,
-                                      state, kernels=kernels, mis=mis)
+                                      state, kernels=kernels, mis=mis,
+                                      geom_axis=geom_axis, tri_base=tri_base)
             else:
                 state = _bounce_step(scene, seed, spp, max_depth, bounce,
-                                     state, kernels=kernels)
+                                     state, kernels=kernels,
+                                     geom_axis=geom_axis, tri_base=tri_base)
         return state
 
     metrics = {}
@@ -467,7 +508,8 @@ def _trace(scene: T.Scene, origin, direction, seed: int, pixel_ids,
 def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
                 spp_index, max_depth: int, with_metrics: bool = False,
                 fast_shade=None, general: bool = False, mis: bool = False,
-                remat: bool = False, compact_at: int = 0):
+                remat: bool = False, compact_at: int = 0, geom_axis=None,
+                tri_base: int = 0):
     """Trace one path per lane. Returns (L[N,3], good_paths[N] int32),
     plus {rays, shadow_rays, bounce_live[depth+1], and the per-lane
     lane_rays and lane_shadow_rays [N] int32, and compact_hi when the
@@ -481,7 +523,8 @@ def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
     estimator, which only the general step has. `remat=True` checkpoints
     each bounce of the general step (the JAX trace_paths' remat, which
     forces its XLA step). `compact_at=B` compacts the stream after bounce
-    B - 1 (`_trace`). A scene outside the gate raises
+    B - 1 (`_trace`). `geom_axis` and `tri_base` reduce the hits over a
+    geometry axis (`_bounce_step`). A scene outside the gate raises
     NotImplementedError."""
     if fast_shade not in (None, "shade"):
         raise ValueError(f"fast_shade must be None or 'shade', not "
@@ -493,7 +536,7 @@ def trace_paths(scene: T.Scene, origin, direction, seed: int, pixel_ids,
         kernels=fast_shade == "shade" and origin.device.type == "cuda",
         general=(general or mode == "general"
                  or needs_grad(origin, direction)), mis=mis, remat=remat,
-        compact_at=compact_at)
+        compact_at=compact_at, geom_axis=geom_axis, tri_base=tri_base)
     return (L, good, metrics) if with_metrics else (L, good)
 
 
@@ -533,7 +576,8 @@ def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
                   spp_index, max_depth: int, estimator: str = "reference",
                   general: bool = False, kernels=None,
                   trace_type: str = "PATHTRACE", sampler=None,
-                  compact_at=None):
+                  compact_at=None, geom_axis=None, tri_base: int = 0,
+                  with_metrics: bool = False):
     """One progressive pass (raygen + trace) for `pixel_ids`, through the
     route the gate picks: K1 for "bounce" scenes, the per-bounce K3 -> K2
     -> K4 route for "shade" scenes, the per-bounce general step (with K3
@@ -554,19 +598,35 @@ def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
     `trace_type` "WHITTED" or "RAYCAST" traces integrator/whitted.py
     instead of the path tracer (wavefront.py:634-638). `compact_at` None
     takes `compact_policy` on the per-bounce routes; an int forces it.
-    K1's pass is dense by construction."""
+    K1's pass is dense by construction.
+
+    `geom_axis` (parallel/sharded.py Axis) and `tri_base`: `scene` is one
+    geometry shard (parallel/geom.py), and every bounce reduces the hits
+    and shadow distances over the axis' shards. A "bounce" scene then takes
+    the per-bounce "shade" route (JAX skips its megakernel, wavefront.py
+    :603, :443), and the route and the compaction bounce, which the gate
+    and `compact_policy` pick from the shard's padded triangle count, are
+    checked to agree across the axis.
+
+    `with_metrics` returns (image, good_paths, metrics) as trace_paths
+    does, on the path tracer's routes."""
     from craytracer_tpu_torch.integrator.pass_kernel import _admitted_pass
 
     mode = production_fast_shade(scene, camera, film, estimator, max_depth,
                                  trace_type)
+    if geom_axis is not None:
+        if trace_type != "PATHTRACE":
+            raise NotImplementedError("geometry sharding traces PATHTRACE "
+                                      "only, as the JAX package does")
+        mode = "shade" if mode == "bounce" else mode
     pixel_ids = torch.as_tensor(pixel_ids)
     if mode == "bounce" and not general and sampler is None:
         # no autograd here (the gate said so): a leaf that requires grad
         # reaches K1 detached
-        L, good, _ = _admitted_pass(T.detached(scene), T.detached(camera),
-                                    T.detached(film), pixel_ids, spp_index,
-                                    seed, max_depth, raygen="strat")
-        return _normalize(L, good, estimator)
+        L, good, metrics = _admitted_pass(
+            T.detached(scene), T.detached(camera), T.detached(film),
+            pixel_ids, spp_index, seed, max_depth, raygen="strat")
+        return _result(L, good, metrics, estimator, with_metrics)
     o, d = camera_rays(camera, film, pixel_ids, seed, spp_index,
                        film_jitter(seed, pixel_ids, spp_index, sampler))
     on_card = o.device.type == "cuda"
@@ -574,23 +634,34 @@ def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
     if trace_type != "PATHTRACE":
         from craytracer_tpu_torch.integrator.whitted import trace_whitted
 
+        if with_metrics:
+            raise ValueError("with_metrics: the path tracer's only")
         return trace_whitted(scene, o, d, seed, pixel_ids, spp_index,
                              max_depth, trace_type == "WHITTED",
                              kernels=kernels)
     if mode == "bounce" and not general:
-        L, good, _ = _admitted_pass(T.detached(scene), T.detached(camera),
-                                    T.detached(film), pixel_ids, spp_index,
-                                    seed, max_depth, raygen=None,
-                                    rays=(o.detach(), d.detach()))
+        L, good, metrics = _admitted_pass(
+            T.detached(scene), T.detached(camera), T.detached(film),
+            pixel_ids, spp_index, seed, max_depth, raygen=None,
+            rays=(o.detach(), d.detach()))
     else:
-        L, good, _ = _trace(scene, o, d, seed, pixel_ids, spp_index,
-                            max_depth, kernels=kernels,
-                            general=general or mode == "general",
-                            mis=estimator == "mis",
-                            compact_at=(compact_policy(scene, max_depth)
-                                        if compact_at is None
-                                        else compact_at))
-    return _normalize(L, good, estimator)
+        if compact_at is None:
+            compact_at = compact_policy(scene, max_depth)
+        if geom_axis is not None:
+            from craytracer_tpu_torch.parallel.geom import check_same_route
+
+            check_same_route(geom_axis, mode, compact_at, o.device)
+        L, good, metrics = _trace(
+            scene, o, d, seed, pixel_ids, spp_index, max_depth,
+            kernels=kernels, general=general or mode == "general",
+            mis=estimator == "mis", compact_at=compact_at,
+            geom_axis=geom_axis, tri_base=tri_base)
+    return _result(L, good, metrics, estimator, with_metrics)
+
+
+def _result(L, good, metrics, estimator, with_metrics):
+    img = _normalize(L, good, estimator)
+    return (img, good, metrics) if with_metrics else img
 
 
 def _normalize(L, good, estimator):

@@ -10,12 +10,16 @@ from one seeded generator (seed 11: `blotch` with spherical uv, GOLD,
 SILVER, COPPER, glass, plastic_blue with vertex normals), three
 icosphere(5) boulders (20,480 triangles each) and two emissive icosphere(3)
 lamp spheres, each a `g`/`usemtl` group, and `mtllib fullscene.mtl`.
-With the default 380 spheres that is 558,592 triangles. The tracked
-scenes/fullscene.txt, .mtl, PNGs and EXR are read as they are; only the
-OBJ is written, and its bytes equal make_fullscene.py's for the same
-sphere count.
+With the default 380 spheres that is 558,592 triangles. The XL variant
+(`xl`, make_fullscene.py --xl, :156-169) takes icosphere(4) spheres and
+lamps (5,120 triangles each) and icosphere(6) boulders (81,920), 450
+spheres by default, and writes scenes/fullscene_xl.obj: 2,568,192
+triangles. The tracked scenes/fullscene.txt and fullscene_xl.txt, .mtl,
+PNGs and EXR are read as they are; only the OBJ is written, and its bytes
+equal make_fullscene.py's for the same sphere count and variant.
 
-    python -m craytracer_tpu_torch.scene.fullscene [--spheres 380] [--out PATH]
+    python -m craytracer_tpu_torch.scene.fullscene [--xl] [--spheres N]
+        [--out PATH]
 """
 
 from __future__ import annotations
@@ -31,11 +35,16 @@ from craytracer_tpu_torch.scene.city import icosphere
 SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "scenes")
 OBJ = os.path.join(SCENES, "fullscene.obj")
+OBJ_XL = os.path.join(SCENES, "fullscene_xl.obj")
 SPHERES = 380
+SPHERES_XL = 450
+# (sphere and lamp, boulder) icosphere levels of each variant
+LEVELS = {False: (3, 5), True: (4, 6)}
 
 
-def obj_text(spheres: int = SPHERES) -> str:
-    """The OBJ file's text for `spheres` spheres."""
+def obj_text(spheres: int = SPHERES, xl: bool = False) -> str:
+    """The OBJ file's text for `spheres` spheres, of the XL variant when
+    `xl`."""
     rng = np.random.default_rng(11)
     buf = io.StringIO()
     buf.write("mtllib fullscene.mtl\n")
@@ -84,8 +93,8 @@ def obj_text(spheres: int = SPHERES) -> str:
                         axis=-1)
 
     # the sphere field
-    v3, f3 = icosphere(3)
-    v5, f5 = icosphere(5)
+    v3, f3 = icosphere(LEVELS[xl][0])
+    v5, f5 = icosphere(LEVELS[xl][1])
     uv3 = sphere_uv(v3)
     groups = ["blotch", "GOLD", "SILVER", "COPPER", "glass", "plastic_blue"]
     weights = [0.34, 0.13, 0.13, 0.12, 0.14, 0.14]
@@ -121,23 +130,27 @@ def obj_text(spheres: int = SPHERES) -> str:
     return buf.getvalue()
 
 
-def write_obj(path: str = OBJ, spheres: int = SPHERES) -> str:
+def write_obj(path: str = OBJ, spheres: int = SPHERES,
+              xl: bool = False) -> str:
     with open(path, "w") as f:
-        f.write(obj_text(spheres))
+        f.write(obj_text(spheres, xl))
     return path
 
 
-def triangle_count(spheres: int = SPHERES) -> int:
+def triangle_count(spheres: int = SPHERES, xl: bool = False) -> int:
     """Triangles in the OBJ for `spheres` spheres: the floor's 2 x 64 x 64,
-    1,280 per icosphere(3) sphere and lamp, 20,480 per boulder."""
-    return 2 * 64 * 64 + (spheres + 2) * 1280 + 3 * 20480
+    20 x 4^level per sphere and lamp and per boulder (1,280 and 20,480;
+    5,120 and 81,920 in the XL variant)."""
+    small, big = (20 * 4 ** k for k in LEVELS[xl])
+    return 2 * 64 * 64 + (spheres + 2) * small + 3 * big
 
 
-def ensure_obj(path: str = OBJ, spheres: int = SPHERES) -> bool:
+def ensure_obj(path: str = OBJ, spheres: int = SPHERES,
+               xl: bool = False) -> bool:
     """Write the OBJ for `spheres` spheres unless the file at `path`
     already holds exactly that text (a file written for another sphere
-    count is replaced); True when it was written."""
-    text = obj_text(spheres)
+    count or variant is replaced); True when it was written."""
+    text = obj_text(spheres, xl)
     if os.path.exists(path):
         with open(path) as f:
             if f.read() == text:
@@ -149,11 +162,18 @@ def ensure_obj(path: str = OBJ, spheres: int = SPHERES) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--spheres", type=int, default=SPHERES)
-    ap.add_argument("--out", default=OBJ)
+    ap.add_argument("--xl", action="store_true",
+                    help=f"the XL variant ({SPHERES_XL} spheres by "
+                    "default, scenes/fullscene_xl.obj)")
+    ap.add_argument("--spheres", type=int, default=None)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    write_obj(args.out, args.spheres)
-    print(f"wrote {args.out}")
+    spheres = args.spheres
+    if spheres is None:
+        spheres = SPHERES_XL if args.xl else SPHERES
+    out = write_obj(args.out or (OBJ_XL if args.xl else OBJ), spheres,
+                    args.xl)
+    print(f"wrote {out}")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 version, the launch counts, and the wrappers' refusals; the general
 route, whose traversal is K3 and K4, under the MIS estimator too; the
 sphere field's "shade" route through K2; the torch-op accelerators' passes
-through K2 (K3 for hybrid), AO through K4 and the HTTP live view. These
+through K2 (K3 for hybrid), AO through K4 and the HTTP live view; slice
+H's ray- and geometry-sharded passes as two rank processes on the card
+(gloo), K3 per ray shard, and the XL fullscene's triangle count. These
 cases carry the
 `cuda` marker (pytest.ini) and need a CUDA card and nvcc; without a card
 they skip. The file imports no JAX, so on a machine with the card (and
@@ -947,3 +949,112 @@ def test_ao_and_live_view_on_card(cuda, tmp_path):
         assert read_png(str(tmp_path / "f.png")).shape == (32, 32, 3)
     finally:
         r.live.stop()
+
+
+@pytest.fixture(scope="module")
+def sharded_world():
+    """Phase 49 (a) and (b) of chip_smoke.py at 64x64: Cornell over 2 ray
+    ranks and parity_mesh_mid over 2 geometry shards, both ranks on
+    cuda:0 over gloo, the kernels built here first; with the one-process
+    passes on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    from craytracer_tpu_torch.parallel import dryrun
+
+    cases = []
+    for path, mesh in ((CORNELL, (2, 1)), (MESH_MID, (1, 2))):
+        scene, cam, film = load_scene_file(path, device="cpu")
+        cases.append(dict(kind="render", mesh=mesh, scene=scene, camera=cam,
+                          film=Film(fov=film.fov, width=64, height=64),
+                          depth=5, seed=3, spp=[0, 63]))
+    dryrun.prebuild([c["scene"] for c in cases])
+    results, _ = dryrun.launch(2, cases, "gloo", None, timeout=300)
+    dev = torch.device("cuda", 0)
+    refs = []
+    for c in cases:
+        pix = torch.arange(64 * 64, dtype=torch.int32, device=dev)
+        refs.append([wf.render_sample(
+            T.to_device(c["scene"], dev), T.to_device(c["camera"], dev),
+            T.to_device(c["film"], dev), pix, 3, spp, 5, with_metrics=True)
+            for spp in c["spp"]])
+    return results, refs
+
+
+def test_ray_sharded_pass_on_card(sharded_world):
+    """Two ray ranks: one K1 launch per rank per pass and nothing else; L,
+    good and both counters of every lane bit-equal with the one-process
+    pass."""
+    results, refs = sharded_world
+    for r in results:
+        for p, (L, good, m) in zip(r[0]["passes"], refs[0]):
+            assert p["counts"] == dict.fromkeys(p["counts"], 0) | {
+                "k1_pass": 1}
+            assert torch.equal(p["L"], L.cpu())
+            assert torch.equal(p["good"], good.cpu())
+            assert torch.equal(p["lane_rays"], m["lane_rays"].cpu())
+            assert torch.equal(p["lane_shadow_rays"],
+                               m["lane_shadow_rays"].cpu())
+
+
+def test_geom_sharded_pass_on_card(sharded_world):
+    """Two geometry shards of parity_mesh_mid on the "shade" route: K3 =
+    K2 = K4 = 6 per rank per pass at depth 5, K1 never; good and both
+    counters equal and L within 2e-5 of the one-process pass on every
+    lane."""
+    results, refs = sharded_world
+    for r in results:
+        for p, (L, good, m) in zip(r[1]["passes"], refs[1]):
+            assert p["counts"] == dict.fromkeys(p["counts"], 0) | {
+                "k2_shade": 6, "k3_bvh4_closest": 6, "k4_bvh4_any": 6}
+            assert torch.equal(p["good"], good.cpu())
+            assert torch.equal(p["lane_rays"], m["lane_rays"].cpu())
+            assert torch.equal(p["lane_shadow_rays"],
+                               m["lane_shadow_rays"].cpu())
+            Lr = L.cpu()
+            assert ((p["L"] - Lr).abs() <= 2e-5 + 2e-5 * Lr.abs()).all()
+
+
+@pytest.mark.parametrize("variant", ["whole", "parts"])
+def test_k3_per_ray_shard_on_card(cuda, variant):
+    """tests/test_pallas_shard.py's counterpart on the card: the rays split
+    into 8 contiguous shards, each through K3 (K3 `_init` per part for the
+    parts), bit-equal with unsharded K3 on every lane."""
+    from craytracer_tpu_torch.accel import bvh4_parts
+    from craytracer_tpu_torch.accel.bvh4 import build_bvh4
+    from craytracer_tpu_torch.scene.city import icosphere
+
+    v, f = icosphere(2)
+    bvh = T.to_device(build_bvh4(v[f[:, 0]] * 3, v[f[:, 1]] * 3,
+                                 v[f[:, 2]] * 3), cuda)
+    gen = torch.Generator().manual_seed(3)
+    n = 128 * 8
+    o = torch.tensor([[0.0, 0.5, 8.0]]).repeat(n, 1).to(cuda)
+    d = torch.randn((n, 3), generator=gen)
+    d[:, 2] -= 1.5
+    d = (d / d.norm(dim=1, keepdim=True)).to(cuda)
+    before = (bk.CLOSEST.launches, bk.CLOSEST_INIT.launches)
+    if variant == "parts":
+        parts = bvh4_parts.partition_bvh4(bvh, bvh.fat.numel())
+        assert len(parts) > 1
+        got = [bvh4_parts.parts_closest_hit_kernel(parts, oo, dd)
+               for oo, dd in zip(o.chunk(8), d.chunk(8))]
+        assert bk.CLOSEST_INIT.launches == before[1] + 8 * len(parts)
+    else:
+        got = [bk.bvh4_closest_hit_kernel(bvh, oo, dd)
+               for oo, dd in zip(o.chunk(8), d.chunk(8))]
+        assert bk.CLOSEST.launches == before[0] + 8
+    t_ref, i_ref = bk.bvh4_closest_hit_kernel(bvh, o, d)
+    assert torch.equal(torch.cat([g[0] for g in got]), t_ref)
+    assert torch.equal(torch.cat([g[1] for g in got]), i_ref)
+    assert int((t_ref < 1e8).sum()) > 50
+
+
+def test_xl_fullscene_triangle_count(cuda):
+    """The XL fullscene's OBJ text at its default 450 spheres holds
+    2,568,192 triangles, as triangle_count says (a full-size scene: the
+    card's machine generates it)."""
+    from craytracer_tpu_torch.scene import fullscene
+
+    text = fullscene.obj_text(fullscene.SPHERES_XL, xl=True)
+    assert text.count("\nf ") == fullscene.triangle_count(
+        fullscene.SPHERES_XL, xl=True) == 2_568_192

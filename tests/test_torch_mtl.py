@@ -22,7 +22,8 @@ from craytracer_tpu_torch.interop import numpy_leaves
 from craytracer_tpu_torch.io import objloader as tobj
 from craytracer_tpu_torch.io import scenefile as tsf
 from craytracer_tpu_torch.scene.build import SceneBuilder
-from craytracer_tpu_torch.scene.fullscene import obj_text
+from craytracer_tpu_torch.scene.fullscene import (SPHERES_XL, obj_text,
+                                                 triangle_count)
 from torch_jax_native import SAH_WARNING_IS_ERROR, jax_native  # noqa: F401
 
 pytestmark = SAH_WARNING_IS_ERROR
@@ -120,6 +121,24 @@ def test_fullscene_obj_matches_make_fullscene(tmp_path, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["make_fullscene.py", "--spheres", "4"])
     make_fullscene.main()
     assert (tmp_path / "fullscene.obj").read_text() == obj_text(4)
+
+
+def test_fullscene_xl_obj_matches_make_fullscene(tmp_path, monkeypatch):
+    """The XL variant's text against make_fullscene.py --xl, and its
+    default triangle count: 2 x 64 x 64 + 452 x 5,120 + 3 x 81,920."""
+    sys.path.insert(0, SCENES)
+    try:
+        import make_fullscene
+    finally:
+        sys.path.remove(SCENES)
+    monkeypatch.setattr(make_fullscene, "HERE", str(tmp_path))
+    monkeypatch.setattr(sys, "argv", ["make_fullscene.py", "--xl",
+                                      "--spheres", "4"])
+    make_fullscene.main()
+    text = obj_text(4, xl=True)
+    assert (tmp_path / "fullscene_xl.obj").read_text() == text
+    assert text.count("\nf ") == triangle_count(4, xl=True)
+    assert triangle_count(SPHERES_XL, xl=True) == 2_568_192
 
 
 def _cmp(ours, ref, path="scene"):
