@@ -114,8 +114,9 @@ never JAX or the JAX package. Phases, each printing its own lines:
    nothing else) against the plain trace_paths at depth 0, 2 and 5,
    phase 8's bars; then K2 vs plain on the bounce 0, 1 and 4 hit records,
    phase 7's bars.
-18. parity_prims main path: the Renderer at 512x512, depth 5, 64 spp,
-   reference estimator; counts set to 0 just before and read just after:
+18. parity_prims main path: the Renderer at 512x512, depth 5, 64 spp
+   (16 a pass), reference estimator; counts set to 0 just before and
+   read just after:
    K2 passes x 6 times and nothing else, no NaN; the image against
    tests/goldens/golden_prims.is. Then the AABOX scene through the
    Renderer (64 spp): one K1 launch per pass and nothing else, no NaN.
@@ -174,7 +175,8 @@ never JAX or the JAX package. Phases, each printing its own lines:
    Renderer's Morton order and NaN rule); counts set to 0 just before
    and read just after: K3 and K4 passes x 6 on the mesh, nothing else.
 27. scenes that take the general route by themselves, through the
-   Renderer at 512x512, depth 5, 16 spp: scenes/materials_scene.txt (no
+   Renderer at 512x512, depth 5, 16 spp in one pass:
+   scenes/materials_scene.txt (no
    kernel launch) and parity_mesh_mid's geometry with a disk light, a
    constant env light and an anisotropic Trowbridge-Reitz metal
    (tests/torch_general_scenes.py `mesh_env_disk`: K3 and K4 passes x 6,
@@ -185,7 +187,7 @@ never JAX or the JAX package. Phases, each printing its own lines:
 
 29. golden_textured (scenes/parity_textured.txt: a checker on a rect and
    a smooth quad mesh, an EXR texture env, CRAY_TEX_FLOAT_DIV255=1)
-   through the Renderer at 128x128, depth 5, 160 spp, reference
+   through the Renderer at 128x128, depth 5, 160 spp (16 a pass), reference
    estimator (tests/test_reference_parity.py:133-154); counts set to 0
    just before and read just after: no launch (under 64 triangles, no
    bvh4), no NaN; the image against golden_textured.is. Then the same
@@ -202,8 +204,8 @@ never JAX or the JAX package. Phases, each printing its own lines:
    against the plain traversal at 512x512 Morton lanes, depth 0, 2, 5
    (spp 0) and 5 (spp 63), phase 8's bars; K3 and K4 alone on the
    route's bounce-0 and bounce-1 rays and shadow rays, bit-equal with the
-   plain traversal; then the Renderer at 512x512, depth 5, 16 spp:
-   counts set to 0 just before and read just after, K3 and K4 passes x 6
+   plain traversal; then the Renderer at 512x512, depth 5, 16 spp in one
+   pass: counts set to 0 just before and read just after, K3 and K4 passes x 6
    and nothing else, no NaN, a finite image.
 31. the quad mesh light of tests/test_mis.py:76-104 at 512x512
    (tests/torch_textured_scenes.py): the valid bounce-0 NEE samples per
@@ -213,7 +215,8 @@ never JAX or the JAX package. Phases, each printing its own lines:
    the uniform fallback, power 1); each scene's route (the quad beside
    the rect lamp at reference power takes K1's "bounce": its mesh row has
    power 0, as the JAX gate reads the powers; the others "general") and
-   each through the Renderer (16 spp, physical estimator): one K1 launch
+   each through the Renderer (16 spp in one pass, physical estimator):
+   one K1 launch
    per pass on the "bounce" scene, no launch on the others, no NaN, a lit
    image.
 32. times, in turns, median of 3: ms/pass and rays/s through
@@ -240,13 +243,15 @@ never JAX or the JAX package. Phases, each printing its own lines:
    bounce (closest hit and shadow any hit).
 34. the MIS estimator on the fullscene: the general route through K3 and
    K4 against the plain traversal at 512x512 Morton lanes, depth 0, 2, 5,
-   phase 8's bars; main path: the Renderer at 512x512, depth 5, 16 spp,
-   estimator "mis", counts set to 0 just before and read just after: K3
+   phase 8's bars; main path: the Renderer at 512x512, depth 5, 16 spp in
+   one pass, estimator "mis", counts set to 0 just before and read just
+   after: K3
    and K4 passes x 6 and nothing else, no NaN; ms/pass through
    render_sample of "mis" and "physical" in turns, median of 3.
 35. the MIS estimator unbiased on the card: tests/test_mis.py's glossy
    scene (a rough SILVER floor, a 4 x 4 lamp) through the Renderer at
-   512x512 x 64 spp, depth 3, under "mis" (the general route, no launch)
+   512x512 x 64 spp (16 a pass), depth 3, under "mis" (the general
+   route, no launch)
    and "physical" (K1, one launch per pass): no NaN, and the image means
    within tests/test_mis.py:58's rtol 0.12.
 36. (run right after phase 15, before the process's first torch.profiler
@@ -270,10 +275,10 @@ never JAX or the JAX package. Phases, each printing its own lines:
    (kernels=False): the loss bit-equal, alpha's and every texel's
    gradient within rtol 1e-5 + 1e-5 max|g|, finite, the route "general"
    under autograd, K3 = K4 = 24 and K1 = K2 = 0 (0 for the plain
-   version); then, in turns, three deterministic gradients as
-   InverseRenderer takes them and three of the same loss with the
-   default atomic accumulation, for the cost of the deterministic one;
-   (c) two InverseRenderer steps at
+   version); then, in turns, one deterministic gradient as
+   InverseRenderer takes it and one of the same loss with the default
+   atomic accumulation, for the cost of the deterministic one;
+   (c) one InverseRenderer step at
    512x512 x 8 spp: loss, grad norm, seconds and peak memory a step, the
    launches set to 0 just before each step and read just after, K3 = K4
    = spp x (depth + 1) (no remat), K1 = K2 = 0; (d) at 128x128, 2
@@ -335,9 +340,9 @@ never JAX or the JAX package. Phases, each printing its own lines:
 45. each accelerator's `trace_paths` at depth 5 through the kernels
    against its plain version (phase 8's bars): K2 = 6, K3 = 6 on hybrid
    and 0 elsewhere, K4 = K1 = 0.
-46. the Renderer on each (`spp_batch=0`: B = 7) against
-   golden_mesh_mid.is, each at 16 spp; no NaN; ms/pass; K2 = passes x 6
-   (and K3 on hybrid).
+46. the Renderer on each against golden_mesh_mid.is, at 16 spp (8 a
+   pass), binned at 12 (one pass); no NaN; ms/pass; K2 = passes x 6 (and
+   K3 on hybrid).
 47. `ao_test` at the camera hits through K4 (one launch) bit-equal with
    the plain any hit.
 48. the command line in subprocesses: Cornell through K1 with --serve,
@@ -372,7 +377,17 @@ never JAX or the JAX package. Phases, each printing its own lines:
    step. (d) NCCL at world size 1 in this
    process through (a)'s code: bit-equal with render_sample. ms per pass
    of (a) and (b) (host clock, median of the last four passes) and the
-   ranks' setup seconds.
+   ranks' setup seconds. In the same world: (e) scenes/parity_mesh_mid.txt
+   over 2 geometry shards of the bvh table (the "shade" route; K2 = 6 a
+   rank and pass, nothing else) and (f) the 6,999,040-triangle city over
+   2 geometry shards at 256x256, depth 4 (bench_mesh.py's setting), each
+   rank making the city's triangles itself and its shard's bvh4 table,
+   which passes the part budget and is cut into parts (K3 `_init` and K4
+   per part of the rank's shard and bounce, K2 a bounce); each at spp 0
+   and 63 against the one-process pass (phase 20's city, or one built
+   here) with (b)'s bars, the bounce-0 winners that differ counted, ms
+   per pass (the spp-63 pass) and each rank's seconds to make and place
+   its shard.
 50. the XL fullscene: scene/fullscene.py writes scenes/fullscene_xl.obj
    (450 spheres, timed; deleted in a finally), scenes/fullscene_xl.txt
    loaded and built (timed): 2,568,192 triangles, fat rows, table MB, part
@@ -382,16 +397,52 @@ never JAX or the JAX package. Phases, each printing its own lines:
    6 x parts; the Renderer at 512x512 x 4 spp, counts set to 0 just
    before and read just after (K3 `_init` = K4 = 6 x parts x passes), no
    NaN, a finite image.
+51-54. slice K (`slice_k_phases`, after phase 50; `python3 chip_smoke.py
+   --slice-k` builds the kernels and runs these alone, with no result
+   line):
+51. tests/torch_general_scenes.py `mesh_env_disk` (parity_mesh_mid's
+   20,480 triangles in an anisotropic Trowbridge-Reitz metal, a disk
+   light, a constant env light) built with bvh4 and with each of bvh,
+   bvh4q, grid, binned and hybrid; `trace_paths` on the gate's route,
+   which must be "general", at 512x512 Morton lanes, depth 5, spp 0 and
+   63, each bounce's hits recorded; each accelerator's pass held against
+   the bvh4 scene's K3/K4 pass on the same rays with phase 8's bars on
+   every lane, binned's lanes whose first differing winner is a ray
+   through an edge the two triangles share at one distance (phase 44's
+   test) counted, named and excused; launches, the counts set to 0 just
+   before each pass and read just after: K3 = 6 on hybrid (K4 = 0: its
+   shadows are binned's), none on the other four; then hybrid against
+   bvh4 under MIS at spp 0. ms per pass.
+52. the Renderer on scenes/parity_textured.txt built with each of the
+   five, at phase 29's setting (128x128, depth 5, 160 spp, the reference
+   estimator; 32 spp per pass): route "general", inside golden_textured's
+   bars, no NaN, K3 = 6 a pass on hybrid and nothing else; ms per pass.
+53. the XL fullscene of phase 50 (not built again): phase 37 (e)'s
+   gradient (512x512 x 1 spp, MIS, depth 2, of the mean image with
+   respect to texture 0's texels and a METAL row's alpha) with the search
+   through K3 `_init` and K4 per part (K3 `_init` = K4 = 3 x parts, K1 =
+   K2 = K3 = 0), again with each bounce checkpointed (`trace_paths(remat
+   =True)`: twice the launches), and with the plain traversal
+   (kernels=False); the loss bit-equal, every gradient within rtol 1e-5
+   + 1e-5 max|g| of the plain one, finite; seconds and peak memory.
+54. the albedo-recovery demo (examples/inverse_demo.py): 60
+   InverseRenderer steps at 32x32; every loss finite, and on each of the
+   4 sample sets the steps cycle over (the target is rendered from the
+   first) the last loss below the first, the run's last step included;
+   no launch (a scene without triangles); the recovered albedos beside
+   the targets, s/step.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
 sphere field's, K3 and K4 plus the fullscene's under both estimators, K3
 `_init` on the 7M city's; K3 and K4 also carry the general route's
 traversal (phases 25-30, 34) and the inverse path's detached search
-(phase 37's two steps), which adds no kernel, K2-K4 phase 38's
+(phase 37's step), which adds no kernel, K2-K4 phase 38's
 compacted Renderer, K2 (K3 on hybrid) phase 46's accelerators, K1 and
-K2-K4 the ranks' sharded passes of phase 49 (a) and (b), and K3 `_init`
-and K4 the XL Renderer of phase 50;
+K2-K4 the ranks' sharded passes of phase 49 (a) and (b), K2 (e)'s and
+K2, K3 `_init` and K4 (f)'s, K3 `_init` and K4 the XL Renderer of phase
+50, K3 hybrid's general route in phases 51-52, K3 `_init` and K4 phase
+53's XL gradients through the kernels;
 `k1_pass_rays`, K1's external-ray mode, on Cornell
 with a multijittered table (phase 41); K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch (K2's launches enqueued
@@ -515,6 +566,35 @@ def _children(bvh):
     return (f"children internal / leaf / empty {internal} / {leaf} / "
             f"{empty} (empty: {empty / (leaf + empty):.4f} of those not "
             f"internal)")
+
+
+def _edge_ties(tri64, o, d, lanes, ids_a, ids_b):
+    """Of `lanes`, where two traversals name different triangles, those
+    whose ray hits both triangles at one distance, within the binned bar
+    of 1e-4 (barycentric coordinates and t, absolute and relative): a ray
+    through the edge between two triangles, where either id is the
+    closest hit within the matmul form's rounding (its numerators are
+    expanded about the treelet's center, so a barycentric coordinate
+    carries about 1e-4 of absolute error on parity_mesh_mid).
+    Moller-Trumbore in f64 on the scene's corners (`tri64`: v0, v1, v2 as
+    f64): (mask, t of the first ids, t of the second)."""
+    o, d = o[lanes].double(), d[lanes].double()
+
+    def mt(tri):
+        v0, v1, v2 = (x[tri.long()] for x in tri64)
+        e1, e2 = v1 - v0, v2 - v0
+        p = torch.cross(d, e2, dim=1)
+        inv = 1.0 / (e1 * p).sum(1)
+        tv = o - v0
+        q = torch.cross(tv, e1, dim=1)
+        return ((tv * p).sum(1) * inv, (d * q).sum(1) * inv,
+                (e2 * q).sum(1) * inv)
+
+    (ba, ga, ta), (bb, gb, tb) = mt(ids_a[lanes]), mt(ids_b[lanes])
+    on = [(b >= -1e-4) & (g >= -1e-4) & (b + g <= 1.0 + 1e-4)
+          for b, g in ((ba, ga), (bb, gb))]
+    return (on[0] & on[1]
+            & ((ta - tb).abs() <= 1e-4 + 1e-4 * tb.abs())), ta, tb
 
 
 def _tonemapped(img):
@@ -1161,34 +1241,6 @@ def slice_i_phases(ctx) -> None:
     tri64 = [x.double() for x in (mesh.triangles.v0, mesh.triangles.v1,
                                   mesh.triangles.v2)]
 
-    def edge_ties(o, d, lanes, ids_a, ids_b):
-        """Of `lanes`, where the two traversals name different triangles,
-        those whose ray hits both triangles at one distance, within the
-        binned bar of 1e-4 (barycentric coordinates and t, absolute and
-        relative): a ray through the edge between two triangles, where
-        either id is the closest hit within the matmul form's rounding
-        (its numerators are expanded about the treelet's center, so a
-        barycentric coordinate carries about 1e-4 of absolute error on
-        parity_mesh_mid). Moller-Trumbore in f64 on the scene's corners:
-        (mask, t of the first ids, t of the second)."""
-        o, d = o[lanes].double(), d[lanes].double()
-
-        def mt(tri):
-            v0, v1, v2 = (x[tri.long()] for x in tri64)
-            e1, e2 = v1 - v0, v2 - v0
-            p = torch.cross(d, e2, dim=1)
-            inv = 1.0 / (e1 * p).sum(1)
-            tv = o - v0
-            q = torch.cross(tv, e1, dim=1)
-            return ((tv * p).sum(1) * inv, (d * q).sum(1) * inv,
-                    (e2 * q).sum(1) * inv)
-
-        (ba, ga, ta), (bb, gb, tb) = mt(ids_a[lanes]), mt(ids_b[lanes])
-        on = [(b >= -1e-4) & (g >= -1e-4) & (b + g <= 1.0 + 1e-4)
-              for b, g in ((ba, ga), (bb, gb))]
-        return (on[0] & on[1]
-                & ((ta - tb).abs() <= 1e-4 + 1e-4 * tb.abs())), ta, tb
-
     for accel in ("bvh", "bvh4q", "grid", "binned", "hybrid"):
         # binned's matmul form holds JAX's own binned bar
         # (tests/test_binned.py:37-49): t within 1e-4 relative and
@@ -1201,7 +1253,7 @@ def slice_i_phases(ctx) -> None:
                 t_a, i_a = fn(o, d)
                 t_r, i_r = refs[name]
                 diff = torch.nonzero(i_a != i_r)[:, 0]
-                ties, ta, tb = edge_ties(o, d, diff, i_a, i_r)
+                ties, ta, tb = _edge_ties(tri64, o, d, diff, i_a, i_r)
                 hit = (i_r >= 0) & (i_a == i_r)
                 err_t = ((t_a - t_r).abs()
                          - tol[0] * t_r.abs())[hit].max().item() \
@@ -1268,11 +1320,13 @@ def slice_i_phases(ctx) -> None:
     # ---- 46. the Renderer on each accelerator against golden_mesh_mid
     golden = os.path.join(REPO, "tests", "goldens", "golden_mesh_mid.is")
     for accel in ("hybrid", "bvh", "grid", "bvh4q", "binned"):
-        spp = 16
+        # binned's walk is the slowest by far: 12 spp in one pass, the
+        # others 16 in two
+        spp, batch = (12, 12) if accel == "binned" else (16, 8)
         scn = scenes[accel]
         r = Renderer(scn, mcam, mfilm, RenderConfig(num_samples=spp,
                                                     max_depth=depth,
-                                                    spp_batch=0))
+                                                    spp_batch=batch))
         reset()
         t0 = time.perf_counter()
         r.render()
@@ -1455,6 +1509,7 @@ def slice_h_phases(ctx) -> None:
     """Phases 49-50: slice H on the card (module docstring). `ctx` as for
     `slice_f_phases`; failures are appended."""
     import datetime
+    import functools
     import tempfile
 
     import torch.distributed as dist
@@ -1469,11 +1524,12 @@ def slice_h_phases(ctx) -> None:
     from craytracer_tpu_torch.parallel import dryrun
     from craytracer_tpu_torch.parallel.sharded import (_grads, _mse,
                                                        with_grad_leaves)
-    from craytracer_tpu_torch.scene import fullscene
+    from craytracer_tpu_torch.scene import city, fullscene
     from craytracer_tpu_torch.scene import types as T
 
     dev, card, fails, kernels = ctx.dev, ctx.card, ctx.fails, ctx.kernels
-    counters, seed, size, depth = ctx.counters, 0, 512, 5
+    counters, seed, depth = ctx.counters, 0, 5
+    size = getattr(ctx, "size", 512)
     passes = [0, 63, 1, 2, 3, 4]  # checked: the first two; timed: the rest
 
     def check(label, ok, detail=""):
@@ -1519,16 +1575,30 @@ def slice_h_phases(ctx) -> None:
     trains = {"sharded (2, 1)": dict(train, mesh=(2, 1), step="sharded"),
               "bucketed (2, 1)": dict(train, mesh=(2, 1), step="bucketed"),
               "geometry (1, 2)": dict(train, mesh=(1, 2))}
-    cases = [ray_case, geom_case, *trains.values()]
+    # (e) bvh shards of parity_mesh_mid; (f) the 7M city past the part
+    # budget, each rank making the city's triangles itself (a 1 GB pickle
+    # otherwise) and its shard's bvh4 table and parts
+    mesh_bvh = load_scene_file(MESH_MID, accel="bvh", device="cpu")[0]
+    spp_ef = passes[:2]  # checked; the second (spp 63) also timed
+    bvh_case = dict(geom_case, scene=mesh_bvh, accel="bvh", spp=spp_ef)
+    n_city = CITY_TRIS // city.TRIS_PER_SPHERE * city.TRIS_PER_SPHERE
+    kcam, kfilm = city.city_view(n_city, 256, device="cpu")
+    city_depth = 4  # bench_mesh.py's setting
+    city_case = dict(kind="render", mesh=(1, 2), camera=kcam, film=kfilm,
+                     scene=functools.partial(city.city_scene, CITY_TRIS,
+                                             "none", "cpu"),
+                     depth=city_depth, seed=seed, spp=spp_ef,
+                     first_hit=True)
+    cases = [ray_case, geom_case, *trains.values(), bvh_case, city_case]
     t0 = time.perf_counter()
-    results, setup = dryrun.launch(2, cases, "gloo", None, timeout=400)
+    results, setup = dryrun.launch(2, cases, "gloo", None, timeout=700)
     wall = time.perf_counter() - t0
     print(f"[slice-h] 49 two rank processes, both on cuda:0 over gloo (its "
           f"CUDA tensors reduce through the host; NCCL refuses two ranks on "
           f"one GPU): {card}; process group up after {max(setup):.2f} s, "
           f"the world's {len(cases)} cases done in {wall:.2f} s", flush=True)
 
-    def one_process(scn, c, fm, spp):
+    def one_process(scn, c, fm, spp, depth=depth):
         ids = torch.arange(fm.num_pixels, dtype=torch.int32, device=dev)
         with torch.no_grad():
             img, good, m = wf.render_sample(
@@ -1537,9 +1607,54 @@ def slice_h_phases(ctx) -> None:
                 with_metrics=True)
         return img, good, m["lane_rays"], m["lane_shadow_rays"]
 
-    def pass_ms(rank_out):
-        return statistics.median(p["seconds"] for p in rank_out["passes"][2:]
-                                 ) * 1e3
+    def pass_ms(rank_out, first=2):
+        return statistics.median(
+            p["seconds"] for p in rank_out["passes"][first:]) * 1e3
+
+    def geom_shards(label, i, scn, c, fm, dpt, want):
+        """A geometry-sharded case against the one-process pass: at the
+        first two spp `good` and the counters equal and L within 2e-5 on
+        every lane; the launches `want` (a callable of the rank's result)
+        a rank and pass; the bounce-0 winners that differ, counted."""
+        for k, spp in enumerate(passes[:2]):
+            ref = one_process(scn, c, fm, spp, dpt)
+            for r in results:
+                p = r[i]["passes"][k]
+                ok_l, excess = close(p["L"], ref[0], L_TOL, L_TOL)
+                same = [torch.equal(p[key], ref[j].cpu()) for j, key in
+                        enumerate(("good", "lane_rays", "lane_shadow_rays"),
+                                  1)]
+                check(f"{label} spp {spp} rank {r[i]['rank']}",
+                      ok_l and all(same),
+                      f"good, rays, shadow rays equal {same}; L within 2e-5 "
+                      f"{ok_l} (worst excess {excess:.3g})")
+        ids = torch.arange(fm.num_pixels, dtype=torch.int32, device=dev)
+        c_d, fm_d = T.to_device(c, dev), T.to_device(fm, dev)
+        o, d = wf.camera_rays(c_d, fm_d, ids, seed, 0,
+                              wf.film_jitter(seed, ids, 0))
+        with torch.no_grad():
+            hit = wf._closest_hit(T.to_device(scn, dev), o, d, True, None,
+                                  0)
+        ref_hit = torch.stack([hit.group, hit.prim], dim=1).cpu()
+        for r in results:
+            out = r[i]
+            diff = int((out["first_hit"] != ref_hit).any(dim=1).sum())
+            got = [p["counts"] for p in out["passes"]]
+            w = want(out)
+            check(f"{label} rank {out['rank']} (tri_base {out['tri_base']}, "
+                  f"{out['n_tris']} triangles, {out['parts']} parts)",
+                  all(g == dict(dict.fromkeys(g, 0), **w) for g in got),
+                  f"launches {got[0]} per pass x {len(got)} (want {w}); "
+                  f"bounce-0 winning triangle differs from the unsharded one "
+                  f"on {diff} of {ids.shape[0]} lanes; its scene made and "
+                  f"placed in {out['scene_seconds']:.2f} s")
+            add_launches({k: sum(g[k] for g in got) for k in got[0]})
+        print(f"[time] {card}, {label} {fm.width}x{fm.height} depth {dpt}, "
+              f"G=2 on one card: {pass_ms(results[0][i], 1):.3f} / "
+              f"{pass_ms(results[1][i], 1):.3f} ms per pass (rank 0 / 1, "
+              f"host clock, the per-bounce hit reductions through the host "
+              f"included; the spp-63 pass, after the first); rank setup "
+              f"{max(setup):.2f} s", flush=True)
 
     # (a) ray-sharded Cornell: one K1 launch per rank per pass, every lane
     # equal to the one-process pass
@@ -1600,6 +1715,33 @@ def slice_h_phases(ctx) -> None:
           f"{pass_ms(results[1][1]):.3f} ms per pass (rank 0 / 1, host clock,"
           f" the per-bounce hit reductions through the host included, "
           f"median of {len(passes) - 2})", flush=True)
+
+    # (e) bvh shards: K2 = 6 a rank and pass, no K3 / K4
+    geom_shards("49 (e) bvh geometry shards of parity_mesh_mid", 5,
+                mesh_bvh, mcam, mfilm, depth,
+                lambda out: {"k2_shade": depth + 1})
+    # (f) the 7M city's shards, each past the part budget: K3 _init and K4
+    # per part of the rank's shard a bounce, K2 a bounce
+    big = getattr(ctx, "city", None)
+    if big is None:
+        t0 = time.perf_counter()
+        big = city.city_scene(CITY_TRIS, device=dev)
+        torch.cuda.synchronize()
+        print(f"[slice-h] 49 (f) the one-process city built here: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check("49 (f) shards past the budget", all(
+        r[6]["parts"] > 1 and r[6]["n_tris"] * 2 >= n_city
+        for r in results), f"parts per rank "
+        f"{[r[6]['parts'] for r in results]} under the "
+        f"{PART_BUDGET_BYTES} B budget; the one-process table "
+        f"{len(big.tri_parts or ())} parts")
+    b = city_depth + 1
+    geom_shards("49 (f) the 7M city over 2 geometry shards", 6, big, kcam,
+                kfilm, city_depth,
+                lambda out: {"k2_shade": b,
+                             "k3_init_bvh4_closest": b * out["parts"],
+                             "k4_bvh4_any": b * out["parts"]})
+    del big
 
     # (c) the train steps against the one-process gradient
     dsc = T.to_device(dscene, dev)
@@ -1741,6 +1883,332 @@ def slice_h_phases(ctx) -> None:
           f"{dt:.2f} s, {r.passes} passes, launches {got}, {r.nan_count} "
           f"NaN, mean {img.mean():.4f}")
     add_launches(got)
+    ctx.xl = (xl, xcam, xfilm)  # phase 53's scene, not built again
+
+
+def slice_k_phases(ctx) -> None:
+    """Phases 51-54: slice K on the card (module docstring). `ctx` as for
+    `slice_f_phases`, with phase 50's XL fullscene in `ctx.xl` when this
+    run loaded it (else it is written and loaded here); failures are
+    appended."""
+    import torch_general_scenes as general_scenes
+    from craytracer_tpu_torch.camera import Film, make_camera
+    from craytracer_tpu_torch.examples import inverse_demo
+    from craytracer_tpu_torch.examples import inverse_mesh_demo as mdemo
+    from craytracer_tpu_torch.integrator import wavefront as wf
+    from craytracer_tpu_torch.integrator.render import (RenderConfig,
+                                                        Renderer)
+    from craytracer_tpu_torch.interop import numpy_leaves, scene_from_numpy
+    from craytracer_tpu_torch.inverse import (InverseConfig, deterministic,
+                                              render_mean)
+    from craytracer_tpu_torch.io.objloader import load_obj
+    from craytracer_tpu_torch.io.scenefile import load_scene_file
+    from craytracer_tpu_torch.scene import fullscene
+    from craytracer_tpu_torch.scene import types as T
+    from craytracer_tpu_torch.scene.build import SceneBuilder
+
+    dev, card, fails, kernels = ctx.dev, ctx.card, ctx.fails, ctx.kernels
+    counters, seed, depth = ctx.counters, 0, 5
+    size = getattr(ctx, "size", 512)
+    accels = ("bvh", "bvh4q", "grid", "binned", "hybrid")
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    def want(**kw):
+        return {**dict.fromkeys(counters, 0), **kw}
+
+    def check(label, ok, detail=""):
+        print(f"[slice-k] {label}: {detail}" + ("" if ok else " FAIL"),
+              flush=True)
+        if not ok:
+            fails.append(f"{label}: {detail}")
+
+    def add_launches(got, *names):
+        for name in names:
+            if name in kernels:
+                kernels[name]["launches"] += got[name]
+
+    # ---- 51. mesh_env_disk on the general route under every accelerator
+    shapes = [(sh.positions, sh.indices) for sh in load_obj(
+        os.path.join(REPO, "scenes", "parity_mesh_mid.obj"))[0]]
+    scenes = {}
+    for accel in ("bvh4",) + accels:
+        b = SceneBuilder()
+        eye, look, fov, _ = general_scenes.mesh_env_disk(b, shapes)
+        t0 = time.perf_counter()
+        scenes[accel] = scene_from_numpy(general_scenes.make_anisotropic(
+            numpy_leaves(b.build(accel=accel, device="cpu"))), device=dev)
+        torch.cuda.synchronize()
+        print(f"[slice-k] 51 mesh_env_disk with {accel}: built and placed "
+              f"in {time.perf_counter() - t0:.3f} s (host build, then to "
+              f"the card)", flush=True)
+    cam = make_camera(eye, look, device=dev)
+    film = Film(fov=torch.tensor(fov, dtype=torch.float32, device=dev),
+                width=size, height=size)
+    morton = torch.from_numpy(Renderer(scenes["bvh4"], cam, film,
+                                       RenderConfig()).pixel_order()).to(dev)
+    tri64 = [x.double() for x in (scenes["bvh4"].triangles.v0,
+                                  scenes["bvh4"].triangles.v1,
+                                  scenes["bvh4"].triangles.v2)]
+
+    def traced(scn, s, mis=False):
+        """trace_paths on the gate's route at spp `s` on every lane, each
+        bounce's hits recorded, the counts set to 0 just before and read
+        just after: (route, (L, good, metrics), hits, launches, ms)."""
+        route = wf.production_fast_shade(scn, cam, film,
+                                         "mis" if mis else "physical", depth)
+        spp = torch.full_like(morton, s)
+        o, d = wf.camera_rays(cam, film, morton, seed, spp,
+                              wf.film_jitter(seed, morton, spp))
+        hits, closest = [], wf._closest_hit
+
+        def record(scene, o, d, *a, **k):
+            hit = closest(scene, o, d, *a, **k)
+            hits.append((o, d, hit.group, hit.prim))
+            return hit
+
+        wf._closest_hit = record
+        try:
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = wf.trace_paths(scn, o, d, seed, morton, spp, depth,
+                                 with_metrics=True, fast_shade="shade",
+                                 general=route == "general", mis=mis)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = counts()
+        finally:
+            wf._closest_hit = closest
+        return route, out, hits, got, ms
+
+    def against(out, ref, hits, ref_hits, edges_ok):
+        """Phase 8's bars on every lane against the bvh4 pass; with
+        `edges_ok`, a lane that differs is excused when its first bounce
+        whose winner differs has a ray through an edge the two triangles
+        share at one distance (phase 44's count). (failures, excused lane
+        ids)."""
+        (Lk, gk, mk), (Lp, gp, mp) = out, ref
+        Lk, Lp = Lk.double(), Lp.double()
+        ok = ((gk == gp) & ((Lk - Lp).abs()
+                            <= L_TOL + L_TOL * Lp.abs()).all(dim=1)
+              & (mk["lane_rays"] == mp["lane_rays"])
+              & (mk["lane_shadow_rays"] == mp["lane_shadow_rays"]))
+        bad = torch.nonzero(~ok)[:, 0]
+        edge = torch.zeros_like(bad, dtype=torch.bool)
+        seen = torch.zeros_like(edge)
+        for (o, d, g, p), (_, _, g0, p0) in zip(hits, ref_hits):
+            new = ((g != g0) | (p != p0))[bad] & ~seen
+            if bool(new.any()):
+                lanes = bad[new]
+                tris = ((g[lanes] == T.GROUP_TRIANGLE)
+                        & (g0[lanes] == T.GROUP_TRIANGLE))
+                edge[new] = _edge_ties(tri64, o, d, lanes, p, p0)[0] & tris
+                seen |= new
+        excused = bad[edge] if edges_ok else bad[:0]
+        f = []
+        if bad.numel() > excused.numel():
+            f.append(f"{bad.numel() - excused.numel()} lanes off the bars")
+        if not bad.numel():
+            for key in ("bounce_live", "rays", "shadow_rays"):
+                if not torch.equal(mk[key], mp[key]):
+                    f.append(f"{key} differs")
+        if not bool(torch.isfinite(Lk).all()):
+            f.append("non-finite L")
+        return f, excused
+
+    refs = {}
+    for s in (0, 63):
+        refs[s] = traced(scenes["bvh4"], s)
+        route, _, _, got, ms = refs[s]
+        check(f"51 bvh4 reference pass spp {s}", route == "general"
+              and got == want(k3_bvh4_closest=depth + 1,
+                              k4_bvh4_any=depth + 1),
+              f"route {route}, launches {got}, {ms:.1f} ms, {card}")
+    for accel in accels:
+        for s in (0, 63):
+            route, out, hits, got, ms = traced(scenes[accel], s)
+            f, excused = against(out, refs[s][1], hits, refs[s][2],
+                                 accel == "binned")
+            w = want(k3_bvh4_closest=depth + 1) if accel == "hybrid" \
+                else want()
+            named = ", ".join(str(int(x)) for x in excused[:8])
+            check(f"51 {accel} general route {size}x{size} depth {depth} "
+                  f"spp {s} vs bvh4's K3/K4 pass", route == "general"
+                  and not f and got == w,
+                  f"route {route}; {excused.numel()} shared-edge lanes "
+                  f"excused ({named}); launches {got}; {ms:.1f} ms per pass"
+                  f", {card}" + (f"; {f}" if f else ""))
+            add_launches(got, "k3_bvh4_closest")
+    route_r, ref_m, ref_mh, got, ms_r = traced(scenes["bvh4"], 0, mis=True)
+    route, out, hits, got_h, ms = traced(scenes["hybrid"], 0, mis=True)
+    f, _ = against(out, ref_m, hits, ref_mh, False)
+    check(f"51 hybrid under MIS {size}x{size} depth {depth} spp 0 vs bvh4's "
+          "MIS pass", route == route_r == "general" and not f
+          and got == want(k3_bvh4_closest=depth + 1, k4_bvh4_any=depth + 1)
+          and got_h == want(k3_bvh4_closest=depth + 1),
+          f"launches bvh4 {got}, hybrid {got_h}; {ms_r:.1f} / {ms:.1f} ms "
+          f"per pass, {card}" + (f"; {f}" if f else ""))
+    add_launches(got_h, "k3_bvh4_closest")
+    del scenes, refs, route_r, ref_m, ref_mh, out, hits
+
+    # ---- 52. the Renderer on parity_textured under every accelerator
+    textured = os.path.join(REPO, "scenes", "parity_textured.txt")
+    golden = os.path.join(REPO, "tests", "goldens", "golden_textured.is")
+    cfg = RenderConfig(num_samples=160, max_depth=depth,
+                       estimator="reference", spp_batch=32)
+    os.environ["CRAY_TEX_FLOAT_DIV255"] = "1"  # the golden's EXR scale
+    try:
+        tex = {a: load_scene_file(textured, accel=a, device=dev)
+               for a in accels}
+    finally:
+        del os.environ["CRAY_TEX_FLOAT_DIV255"]
+    t_all = time.perf_counter()
+    for accel, (scn, c, fm) in tex.items():
+        route = wf.production_fast_shade(scn, c, fm, cfg.estimator, depth)
+        r = Renderer(scn, c, fm, cfg)
+        reset()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        full_o, full_r, dmax, share, gf = _golden(r.raw_mean(), golden)
+        w = want(k3_bvh4_closest=(depth + 1) * r.passes) \
+            if accel == "hybrid" else want()
+        check(f"52 Renderer parity_textured {accel} {fm.width}x{fm.height} "
+              f"x {cfg.num_samples} spp depth {depth}", route == "general"
+              and not gf and r.nan_count == 0 and got == w,
+              f"route {route}, {r.passes} passes of B {r.spp_batch}, "
+              f"{dt:.3f} s, {1e3 * dt / r.passes:.1f} ms/pass, {card}; "
+              f"tone-mapped mean {full_o:.5f} vs golden {full_r:.5f}, block "
+              f"dev max {dmax:.4f}, share < 0.02 {share:.3f}, NaN "
+              f"substituted {r.nan_count}, launches {got} {gf}")
+        add_launches(got, "k3_bvh4_closest")
+    print(f"[slice-k] 52 the five Renderers: "
+          f"{time.perf_counter() - t_all:.2f} s", flush=True)
+    del tex
+
+    # ---- 53. the XL fullscene's gradient through the parts route
+    if getattr(ctx, "xl", None) is None:
+        try:
+            t0 = time.perf_counter()
+            fullscene.write_obj(fullscene.OBJ_XL, fullscene.SPHERES_XL,
+                                xl=True)
+            xs, xc, xf0 = load_scene_file(
+                os.path.join(REPO, "scenes", "fullscene_xl.txt"), device=dev)
+        finally:
+            if os.path.exists(fullscene.OBJ_XL):
+                os.remove(fullscene.OBJ_XL)
+        ctx.xl = (xs, xc, Film(fov=xf0.fov, width=512, height=512))
+        print(f"[slice-k] 53 the XL fullscene written and loaded here: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    xl, xcam, xfilm = ctx.xl
+    parts = len(xl.tri_parts or ())
+    t_off = int(xl.textures.offset[0])
+    t_n = int(xl.textures.width[0]) * int(xl.textures.height[0])
+    metal = int(torch.nonzero(xl.materials.mat_type == T.MAT_METAL)[0])
+    graft = mdemo.grafter(xl, metal)
+    gcfg = InverseConfig(max_depth=2, estimator="mis", spp_per_step=1)
+    gpix = torch.arange(xfilm.num_pixels, dtype=torch.int32, device=dev)
+
+    def xl_grad(kernels, remat=False):
+        """The mean image's gradient w.r.t. texture 0's texels and the
+        METAL row's alpha (phase 37 (e)), the counts set to 0 just before
+        and read just after: (loss, texel grad, alpha grad, s, GB,
+        launches)."""
+        p = {"texels": xl.textures.texels[t_off:t_off + t_n].clone()
+             .requires_grad_(True),
+             "alpha": xl.materials.alphax[metal].clone().requires_grad_(True)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        with deterministic():
+            if remat:
+                o, d = wf.camera_rays(xcam, xfilm, gpix, 7, 0,
+                                      wf.film_jitter(7, gpix, 0))
+                img = wf.trace_paths(graft(xl, p), o, d, 7, gpix, 0,
+                                     gcfg.max_depth, fast_shade="shade",
+                                     mis=True, remat=True)[0]
+            else:
+                img = render_mean(graft(xl, p), xcam, xfilm, gpix, 7, 0,
+                                  gcfg, kernels=kernels)
+            loss = img.mean()
+            loss.backward()
+        torch.cuda.synchronize()
+        return (loss.detach(), p["texels"].grad, p["alpha"].grad,
+                time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 1e9, counts())
+
+    per = (gcfg.max_depth + 1) * parts
+    grads = {}
+    for label, kern, remat, w in (
+            ("plain", False, False, want()),  # first: it pays the warm-up
+            ("kernels", None, False, want(k3_init_bvh4_closest=per,
+                                          k4_bvh4_any=per)),
+            ("kernels, remat", None, True,
+             want(k3_init_bvh4_closest=2 * per, k4_bvh4_any=2 * per))):
+        grads[label] = g = xl_grad(kern, remat)
+        loss, gt, ga, secs, gb, got = g
+        check(f"53 XL fullscene gradient through the {label}, 512x512 x 1 "
+              f"spp, MIS depth 2", got == w and bool(torch.isfinite(gt).all())
+              and bool(torch.isfinite(ga)) and float(gt.abs().max()) > 0.0,
+              f"{xl.triangles.mat_id.shape[0]} triangles in {parts} parts; "
+              f"loss {float(loss):.9g}, d/d alpha {float(ga):.6g}, |d/d "
+              f"texels| max {float(gt.abs().max()):.6g}; {secs:.3f} s, peak "
+              f"{gb:.2f} GB, {card}; launches {got} (want K3 _init = K4 = "
+              f"{'2 x ' if remat else ''}(depth 2 + 1) x {parts} parts)")
+        if kern is None:
+            add_launches(got, "k3_init_bvh4_closest", "k4_bvh4_any")
+    lp, gtp, gap = grads["plain"][:3]
+    for label in ("kernels", "kernels, remat"):
+        lk, gtk, gak = grads[label][:3]
+        dt_ = (gtk - gtp).abs()
+        bar_t = 1e-5 * float(gtp.abs().max()) + 1e-5 * gtp.abs()
+        bar_a = 1e-5 * abs(float(gap)) + 1e-5 * abs(float(gap))
+        check(f"53 XL gradient through the {label} vs plain",
+              torch.equal(lk, lp) and bool((dt_ <= bar_t).all())
+              and abs(float(gak - gap)) <= bar_a,
+              f"loss bit-equal {torch.equal(lk, lp)}; max |d texel grad| "
+              f"{float(dt_.max()):.3g} (bar rtol 1e-5 + 1e-5 max|g| = "
+              f"{1e-5 * float(gtp.abs().max()):.3g}); |d alpha grad| "
+              f"{abs(float(gak - gap)):.3g} (bar {bar_a:.3g})")
+    del grads
+
+    # ---- 54. the albedo-recovery demo: 60 steps at 32x32
+    dd = inverse_demo.demo(32, device=dev)
+    inv = inverse_demo.renderer(dd)
+    steps = 60
+    reset()
+    t0 = time.perf_counter()
+    inv.run(steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = counts()
+    losses = [h[0] for h in inv.history]
+    # step k renders sample set k mod spp_cycle; the target is set 0's, so
+    # each set's losses carry their own noise floor: compare within a set
+    cyc = dd["config"].spp_cycle
+    sets = [(losses[k], losses[k + (steps - 1 - k) // cyc * cyc])
+            for k in range(cyc)]
+    back, ball = ([round(float(v), 4) for v in x.detach()]
+                  for x in inv.params)
+    check(f"54 inverse_demo {steps} steps at 32x32", inv.nan_steps == 0
+          and all(np.isfinite(losses)) and all(b < a for a, b in sets)
+          and got == want(),
+          f"loss first -> last of each of the {cyc} sample sets "
+          f"{', '.join(f'{a:.6g} -> {b:.6g}' for a, b in sets)}; "
+          f"recovered back wall "
+          f"{back} (target {list(inverse_demo.TARGET_BACK)}), sphere {ball} "
+          f"(target {list(inverse_demo.TARGET_BALL)}); {dt:.2f} s, "
+          f"{dt / steps:.3f} s/step, {card}; launches {got} (no triangle: "
+          "the general route's brute force)")
 
 
 def main() -> int:
@@ -1859,6 +2327,13 @@ def main() -> int:
         for f in fails:
             print(f"FAIL: {f}")
         print(json.dumps({"slice_h_only": True, "failures": len(fails)}))
+        return 1 if fails else 0
+    if sys.argv[1:] == ["--slice-k"]:
+        # phases 51-54 alone, to try them out: no result line
+        slice_k_phases(ctx)
+        for f in fails:
+            print(f"FAIL: {f}")
+        print(json.dumps({"slice_k_only": True, "failures": len(fails)}))
         return 1 if fails else 0
 
     scene, cam, film0 = load_scene_file(SCENE, device=dev)
@@ -2688,7 +3163,8 @@ def main() -> int:
                                                   5), zspp)
 
     # ---- 18. parity_prims main path; the AABOX scene's main path
-    n_p, got = main_path("parity_prims", prims, pcam, pfilm, GOLDEN_PRIMS)
+    n_p, got = main_path("parity_prims", prims, pcam, pfilm, GOLDEN_PRIMS,
+                         config=dataclasses.replace(cfg, spp_batch=16))
     expect("parity_prims", got, k2_shade=6 * n_p)
     n_p, got = main_path("aabox", *bounce_scenes["aabox"])
     expect("aabox", got, k1_pass=n_p)
@@ -2747,6 +3223,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     del big_builder
+    ctx.city = big  # phase 49 (f)'s one-process city
     parts = big.tri_parts or ()
     n_big = big.triangles.mat_id.shape[0]
     fat_bytes = big.tri_bvh.fat.numel() * 4
@@ -3272,7 +3749,8 @@ def main() -> int:
            k4_bvh4_any=6 * n_p)
 
     # ---- 27. scenes that take the general route by themselves
-    gcfg = RenderConfig(num_samples=16, max_depth=5, estimator="reference")
+    gcfg = RenderConfig(num_samples=16, max_depth=5, estimator="reference",
+                        spp_batch=16)
     mat_s, mat_c, mat_f0 = load_scene_file(
         os.path.join(REPO, "scenes", "materials_scene.txt"), device=dev)
     mat_f = Film(fov=mat_f0.fov, width=size, height=size)
@@ -3367,7 +3845,7 @@ def main() -> int:
         "parity_textured", tex_s, tex_c, tex_f,
         os.path.join(REPO, "tests", "goldens", "golden_textured.is"),
         config=RenderConfig(num_samples=160, max_depth=5,
-                            estimator="reference"))
+                            estimator="reference", spp_batch=16))
     expect("parity_textured", got)
     tex512 = Film(fov=tex_f.fov, width=size, height=size)
     tids = torch.from_numpy(Renderer(tex_b, tex_c, tex512, cfg).pixel_order()
@@ -3447,7 +3925,8 @@ def main() -> int:
         state = nxt
     n_p, got = main_path("fullscene", full, fcam, ffilm,
                          config=RenderConfig(num_samples=16, max_depth=5,
-                                             estimator="reference"))
+                                             estimator="reference",
+                                             spp_batch=16))
     expect("fullscene", got, k3_bvh4_closest=6 * n_p, k4_bvh4_any=6 * n_p)
     for name in ("k3_bvh4_closest", "k4_bvh4_any"):
         kernels[name]["launches"] += got[name]
@@ -3472,7 +3951,8 @@ def main() -> int:
         return torch.bincount(pick[ok], minlength=scn.lights.light_type.shape[
             0]).tolist()
 
-    pcfg = RenderConfig(num_samples=16, max_depth=5, estimator="physical")
+    pcfg = RenderConfig(num_samples=16, max_depth=5, estimator="physical",
+                        spp_batch=16)
     for label, fn, power in (
             ("quad_lamp principled", tex_scenes.quad_lamp, "principled"),
             ("quad_lamp_and_rect reference", tex_scenes.quad_lamp_and_rect,
@@ -3664,7 +4144,7 @@ def main() -> int:
                       fids, spp, depth, ("general", False), mis=True)
     n_p, got = main_path("fullscene_mis", full, fcam, ffilm,
                          config=RenderConfig(num_samples=16, max_depth=5,
-                                             estimator="mis"))
+                                             estimator="mis", spp_batch=16))
     expect("fullscene mis", got, k3_bvh4_closest=6 * n_p,
            k4_bvh4_any=6 * n_p)
     for name in ("k3_bvh4_closest", "k4_bvh4_any"):
@@ -3703,7 +4183,8 @@ def main() -> int:
     for est in ("mis", "physical"):
         groute = wf.production_fast_shade(gls, gcam, gfilm, est)
         r = Renderer(gls, gcam, gfilm, RenderConfig(
-            num_samples=64, max_depth=3, seed=11, estimator=est))
+            num_samples=64, max_depth=3, seed=11, estimator=est,
+            spp_batch=16))
         reset_counts()
         t0 = time.perf_counter()
         r.render()
@@ -3740,6 +4221,10 @@ def main() -> int:
     # as ranks on this card; the XL fullscene through the parts route
     slice_h_phases(ctx)
 
+    # ---- 51-54. slice K: the general route on every accelerator, the XL
+    # gradient through the parts route, the albedo-recovery demo
+    slice_k_phases(ctx)
+
     # ---- 37. the inverse path: gradients through the general route, the
     # search detached through K3/K4, and InverseRenderer
     from craytracer_tpu_torch.examples import inverse_mesh_demo as demo
@@ -3754,7 +4239,7 @@ def main() -> int:
     def peak_gb():
         return torch.cuda.max_memory_allocated() / 1e9
 
-    isize, steps_c = 512, 2
+    isize, steps_c = 512, 1
     t0 = time.perf_counter()
     reset_counts()
     dm = demo.demo(size=isize, tex=64, steps=steps_c, device=dev)
@@ -3839,7 +4324,8 @@ def main() -> int:
     # then the forward pass alone (the loss's graph built, no backward)
     inv = renderer()
     t_det, t_atom, g_atom = [], [], None
-    for _ in range(REPS):
+    inv_reps = 1  # each run takes seconds; one after the warm-up
+    for _ in range(inv_reps):
         t0 = time.perf_counter()
         inv.value_and_grad()
         torch.cuda.synchronize()
@@ -3861,7 +4347,8 @@ def main() -> int:
     t_again = statistics.median(t_det)
     print(f"[time] {card}, one inverse gradient at {isize}x{isize} x "
           f"{icfg.spp_per_step} spp after the warm-up, in turns, median of "
-          f"{REPS}: deterministic {t_again:.3f} s (runs {_runs(t_det)} s), "
+          f"{inv_reps}: deterministic {t_again:.3f} s (runs {_runs(t_det)} "
+          f"s), "
           f"atomic accumulation {statistics.median(t_atom):.3f} s (runs "
           f"{_runs(t_atom)} s), deterministic / atomic "
           f"{t_again / statistics.median(t_atom):.4f}; the forward pass "
@@ -3885,7 +4372,7 @@ def main() -> int:
     if not ok_b:
         fails.append("inverse gradient: kernels and plain disagree")
 
-    # (c) InverseRenderer: two steps at 512x512, 8 spp each
+    # (c) InverseRenderer: a step at 512x512, 8 spp
     inv = renderer()
     step_launch = icfg.spp_per_step * per_pass
     step_s, step_gb = [], []

@@ -587,10 +587,12 @@ def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
     that requires grad, the gate answers "general" (module docstring).
     `kernels` applies to the per-bounce routes: None launches their
     kernels for rays on the card, False runs their plain versions on any
-    device. estimator="reference" divides L by good_paths
-    (trace.h:528-529); "physical" and "mis" (always the general step)
-    return plain L. A scene outside the gate raises NotImplementedError
-    naming the ROADMAP item.
+    device, True takes the kernels' wrappers on any device (on CPU
+    tensors each wrapper runs its plain version, behind the route's sorts
+    and a cut table's part chain). estimator="reference" divides L by
+    good_paths (trace.h:528-529); "physical" and "mis" (always the
+    general step) return plain L. A scene outside the gate raises
+    NotImplementedError naming the ROADMAP item.
 
     `sampler` (sampling/tables.py SampleTable) takes the film jitter from
     its table: on a "bounce" scene K1 then traces the camera rays made
@@ -630,7 +632,7 @@ def render_sample(scene: T.Scene, camera, film, pixel_ids, seed: int,
     o, d = camera_rays(camera, film, pixel_ids, seed, spp_index,
                        film_jitter(seed, pixel_ids, spp_index, sampler))
     on_card = o.device.type == "cuda"
-    kernels = on_card if kernels is None else kernels and on_card
+    kernels = on_card if kernels is None else bool(kernels)
     if trace_type != "PATHTRACE":
         from craytracer_tpu_torch.integrator.whitted import trace_whitted
 

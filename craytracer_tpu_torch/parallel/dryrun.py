@@ -30,6 +30,7 @@ rank and sent back.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -120,13 +121,22 @@ def run_case(case: dict, device=None):
     (its mesh's groups are made collectively). Returns None on a rank
     outside the case's mesh, else a dict of CPU results.
 
-    A case: "kind" "render" or "train"; "mesh" (R, G); "scene", "camera",
-    "film" (port objects; a G > 1 mesh shards the scene's triangles with
-    "accel", default "bvh4"); "depth"; "seed". A render case: "spp" (a
-    list: one pass each), "estimator", "fast_shade" (default True),
+    A case: "kind" "render" or "train"; "mesh" (R, G); "scene" (a port
+    scene, or a picklable callable that returns one, so a rank builds a
+    large scene itself), "camera", "film" (port objects; a G > 1 mesh
+    shards the scene's triangles with "accel", default "bvh4", and with
+    "part_budget" in bytes cuts each bvh4 shard's table into parts under
+    that budget in place of PART_BUDGET_BYTES); "depth"; "seed". A render
+    case: "spp" (a list: one pass each), "estimator", "fast_shade"
+    (default True), "kernels" (render_sample's; True takes the wrappers,
+    on CPU tensors their plain versions, so a cut shard walks its parts),
     "compact_at" (R = 1 only: render_sample over the whole image with the
     compaction bounce forced), "first_hit" (also the reduced bounce-0 hit's
-    group and prim ids of the first pass). It returns per pass the image,
+    group and prim ids of the first pass; with "part_budget", also this
+    shard's own (t, prim) of those rays through its parts and through its
+    uncut table). It returns the rank's triangle count, its table's part
+    count and the seconds it took to make and place its scene, and per
+    pass the image,
     good_paths, ray and shadow-ray counts of every pixel id, the launch
     counts and the seconds. A train case: "step" "sharded" or "bucketed"
     (G = 1), "spp", "target" [N, 3], "repeats"; it returns loss, grads
@@ -136,17 +146,26 @@ def run_case(case: dict, device=None):
     if mesh is None:
         return None
     dev = mesh.device
+    t0 = time.perf_counter()
     scene, tri_base = case["scene"], 0
+    if callable(scene):
+        scene = scene()
+    whole = scene
     if n_g > 1:
-        scene, tri_base = shard_scene_geometry(scene, n_g, mesh.geom.index,
-                                               case.get("accel", "bvh4"))
+        with _part_budget(case.get("part_budget")):
+            scene, tri_base = shard_scene_geometry(
+                whole, n_g, mesh.geom.index, case.get("accel", "bvh4"))
     scene, camera, film = (T.to_device(x, dev) for x in (
         scene, case["camera"], case["film"]))
     ids = torch.arange(film.num_pixels, dtype=torch.int32, device=dev)
     depth, seed = case["depth"], case["seed"]
+    _sync(dev)
     out = {"rank": dist.get_rank(), "tri_base": tri_base,
-           "n_tris": scene.triangles.mat_id.shape[0], "passes": []}
+           "n_tris": scene.triangles.mat_id.shape[0],
+           "parts": len(scene.tri_parts or ()),
+           "scene_seconds": time.perf_counter() - t0, "passes": []}
     if case["kind"] == "render":
+        kernels = case.get("kernels")
         kw = dict(estimator=case.get("estimator", "reference"),
                   fast_shade=case.get("fast_shade", True), with_metrics=True)
         if "compact_at" in case:
@@ -160,11 +179,13 @@ def run_case(case: dict, device=None):
                 img, good, m = render_sample(
                     scene, camera, film, ids, seed, spp, depth,
                     kw["estimator"], general=not kw["fast_shade"],
-                    compact_at=case["compact_at"], geom_axis=mesh.geom,
+                    kernels=kernels, compact_at=case["compact_at"],
+                    geom_axis=mesh.geom,
                     tri_base=tri_base, with_metrics=True)
                 return img, good, m["lane_rays"], m["lane_shadow_rays"]
         elif n_g > 1:
-            render = geom_sharded_render_pass(mesh, depth, **kw)
+            render = geom_sharded_render_pass(mesh, depth, kernels=kernels,
+                                              **kw)
 
             def one(spp):
                 return render(scene, tri_base, camera, film, ids, seed, spp)
@@ -181,9 +202,16 @@ def run_case(case: dict, device=None):
                     "lane_rays": res[2], "lane_shadow_rays": res[3],
                     "counts": counts, "seconds": secs})
             if case.get("first_hit"):
+                on = dev.type == "cuda" if kernels is None else kernels
                 out["first_hit"] = _first_hit(mesh, scene, camera, film,
                                               ids, seed, case["spp"][0],
-                                              tri_base)
+                                              tri_base, on)
+                if n_g > 1 and "part_budget" in case:
+                    uncut, _ = shard_scene_geometry(
+                        whole, n_g, mesh.geom.index, "bvh4")
+                    out["shard_hit"] = [_shard_hit(
+                        T.to_device(s, dev), mesh, camera, film, ids, seed,
+                        case["spp"][0], on) for s in (scene, uncut)]
     else:
         target = case["target"].to(dev)
         if n_g > 1:
@@ -201,21 +229,50 @@ def run_case(case: dict, device=None):
     return _cpu(out)
 
 
-def _first_hit(mesh, scene, camera, film, ids, seed, spp, tri_base):
-    """The bounce-0 hit's (group, prim) of every pixel id, the prims
-    global: the camera rays of this rank's block through the search (K3
-    on the card) and, over a geometry axis, `reduce_hit`."""
-    from craytracer_tpu_torch.integrator.wavefront import (_closest_hit,
-                                                           camera_rays,
+def _camera_rays(mesh, camera, film, ids, seed, spp):
+    from craytracer_tpu_torch.integrator.wavefront import (camera_rays,
                                                            film_jitter)
 
     block = ray_block(ids, mesh.rays)
-    o, d = camera_rays(camera, film, block, seed, spp,
+    return camera_rays(camera, film, block, seed, spp,
                        film_jitter(seed, block, spp))
-    hit = _closest_hit(scene, o, d, o.device.type == "cuda", mesh.geom,
-                       tri_base)
+
+
+def _first_hit(mesh, scene, camera, film, ids, seed, spp, tri_base,
+               kernels):
+    """The bounce-0 hit's (group, prim) of every pixel id, the prims
+    global: the camera rays of this rank's block through the search (K3
+    with `kernels`) and, over a geometry axis, `reduce_hit`."""
+    from craytracer_tpu_torch.integrator.wavefront import _closest_hit
+
+    o, d = _camera_rays(mesh, camera, film, ids, seed, spp)
+    hit = _closest_hit(scene, o, d, kernels, mesh.geom, tri_base)
     return gather_rays(torch.stack([hit.group, hit.prim], dim=1),
                        ids.shape[0], mesh.rays)
+
+
+def _shard_hit(shard, mesh, camera, film, ids, seed, spp, kernels):
+    """This shard's own closest triangle (t, shard-local id) of the
+    camera rays of this rank's block, before any reduction."""
+    from craytracer_tpu_torch.ops.intersect import _tri_closest
+
+    o, d = _camera_rays(mesh, camera, film, ids, seed, spp)
+    return _tri_closest(shard, o, d, kernels)
+
+
+@contextlib.contextmanager
+def _part_budget(budget):
+    """bvh4_parts.PART_BUDGET_BYTES set to `budget` inside the block (left
+    as it is for None)."""
+    from craytracer_tpu_torch.accel import bvh4_parts
+
+    old = bvh4_parts.PART_BUDGET_BYTES
+    if budget is not None:
+        bvh4_parts.PART_BUDGET_BYTES = int(budget)
+    try:
+        yield
+    finally:
+        bvh4_parts.PART_BUDGET_BYTES = old
 
 
 def launch(world: int, cases, backend: str = "gloo", device=None,

@@ -174,7 +174,7 @@ def shard_scene_geometry(scene: T.Scene, n_shards: int, index: int,
 
 def geom_sharded_render_pass(mesh: Mesh, max_depth: int,
                              estimator: str = "reference", fast_shade=True,
-                             with_metrics: bool = False):
+                             with_metrics: bool = False, kernels=None):
     """A pass (shard, tri_base, camera, film, pixel_ids, seed, spp_index)
     -> the radiance of every pixel id on every rank (geom.py:146-164):
     the pixel ids split over the ray axis, `shard` this rank's geometry
@@ -183,13 +183,14 @@ def geom_sharded_render_pass(mesh: Mesh, max_depth: int,
     for sharded_render_pass: True takes the gate's route, where a "bounce"
     scene takes the per-bounce "shade" route (the reduction needs the hit
     between stages, as JAX's render_sample skips its megakernel, :603);
-    False the general step."""
+    False the general step. `kernels` as for render_sample."""
 
     def render(shard, tri_base, camera, film, pixel_ids, seed, spp_index):
         return render_rays(mesh, pixel_ids, with_metrics, lambda block:
                            render_sample(shard, camera, film, block, seed,
                                          spp_index, max_depth, estimator,
                                          general=not fast_shade,
+                                         kernels=kernels,
                                          geom_axis=mesh.geom,
                                          tri_base=tri_base,
                                          with_metrics=with_metrics))

@@ -98,6 +98,12 @@ def city_builder(target_tris: int) -> SceneBuilder:
     return b
 
 
+def city_scene(target_tris: int, accel: str = "auto", device=None):
+    """The city built with `accel` on `device`: a picklable way for a rank
+    process to make it itself (parallel/dryrun.py's case "scene")."""
+    return city_builder(target_tris).build(accel=accel, device=device)
+
+
 def city_view(n_tris: int, size: int, device=None):
     """bench_mesh.py's camera and a size x size film for a city of
     `n_tris` triangles, on `device` (the card unless the caller asks for

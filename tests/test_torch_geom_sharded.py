@@ -12,9 +12,20 @@ atol 1e-5 of JAX's sharded pass and of the port's unsharded pass, where
 `good` and the ray and shadow-ray counters also agree on every lane; the
 train step's loss within rtol 1e-5, its gradients within rtol 1e-4, atol
 1e-6.
+
+One case cuts shards into parts: scenes/parity_mesh_mid.txt (20,480
+triangles) over 2 geometry shards with the port's part budget set in the
+ranks (the case's "part_budget", never the JAX package's) to two fifths
+of a shard's bvh4 table, so each shard's table is cut into parts, and the
+ranks trace with the kernels' wrappers (on CPU tensors their plain
+versions: the part sort and the per-part walks with the carried hit).
+Its image is held to JAX's geometry-sharded pass on the same (1, 2) mesh,
+and each shard's own hit ids and t on the camera rays are bit-equal with
+its uncut table's.
 """
 
 import concurrent.futures
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +33,7 @@ import pytest
 import torch
 
 from craytracer_tpu.camera import Film as JFilm, make_camera as j_camera
+from craytracer_tpu.io.scenefile import load_scene_file as j_load
 from craytracer_tpu.parallel.geom import (
     geom_sharded_render_pass as j_pass, geom_sharded_train_step as j_step,
     make_geom_mesh as j_mesh, shard_scene_geometry as j_shard)
@@ -44,8 +56,12 @@ RENDERS = [("bvh4", (2, 2), "bvh4", 5, 3, {}),
            ("shade_compact", (1, 2), "bvh4", 5, 3, {"compact_at": 2}),
            ("general_compact", (1, 2), "bvh4", 5, 3,
             {"compact_at": 2, "fast_shade": False}),
-           ("general", (2, 2), "bvh4", 5, 3, {"fast_shade": False})]
-JAX_RENDERS = ("bvh4", "uneven")
+           ("general", (2, 2), "bvh4", 5, 3, {"fast_shade": False}),
+           ("mesh_mid_parts", (1, 2), "mesh_mid", 5, 3,
+            {"kernels": True, "first_hit": True})]
+JAX_RENDERS = ("bvh4", "uneven", "mesh_mid_parts")
+MESH_MID = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "scenes", "parity_mesh_mid.txt")
 
 
 def _port(js, jc, jf):
@@ -61,11 +77,18 @@ def world(jax_native):  # noqa: F811
     jc = j_camera((0, 6, 14), (0, 1, 0))
     jf = JFilm(fov=jnp.float32(np.radians(45.0)), width=16, height=16)
     jscenes = {a: _mesh_scene(a) for a in ("bvh4", "bvh")}
-    ports = {a: _port(js, jc, jf) for a, js in jscenes.items()}
+    cams = dict.fromkeys(jscenes, jc)
+    jscenes["mesh_mid"], cams["mesh_mid"], _ = j_load(MESH_MID)
+    ports = {a: _port(js, cams[a], jf) for a, js in jscenes.items()}
+    # two fifths of a shard's uncut table: each shard cut into parts
+    shard0, _ = shard_scene_geometry(ports["mesh_mid"][0], 2, 0)
+    budget = shard0.tri_bvh.fat.numel() * 4 * 2 // 5
     n = jf.width * jf.height
     cases = []
     for name, mesh, accel, seed, depth, extra in RENDERS:
         s, c, f = ports[accel]
+        if accel == "mesh_mid":
+            accel, extra = "bvh4", dict(extra, part_budget=budget)
         cases.append(dict(kind="render", mesh=mesh, accel=accel, scene=s,
                           camera=c, film=f, depth=depth, seed=seed, spp=[0],
                           **extra))
@@ -92,9 +115,11 @@ def world(jax_native):  # noqa: F811
         jax_out = {}
         for name, mesh, accel, seed, depth, _ in RENDERS:
             if name in JAX_RENDERS:
-                stk, bases = j_shard(jscenes[accel], mesh[1], accel=accel)
+                stk, bases = j_shard(jscenes[accel], mesh[1],
+                                     accel=accel.replace("mesh_mid", "bvh4"))
                 jax_out[name] = np.asarray(j_pass(j_mesh(*mesh), depth)(
-                    stk, bases, jc, jf, ids, jnp.int32(seed), jnp.int32(0)))
+                    stk, bases, cams[accel], jf, ids, jnp.int32(seed),
+                    jnp.int32(0)))
         stk, bases = j_shard(jscenes["bvh4"], 2, accel="bvh4")
         jax_out["train"] = j_step(j_mesh(2, 2), 2)(
             stk, bases, jc, jf, ids, jnp.int32(5), jnp.int32(0),
@@ -223,3 +248,33 @@ def test_mesh_lights_rejected():
                 accel="bvh4", light_power="principled")))
         with pytest.raises(ValueError, match="mesh lights"):
             shard_scene_geometry(scene, 2, 0)
+
+
+def test_part_cut_shards_walk_their_parts(world):
+    """The mesh_mid_parts case: each shard's bvh4 table is cut into at
+    least 2 parts under the budget set in the ranks, the shard's own
+    closest-hit t and triangle ids of the camera rays through its parts
+    are bit-equal with its uncut table's, and the reduced bounce-0 hits
+    are the unsharded search's."""
+    from craytracer_tpu_torch.integrator.wavefront import (_closest_hit,
+                                                           camera_rays,
+                                                           film_jitter)
+
+    i = [r[0] for r in RENDERS].index("mesh_mid_parts")
+    ranks = _ranks(world, i)
+    assert len(ranks) == 2
+    for r in ranks:
+        assert r["parts"] >= 2, r["parts"]
+        (t_cut, id_cut), (t_whole, id_whole) = r["shard_hit"]
+        assert torch.equal(id_cut, id_whole), f"rank {r['rank']}"
+        assert torch.equal(t_cut, t_whole), f"rank {r['rank']}"
+        assert (t_cut < 1e30).any()
+    case = world["cases"][i]
+    ids = torch.arange(case["film"].num_pixels, dtype=torch.int32)
+    o, d = camera_rays(case["camera"], case["film"], ids, case["seed"], 0,
+                       film_jitter(case["seed"], ids, 0))
+    with torch.no_grad():
+        hit = _closest_hit(case["scene"], o, d, False, None, 0)
+    for r in ranks:
+        assert torch.equal(r["first_hit"],
+                           torch.stack([hit.group, hit.prim], dim=1))

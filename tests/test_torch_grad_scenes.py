@@ -172,17 +172,21 @@ def demo_scene(jax_native):
             alphay=m.alphay.at[mid].set(p["alpha"])),
             textures=js.textures.replace(texels=tx))
 
-    def img(s, spp0):
-        return sum(j_render(s, jc, jf, ids, 7, spp0 + k, 2, estimator="mis")
-                   for k in range(2)) / 2
+    def loss(p, spp0, target):
+        img = sum(j_render(graft(p), jc, jf, ids, 7, spp0 + k, 2,
+                           estimator="mis") for k in range(2)) / 2
+        return jnp.mean((img - target) ** 2), img
 
-    target = jax.jit(lambda p: img(graft(p), 10))(
+    # one compile: the target is the image of the true parameters at spp
+    # 10, 11, the gradient the MSE's at the guess at spp 0, 1
+    value_grad = jax.jit(jax.value_and_grad(loss, has_aux=True))
+    (_, target), _ = value_grad(
         {"texels": jnp.asarray(tex.reshape(-1, 3)),
-         "alpha": jnp.float32(0.35)})
+         "alpha": jnp.float32(0.35)}, jnp.int32(10),
+        jnp.zeros((256, 3), jnp.float32))
     p0 = {"texels": jnp.full((64 * 64, 3), 0.4, jnp.float32),
           "alpha": jnp.float32(0.6)}
-    gj = jax.jit(jax.grad(lambda p: jnp.mean(
-        (img(graft(p), 0) - target) ** 2)))(p0)
+    _, gj = value_grad(p0, jnp.int32(0), target)
     return js, jc, tf, mid, np.asarray(target), gj
 
 

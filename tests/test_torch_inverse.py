@@ -5,7 +5,9 @@ check), the port's InverseRenderer against the JAX package's for 6 steps
 on that file's scene at 8x8 (Adam and SGD, with and without the cosine
 decay, the "mse" and "log1p" losses; params and losses within 1e-5), and
 a step whose loss is not finite: skipped, the params, the optimizer's
-state and the schedule's count unchanged.
+state and the schedule's count unchanged. The JAX cases of one loss kind
+share one compile of JAX's jitted value_and_grad (its loss depends on
+nothing the cases vary).
 """
 
 import dataclasses
@@ -186,18 +188,28 @@ CASES = [(opt, decay, loss) for opt in ("adam", "sgd") for decay in (0, 4)
          for loss in ("mse", "log1p")]
 
 
-@pytest.mark.parametrize("optimizer,decay,loss", CASES)
-def test_inverse_renderer_matches_jax(optimizer, decay, loss):
-    """6 steps of the port's InverseRenderer against the JAX package's on
-    the same scene (carried by interop): every step's loss, grad norm and
-    params within 1e-5."""
-    b = JBuilder()
-    js_t = _scene(b, 0.7)
+@pytest.fixture(scope="module")
+def jax_inverse():
+    """The JAX scenes, camera, film and target, and per loss kind the
+    first JAX InverseRenderer's jitted value_and_grad: its loss_fn depends
+    on the scene, camera, film, target, seed, depth, estimator, spp per
+    step and loss kind only, which every case shares, so later cases of
+    that kind reuse its compile."""
+    js_t = _scene(JBuilder(), 0.7)
     js0 = _scene(JBuilder(), 0.25)
     jc = j_make_camera((0, 10, 25), (0, 0, 0))
     jf = JFilm(fov=jnp.float32(np.radians(40.0)), width=8, height=8)
     ids = jnp.arange(64, dtype=jnp.int32)
     jtarget = j_render(js_t, jc, jf, ids, 7, 0, 2, estimator="physical")
+    return js0, jc, jf, jtarget, {}
+
+
+@pytest.mark.parametrize("optimizer,decay,loss", CASES)
+def test_inverse_renderer_matches_jax(jax_inverse, optimizer, decay, loss):
+    """6 steps of the port's InverseRenderer against the JAX package's on
+    the same scene (carried by interop): every step's loss, grad norm and
+    params within 1e-5."""
+    js0, jc, jf, jtarget, compiled = jax_inverse
     lr = 0.05 if optimizer == "adam" else 2.0
     kw = dict(learning_rate=lr, max_depth=2, optimizer=optimizer,
               decay_steps=decay, loss=loss)
@@ -208,6 +220,7 @@ def test_inverse_renderer_matches_jax(optimizer, decay, loss):
 
     jinv = JInverse(js0, jc, jf, jtarget, js0.materials.color[1], j_apply,
                     JConfig(**kw), seed=7)
+    jinv._value_and_grad = compiled.setdefault(loss, jinv._value_and_grad)
     ts0 = scene_from_numpy(numpy_leaves(js0))
     tinv = InverseRenderer(
         ts0, camera_from_numpy(numpy_leaves(jc)), _film(8, 40.0),

@@ -19,8 +19,11 @@ bounce (`trace_paths_logged` takes no `mis`).
 
 from __future__ import annotations
 
-import numpy as np
+import functools
+
+import jax
 import jax.numpy as jnp
+import numpy as np
 import torch
 
 from craytracer_tpu.camera import generate_rays as j_generate_rays
@@ -61,12 +64,21 @@ def _unrolled(js, o, d, pix, spp, depth, mis):
     return np.asarray(state[3])
 
 
+@functools.lru_cache(maxsize=None)
+def jax_trace(depth, mis):
+    """JAX's XLA trace_paths at `depth`, jitted with the scene as an
+    argument: its tables are not folded into the program as constants,
+    which compiles faster, and one jitted function serves every scene."""
+    return jax.jit(lambda scene, o, d, pix, spp: j_trace(
+        scene, o, d, SEED, pix, spp, depth, with_metrics=True,
+        fast_shade=False, mis=mis))
+
+
 def check_general(js, ts, rays, depth, excused=(), mis=False):
     """Hold the port's general trace_paths against the JAX XLA one."""
     o, d, pix, spp = rays
-    ref = j_trace(js, jnp.asarray(o), jnp.asarray(d), SEED, jnp.asarray(pix),
-                  jnp.asarray(spp), depth, with_metrics=True,
-                  fast_shade=False, mis=mis)
+    ref = jax_trace(depth, mis)(js, *(jnp.asarray(x) for x in (o, d, pix,
+                                                              spp)))
     L, good, m = trace_paths(ts, torch.from_numpy(o), torch.from_numpy(d),
                              SEED, torch.from_numpy(pix),
                              torch.from_numpy(spp), depth, with_metrics=True,
