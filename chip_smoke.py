@@ -431,6 +431,24 @@ never JAX or the JAX package. Phases, each printing its own lines:
    first) the last loss below the first, the run's last step included;
    no launch (a scene without triangles); the recovered albedos beside
    the targets, s/step.
+55. slice L (`slice_l_phases`, after phase 54; `python3 chip_smoke.py
+   --slice-l` builds the kernels and runs it alone, with no result
+   line), the texture decoders of csrc/imgdecode.cpp (g++, on the host):
+   (a) every committed fixture of craytracer_tpu_torch/testdata/textures/
+   (PNG, JPEG, PNM, BMP, TGA, GIF variants) decoded and hashed against
+   manifest.json, the SHA-256 of PIL's decode of each (the card's
+   machine has no PIL); (b) scenes/parity_textured.txt with accel bvh4
+   and its checker replaced by each lossless re-encoding (palette PNG,
+   interlaced PNG, 16-bit RGB PNG, BMP-24, RLE TGA, GIF): the texture
+   pack equal to the PPM scene's and a 512x512 Morton, depth-5 general
+   pass through K3/K4 bit-equal with the PPM scene's, the counts set to
+   0 just before each pass and read just after (K3 = K4 = 6, nothing
+   else); (c) the 4:2:0 JPEG checker through the Renderer (128x128 x 64
+   spp, 2 passes): no NaN, a finite image, the PPM scene's launch counts
+   (K3 = K4 = 12); (d) host seconds per decode, median of 3, of the
+   fullscene's three 512x512 PNGs, the 2048x2048 4:2:0 JPEG fixture and
+   a 4096x4096 PNG written by `encode_png`, with the host's CPU model
+   and the card's line. Budget: 20 s.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
@@ -442,7 +460,8 @@ compacted Renderer, K2 (K3 on hybrid) phase 46's accelerators, K1 and
 K2-K4 the ranks' sharded passes of phase 49 (a) and (b), K2 (e)'s and
 K2, K3 `_init` and K4 (f)'s, K3 `_init` and K4 the XL Renderer of phase
 50, K3 hybrid's general route in phases 51-52, K3 `_init` and K4 phase
-53's XL gradients through the kernels;
+53's XL gradients through the kernels, K3 and K4 phase 55's textured
+passes and Renderers;
 `k1_pass_rays`, K1's external-ray mode, on Cornell
 with a multijittered table (phase 41); K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch (K2's launches enqueued
@@ -2211,6 +2230,210 @@ def slice_k_phases(ctx) -> None:
           "the general route's brute force)")
 
 
+def slice_l_phases(ctx) -> None:
+    """Phase 55: slice L on the card's host (module docstring). `ctx` as
+    for `slice_f_phases`; failures are appended."""
+    import hashlib
+    import platform
+    import shutil
+    import tempfile
+
+    from craytracer_tpu_torch.camera import Film, generate_rays
+    from craytracer_tpu_torch.integrator import wavefront as wf
+    from craytracer_tpu_torch.integrator.render import (RenderConfig,
+                                                        Renderer)
+    from craytracer_tpu_torch.io import imgdecode
+    from craytracer_tpu_torch.io.image import write_png
+    from craytracer_tpu_torch.io.scenefile import load_scene_file
+    from craytracer_tpu_torch.io.teximage import decode_file
+    from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
+
+    dev, card, fails, kernels = ctx.dev, ctx.card, ctx.fails, ctx.kernels
+    counters, depth = ctx.counters, 5
+    t_phase = time.perf_counter()
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                k, _, v = ln.partition(":")
+                info.setdefault(k.strip(), v.strip())
+    except OSError:
+        pass
+    # the model name, with the fields that tell the part where a
+    # virtual machine reports it as "unknown"
+    cpu = "; ".join(f"{k} {info[k]}" for k in (
+        "model name", "vendor_id", "cpu family", "model", "CPU implementer",
+        "CPU part") if k in info) + (f"; {platform.machine()}, "
+                                     f"{os.cpu_count()} CPUs")
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    def want(**kw):
+        return {**dict.fromkeys(counters, 0), **kw}
+
+    def check(label, ok, detail=""):
+        print(f"[slice-l] {label}: {detail}" + ("" if ok else " FAIL"),
+              flush=True)
+        if not ok:
+            fails.append(f"{label}: {detail}")
+
+    def add_launches(got):
+        for name in ("k3_bvh4_closest", "k4_bvh4_any"):
+            if name in kernels:
+                kernels[name]["launches"] += got[name]
+
+    # ---- 55 (a). every committed fixture against PIL's manifest
+    t0 = time.perf_counter()
+    imgdecode.library()
+    build_s = time.perf_counter() - t0
+    fx = os.path.join(REPO, "craytracer_tpu_torch", "testdata", "textures")
+    with open(os.path.join(fx, "manifest.json")) as f:
+        manifest = json.load(f)
+    bad = []
+    t0 = time.perf_counter()
+    for name, w in sorted(manifest.items()):
+        try:
+            got = decode_file(os.path.join(fx, name))
+            ok = (list(got.shape) == w["shape"] and hashlib.sha256(
+                got.tobytes()).hexdigest() == w["sha256"])
+        except (OSError, ValueError, NotImplementedError) as e:
+            ok, name = False, f"{name} ({e})"
+        if not ok:
+            bad.append(name)
+    check(f"55 (a) {len(manifest)} fixtures (PNG, JPEG, PNM, BMP, TGA, GIF) "
+          "against the SHA-256 of PIL's decode", not bad,
+          f"decoder built in {build_s:.2f} s (g++ "
+          f"{' '.join(imgdecode.CXX_FLAGS)}), all decoded in "
+          f"{time.perf_counter() - t0:.3f} s; differing: {bad}")
+
+    # ---- 55 (b). the checker in six lossless encodings: the general
+    # route's pass bit-equal to the PPM scene's
+    textured = os.path.join(REPO, "scenes", "parity_textured.txt")
+    with open(textured) as f:
+        scene_text = f.read()
+    tmp = tempfile.mkdtemp(prefix="slice_l_")
+    try:
+        def variant(name):
+            """parity_textured with its checker replaced by fixture
+            `name`, loaded with bvh4 on the card."""
+            d = os.path.join(tmp, name.replace(".", "_"))
+            os.makedirs(d)
+            for f in ("parity_tex_quad.obj", "parity_tex_env.exr"):
+                shutil.copy(os.path.join(REPO, "scenes", f), d)
+            shutil.copy(os.path.join(fx, name), d)
+            path = os.path.join(d, "parity_textured.txt")
+            with open(path, "w") as f:
+                f.write(scene_text.replace("parity_tex_checker.ppm", name))
+            return load_scene_file(path, accel="bvh4", device=dev)[0]
+
+        ppm, cam, film0 = load_scene_file(textured, accel="bvh4",
+                                          device=dev)
+        film = Film(fov=film0.fov, width=512, height=512)
+        cfg = RenderConfig(max_depth=depth)
+        ids = torch.from_numpy(Renderer(ppm, cam, film, cfg).pixel_order()
+                               ).to(dev)
+        spp = torch.zeros_like(ids)
+        o, d = generate_rays(cam, film, ids,
+                             stratified_jitter(cfg.seed, ids, spp))
+
+        def general_pass(scn):
+            reset()
+            t0 = time.perf_counter()
+            out = wf.trace_paths(scn, o, d, cfg.seed, ids, spp, depth,
+                                 with_metrics=True, fast_shade="shade",
+                                 general=True)
+            torch.cuda.synchronize()
+            return out, counts(), time.perf_counter() - t0
+
+        general_pass(ppm)  # warm-up
+        ref, got, dt = general_pass(ppm)
+        six = want(k3_bvh4_closest=depth + 1, k4_bvh4_any=depth + 1)
+        add_launches(got)
+        check("55 (b) parity_textured (PPM checker) bvh4 512x512 Morton "
+              f"depth {depth} general route", got == six,
+              f"{dt * 1e3:.1f} ms, launches {got}, L mean "
+              f"{float(ref[0].mean()):.6f}")
+        for name in ("checker_palette.png", "checker_interlaced.png",
+                     "checker_rgb16.png", "checker_24.bmp",
+                     "checker_rle.tga", "checker.gif"):
+            vs = variant(name)
+            texels = torch.equal(vs.textures.texels, ppm.textures.texels)
+            out, got, dt = general_pass(vs)
+            add_launches(got)
+            same = (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+                    and all(torch.equal(torch.as_tensor(out[2][k]),
+                                        torch.as_tensor(ref[2][k]))
+                            for k in ref[2]))
+            check(f"55 (b) {name}", texels and same and got == six,
+                  f"texels equal {texels}, pass bit-equal {same}, "
+                  f"{dt * 1e3:.1f} ms, launches {got}")
+
+        # ---- 55 (c). the 4:2:0 JPEG checker through the Renderer
+        rcfg = RenderConfig(num_samples=64, max_depth=depth,
+                            estimator="reference", spp_batch=32)
+        runs = {}
+        for label, scn in (("ppm", ppm), ("jpeg",
+                                          variant("checker_420.jpg"))):
+            r = Renderer(scn, cam, film0, rcfg)
+            reset()
+            t0 = time.perf_counter()
+            r.render()
+            torch.cuda.synchronize()
+            runs[label] = (r, counts(), time.perf_counter() - t0)
+            add_launches(runs[label][1])
+        r, got, dt = runs["jpeg"]
+        img = r.raw_mean()
+        w6 = want(k3_bvh4_closest=(depth + 1) * r.passes,
+                  k4_bvh4_any=(depth + 1) * r.passes)
+        finite = bool(np.isfinite(np.asarray(img)).all())
+        check(f"55 (c) Renderer parity_textured with checker_420.jpg bvh4 "
+              f"{film0.width}x{film0.height} x {rcfg.num_samples} spp",
+              r.nan_count == 0 and finite and got == w6 == runs["ppm"][1],
+              f"{r.passes} passes, {dt:.3f} s, NaN substituted "
+              f"{r.nan_count}, finite {finite}, launches {got} (PPM scene "
+              f"{runs['ppm'][1]}), mean {float(np.asarray(img).mean()):.5f} "
+              f"(PPM {float(np.asarray(runs['ppm'][0].raw_mean()).mean()):.5f})")
+
+        # ---- 55 (d). host seconds per decode, median of 3
+        big = np.zeros((4096, 4096, 3), np.uint8)
+        yy, xx = np.mgrid[0:4096, 0:4096]
+        big[..., 0] = (xx // 7 + yy // 11) % 256
+        big[..., 1] = (xx * yy // 4096) % 256
+        big[..., 2] = (xx ^ yy) % 256
+        png4096 = os.path.join(tmp, "big_4096.png")
+        t0 = time.perf_counter()
+        write_png(png4096, big)
+        enc_s = time.perf_counter() - t0
+        files = [os.path.join(REPO, "scenes", f) for f in (
+            "fullscene_checker.png", "fullscene_noise.png",
+            "fullscene_normal.png")]
+        files += [os.path.join(fx, "big_2048_420.jpg"), png4096]
+        for path in files:
+            ts = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                a = decode_file(path)
+                ts.append(time.perf_counter() - t0)
+            ok = path != png4096 or np.array_equal(a, big)
+            check(f"55 (d) decode {os.path.basename(path)}", ok,
+                  f"{a.shape[1]}x{a.shape[0]}, "
+                  f"{os.path.getsize(path)} bytes: "
+                  f"{statistics.median(ts):.4f} s median of {REPS} (runs "
+                  f"{', '.join(f'{t:.4f}' for t in ts)}) on the host, "
+                  f"{cpu}; card {card}" + (
+                      f"; written by encode_png in {enc_s:.2f} s, decoded "
+                      "back equal" if path == png4096 else ""))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[slice-l] phase 55: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (this smoke test needs the card)")
@@ -2327,6 +2550,13 @@ def main() -> int:
         for f in fails:
             print(f"FAIL: {f}")
         print(json.dumps({"slice_h_only": True, "failures": len(fails)}))
+        return 1 if fails else 0
+    if sys.argv[1:] == ["--slice-l"]:
+        # phase 55 alone, to try it out: no result line
+        slice_l_phases(ctx)
+        for f in fails:
+            print(f"FAIL: {f}")
+        print(json.dumps({"slice_l_only": True, "failures": len(fails)}))
         return 1 if fails else 0
     if sys.argv[1:] == ["--slice-k"]:
         # phases 51-54 alone, to try them out: no result line
@@ -4224,6 +4454,10 @@ def main() -> int:
     # ---- 51-54. slice K: the general route on every accelerator, the XL
     # gradient through the parts route, the albedo-recovery demo
     slice_k_phases(ctx)
+
+    # ---- 55. slice L: the texture decoders on the card's host; the
+    # checker in seven encodings through the general route and the Renderer
+    slice_l_phases(ctx)
 
     # ---- 37. the inverse path: gradients through the general route, the
     # search detached through K3/K4, and InverseRenderer

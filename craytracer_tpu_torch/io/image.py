@@ -2,8 +2,9 @@
 :19 `read_ppm`; PPM_write/PPM_read, imagefile.h:36-81), and an 8-bit RGB
 PNG writer for the live views, where the JAX package calls PIL
 (integrator/live.py:79-83, render.py:387-397): the card's machine has no
-PIL. Framework-free; `read_ppm` also reads ASCII (P3) PPM, for textures
-(io/teximage.py), which also reads PNG back (`read_png`)."""
+PIL. Framework-free; `read_ppm` reads every PNM variant through the C++
+decoders of io/imgdecode.py, as the textures do (io/teximage.py, which
+also reads PNG back: `read_png`)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from craytracer_tpu_torch.io.imgdecode import decode
 
 
 def write_ppm(path: str, image: np.ndarray):
@@ -25,41 +28,11 @@ def write_ppm(path: str, image: np.ndarray):
 
 
 def read_ppm(path: str) -> np.ndarray:
-    """[H, W, 3] uint8 of a binary (P6) or ASCII (P3) PPM with maxval 255,
-    comments in the header skipped."""
+    """[H, W, 3] uint8 of a PNM file (P1-P6, any maxval, comments in the
+    header skipped), decoded as PIL decodes it (io/imgdecode.py): the
+    Renderer's own P6 files come back byte for byte."""
     with open(path, "rb") as f:
-        data = f.read()
-    tokens, i = [], 0
-    while len(tokens) < 4 and i < len(data):
-        if data[i:i + 1].isspace():
-            i += 1
-        elif data[i:i + 1] == b"#":
-            while i < len(data) and data[i:i + 1] != b"\n":
-                i += 1
-        else:
-            start = i
-            while i < len(data) and not data[i:i + 1].isspace():
-                i += 1
-            tokens.append(data[start:i])
-    if len(tokens) < 4:
-        raise ValueError(f"{path}: truncated PPM header")
-    magic, w, h, maxval = (tokens[0], int(tokens[1]), int(tokens[2]),
-                           int(tokens[3]))
-    if magic not in (b"P6", b"P3"):
-        raise ValueError(f"unsupported PPM magic {magic!r}")
-    if maxval != 255:
-        raise NotImplementedError(
-            f"{path}: PPM with maxval {maxval}; P6 and P3 with maxval 255 "
-            "are read")
-    if magic == b"P6":
-        # one whitespace byte ends the header
-        img = np.frombuffer(data, np.uint8, count=w * h * 3, offset=i + 1)
-    else:
-        img = np.array(data[i:].split()[:w * h * 3], dtype=np.int64)
-        if img.size < w * h * 3:
-            raise ValueError(f"{path}: truncated PPM pixel data")
-        img = img.astype(np.uint8)
-    return img.reshape(h, w, 3)
+        return decode(f.read(), "pnm", path)
 
 
 def _u8(image) -> np.ndarray:

@@ -1,20 +1,23 @@
 """Texture and env-map image loading (the port's counterpart of
 craytracer_tpu/io/teximage.py `load_texture_image` :21).
 
-The JAX package reads LDR images through PIL; the port decodes the
-formats the repo's scenes use by itself, with zlib and numpy only:
-binary (P6) and ASCII (P3) PPM with maxval 255 (io/image.py), and 8-bit
-non-interlaced PNG of colour type 2 (RGB) or 6 (RGBA, alpha dropped as
-PIL's convert("RGB") drops it) with all five row filters. LDR texels
-are value / 255 in float32. EXR goes through io/exr.py and keeps HDR
-values; CRAY_TEX_FLOAT_DIV255=1 divides them by 255 as the reference's
+The JAX package reads LDR images through PIL (`Image.open(path)
+.convert("RGB")`); the card's machine has no PIL, so the port decodes
+them in C++ (csrc/imgdecode.cpp through io/imgdecode.py) to the same
+texels: PNG of every bit depth, colour type and interlace; baseline,
+extended and progressive Huffman JPEG; PNM P1-P6 at any maxval; BMP;
+TGA; the first frame of a GIF. The format is told by the file's first
+bytes, not its name, as PIL tells it. LDR texels are value / 255 in
+float32. EXR goes through io/exr.py and keeps HDR values;
+CRAY_TEX_FLOAT_DIV255=1 divides them by 255 as the reference's
 getTexColor does for float texels (texture.cpp:78), which the textured
 golden needs.
 
-A file that is missing or cannot be read gives None, as in the JAX
-loader, and the caller drops the texture. A format or PNG variant the
-port does not decode raises NotImplementedError naming it: a texture is
-never quietly left out because of its encoding.
+A file that is missing or that PIL would not read either gives None, as
+in the JAX loader, and the caller drops the texture. A format PIL reads
+and the port does not (TIFF, WebP, DDS, PSD, JPEG 2000, arithmetic-coded,
+lossless or 12-bit JPEG, ...) raises NotImplementedError naming it: a
+texture is never quietly left out because of its encoding.
 """
 
 from __future__ import annotations
@@ -26,98 +29,68 @@ import zlib
 import numpy as np
 
 from craytracer_tpu_torch.io.exr import read_exr
-from craytracer_tpu_torch.io.image import read_ppm
+from craytracer_tpu_torch.io.imgdecode import decode
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {2: 3, 6: 4}  # colour type -> samples per pixel
+# first bytes of the formats PIL reads that the port refuses
+_REFUSED = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"II+\0", "BigTIFF"),
+            (b"MM\0+", "BigTIFF"), (b"DDS ", "DDS"), (b"8BPS", "PSD"),
+            (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+            (b"\xff\x4f\xff\x51", "JPEG 2000"))
 
 
-def _unfilter_row(ftype: int, row: bytearray, prior: bytes, bpp: int):
-    """Undo one PNG row filter in place (PNG spec section 9)."""
-    n = len(row)
-    if ftype == 0:
-        return
-    if ftype == 1:  # Sub
-        for i in range(bpp, n):
-            row[i] = (row[i] + row[i - bpp]) & 0xFF
-    elif ftype == 2:  # Up
-        row[:] = ((np.frombuffer(row, np.uint8).astype(np.uint16)
-                   + np.frombuffer(prior, np.uint8)) & 0xFF
-                  ).astype(np.uint8).tobytes()
-    elif ftype == 3:  # Average
-        for i in range(n):
-            left = row[i - bpp] if i >= bpp else 0
-            row[i] = (row[i] + ((left + prior[i]) >> 1)) & 0xFF
-    elif ftype == 4:  # Paeth
-        for i in range(n):
-            a = row[i - bpp] if i >= bpp else 0
-            b = prior[i]
-            c = prior[i - bpp] if i >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-            row[i] = (row[i] + pred) & 0xFF
-    else:
-        raise ValueError(f"PNG row filter {ftype}")
+def _is_tga(head: bytes) -> bool:
+    """The header checks of PIL's TgaImageFile._open (TGA has no magic)."""
+    if len(head) < 18:
+        return False
+    w, h = struct.unpack_from("<HH", head, 12)
+    return (head[1] in (0, 1) and w > 0 and h > 0
+            and head[16] in (1, 8, 16, 24, 32)
+            and head[2] in (1, 2, 3, 9, 10, 11))
+
+
+def image_kind(head: bytes) -> str:
+    """The decoder for a file starting with `head` (at least 18 bytes
+    unless the file is shorter), in PIL's order of looking; raises
+    NotImplementedError for a format the port does not decode."""
+    if head.startswith(_PNG_SIGNATURE):
+        return "png"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "jpeg"
+    if head.startswith(b"BM"):
+        return "bmp"
+    if head.startswith((b"GIF87a", b"GIF89a")):
+        return "gif"
+    if len(head) >= 2 and head[:1] == b"P" and head[1] in b"0123456fy":
+        return "pnm"
+    kind = next((k for magic, k in _REFUSED if head.startswith(magic)), None)
+    if kind is None and head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        kind = "WebP"
+    if kind is None and _is_tga(head):
+        return "tga"
+    raise NotImplementedError(
+        f"{kind or f'an image starting {head[:4]!r}'} textures are not "
+        "decoded by craytracer_tpu_torch (PNG, JPEG, PNM, BMP, TGA, GIF and "
+        "EXR are)")
+
+
+def decode_file(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 of an LDR image file, as PIL's convert("RGB")."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data:
+        raise ValueError(f"{path} is empty")
+    return decode(data, image_kind(data[:18]), path)
 
 
 def read_png(path: str) -> np.ndarray:
-    """[H, W, 3] uint8 of an 8-bit non-interlaced RGB or RGBA PNG."""
+    """[H, W, 3] uint8 of a PNG file of any bit depth, colour type and
+    interlace."""
     with open(path, "rb") as f:
-        buf = f.read()
-    if buf[:8] != _PNG_SIGNATURE:
+        data = f.read()
+    if not data.startswith(_PNG_SIGNATURE):
         raise ValueError(f"{path} is not a PNG file")
-    pos = 8
-    header = None
-    idat = []
-    while pos < len(buf):
-        (length,) = struct.unpack_from(">I", buf, pos)
-        kind = buf[pos + 4:pos + 8]
-        data = buf[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", data)
-        elif kind == b"IDAT":
-            idat.append(data)
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    width, height, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"{path}: PNG of bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}; the port decodes 8-bit non-interlaced "
-            "PNG of colour type 2 (RGB) or 6 (RGBA)")
-    bpp = _PNG_CHANNELS[ctype]
-    stride = width * bpp
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < height * (stride + 1):
-        raise ValueError(f"{path}: truncated PNG image data")
-    out = np.empty((height, stride), np.uint8)
-    prior = bytes(stride)
-    for y in range(height):
-        start = y * (stride + 1)
-        row = bytearray(raw[start + 1:start + 1 + stride])
-        _unfilter_row(raw[start], row, prior, bpp)
-        out[y] = np.frombuffer(row, np.uint8)
-        prior = bytes(row)
-    return out.reshape(height, width, bpp)[..., :3]
-
-
-def _decode_ldr(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        head = f.read(8)
-    if head == _PNG_SIGNATURE:
-        return read_png(path)
-    if head[:2] in (b"P6", b"P3"):
-        return read_ppm(path)
-    kinds = {b"\xff\xd8": "JPEG", b"BM": "BMP", b"GI": "GIF", b"P5": "PGM",
-             b"P2": "PGM", b"II": "TIFF", b"MM": "TIFF"}
-    kind = kinds.get(head[:2], f"an image starting {head[:4]!r}")
-    raise NotImplementedError(
-        f"{path}: {kind} textures are not decoded by craytracer_tpu_torch "
-        "(PNG, PPM and EXR are)")
+    return decode(data, "png", path)
 
 
 def load_texture_image(path: str):
@@ -129,6 +102,6 @@ def load_texture_image(path: str):
             if os.environ.get("CRAY_TEX_FLOAT_DIV255", "0") == "1":
                 img = img / 255.0  # getTexColor's float quirk
             return img
-        return np.asarray(_decode_ldr(path), np.float32) / 255.0
+        return np.asarray(decode_file(path), np.float32) / 255.0
     except (OSError, ValueError, IndexError, struct.error, zlib.error):
         return None

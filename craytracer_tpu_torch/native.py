@@ -38,25 +38,33 @@ SPLIT_MODES = {"median": 0, "sah": 1}
 _LIB = None
 
 
-def _build() -> Path:
+def build_shared(source: Path, stem: str, flags=CXX_FLAGS) -> Path:
+    """`source` built with g++ and `flags` into _build/lib<stem>_<hash>.so
+    unless that file exists, the hash taken over the source and the flags.
+    The compiler writes a temporary file that is renamed into place, so
+    processes building at once do not race."""
     cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
     if cxx is None:
-        raise RuntimeError("no C++ compiler found: the native scene runtime "
-                           f"({SOURCE}) needs g++ to build")
-    if not SOURCE.exists():
-        raise RuntimeError(f"native runtime source missing: {SOURCE}")
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    so = BUILD_DIR / f"libcraynative_{h.hexdigest()[:16]}.so"
+        raise RuntimeError(f"no C++ compiler found: {source} needs g++ to "
+                           "build")
+    if not source.exists():
+        raise RuntimeError(f"C++ source missing: {source}")
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(flags).encode())
+    so = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f".{so.name}.{os.getpid()}"
-        res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        res = subprocess.run([cxx, *flags, "-o", str(tmp), str(source)],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"building {SOURCE} failed:\n{res.stderr}")
+            raise RuntimeError(f"building {source} failed:\n{res.stderr}")
         os.replace(tmp, so)
     return so
+
+
+def _build() -> Path:
+    return build_shared(SOURCE, "craynative")
 
 
 def library() -> ctypes.CDLL:

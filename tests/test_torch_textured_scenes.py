@@ -5,7 +5,9 @@ env lights, mesh lights): the port's `trace_paths` through
 tests/torch_general_check.py (`good`, rays and shadow rays exact, L
 within 2e-5). The scenes: scenes/parity_textured.txt with and without
 CRAY_TEX_FLOAT_DIV255 (a checker on a rect and a smooth quad mesh, an
-EXR texture env), a normal-mapped textured floor, the fullscene HDR sky
+EXR texture env) and with its checker re-encoded as a 4:2:0 JPEG (the
+lossless re-encodings of chip_smoke.py phase 55 render like the PPM, bit
+for bit), a normal-mapped textured floor, the fullscene HDR sky
 as a texture env with IMPORTANCE under the reference estimator and
 without it under the physical one (the Renderer's importance default
 turns it on, in both packages), the quad mesh light of tests/test_mis.py
@@ -16,6 +18,7 @@ bvh4, MATERIAL FROM_MTL) with its PNG textures, normal map and HDR env.
 """
 
 import contextlib
+import io
 import os
 import shutil
 
@@ -23,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from craytracer_tpu.camera import Film as JFilm
 from craytracer_tpu.camera import make_camera as j_make_camera
@@ -31,12 +35,14 @@ from craytracer_tpu.integrator.render import Renderer as JRenderer
 from craytracer_tpu.io.scenefile import load_scene_file as j_load
 from craytracer_tpu.io.teximage import load_texture_image as j_tex
 from craytracer_tpu.scene import SceneBuilder as JBuilder
-from craytracer_tpu_torch.camera import Film
+from craytracer_tpu_torch.camera import Film, generate_rays
 from craytracer_tpu_torch.integrator.gate import production_fast_shade
 from craytracer_tpu_torch.integrator.render import RenderConfig, Renderer
+from craytracer_tpu_torch.integrator.wavefront import trace_paths
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.io.teximage import load_texture_image as t_tex
 from craytracer_tpu_torch.scene import types as T
+from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 from craytracer_tpu_torch.scene.build import SceneBuilder
 from craytracer_tpu_torch.scene.fullscene import write_obj
 from torch_general_check import SIZE, check_general, jax_rays
@@ -47,7 +53,8 @@ import torch_textured_scenes as tex_scenes
 torch.set_num_threads(2)
 pytestmark = SAH_WARNING_IS_ERROR
 SCENES = tex_scenes.SCENES
-NAMES = ["parity_textured", "parity_textured_div255", "normal_floor",
+NAMES = ["parity_textured", "parity_textured_div255",
+         "parity_textured_jpeg", "normal_floor",
          "env_importance_reference", "env_default_physical",
          "quad_lamp_principled", "quad_lamp_reference", "fullscene_4"]
 # lanes where JAX's fori program and its unrolled step differ by more
@@ -97,7 +104,33 @@ def _from_builders(fn, *, load=False, power="reference", **kw):
         fov=jnp.float32(fov), width=SIZE, height=SIZE)
 
 
+def _textured_copy(tmp, texture_name, texture_bytes):
+    """scenes/parity_textured.txt in `tmp` beside its mesh and EXR env,
+    its checker replaced by `texture_name` holding `texture_bytes`."""
+    for f in ("parity_tex_quad.obj", "parity_tex_env.exr"):
+        shutil.copy(os.path.join(SCENES, f), tmp)
+    with open(os.path.join(tmp, texture_name), "wb") as f:
+        f.write(texture_bytes)
+    with open(os.path.join(SCENES, "parity_textured.txt")) as f:
+        text = f.read().replace("parity_tex_checker.ppm", texture_name)
+    path = os.path.join(tmp, "parity_textured.txt")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def _checker_jpeg():
+    """scenes/parity_tex_checker.ppm as a 4:2:0 JPEG, written by PIL."""
+    bio = io.BytesIO()
+    Image.open(os.path.join(SCENES, "parity_tex_checker.ppm")).save(
+        bio, format="JPEG", subsampling="4:2:0")
+    return bio.getvalue()
+
+
 def _build(name, tmp):
+    if name == "parity_textured_jpeg":
+        return _from_file(_textured_copy(str(tmp), "parity_tex_checker.jpg",
+                                         _checker_jpeg()))
     if name.startswith("parity_textured"):
         return _from_file(os.path.join(SCENES, "parity_textured.txt"),
                           div255=name.endswith("div255"))
@@ -164,3 +197,39 @@ def test_scene_features(built, tmp_path_factory):
         row = ts.lights.light_type.tolist().index(T.LIGHT_MESH)
         assert float(ts.lights.power[row]) == power
         assert ts.mesh_lights.surface_area.tolist() == [16.0]
+
+
+LOSSLESS_CHECKERS = ("checker_palette.png", "checker_interlaced.png",
+                     "checker_rgb16.png", "checker_24.bmp", "checker_rle.tga",
+                     "checker.gif")
+
+
+def test_lossless_checkers_render_like_the_ppm(tmp_path):
+    """parity_textured with its checker in each lossless encoding of the
+    committed fixtures (chip_smoke.py phase 55 (b) on the card): the
+    texture pack and a depth-5 general pass equal the PPM scene's bit for
+    bit."""
+    fixtures = os.path.join(os.path.dirname(SCENES), "craytracer_tpu_torch",
+                            "testdata", "textures")
+    ts, tc, tf = load_scene_file(os.path.join(SCENES, "parity_textured.txt"),
+                                 device="cpu")
+    film = Film(fov=tf.fov, width=SIZE, height=SIZE)
+    pix = torch.arange(SIZE * SIZE, dtype=torch.int32)
+    spp = torch.zeros_like(pix)
+
+    def run(scn):
+        o, d = generate_rays(tc, film, pix, stratified_jitter(7, pix, spp))
+        return trace_paths(scn, o, d, 7, pix, spp, 5, with_metrics=True,
+                           general=True)
+
+    L0, g0, m0 = run(ts)
+    for name in LOSSLESS_CHECKERS:
+        tmp = tmp_path / name.replace(".", "_")
+        tmp.mkdir()
+        with open(os.path.join(fixtures, name), "rb") as f:
+            path = _textured_copy(str(tmp), name, f.read())
+        vs = load_scene_file(path, device="cpu")[0]
+        assert torch.equal(vs.textures.texels, ts.textures.texels), name
+        L, g, m = run(vs)
+        assert torch.equal(L, L0) and torch.equal(g, g0), name
+        assert int(m["rays"]) == int(m0["rays"]), name
