@@ -17,9 +17,10 @@ never JAX or the JAX package. Phases, each printing its own lines:
    kernel and instantiation (K1's eight: the matte-only or the full core,
    with or without plane/disk rows, with or without box rows; K2 once
    per feature mask the run meets: 0, the matte-only core, and
-   parity_mix's and glass_spheres' masks, each with its lobes only); then
-   builds
-   the native scene runtime (native/craynative.cpp, g++).
+   parity_mix's and glass_spheres' masks, each with its lobes only);
+   beside them, in a thread, builds the native scene runtime
+   (native/craynative.cpp) and the image decoders (csrc/imgdecode.cpp)
+   with g++.
 3. K1 vs plain: K1 against its plain PyTorch version on the card, on
    scenes/parity_cornell.txt at 64x64, depth 0, 2 and 5, scalar and
    per-lane spp, both raygen variants; then at the Cornell main path's own
@@ -449,6 +450,20 @@ never JAX or the JAX package. Phases, each printing its own lines:
    fullscene's three 512x512 PNGs, the 2048x2048 4:2:0 JPEG fixture and
    a 4096x4096 PNG written by `encode_png`, with the host's CPU model
    and the card's line. Budget: 20 s.
+56. slice M (`slice_m_phases`, after phase 55; `python3 chip_smoke.py
+   --slice-m` builds the kernels and runs it alone, with no result
+   line), the TIFF, DDS, lossless WebP, PSD and PIL-own PNM decoders of
+   csrc/imgdecode_*.h (g++, on the host): (a) every fixture manifest.json
+   marks "phase": 56 decoded and hashed against the SHA-256 of PIL's
+   decode; (b) parity_textured with its checker replaced by each lossless
+   re-encoding (LZW TIFF with the horizontal predictor, tiled Deflate
+   TIFF, uncompressed DDS, lossless WebP, PackBits PSD): texels equal to
+   the PPM scene's and the 512x512 Morton depth-5 general pass through
+   K3/K4 bit-equal with it, K3 = K4 = 6 and nothing else; (c) host
+   seconds per decode, median of 3, of the 2048x2048 LZW + predictor TIFF
+   and lossless WebP fixtures and of a 2048x2048 BC7 DDS tiled from the
+   256x256 fixture (its texels checked equal to the fixture's, tiled),
+   with the host's CPU model and the card's line. Budget: 15 s.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
@@ -461,7 +476,7 @@ K2-K4 the ranks' sharded passes of phase 49 (a) and (b), K2 (e)'s and
 K2, K3 `_init` and K4 (f)'s, K3 `_init` and K4 the XL Renderer of phase
 50, K3 hybrid's general route in phases 51-52, K3 `_init` and K4 phase
 53's XL gradients through the kernels, K3 and K4 phase 55's textured
-passes and Renderers;
+passes and Renderers and phase 56's textured passes;
 `k1_pass_rays`, K1's external-ray mode, on Cornell
 with a multijittered table (phase 41); K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch (K2's launches enqueued
@@ -490,6 +505,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -2230,27 +2246,11 @@ def slice_k_phases(ctx) -> None:
           "the general route's brute force)")
 
 
-def slice_l_phases(ctx) -> None:
-    """Phase 55: slice L on the card's host (module docstring). `ctx` as
-    for `slice_f_phases`; failures are appended."""
-    import hashlib
+def _host_cpu() -> str:
+    """The host's CPU model, with the fields that tell the part where a
+    virtual machine reports the model as "unknown"."""
     import platform
-    import shutil
-    import tempfile
 
-    from craytracer_tpu_torch.camera import Film, generate_rays
-    from craytracer_tpu_torch.integrator import wavefront as wf
-    from craytracer_tpu_torch.integrator.render import (RenderConfig,
-                                                        Renderer)
-    from craytracer_tpu_torch.io import imgdecode
-    from craytracer_tpu_torch.io.image import write_png
-    from craytracer_tpu_torch.io.scenefile import load_scene_file
-    from craytracer_tpu_torch.io.teximage import decode_file
-    from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
-
-    dev, card, fails, kernels = ctx.dev, ctx.card, ctx.fails, ctx.kernels
-    counters, depth = ctx.counters, 5
-    t_phase = time.perf_counter()
     info = {}
     try:
         with open("/proc/cpuinfo") as f:
@@ -2259,12 +2259,30 @@ def slice_l_phases(ctx) -> None:
                 info.setdefault(k.strip(), v.strip())
     except OSError:
         pass
-    # the model name, with the fields that tell the part where a
-    # virtual machine reports it as "unknown"
-    cpu = "; ".join(f"{k} {info[k]}" for k in (
+    return "; ".join(f"{k} {info[k]}" for k in (
         "model name", "vendor_id", "cpu family", "model", "CPU implementer",
         "CPU part") if k in info) + (f"; {platform.machine()}, "
                                      f"{os.cpu_count()} CPUs")
+
+
+def _texture_rig(ctx, tag, tmp):
+    """What phases 55 and 56 share: launch counts, a check that records
+    failures under [tag], parity_textured (bvh4, on the card) with its
+    checker replaced by a fixture, and the 512x512 Morton depth-5 general
+    pass of a scene with the counts set to 0 just before it."""
+    import shutil
+
+    from craytracer_tpu_torch.camera import Film, generate_rays
+    from craytracer_tpu_torch.integrator import wavefront as wf
+    from craytracer_tpu_torch.integrator.render import (RenderConfig,
+                                                        Renderer)
+    from craytracer_tpu_torch.io.scenefile import load_scene_file
+    from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
+
+    dev, counters, depth = ctx.dev, ctx.counters, 5
+    rig = SimpleNamespace(depth=depth, counters=counters)
+    rig.fx = os.path.join(REPO, "craytracer_tpu_torch", "testdata",
+                          "textures")
 
     def reset():
         for c in counters.values():
@@ -2277,83 +2295,128 @@ def slice_l_phases(ctx) -> None:
         return {**dict.fromkeys(counters, 0), **kw}
 
     def check(label, ok, detail=""):
-        print(f"[slice-l] {label}: {detail}" + ("" if ok else " FAIL"),
+        print(f"[{tag}] {label}: {detail}" + ("" if ok else " FAIL"),
               flush=True)
         if not ok:
-            fails.append(f"{label}: {detail}")
+            ctx.fails.append(f"{label}: {detail}")
 
     def add_launches(got):
         for name in ("k3_bvh4_closest", "k4_bvh4_any"):
-            if name in kernels:
-                kernels[name]["launches"] += got[name]
+            if name in ctx.kernels:
+                ctx.kernels[name]["launches"] += got[name]
 
-    # ---- 55 (a). every committed fixture against PIL's manifest
-    t0 = time.perf_counter()
-    imgdecode.library()
-    build_s = time.perf_counter() - t0
-    fx = os.path.join(REPO, "craytracer_tpu_torch", "testdata", "textures")
-    with open(os.path.join(fx, "manifest.json")) as f:
-        manifest = json.load(f)
+    textured = os.path.join(REPO, "scenes", "parity_textured.txt")
+    with open(textured) as f:
+        scene_text = f.read()
+
+    def variant(name):
+        """parity_textured with its checker replaced by fixture `name`,
+        loaded with bvh4 on the card."""
+        d = os.path.join(tmp, name.replace(".", "_"))
+        os.makedirs(d)
+        for f in ("parity_tex_quad.obj", "parity_tex_env.exr"):
+            shutil.copy(os.path.join(REPO, "scenes", f), d)
+        shutil.copy(os.path.join(rig.fx, name), d)
+        path = os.path.join(d, "parity_textured.txt")
+        with open(path, "w") as f:
+            f.write(scene_text.replace("parity_tex_checker.ppm", name))
+        return load_scene_file(path, accel="bvh4", device=dev)[0]
+
+    ppm, cam, film0 = load_scene_file(textured, accel="bvh4", device=dev)
+    film = Film(fov=film0.fov, width=512, height=512)
+    cfg = RenderConfig(max_depth=depth)
+    ids = torch.from_numpy(Renderer(ppm, cam, film, cfg).pixel_order()).to(
+        dev)
+    spp = torch.zeros_like(ids)
+    o, d = generate_rays(cam, film, ids,
+                         stratified_jitter(cfg.seed, ids, spp))
+
+    def general_pass(scn):
+        reset()
+        t0 = time.perf_counter()
+        out = wf.trace_paths(scn, o, d, cfg.seed, ids, spp, depth,
+                             with_metrics=True, fast_shade="shade",
+                             general=True)
+        torch.cuda.synchronize()
+        return out, counts(), time.perf_counter() - t0
+
+    def same_pass(out, ref):
+        return (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+                and all(torch.equal(torch.as_tensor(out[2][k]),
+                                    torch.as_tensor(ref[2][k]))
+                        for k in ref[2]))
+
+    rig.__dict__.update(reset=reset, counts=counts, want=want, check=check,
+                        add_launches=add_launches, variant=variant, ppm=ppm,
+                        cam=cam, film0=film0, general_pass=general_pass,
+                        same_pass=same_pass)
+    return rig
+
+
+def _manifest_check(rig, names, manifest):
+    """Decode each fixture of `names` and hold it to its manifest hash."""
+    import hashlib
+
+    from craytracer_tpu_torch.io.teximage import decode_file
+
     bad = []
     t0 = time.perf_counter()
-    for name, w in sorted(manifest.items()):
+    for name in names:
+        w = manifest[name]
         try:
-            got = decode_file(os.path.join(fx, name))
+            got = decode_file(os.path.join(rig.fx, name))
             ok = (list(got.shape) == w["shape"] and hashlib.sha256(
                 got.tobytes()).hexdigest() == w["sha256"])
         except (OSError, ValueError, NotImplementedError) as e:
             ok, name = False, f"{name} ({e})"
         if not ok:
             bad.append(name)
-    check(f"55 (a) {len(manifest)} fixtures (PNG, JPEG, PNM, BMP, TGA, GIF) "
-          "against the SHA-256 of PIL's decode", not bad,
-          f"decoder built in {build_s:.2f} s (g++ "
-          f"{' '.join(imgdecode.CXX_FLAGS)}), all decoded in "
-          f"{time.perf_counter() - t0:.3f} s; differing: {bad}")
+    return bad, time.perf_counter() - t0
 
-    # ---- 55 (b). the checker in six lossless encodings: the general
-    # route's pass bit-equal to the PPM scene's
-    textured = os.path.join(REPO, "scenes", "parity_textured.txt")
-    with open(textured) as f:
-        scene_text = f.read()
+
+def slice_l_phases(ctx) -> None:
+    """Phase 55: slice L on the card's host (module docstring). `ctx` as
+    for `slice_f_phases`; failures are appended."""
+    import shutil
+    import tempfile
+
+    from craytracer_tpu_torch.integrator.render import (RenderConfig,
+                                                        Renderer)
+    from craytracer_tpu_torch.io import imgdecode
+    from craytracer_tpu_torch.io.image import write_png
+    from craytracer_tpu_torch.io.teximage import decode_file
+
+    card = ctx.card
+    t_phase = time.perf_counter()
+    cpu = _host_cpu()
     tmp = tempfile.mkdtemp(prefix="slice_l_")
     try:
-        def variant(name):
-            """parity_textured with its checker replaced by fixture
-            `name`, loaded with bvh4 on the card."""
-            d = os.path.join(tmp, name.replace(".", "_"))
-            os.makedirs(d)
-            for f in ("parity_tex_quad.obj", "parity_tex_env.exr"):
-                shutil.copy(os.path.join(REPO, "scenes", f), d)
-            shutil.copy(os.path.join(fx, name), d)
-            path = os.path.join(d, "parity_textured.txt")
-            with open(path, "w") as f:
-                f.write(scene_text.replace("parity_tex_checker.ppm", name))
-            return load_scene_file(path, accel="bvh4", device=dev)[0]
+        rig = _texture_rig(ctx, "slice-l", tmp)
+        check, want, depth = rig.check, rig.want, rig.depth
+        fx = rig.fx
 
-        ppm, cam, film0 = load_scene_file(textured, accel="bvh4",
-                                          device=dev)
-        film = Film(fov=film0.fov, width=512, height=512)
-        cfg = RenderConfig(max_depth=depth)
-        ids = torch.from_numpy(Renderer(ppm, cam, film, cfg).pixel_order()
-                               ).to(dev)
-        spp = torch.zeros_like(ids)
-        o, d = generate_rays(cam, film, ids,
-                             stratified_jitter(cfg.seed, ids, spp))
+        # ---- 55 (a). every fixture of slice L against PIL's manifest
+        t0 = time.perf_counter()
+        imgdecode.library()
+        build_s = time.perf_counter() - t0
+        with open(os.path.join(fx, "manifest.json")) as f:
+            manifest = json.load(f)
+        names = sorted(k for k, v in manifest.items()
+                       if v.get("phase", 55) == 55)
+        bad, dt = _manifest_check(rig, names, manifest)
+        check(f"55 (a) {len(names)} fixtures (PNG, JPEG, PNM, BMP, TGA, "
+              "GIF) against the SHA-256 of PIL's decode", not bad,
+              f"decoder ready in {build_s:.2f} s (g++ "
+              f"{' '.join(imgdecode.CXX_FLAGS)}), all decoded in "
+              f"{dt:.3f} s; differing: {bad}")
 
-        def general_pass(scn):
-            reset()
-            t0 = time.perf_counter()
-            out = wf.trace_paths(scn, o, d, cfg.seed, ids, spp, depth,
-                                 with_metrics=True, fast_shade="shade",
-                                 general=True)
-            torch.cuda.synchronize()
-            return out, counts(), time.perf_counter() - t0
-
-        general_pass(ppm)  # warm-up
-        ref, got, dt = general_pass(ppm)
+        # ---- 55 (b). the checker in six lossless encodings: the general
+        # route's pass bit-equal to the PPM scene's
+        ppm, cam, film0 = rig.ppm, rig.cam, rig.film0
+        rig.general_pass(ppm)  # warm-up
+        ref, got, dt = rig.general_pass(ppm)
         six = want(k3_bvh4_closest=depth + 1, k4_bvh4_any=depth + 1)
-        add_launches(got)
+        rig.add_launches(got)
         check("55 (b) parity_textured (PPM checker) bvh4 512x512 Morton "
               f"depth {depth} general route", got == six,
               f"{dt * 1e3:.1f} ms, launches {got}, L mean "
@@ -2361,14 +2424,11 @@ def slice_l_phases(ctx) -> None:
         for name in ("checker_palette.png", "checker_interlaced.png",
                      "checker_rgb16.png", "checker_24.bmp",
                      "checker_rle.tga", "checker.gif"):
-            vs = variant(name)
+            vs = rig.variant(name)
             texels = torch.equal(vs.textures.texels, ppm.textures.texels)
-            out, got, dt = general_pass(vs)
-            add_launches(got)
-            same = (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
-                    and all(torch.equal(torch.as_tensor(out[2][k]),
-                                        torch.as_tensor(ref[2][k]))
-                            for k in ref[2]))
+            out, got, dt = rig.general_pass(vs)
+            rig.add_launches(got)
+            same = rig.same_pass(out, ref)
             check(f"55 (b) {name}", texels and same and got == six,
                   f"texels equal {texels}, pass bit-equal {same}, "
                   f"{dt * 1e3:.1f} ms, launches {got}")
@@ -2378,14 +2438,14 @@ def slice_l_phases(ctx) -> None:
                             estimator="reference", spp_batch=32)
         runs = {}
         for label, scn in (("ppm", ppm), ("jpeg",
-                                          variant("checker_420.jpg"))):
+                                          rig.variant("checker_420.jpg"))):
             r = Renderer(scn, cam, film0, rcfg)
-            reset()
+            rig.reset()
             t0 = time.perf_counter()
             r.render()
             torch.cuda.synchronize()
-            runs[label] = (r, counts(), time.perf_counter() - t0)
-            add_launches(runs[label][1])
+            runs[label] = (r, rig.counts(), time.perf_counter() - t0)
+            rig.add_launches(runs[label][1])
         r, got, dt = runs["jpeg"]
         img = r.raw_mean()
         w6 = want(k3_bvh4_closest=(depth + 1) * r.passes,
@@ -2431,6 +2491,99 @@ def slice_l_phases(ctx) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[slice-l] phase 55: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
+def slice_m_phases(ctx) -> None:
+    """Phase 56: slice M on the card's host (module docstring). `ctx` as
+    for `slice_f_phases`; failures are appended."""
+    import shutil
+    import struct
+    import tempfile
+
+    from craytracer_tpu_torch.io import imgdecode
+    from craytracer_tpu_torch.io.teximage import decode_file
+
+    card = ctx.card
+    t_phase = time.perf_counter()
+    cpu = _host_cpu()
+    tmp = tempfile.mkdtemp(prefix="slice_m_")
+    try:
+        rig = _texture_rig(ctx, "slice-m", tmp)
+        check, want, depth, fx = rig.check, rig.want, rig.depth, rig.fx
+
+        # ---- 56 (a). every fixture of slice M against PIL's manifest
+        t0 = time.perf_counter()
+        imgdecode.library()
+        build_s = time.perf_counter() - t0
+        with open(os.path.join(fx, "manifest.json")) as f:
+            manifest = json.load(f)
+        names = sorted(k for k, v in manifest.items() if v.get("phase") == 56)
+        bad, dt = _manifest_check(rig, names, manifest)
+        check(f"56 (a) {len(names)} fixtures (TIFF, DDS, lossless WebP, PSD, "
+              "PIL's own PNM) against the SHA-256 of PIL's decode",
+              not bad and len(names) > 0,
+              f"decoder ready in {build_s:.2f} s (g++ "
+              f"{' '.join(imgdecode.CXX_FLAGS)}), all decoded in "
+              f"{dt:.3f} s; differing: {bad}")
+
+        # ---- 56 (b). the checker in five lossless encodings: the general
+        # route's pass bit-equal to the PPM scene's
+        ppm = rig.ppm
+        rig.general_pass(ppm)  # warm-up
+        ref, got, dt = rig.general_pass(ppm)
+        six = want(k3_bvh4_closest=depth + 1, k4_bvh4_any=depth + 1)
+        rig.add_launches(got)
+        check("56 (b) parity_textured (PPM checker) bvh4 512x512 Morton "
+              f"depth {depth} general route", got == six,
+              f"{dt * 1e3:.1f} ms, launches {got}, L mean "
+              f"{float(ref[0].mean()):.6f}")
+        for name in ("checker_lzw_pred.tif", "checker_deflate_tiled.tif",
+                     "checker.dds", "checker_lossless.webp",
+                     "checker_rle.psd"):
+            vs = rig.variant(name)
+            texels = torch.equal(vs.textures.texels, ppm.textures.texels)
+            out, got, dt = rig.general_pass(vs)
+            rig.add_launches(got)
+            same = rig.same_pass(out, ref)
+            check(f"56 (b) {name}", texels and same and got == six,
+                  f"texels equal {texels}, pass bit-equal {same}, "
+                  f"{dt * 1e3:.1f} ms, launches {got}")
+
+        # ---- 56 (c). host seconds per decode, median of 3: the 2048x2048
+        # LZW + predictor TIFF, lossless WebP, and a BC7 DDS tiled from
+        # the 256x256 fixture (BC7 blocks decode alone: its texels are
+        # the fixture's, tiled)
+        with open(os.path.join(fx, "bc7_256.dds"), "rb") as f:
+            small = f.read()
+        hdr = bytearray(small[:148])
+        struct.pack_into("<II", hdr, 12, 2048, 2048)
+        blocks = np.frombuffer(small[148:], np.uint8).reshape(64, 64, 16)
+        bc7 = os.path.join(tmp, "bc7_2048.dds")
+        with open(bc7, "wb") as f:
+            f.write(bytes(hdr) + np.tile(blocks, (8, 8, 1)).tobytes())
+        tiled = np.tile(decode_file(os.path.join(fx, "bc7_256.dds")),
+                        (8, 8, 1))
+        for path in (os.path.join(fx, "big_2048_lzw_pred.tif"), bc7,
+                     os.path.join(fx, "big_2048_lossless.webp")):
+            ts = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                a = decode_file(path)
+                ts.append(time.perf_counter() - t0)
+            ok = a.shape == (2048, 2048, 3) and (
+                path != bc7 or np.array_equal(a, tiled))
+            check(f"56 (c) decode {os.path.basename(path)}", ok,
+                  f"{a.shape[1]}x{a.shape[0]}, "
+                  f"{os.path.getsize(path)} bytes: "
+                  f"{statistics.median(ts):.4f} s median of {REPS} (runs "
+                  f"{', '.join(f'{t:.4f}' for t in ts)}) on the host, "
+                  f"{cpu}; card {card}" + (
+                      "; equal to the 256x256 fixture's texels tiled"
+                      if path == bc7 else ""))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[slice-m] phase 56: {time.perf_counter() - t_phase:.2f} s",
           flush=True)
 
 
@@ -2508,16 +2661,27 @@ def main() -> int:
             "k5_bvh4_split": sp.LIBRARY,
             "k6_tri_closest": tri_kernel.LIBRARY,
             "p1_pop_probe": pp.LIBRARY}
+    # the host libraries' g++ builds run in a thread beside nvcc's
+    from craytracer_tpu_torch.io import imgdecode
+
+    def host_libs():
+        t = time.perf_counter()
+        native.library()
+        imgdecode.library()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    cuda_build.build_all(libs.values())
-    print(f"[build] K1, K2, K3/K3 _init/K4, K5, K6, P1 built in parallel in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
-          f"{' '.join(cuda_build.NVCC_FLAGS)})", flush=True)
-    t0 = time.perf_counter()
-    native.library()
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(host_libs)
+        cuda_build.build_all(libs.values())
+        print(f"[build] K1, K2, K3/K3 _init/K4, K5, K6, P1 built in parallel "
+              f"in {time.perf_counter() - t0:.2f} s (nvcc "
+              f"{' '.join(cuda_build.NVCC_FLAGS)})", flush=True)
+        host_s = host_build.result()
     print(f"[build] native scene runtime ({native.SOURCE.name}, g++ "
-          f"{' '.join(native.CXX_FLAGS)}) ready in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{' '.join(native.CXX_FLAGS)}) and the image decoders "
+          f"({imgdecode.SOURCE.name}, g++ {' '.join(imgdecode.CXX_FLAGS)}) "
+          f"ready in {host_s:.2f} s beside nvcc", flush=True)
     for name, lib in libs.items():
         secs = ("cached" if lib.build_seconds is None
                 else f"{lib.build_seconds:.2f} s")
@@ -2557,6 +2721,13 @@ def main() -> int:
         for f in fails:
             print(f"FAIL: {f}")
         print(json.dumps({"slice_l_only": True, "failures": len(fails)}))
+        return 1 if fails else 0
+    if sys.argv[1:] == ["--slice-m"]:
+        # phase 56 alone, to try it out: no result line
+        slice_m_phases(ctx)
+        for f in fails:
+            print(f"FAIL: {f}")
+        print(json.dumps({"slice_m_only": True, "failures": len(fails)}))
         return 1 if fails else 0
     if sys.argv[1:] == ["--slice-k"]:
         # phases 51-54 alone, to try them out: no result line
@@ -4458,6 +4629,10 @@ def main() -> int:
     # ---- 55. slice L: the texture decoders on the card's host; the
     # checker in seven encodings through the general route and the Renderer
     slice_l_phases(ctx)
+
+    # ---- 56. slice M: TIFF, DDS, lossless WebP, PSD and PIL's own PNM
+    # on the card's host; the checker in five more encodings through K3/K4
+    slice_m_phases(ctx)
 
     # ---- 37. the inverse path: gradients through the general route, the
     # search detached through K3/K4, and InverseRenderer

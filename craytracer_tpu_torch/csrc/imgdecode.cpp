@@ -21,7 +21,9 @@
 //   hierarchical and 12-bit JPEG.
 // - PNM: P1-P6, any maxval, scaled as PIL's PpmDecoder and
 //   PpmPlainDecoder scale (round half to even of v / maxval * 255; gray
-//   past maxval 255 opens as mode I, scaled to 65535, and clips at 255).
+//   past maxval 255 opens as mode I, scaled to 65535, and clips at 255);
+//   PIL's own Pf (gray float, F -> L truncating), P0CMYK/PyCMYK, PyRGBA
+//   and PyP (no palette: black). "PF" is not a file PIL reads.
 // - BMP: 1/4/8/16/24/32 bit, RLE4/RLE8 (PIL's BmpRleDecoder byte for
 //   byte), the BITFIELDS layouts PIL accepts, both row orders, the
 //   12/40/52/56/64/108/124-byte headers.
@@ -29,6 +31,9 @@
 //   and the right-to-left flag.
 // - GIF: the first frame (LZW), global and local palettes, interlace, the
 //   frame at its offset on the logical screen.
+// - TIFF, DDS, lossless WebP and PSD: one file each, included below
+//   (imgdecode_tiff.h, imgdecode_dds.h, imgdecode_webp.h,
+//   imgdecode_psd.h), built with this file as one library.
 //
 // A file the decoder does not handle gives status 1 (the caller raises
 // NotImplementedError); a file PIL would fail to read gives status 2 (the
@@ -40,9 +45,11 @@
 
 #include <algorithm>
 #include <cctype>
+#include <cstdlib>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <stdexcept>
 #include <string>
 #include <vector>
@@ -66,7 +73,8 @@ struct Image {
   std::vector<uint8_t> rgb;
   void alloc(int64_t w_, int64_t h_) {
     if (w_ <= 0 || h_ <= 0) invalid("image of size 0");
-    if (w_ * h_ > MAX_PIXELS) invalid("image larger than PIL opens");
+    if (w_ > MAX_PIXELS || h_ > MAX_PIXELS || w_ * h_ > MAX_PIXELS)
+      invalid("image larger than PIL opens");
     w = w_;
     h = h_;
     rgb.assign(size_t(w * h * 3), 0);
@@ -89,6 +97,26 @@ inline uint32_t le16(const uint8_t* p) { return uint32_t(p[1]) << 8 | p[0]; }
 inline uint32_t le32(const uint8_t* p) {
   return uint32_t(p[3]) << 24 | uint32_t(p[2]) << 16 | uint32_t(p[1]) << 8 |
          p[0];
+}
+
+// PIL's Convert.c cmyk2rgb (MULDIV255 rounding) of one CMYK pixel
+inline void cmyk_to_rgb(uint8_t* o, int c, int m, int y, int k) {
+  auto muldiv255 = [](int a, int b) {
+    int t = a * b + 128;
+    return ((t >> 8) + t) >> 8;
+  };
+  auto clip = [](int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); };
+  const int nk = 255 - k;
+  o[0] = clip(nk - muldiv255(c, nk));
+  o[1] = clip(nk - muldiv255(m, nk));
+  o[2] = clip(nk - muldiv255(y, nk));
+}
+
+// PIL's F -> L (and so F -> RGB): truncated, clipped, NaN to 0
+inline uint8_t float_to_l(float v) {
+  if (!(v > 0.0f)) return 0;
+  if (v >= 255.0f) return 255;
+  return uint8_t(int(v));
 }
 
 // A 256-entry RGB palette; entries past the file's are black, as in a
@@ -201,8 +229,12 @@ const uint8_t DIST_EXTRA[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5, 
                                 6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
 
 // The zlib stream's data, stopping once `want` bytes are out (PIL stops
-// reading when the image is complete). Fewer bytes than `want` raise.
-std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want) {
+// reading when the image is complete). Fewer bytes than `want` raise,
+// unless `partial` asks for what the stream holds. With `adler`, a stream
+// that ends with its whole Adler-32 checksum is held to it, as zlib's
+// inflate, which libtiff calls, holds it.
+std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want,
+                                  bool partial = false, bool adler = false) {
   if (n < 2) invalid("truncated zlib stream");
   if ((d[0] & 15) != 8 || (uint32_t(d[0]) << 8 | d[1]) % 31 != 0 ||
       (d[1] & 32))
@@ -285,8 +317,13 @@ std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want) {
     } else if (type != 1) {
       invalid("bad deflate block type");
     }
+    bool cut = false;  // the data ran out inside the block
     for (;;) {
       int s = hl->decode(b);
+      if (b.overrun()) {
+        cut = true;
+        break;
+      }
       if (s < 256) {
         out.push_back(uint8_t(s));
       } else if (s == 256) {
@@ -298,14 +335,37 @@ std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want) {
         int ds = hd->decode(b);
         if (ds >= 30) invalid("bad distance code");
         size_t dd = DIST_BASE[ds] + b.get(DIST_EXTRA[ds]);
+        if (b.overrun()) {
+          cut = true;
+          break;
+        }
         if (dd > out.size()) invalid("distance past the start");
         size_t from = out.size() - dd;
         for (size_t k = 0; k < len; k++) out.push_back(out[from + k]);
       }
     }
+    if (cut) {
+      if (!partial) invalid("truncated deflate stream");
+      break;
+    }
     if (b.overrun()) invalid("truncated deflate stream");
   }
-  if (b.overrun() || out.size() < want) invalid("truncated PNG image data");
+  if (!partial && (b.overrun() || out.size() < want))
+    invalid("truncated PNG image data");
+  // zlib reaches the checksum only when the output did not fill first
+  if (adler && last && out.size() <= want && !b.overrun()) {
+    b.drop(b.cnt & 7);
+    uint32_t want_sum = 0;
+    for (int k = 0; k < 4; k++) want_sum = want_sum << 8 | b.get(8);
+    if (!b.overrun()) {
+      uint32_t s1 = 1, s2 = 0;
+      for (uint8_t c : out) {
+        s1 = (s1 + c) % 65521;
+        s2 = (s2 + s1) % 65521;
+      }
+      if ((s2 << 16 | s1) != want_sum) invalid("zlib checksum mismatch");
+    }
+  }
   return out;
 }
 
@@ -822,6 +882,12 @@ struct Jpeg {
   bool frame = false, progressive = false;
   int W = 0, H = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   std::vector<JComp> comps;
+  // for TIFF's JPEG strips: keep the upsampled component planes instead of
+  // converting (libjpeg's JCS_UNKNOWN), or convert as YCbCr whatever the
+  // markers say (libtiff's JPEGCOLORMODE_RGB)
+  bool keep_planes = false, force_ycc = false;
+  bool short_ok = false;  // data ending inside a scan leaves zeros
+  std::vector<std::vector<uint8_t>> planes;
 
   // the marker code at or after `pos` (skipping any other bytes and fill
   // FFs, as libjpeg's next_marker does), pos after it; -1 at the end
@@ -847,14 +913,14 @@ struct Jpeg {
     const uint8_t* s = d + pos;
     if (len < 6) invalid("short SOF");
     if (frame) invalid("two frames in one JPEG");
-    if (s[0] != 8)
-      throw Unsupported("JPEG " + std::string(sof_name(m & 0xFF)) + " with " +
-                        std::to_string(s[0]) + "-bit samples (the port "
-                        "decodes 8-bit JPEG)");
+    if (s[0] != 8)  // libjpeg's 8-bit interface, which PIL calls, refuses it
+      invalid("JPEG " + std::string(sof_name(m & 0xFF)) + " with " +
+              std::to_string(s[0]) + "-bit samples");
     H = int(be16(s + 1));
     W = int(be16(s + 3));
     int nc = s[5];
-    if (nc != 1 && nc != 3 && nc != 4) invalid("JPEG of that many layers");
+    if (nc != 1 && nc != 3 && nc != 4 && !(keep_planes && nc == 2))
+      invalid("JPEG of that many layers");
     if (len < size_t(6 + 3 * nc)) invalid("short SOF");
     if (W <= 0 || H <= 0) invalid("empty JPEG");
     if (int64_t(W) * H > MAX_PIXELS) invalid("JPEG larger than PIL opens");
@@ -1141,7 +1207,7 @@ struct Jpeg {
       run(block_ac_first);
     else
       run(block_ac_refine);
-    if (b.insufficient && b.eof) invalid("truncated JPEG data");
+    if (b.insufficient && b.eof && !short_ok) invalid("truncated JPEG data");
     pos = b.pos;
   }
 
@@ -1223,6 +1289,10 @@ struct Jpeg {
       full[ci] = upsample(plane, stride, dw, dh, hmax / c.h, vmax / c.v,
                           hmax % c.h || vmax % c.v);
     }
+    if (keep_planes) {
+      planes = std::move(full);
+      return;
+    }
     img.alloc(W, H);
     enum { GRAY, YCC, RGB, CMYK, YCCK } cs;
     if (nc == 1) {
@@ -1239,6 +1309,7 @@ struct Jpeg {
     } else {
       cs = adobe ? (transform == 0 ? CMYK : YCCK) : CMYK;
     }
+    if (force_ycc && nc == 3) cs = YCC;
     // jdcolor.c build_ycc_rgb_table
     struct Ycc {
       int cr_r[256], cb_b[256];
@@ -1283,14 +1354,7 @@ struct Jpeg {
       }
       if (cs == CMYK || cs == YCCK) {
         // PIL: "CMYK;I" inverts the bytes, then Convert.c cmyk2rgb
-        int k = full[3][i];  // inverted twice: nk = 255 - (255 - k)
-        auto muldiv255 = [](int x, int y) {
-          int t = x * y + 128;
-          return ((t >> 8) + t) >> 8;
-        };
-        out[0] = uint8_t(clamp(k - muldiv255(255 - r, k)));
-        out[1] = uint8_t(clamp(k - muldiv255(255 - g, k)));
-        out[2] = uint8_t(clamp(k - muldiv255(255 - bl, k)));
+        cmyk_to_rgb(out, 255 - r, 255 - g, 255 - bl, 255 - full[3][i]);
       } else {
         out[0] = uint8_t(r);
         out[1] = uint8_t(g);
@@ -1385,6 +1449,46 @@ inline int pnm_scale(int64_t v, int64_t maxval, int out_max) {
   return int(std::nearbyint(x));
 }
 
+// Python's float() of an ASCII token, finite or not; false if it would
+// raise
+bool py_float(const std::string& t, double& v) {
+  std::string u;
+  for (size_t i = 0; i < t.size(); i++) {
+    char c = t[i];
+    if (c == '_') {  // only between digits
+      if (i == 0 || i + 1 == t.size() || !std::isdigit(uint8_t(t[i - 1])) ||
+          !std::isdigit(uint8_t(t[i + 1])))
+        return false;
+      continue;
+    }
+    if (c == 'x' || c == 'X' || c == 'p' || c == 'P') return false;
+    u += c;
+  }
+  if (u.empty()) return false;
+  char* end = nullptr;
+  v = std::strtod(u.c_str(), &end);
+  return end == u.c_str() + u.size();
+}
+
+// PIL's Pf: gray float32, little-endian under a negative scale, rows
+// bottom-up; convert("RGB") goes through F -> L
+void decode_pfm(const uint8_t* d, size_t n, size_t pos, int64_t w, int64_t h,
+                double scale, Image& img) {
+  if (scale == 0.0 || !std::isfinite(scale))
+    invalid("PFM scale must be finite and non-zero");
+  img.alloc(w, h);
+  if ((n - pos) / 4 < size_t(w * h)) invalid("truncated PFM data");
+  for (int64_t y = 0; y < h; y++)
+    for (int64_t x = 0; x < w; x++) {
+      const uint8_t* p = d + pos + size_t((h - 1 - y) * w + x) * 4;
+      uint32_t bits = scale < 0 ? le32(p) : be32(p);
+      float f;
+      std::memcpy(&f, &bits, 4);
+      uint8_t v = float_to_l(f);
+      img.put(x, y, v, v, v);
+    }
+}
+
 void decode_pnm(const uint8_t* d, size_t n, Image& img) {
   size_t pos = 0;
   std::string magic;
@@ -1394,17 +1498,17 @@ void decode_pnm(const uint8_t* d, size_t n, Image& img) {
     if (pnm_ws(c)) break;
     magic += char(c);
   }
-  if (magic.size() != 2 || magic[0] != 'P' || magic[1] < '1' ||
-      magic[1] > '6') {
-    if (magic == "Pf" || magic == "P0CMYK" || magic == "PyP" ||
-        magic == "PyRGBA" || magic == "PyCMYK")
-      throw Unsupported("PNM variant " + magic + " (PIL's float or own "
-                        "modes) is not decoded by craytracer_tpu_torch "
-                        "(P1-P6 are)");
+  // PIL's own modes: 0 none, 1 CMYK, 2 P, 3 RGBA, 4 F
+  int ext = magic == "P0CMYK" || magic == "PyCMYK" ? 1
+            : magic == "PyP"                       ? 2
+            : magic == "PyRGBA"                    ? 3
+            : magic == "Pf"                        ? 4
+                                                   : 0;
+  if (!ext && (magic.size() != 2 || magic[0] != 'P' || magic[1] < '1' ||
+               magic[1] > '6'))
     invalid("not a PPM file");
-  }
-  const int kind = magic[1] - '0';
-  auto token = [&]() -> int64_t {
+  const int kind = ext ? 5 : magic[1] - '0';  // PIL's own: the raw path
+  auto token_str = [&]() {
     std::string t;
     while (t.size() <= 10) {
       if (pos >= n) break;
@@ -1422,11 +1526,21 @@ void decode_pnm(const uint8_t* d, size_t n, Image& img) {
       }
       t += char(c);
     }
+    if (t.empty() || t.size() > 10) invalid("bad PNM header");
+    return t;
+  };
+  auto token = [&]() -> int64_t {
     int64_t v;
-    if (t.empty() || t.size() > 10 || !py_int(t, v)) invalid("bad PNM header");
+    if (!py_int(token_str(), v)) invalid("bad PNM header");
     return v;
   };
   int64_t w = token(), h = token();
+  if (ext == 4) {
+    double scale = 0.0;
+    if (!py_float(token_str(), scale)) invalid("bad PFM scale");
+    decode_pfm(d, n, pos, w, h, scale, img);
+    return;
+  }
   const bool bitonal = kind == 1 || kind == 4;
   const bool rgb = kind == 3 || kind == 6;
   int64_t maxval = 1;
@@ -1435,8 +1549,8 @@ void decode_pnm(const uint8_t* d, size_t n, Image& img) {
     if (!(maxval > 0 && maxval < 65536)) invalid("bad PNM maxval");
   }
   img.alloc(w, h);
-  const int bands = rgb ? 3 : 1;
-  const bool mode_i = !rgb && !bitonal && maxval > 255;  // PIL mode "I"
+  const int bands = ext == 1 || ext == 3 ? 4 : ext == 2 ? 1 : rgb ? 3 : 1;
+  const bool mode_i = !ext && !rgb && !bitonal && maxval > 255;  // mode "I"
   const int out_max = mode_i ? 65535 : 255;
   const size_t total = size_t(w) * size_t(h) * bands;
   std::vector<int> vals(total);
@@ -1447,7 +1561,7 @@ void decode_pnm(const uint8_t* d, size_t n, Image& img) {
       for (int64_t x = 0; x < w; x++)
         vals[size_t(y * w + x)] =
             (d[pos + y * rb + x / 8] >> (7 - x % 8)) & 1 ? 0 : 255;
-  } else if (kind == 5 || kind == 6) {
+  } else if (kind == 5 || kind == 6) {  // and PIL's own modes
     if (maxval == 255 || (mode_i && maxval == 65535)) {  // the raw decoder
       size_t bytes = maxval == 255 ? 1 : 2;
       if ((n - pos) / bytes < total) invalid("truncated PNM data");
@@ -1507,10 +1621,16 @@ void decode_pnm(const uint8_t* d, size_t n, Image& img) {
   }
   uint8_t* o = img.rgb.data();
   for (size_t p = 0; p < size_t(w * h); p++, o += 3) {
-    if (bands == 3) {
-      o[0] = uint8_t(vals[3 * p]);
-      o[1] = uint8_t(vals[3 * p + 1]);
-      o[2] = uint8_t(vals[3 * p + 2]);
+    if (ext == 1) {
+      const int* v = &vals[4 * p];
+      cmyk_to_rgb(o, v[0], v[1], v[2], v[3]);
+    } else if (ext == 2) {  // "P" with no palette: black
+      o[0] = o[1] = o[2] = 0;
+    } else if (bands >= 3) {
+      const int* v = &vals[size_t(bands) * p];
+      o[0] = uint8_t(v[0]);
+      o[1] = uint8_t(v[1]);
+      o[2] = uint8_t(v[2]);
     } else {
       int v = std::min(vals[p], 255);  // mode I clips in convert("RGB")
       o[0] = o[1] = o[2] = uint8_t(v);
@@ -2043,6 +2163,15 @@ void decode_gif(const uint8_t* d, size_t n, Image& img) {
   }
 }
 
+}  // namespace
+
+#include "imgdecode_dds.h"
+#include "imgdecode_psd.h"
+#include "imgdecode_tiff.h"
+#include "imgdecode_webp.h"
+
+namespace {
+
 struct Result {
   int status = 0;
   std::string message;
@@ -2053,7 +2182,8 @@ struct Result {
 
 extern "C" {
 
-// kind: 1 PNG, 2 JPEG, 3 PNM, 4 BMP, 5 TGA, 6 GIF
+// kind: 1 PNG, 2 JPEG, 3 PNM, 4 BMP, 5 TGA, 6 GIF, 7 TIFF, 8 DDS, 9 WebP,
+// 10 PSD
 void* imgd_decode(int kind, const uint8_t* data, int64_t n) {
   Result* r = new Result;
   try {
@@ -2079,6 +2209,18 @@ void* imgd_decode(int kind, const uint8_t* data, int64_t n) {
         break;
       case 6:
         decode_gif(data, size_t(n), r->img);
+        break;
+      case 7:
+        decode_tiff(data, size_t(n), r->img);
+        break;
+      case 8:
+        decode_dds(data, size_t(n), r->img);
+        break;
+      case 9:
+        decode_webp(data, size_t(n), r->img);
+        break;
+      case 10:
+        decode_psd(data, size_t(n), r->img);
         break;
       default:
         throw Unsupported("unknown image kind");

@@ -8,7 +8,11 @@ environment maps use (readRgba1, imagefile.h:11-34). `read_exr` returns
 writes FLOAT R/G/B with ZIP, storing a block raw where zip does not
 shrink it, and round-trips bit for bit through `read_exr`. Anything
 else (multi-part, tiled, PIZ/PXR24/B44/DWA compression) raises
-NotImplementedError naming what it found.
+NotImplementedError naming what it found. `read_exr_texture` reads as the
+JAX reader does for the texture loader: a tiled file (flag 0x200) or a
+compression other than NONE, ZIPS and ZIP raises ValueError, and a file
+flagged deep (0x800) or multi-part (0x1000) is parsed on as if it were
+neither, whatever that gives.
 """
 
 from __future__ import annotations
@@ -56,15 +60,27 @@ def _zip_block(raw: bytes) -> bytes:
 
 
 def read_exr(path: str) -> np.ndarray:
+    return _read_exr(path, strict=True)
+
+
+def read_exr_texture(path: str) -> np.ndarray:
+    """What craytracer_tpu/io/exr.py `read_exr` gives or raises, for the
+    texture loader (which turns any error into None, as JAX's does)."""
+    return _read_exr(path, strict=False)
+
+
+def _read_exr(path: str, strict: bool) -> np.ndarray:
     with open(path, "rb") as f:
         buf = f.read()
     magic, version = struct.unpack_from("<ii", buf, 0)
     if magic != _MAGIC:
         raise ValueError(f"{path} is not an EXR file")
-    if version & 0x1A00:
+    if strict and version & 0x1A00:
         raise NotImplementedError(
             f"{path}: tiled, deep or multi-part EXR (version flags "
             f"{version:#x}); only single-part scanline EXR is decoded")
+    if version & 0x200:
+        raise ValueError(f"{path}: tiled EXR")
     pos = 8
     channels = []  # (name, pixel type)
     compression = 0
@@ -89,10 +105,12 @@ def read_exr(path: str) -> np.ndarray:
             data_window = struct.unpack("<iiii", val)
     pos += 1
     if compression not in _LINES_PER_BLOCK:
+        name = _COMPRESSION_NAMES.get(compression, compression)
+        if not strict:
+            raise ValueError(f"{path}: EXR compression {name}")
         raise NotImplementedError(
-            f"{path}: EXR compression "
-            f"{_COMPRESSION_NAMES.get(compression, compression)}; only NONE, "
-            "ZIPS and ZIP are decoded")
+            f"{path}: EXR compression {name}; only NONE, ZIPS and ZIP are "
+            "decoded")
     x_min, y_min, x_max, y_max = data_window
     width = x_max - x_min + 1
     height = y_max - y_min + 1

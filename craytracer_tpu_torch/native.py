@@ -19,8 +19,10 @@ split), bvh4q and the sphere BVH4 (accel/bvh4.py:135 `collapse4` calls
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -38,28 +40,59 @@ SPLIT_MODES = {"median": 0, "sah": 1}
 _LIB = None
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources_read(source: Path) -> list:
+    """`source` and every file it includes with #include "..." (looked up
+    beside the including file), transitively, each once, in a fixed
+    order."""
+    seen, order = set(), []
+
+    def visit(path: Path):
+        path = path.resolve()
+        if path in seen or not path.exists():
+            return
+        seen.add(path)
+        order.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            visit(path.parent / name.decode())
+
+    visit(source)
+    return order
+
+
 def build_shared(source: Path, stem: str, flags=CXX_FLAGS) -> Path:
     """`source` built with g++ and `flags` into _build/lib<stem>_<hash>.so
-    unless that file exists, the hash taken over the source and the flags.
-    The compiler writes a temporary file that is renamed into place, so
-    processes building at once do not race."""
+    unless that file exists, the hash taken over the flags, the source and
+    every file it includes by #include "...", so an edit to any of them
+    builds anew. The compiler writes a temporary file that is renamed into
+    place, under a lock file beside it, so processes that need the library
+    at once build it once."""
     cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
     if cxx is None:
         raise RuntimeError(f"no C++ compiler found: {source} needs g++ to "
                            "build")
     if not source.exists():
         raise RuntimeError(f"C++ source missing: {source}")
-    h = hashlib.sha256(source.read_bytes())
-    h.update(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in _sources_read(source):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     so = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}"
-        res = subprocess.run([cxx, *flags, "-o", str(tmp), str(source)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"building {source} failed:\n{res.stderr}")
-        os.replace(tmp, so)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one process builds, the others wait for it and reuse its file
+    with open(BUILD_DIR / f".{so.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            tmp = BUILD_DIR / f".{so.name}.{os.getpid()}"
+            res = subprocess.run([cxx, *flags, "-o", str(tmp), str(source)],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"building {source} failed:\n"
+                                   f"{res.stderr}")
+            os.replace(tmp, so)
     return so
 
 

@@ -10,9 +10,11 @@ carry, CMYK and YCCK; PNM P1-P6 at any maxval; BMP; TGA; GIF) equal to
 the JAX loader's array texel for texel, each file written into tmp_path
 at a small odd size from a seed (by PIL, or byte by byte through
 tests/torch_image_files.py where PIL writes no such file); files PIL
-refuses give None in both; formats the port does not decode raise
-NotImplementedError; the committed fixtures of chip_smoke.py phase 55
-against their manifest."""
+refuses give None in both (a 12-bit JPEG, an EXR the JAX reader refuses);
+formats the port does not decode raise NotImplementedError; the committed
+fixtures of chip_smoke.py phases 55 and 56 against their manifest. TIFF,
+DDS, lossless WebP, PSD and PIL's own PNM variants are held to the JAX
+loader in tests/test_torch_texture_formats.py."""
 
 import hashlib
 import io
@@ -115,8 +117,8 @@ def test_exr_unsupported_raises(tmp_path):
     p.write_bytes(bytes(data))
     with pytest.raises(NotImplementedError, match="PIZ"):
         texr.read_exr(str(p))
-    with pytest.raises(NotImplementedError, match="PIZ"):
-        load_texture_image(str(p))
+    # the texture loader gives None, as the JAX loader does
+    assert load_texture_image(str(p)) is None and j_tex(str(p)) is None
 
 
 @pytest.mark.parametrize("name", TEXTURES)
@@ -221,7 +223,8 @@ def _smooth(rng, h, w, c=3):
 # formats the port decodes since it has its C++ decoders; each case is
 # written as the earlier "undecoded" test wrote it
 @pytest.mark.parametrize("kind", ["JPEG", "16-bit PNG", "interlaced PNG",
-                                  "palette PNG", "PGM"])
+                                  "palette PNG", "PGM", "TIFF", "DDS", "PSD",
+                                  "PFM"])
 def test_formerly_undecoded_formats_match_jax(tmp_path, kind):
     rng = np.random.default_rng(2)
     img = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
@@ -238,6 +241,15 @@ def test_formerly_undecoded_formats_match_jax(tmp_path, kind):
             f.write(F.png_bytes(img, 8, 2, interlace=1))
     elif kind == "palette PNG":
         Image.fromarray(img).convert("P").save(p, format="PNG")
+    elif kind in ("TIFF", "DDS"):
+        Image.fromarray(img).save(p, format=kind)
+    elif kind == "PSD":
+        with open(p, "wb") as f:
+            f.write(_psd(img))
+    elif kind == "PFM":
+        with open(p, "wb") as f:
+            f.write(b"Pf\n8 8\n-1.0\n" + rng.random(64).astype(
+                "<f4").tobytes())
     else:
         Image.fromarray(img[..., 0]).save(p, format="PPM")
     _same(p)
@@ -710,45 +722,40 @@ def _unrefined_progressive(img):
     return bytes(out)
 
 
-@pytest.mark.parametrize("kind", ["TIFF", "WebP", "DDS", "PSD", "JPEG 2000",
+@pytest.mark.parametrize("kind", ["lossy WebP", "JPEG 2000",
                                   "arithmetic JPEG (SOF9)",
-                                  "unrefined progressive JPEG", "PFM"])
+                                  "unrefined progressive JPEG"])
 def test_undecoded_formats_raise(tmp_path, kind):
     """Formats the JAX loader reads through PIL and the port does not:
     NotImplementedError naming them, never a quiet None."""
     rng = np.random.default_rng(2)
     img = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
     p = tmp_path / "x.img"
-    if kind in ("TIFF", "WebP", "DDS", "JPEG 2000"):
-        fmt = {"WebP": "WEBP", "JPEG 2000": "JPEG2000"}.get(kind, kind)
+    if kind in ("lossy WebP", "JPEG 2000"):
+        fmt = {"lossy WebP": "WEBP", "JPEG 2000": "JPEG2000"}[kind]
         p.write_bytes(_pil_bytes(Image.fromarray(img), fmt))
-    elif kind == "PSD":
-        p.write_bytes(_psd(img))
     elif kind.startswith("arithmetic"):
         data = bytearray(_pil_bytes(Image.fromarray(img), "JPEG"))
         data[data.index(b"\xff\xc0") + 1] = 0xC9
         p.write_bytes(bytes(data))
-    elif kind.startswith("unrefined"):
-        p.write_bytes(_unrefined_progressive(img))
     else:
-        p.write_bytes(b"Pf\n8 8\n-1.0\n" + rng.random(64).astype(
-            "<f4").tobytes())
+        p.write_bytes(_unrefined_progressive(img))
     assert j_tex(str(p)) is not None  # the JAX package renders it
-    named = {"JPEG 2000": "JPEG 2000", "arithmetic JPEG (SOF9)":
-             "SOF9 \\(arithmetic", "unrefined progressive JPEG":
-             "unrefined", "PFM": "variant Pf"}.get(kind, kind)
+    named = {"lossy WebP": "lossy WebP \\(VP8\\)", "JPEG 2000": "JPEG 2000",
+             "arithmetic JPEG (SOF9)": "SOF9 \\(arithmetic",
+             "unrefined progressive JPEG": "unrefined"}[kind]
     with pytest.raises(NotImplementedError, match=named):
         load_texture_image(str(p))
 
 
-def test_twelve_bit_jpeg_raises(tmp_path):
-    """A 12-bit JPEG names its SOF marker and precision."""
+def test_twelve_bit_jpeg_is_none(tmp_path):
+    """A 12-bit JPEG: libjpeg's 8-bit interface, which PIL calls, refuses
+    it, so the JAX loader gives None, and so does the port."""
     rng = np.random.default_rng(4)
     data = bytearray(F.jpeg_bytes([_smooth(rng, 9, 9)[..., 0]], [(1, 1)]))
     data[data.index(b"\xff\xc0") + 4] = 12
     (tmp_path / "x.jpg").write_bytes(bytes(data))
-    with pytest.raises(NotImplementedError, match="SOF0 with 12-bit"):
-        load_texture_image(str(tmp_path / "x.jpg"))
+    _same(tmp_path / "x.jpg", readable=False)
 
 
 FIXTURES = os.path.join(os.path.dirname(SCENES), "craytracer_tpu_torch",
