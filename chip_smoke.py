@@ -3808,7 +3808,15 @@ def main() -> int:
     o, d, steps, t_m, tri_m = walks["camera"]
     topo_m = sp.split_topology(big.tri_bvh)
     topos = [sp.split_topology(p) for p in parts]
-    t_pm, tri_pm, _ = bvh4_closest_hit_stats(big.tri_bvh, o, d)
+    visits_m = torch.zeros(big.tri_bvh.fat.shape[0], dtype=torch.int64,
+                           device=dev)
+    t_pm, tri_pm, _ = bvh4_closest_hit_stats(big.tri_bvh, o, d,
+                                             visits=visits_m)
+    # K5's whole-table bound: what the result needs of the rows the plain
+    # traversal pops (boxes, child ids, filled slots), each read once
+    k5_whole_bound = _pop_bound(big.tri_bvh, visits_m, o.shape[0],
+                                split=True)
+    del visits_m
     half = (torch.arange(o.shape[0], device=dev) % 2 == 0) & (t_pm < TMAX)
     t0h = torch.where(half, t_pm * 0.5, torch.full_like(t_pm, TMAX))
     tri0h = torch.where(half, 7777, -1).to(torch.int32)
@@ -3903,7 +3911,9 @@ def main() -> int:
           f"per launch on the camera rays' parts: bare {k5_ms:.4f} ms, "
           f"plain {k5_plain:.4f} ms, bound "
           f"{sum(b for b, _ in k5_bound) / len(parts):.4f} ms "
-          f"({k5_bound[0][1]})", flush=True)
+          f"({k5_bound[0][1]}); on the whole table: bare {t_k5m[0]:.4f} "
+          f"ms, bound {k5_whole_bound[0]:.4f} ms ({k5_whole_bound[1]})",
+          flush=True)
     kernels["k3_init_bvh4_closest"] = {
         "name": "k3_init_bvh4_closest", "route": "cuda",
         "source": "craytracer_tpu_torch/csrc/bvh4_traverse.cu",
@@ -3919,7 +3929,9 @@ def main() -> int:
         "launches": launches_city["k5_bvh4_split"], "ms": k5_ms,
         "plain_ms": k5_plain,
         "bound_ms": sum(b for b, _ in k5_bound) / len(parts),
-        "bound_by": k5_bound[0][1], "library_ms": None}
+        "bound_by": k5_bound[0][1], "library_ms": None,
+        "whole_table_ms": t_k5m[0],
+        "whole_table_bound_ms": k5_whole_bound[0]}
     del walks, steps, topos, topo_m
 
     # ---- 23. K6 on parity_mesh_mid's triangles and camera rays
@@ -3999,15 +4011,16 @@ def main() -> int:
     if not eq_p1:
         fails.append("P1 full mode at the timed size")
     rows_p1 = len(set(pp.lcg_nodes(p1_pops, fat_c.shape[0])))
-    b_p1 = _bound(rows_p1 * ROW_BYTES + op.shape[0] * 32,
-                  op.shape[0] * p1_pops * (4 * BOX_OPS + 8 * SLOT_OPS
-                                           + SORT_OPS))
+    ops_p1 = op.shape[0] * p1_pops * (4 * BOX_OPS + 8 * SLOT_OPS
+                                      + SORT_OPS)
+    b_p1 = _bound(rows_p1 * ROW_BYTES + op.shape[0] * 32, ops_p1)
     print(f"[time] {card}, p1_pop_probe full mode, {op.shape[0]} lanes x "
           f"{p1_pops} pops, median of {REPS}: bare {med_p1:.4f} ms (runs "
           f"{_runs(ts_p1)} ms), plain {ms_p1_plain:.4f} ms (timed once), "
-          f"bound {b_p1[0]:.4f} ms ({b_p1[1]}); t and sink bit-equal "
-          f"with the plain version {eq_p1}" + ("" if eq_p1 else " FAIL"),
-          flush=True)
+          f"bound {b_p1[0]:.4f} ms ({b_p1[1]}; at the --fmad=false issue "
+          f"rate, every multiply and add in its own slot, "
+          f"{ops_p1 / (F32_OPS_PER_S / 2) * 1e3:.4f} ms); t and sink bit-equal with the plain "
+          f"version {eq_p1}" + ("" if eq_p1 else " FAIL"), flush=True)
     kernels["p1_pop_probe"] = {
         "name": "p1_pop_probe", "route": "cuda",
         "source": "craytracer_tpu_torch/csrc/pop_probe.cu",

@@ -5,9 +5,11 @@ with `_traversal_kernel_split` :683).
 The table is split into a compact topology table, the fat rows' first 32
 columns (boxes and child ids, 128 bytes a row), and the leaf triangle
 columns, read from the fat table. The CUDA C++ source is
-csrc/bvh4_split.cu (one ray per thread, the plain walk's visit order,
-the top topology rows in shared memory, leaf columns read only for leaf
-children; see its note). `bvh4_closest_hit_split_kernel` is the wrapper:
+csrc/bvh4_split.cu (one ray per thread, the plain walk's visit order;
+the slots read only for leaf children; blocks of 128 rays with L1
+prefetch on a topology the L2 holds, persistent blocks taking rays from
+the launch's counter, `next_ray`, on one past it; see its note).
+`bvh4_closest_hit_split_kernel` is the wrapper:
 for CPU tensors it takes the plain version, accel/bvh4.py
 `bvh4_closest_hit_init` (the same function); for CUDA tensors it
 launches K5 or raises. `SPLIT.launches` counts K5 launches. Nothing
@@ -34,7 +36,7 @@ TOPO_COLS = 32
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.k5_split_launch.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, ci, vp,
-                                    vp, vp]
+                                    vp, vp, vp]
     lib.k5_split_launch.restype = ci
 
 
@@ -78,12 +80,14 @@ def bvh4_closest_hit_split_kernel(bvh: BVH4Arrays, o, d, t0=None, tri0=None,
     tri = torch.empty((n,), dtype=torch.int32, device=o.device)
     if n == 0:
         return t, tri
+    next_ray = torch.empty((1,), dtype=torch.int32, device=o.device)
     lib = LIBRARY.load()
     err = lib.k5_split_launch(
         topo.data_ptr(), bvh.fat.data_ptr(), m, int(bvh.stack_size),
         o.data_ptr(), d.data_ptr(), None if t0 is None else t0.data_ptr(),
         None if tri0 is None else tri0.data_ptr(), n, t.data_ptr(),
-        tri.data_ptr(), torch.cuda.current_stream(o.device).cuda_stream)
+        tri.data_ptr(), next_ray.data_ptr(),
+        torch.cuda.current_stream(o.device).cuda_stream)
     LIBRARY.check(err, "K5")
     SPLIT.launches += 1
     return t, tri

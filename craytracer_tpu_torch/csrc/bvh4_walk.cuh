@@ -1,13 +1,16 @@
 // A ray's walk of a fat-row BVH4, shared by K3, K3 `_init` and K4
-// (bvh4_traverse.cu) and K5 (bvh4_split.cu). See bvh4_traverse.cu for
-// the visit order, which is the plain version's (accel/bvh4.py
-// `_traverse4`) exactly, and for why t and the triangle id come out bit
-// for bit.
+// (bvh4_traverse.cu, FatRows below) and K5 (bvh4_split.cu, SplitRows).
+// See bvh4_traverse.cu for the visit order, which is the plain version's
+// (accel/bvh4.py `_traverse4`) exactly, and for why t and the triangle id
+// come out bit for bit.
 //
 // A row source says where a pop reads its node: `box4(node, q)` is float4
 // q of the node's four child boxes and child ids (7 float4), `pair(node,
-// c)` points at child c's two leaf slots (5 float4) in the fat row, and
-// `prefetch(node)` may ask for the row of a child the pop will push.
+// c)` points at child c's two leaf slots (5 float4) in the fat row,
+// `prefetch(node)` may ask for the row of a child the pop will push, and
+// `prefetch_slots(node, b)` may ask for the slots of the popped row's leaf
+// children once its boxes and child ids (`b`, 28 floats) have arrived,
+// before its box tests.
 // A pop skips the slots of internal children (child id >= 0): all of
 // them in a row without a leaf child, and with `kLeafPairsOnly` in every
 // row; with `kSkipEmpty` also those of empty children (the builder's
@@ -55,6 +58,7 @@ struct FatRows {
   __device__ __forceinline__ const float4* pair(int node, int c) const {
     return fat + (size_t)node * ROW_F4 + TRI0_F4 + c * PAIR_F4;
   }
+  __device__ __forceinline__ void prefetch_slots(int, const float*) const {}
   __device__ __forceinline__ void prefetch(int node) const {
 #ifdef __CUDA_ARCH__
     if constexpr (PREFETCH) {
@@ -65,27 +69,6 @@ struct FatRows {
     }
 #endif
   }
-};
-
-// SplitRows: K5 reads boxes and child ids from the 128-byte topology row
-// (the fat row's first 32 floats), the first `cached` of them from shared
-// memory, and the leaf slots from the fat row. It reads an empty child's
-// slots: skipping them was measured slower here (PERF.md).
-struct SplitRows {
-  static constexpr bool kLeafPairsOnly = true;
-  static constexpr bool kSkipEmpty = false;
-  const float4* topo_s;  // the first `cached` topology rows, shared memory
-  int cached;
-  const float4* __restrict__ topo;
-  const float4* __restrict__ fat;
-  __device__ __forceinline__ float4 box4(int node, int q) const {
-    return node < cached ? topo_s[node * TOPO_F4 + q]
-                         : __ldg(topo + (size_t)node * TOPO_F4 + q);
-  }
-  __device__ __forceinline__ const float4* pair(int node, int c) const {
-    return fat + (size_t)node * ROW_F4 + TRI0_F4 + c * PAIR_F4;
-  }
-  __device__ __forceinline__ void prefetch(int) const {}
 };
 
 // A ray with its reciprocal direction and its max_dist (TMAX for a
@@ -139,6 +122,7 @@ __device__ __forceinline__ void walk(const Rows& rows, int m, int stack_size,
       b[4 * q + 2] = v.z;
       b[4 * q + 3] = v.w;
     }
+    rows.prefetch_slots(node, b);
     float key[4];
     int cv[4];
     int child[4];

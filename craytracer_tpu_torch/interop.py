@@ -4,9 +4,12 @@ The JAX package's Scene / Camera / Film are dataclasses; `numpy_leaves`
 flattens one into nested mappings of numpy arrays (`np.asarray` on every
 leaf, static fields as plain values), and the `*_from_numpy` functions
 rebuild the port's dataclasses from such mappings, so both packages
-compute on identical data. `with_grad` hands the same parameters to
-autograd: the named leaves of a port object as fresh tensors that require
-grad. This module imports neither JAX nor the JAX package: it only reads
+compute on identical data. Like every entry point of the port, the
+converters put the tensors on the CUDA card unless the caller names
+another device (`device="cpu"`), and raise when there is no card
+(scene/types.py `resolve_device`). `with_grad` hands the same parameters
+to autograd: the named leaves of a port object as fresh tensors that
+require grad. This module imports neither JAX nor the JAX package: it only reads
 dataclass fields.
 """
 
@@ -63,7 +66,7 @@ def _build(cls, leaves: Mapping, device):
     return cls(**kw)
 
 
-def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
+def scene_from_numpy(leaves: Mapping, device=None) -> T.Scene:
     """`leaves` maps each Scene group name to a mapping of its fields
     (numpy arrays) plus the static fields. The accelerator table
     `tri_bvh`, of the type the scene's `accel` builds (`_TABLES`), and
@@ -76,6 +79,7 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
         raise NotImplementedError(
             "scene carries tri_cam, the CRAY_CAM_BINNED camera-bounce "
             "table: not ported as such (ROADMAP)")
+    device = T.resolve_device(device)
     kw = {name: _build(cls, leaves[name], device)
           for name, cls in _GROUPS.items()}
     kw["env"] = _build(T.EnvLight, leaves["env"], device)
@@ -114,21 +118,21 @@ def scene_from_numpy(leaves: Mapping, device="cpu") -> T.Scene:
     return T.Scene(**kw)
 
 
-def camera_from_numpy(leaves: Mapping, device="cpu") -> Camera:
-    return _build(Camera, leaves, device)
+def camera_from_numpy(leaves: Mapping, device=None) -> Camera:
+    return _build(Camera, leaves, T.resolve_device(device))
 
 
-def film_from_numpy(leaves: Mapping, device="cpu") -> Film:
-    return _build(Film, leaves, device)
+def film_from_numpy(leaves: Mapping, device=None) -> Film:
+    return _build(Film, leaves, T.resolve_device(device))
 
 
-def sample_table_from_numpy(leaves: Mapping, device="cpu"):
+def sample_table_from_numpy(leaves: Mapping, device=None):
     """A JAX SampleTable's leaves (`points`, `kind`) -> the port's
     sampling.tables.SampleTable. A JAX `.npz` image state needs no
     conversion: io/imagestate.py reads it as it is."""
     from craytracer_tpu_torch.sampling.tables import SampleTable
 
-    return _build(SampleTable, leaves, device)
+    return _build(SampleTable, leaves, T.resolve_device(device))
 
 
 def with_grad(obj, *names: str):

@@ -18,10 +18,11 @@ craytracer_tpu_torch/_build/:
 - the 7M city (6,999,040 triangles, 17 parts) at
   512x512: the camera and bounce-1 rays in the route's order (ray_key
   sort, then the part sort) with, per part, the best hit the parts
-  before it carry in, for K3 `_init` (and K5 on the camera rays' parts,
-  with each part's topology made before the timing); the bounce-0 and
-  bounce-1 shadow rays with, per part, the max_dist the route carries in
-  (0 on lanes an earlier part occluded), for K4.
+  before it carry in, for K3 `_init` and K5 (each table's topology made
+  before the timing); the same rays ray_key-sorted for K3 and K5 on the
+  whole 1.05 GB table; the bounce-0 and bounce-1 shadow rays with, per
+  part, the max_dist the route carries in (0 on lanes an earlier part
+  occluded), for K4.
 
 Then each root, one after another, runs in a fresh process that imports
 the package from its root, builds its own kernels and launches them
@@ -153,11 +154,18 @@ def _prepare(path: str) -> None:
     parts = big.tri_parts
     for k, p in enumerate(parts):
         data["tables"][f"city_7m part {k}"] = table(p)
+    data["tables"]["city_7m"] = table(big.tri_bvh)
     bcam, bfilm = city_view(big.triangles.mat_id.shape[0], BIG_SIZE,
                             device=dev)
     recs = bounces(big, *camera(big, bcam, bfilm, BIG_SIZE), 5, 2)
     for b, (o, d, so, sd, smd) in enumerate(recs):
+        rays_of = ("camera", "bounce-1")[b]
         o, d = sort(o, d)
+        whole = [("city_7m", cpu([o, d]))]
+        for kind in ("k3", "k5"):
+            data["groups"].append({
+                "name": f"city_7m {kind.upper()} whole table, {rays_of} "
+                        f"rays", "kind": kind, "launches": whole})
         perm = bvh4_parts.part_sort(parts, o, d)[1]
         o, d = o[perm].contiguous(), d[perm].contiguous()
         t = torch.full((o.shape[0],), TMAX, device=dev)
@@ -167,13 +175,11 @@ def _prepare(path: str) -> None:
             launches.append((f"city_7m part {k}", rays + cpu([t, tri])))
             t, tri = bvh4_closest_hit_init(p, o, d, t, tri)
         data["groups"].append({
-            "name": f"city_7m K3 _init per part, "
-                    f"{('camera', 'bounce-1')[b]} rays",
+            "name": f"city_7m K3 _init per part, {rays_of} rays",
             "kind": "k3_init", "launches": launches})
-        if b == 0:  # K5 on the same launches, the tensors saved once
-            data["groups"].append({
-                "name": "city_7m K5 per part, camera rays",
-                "kind": "k5", "launches": launches})
+        data["groups"].append({  # the same launches, the tensors saved once
+            "name": f"city_7m K5 per part, {rays_of} rays",
+            "kind": "k5", "launches": launches})
         so, sd, smd = sort(so, sd, smd)
         best = torch.full_like(smd, TMAX)
         md, rays, launches = smd, cpu([so, sd]), []
@@ -210,7 +216,7 @@ def _one(root: str, path: str) -> dict:
               for k, v in data["tables"].items()}
     topos = {}  # K5's topology tables, made before the timing
 
-    def k5(bvh, o, d, t0, tri0):
+    def k5(bvh, o, d, t0=None, tri0=None):
         return sp.bvh4_closest_hit_split_kernel(bvh, o, d, t0, tri0,
                                                 topo=topos[id(bvh)])
 

@@ -37,7 +37,7 @@ from craytracer_tpu_torch.cuda_build import CudaLibrary, LaunchCount
 MODES = ("empty", "rowload", "cols", "colsdir", "box", "mt", "full")
 PACKET = 32
 BIG = 3.0e38
-MAX_POPS = 3072  # four packets' stacks in 48 KB of shared memory
+MAX_POPS = 3072  # four packets' rings and stacks in 64 KB of shared memory
 FAT_COLS = 128
 
 

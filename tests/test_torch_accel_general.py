@@ -65,7 +65,7 @@ def _mesh_env_disk(accel):
     general_scenes.mesh_env_disk(tb, shapes)
     leaves = general_scenes.make_anisotropic(numpy_leaves(
         tb.build(accel=accel, device="cpu")))
-    ts = scene_from_numpy(leaves)
+    ts = scene_from_numpy(leaves, device="cpu")
     m = leaves["materials"]
     js = jb.build(accel=accel)
     js = js.replace(materials=js.materials.replace(

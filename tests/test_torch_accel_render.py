@@ -137,7 +137,7 @@ def test_scene_from_numpy_carries_every_table(accel):
 
     (js, _, _), (ts, _, _) = load_both("parity_mesh", 8, accel=accel)
     leaves = numpy_leaves(js)
-    got = scene_from_numpy(leaves)
+    got = scene_from_numpy(leaves, device="cpu")
     assert got.accel == accel and type(got.tri_bvh) is type(ts.tri_bvh)
     assert_tables_equal(js.tri_bvh, got.tri_bvh)
     assert_tables_equal(got.tri_bvh, ts.tri_bvh)
@@ -149,4 +149,4 @@ def test_scene_from_numpy_carries_every_table(accel):
     leaves["tri_cam"] = leaves["tri_shadow"] or leaves["tri_bvh"]
     with pytest.raises(NotImplementedError,
                        match=r"not ported as such \(ROADMAP\)"):
-        scene_from_numpy(leaves)
+        scene_from_numpy(leaves, device="cpu")

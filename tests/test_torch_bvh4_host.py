@@ -34,11 +34,16 @@ t at half their closest hit with id 7777, as tests/test_pallas_kernel.py
 :167-175 does) on the same rays and on every part of the soup's table cut
 at a fifth of its bytes (the top part's cut children -1), and K6 on
 random triangles with a duplicated block (exact-t ties): t and ids equal
-the plain versions' on every lane; the blocks stage their shared memory
-together (K5's top topology rows, K6's triangle tiles). P1 (the packet
-of a warp: its stack filled by its lanes, shuffle minima and votes) in
-all 7 modes on the inputs of tests/test_torch_pop_probe.py: t and sink
-equal the plain version's on every lane.
+the plain versions' on every lane; K5 in both its forms (K5_L2: one
+ray per thread on a device whose L2 holds the tables, and persistent
+blocks whose warps take rays from the launch's counter across the
+stub's 2 blocks on one whose L2 holds none, launch after launch on a
+counter the last launch left past the rays); K6's blocks stage their
+triangle tiles together. P1 (the packet of a warp: its stack filled by its lanes, its
+rows staged in a shared ring ahead of their pops, shuffle minima and
+votes) in all 7 modes on the inputs of tests/test_torch_pop_probe.py, at
+3, 21 and 64 pops (below the ring's depth of 8, not a multiple of it, a
+multiple): t and sink equal the plain version's on every lane.
 
 Skips when no C++ compiler is on the PATH."""
 
@@ -293,16 +298,26 @@ def test_k2_source_matches_plain_shade(host_libs, mesh, bounce):
     assert bool(alive.any())
 
 
+# K5's builds by the stub device's L2 bytes: one whose L2 holds every
+# test table's topology (one ray per thread) and one whose L2 holds none
+# (persistent blocks of 1,024 threads taking 32 rays at a time from the
+# launch's counter)
+K5_L2 = {"in_l2": 50 * 1024 * 1024, "past_l2": 0}
+
+
 @pytest.fixture(scope="module")
 def split_libs(tmp_path_factory):
     from craytracer_tpu_torch.accel import bvh4_split_kernel
     from craytracer_tpu_torch.ops import tri_kernel
 
-    split = host_build(tmp_path_factory, "bvh4_split", 2)
-    bvh4_split_kernel._bind(split)
+    k5 = {}
+    for form, l2 in K5_L2.items():
+        k5[form] = host_build(tmp_path_factory, "bvh4_split", 1,
+                              l2_bytes=l2)
+        bvh4_split_kernel._bind(k5[form])
     tri = host_build(tmp_path_factory, "tri_closest", 1)
     tri_kernel._bind(tri)
-    return split, tri
+    return k5, tri
 
 
 def _carried(t_ref, tri_ref):
@@ -316,12 +331,29 @@ def _carried(t_ref, tri_ref):
     return t0, tri0
 
 
+def _launch_k5(split, part, topo, o, d, t0=None, tri0=None, next_ray=None):
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32)
+    tri = torch.empty(n, dtype=torch.int32)
+    if next_ray is None:
+        next_ray = torch.empty(1, dtype=torch.int32)
+    c = (None, None) if t0 is None else (t0.data_ptr(), tri0.data_ptr())
+    assert split.k5_split_launch(
+        topo.data_ptr(), part.fat.data_ptr(), part.fat.shape[0],
+        part.stack_size, o.data_ptr(), d.data_ptr(), *c, n, t.data_ptr(),
+        tri.data_ptr(), next_ray.data_ptr(), None) == 0
+    return t, tri
+
+
+@pytest.mark.parametrize("form", list(K5_L2))
 @pytest.mark.parametrize("kind", ["camera", "bounce1", "random", "soup",
                                   "soup_parts"])
 def test_k3_init_k5_sources_match_plain_traversal(host_libs, split_libs, mesh,
-                                                  kind):
+                                                  kind, form):
+    """K3 `_init` and K5 in each of its forms, with and without a
+    carried hit, on every lane bit-equal with the plain traversal."""
     trav, _ = host_libs
-    split, _ = split_libs
+    split = split_libs[0][form]
     scene, cam, film = mesh
     if kind.startswith("soup"):
         bvh, o, d = _soup()
@@ -340,28 +372,34 @@ def test_k3_init_k5_sources_match_plain_traversal(host_libs, split_libs, mesh,
         if (t_ref < TMAX).any():  # the carried hits win somewhere
             assert not torch.equal(ref_init[1], tri_ref)
         topo = split_topology(part)
-        m, s = part.fat.shape[0], part.stack_size
+        got = _launch_k3(trav, part, o, d, t0, tri0)
+        assert torch.equal(got[0], ref_init[0])
+        assert torch.equal(got[1], ref_init[1])
         for carry in (False, True):
             want = ref_init if carry else (t_ref, tri_ref)
-            for lib in ("k3_init", "k5"):
-                if lib == "k3_init" and not carry:
-                    continue
-                t = torch.empty(n, dtype=torch.float32)
-                tri = torch.empty(n, dtype=torch.int32)
-                c = ((t0.data_ptr(), tri0.data_ptr()) if carry
-                     else (None, None))
-                if lib == "k3_init":
-                    err = trav.k3_closest_init_launch(
-                        part.fat.data_ptr(), m, s, o.data_ptr(), d.data_ptr(),
-                        *c, n, t.data_ptr(), tri.data_ptr(), None)
-                else:
-                    err = split.k5_split_launch(
-                        topo.data_ptr(), part.fat.data_ptr(), m, s,
-                        o.data_ptr(), d.data_ptr(), *c, n, t.data_ptr(),
-                        tri.data_ptr(), None)
-                assert err == 0
-                assert torch.equal(t, want[0]), (lib, carry)
-                assert torch.equal(tri, want[1]), (lib, carry)
+            got = _launch_k5(split, part, topo, o, d,
+                             *((t0, tri0) if carry else ()))
+            assert torch.equal(got[0], want[0]), carry
+            assert torch.equal(got[1], want[1]), carry
+
+
+def test_k5_source_counters_across_launches(split_libs, mesh):
+    """The persistent form's launch counter: launch after launch on one
+    counter, which each launch leaves past the rays and the next zeroes
+    first, so every launch walks every ray (an output left unwritten
+    fails the comparison)."""
+    k5 = split_libs[0]["past_l2"]
+    scene, cam, film = mesh
+    o, d = _rays(scene, cam, film, "camera")
+    bvh = scene.tri_bvh
+    topo = split_topology(bvh)
+    want = bvh4_closest_hit(bvh, o, d)
+    assert (want[0] < TMAX).any()
+    next_ray = torch.full((1,), o.shape[0] + 5, dtype=torch.int32)
+    for _ in range(3):
+        got = _launch_k5(k5, bvh, topo, o, d, next_ray=next_ray)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(next_ray) >= o.shape[0]
 
 
 def test_k6_source_matches_plain_triangle_closest(split_libs):
@@ -389,15 +427,28 @@ def test_k6_source_matches_plain_triangle_closest(split_libs):
     assert (idx_ref >= 0).sum() > 50 and (idx_ref < 40).any()
 
 
-def test_p1_source_matches_plain_probe(tmp_path_factory):
-    """P1 in every mode against `pop_probe`, on test_torch_pop_probe.py's
-    inputs: an icosphere(2) scaled by 3, three packets of rays aimed at
-    it, 64 pops of the LCG stack."""
+P1_RING = 8  # csrc/pop_probe.cu RING: rows staged ahead of their pop
+
+
+@pytest.fixture(scope="module")
+def p1_lib(tmp_path_factory):
     from craytracer_tpu_torch.profiling import pop_probe as pp
-    from craytracer_tpu_torch.scene.city import icosphere
 
     p1 = host_build(tmp_path_factory, "pop_probe", 1)
     pp._bind(p1)
+    return p1
+
+
+@pytest.mark.parametrize("pops", [3, 21, 64])
+def test_p1_source_matches_plain_probe(p1_lib, pops):
+    """P1 in every mode against `pop_probe`, on test_torch_pop_probe.py's
+    inputs: an icosphere(2) scaled by 3, three packets of rays aimed at
+    it; 64 pops of the LCG stack (a multiple of the staging ring's depth,
+    P1_RING), 21 (not one) and 3 (fewer pops than the ring holds)."""
+    from craytracer_tpu_torch.profiling import pop_probe as pp
+    from craytracer_tpu_torch.scene.city import icosphere
+
+    p1 = p1_lib
     v, f = icosphere(2)
     fat = build_bvh4(*(v[f[:, k]] * 3 for k in range(3))).fat
     rng = np.random.default_rng(1)
@@ -411,11 +462,11 @@ def test_p1_source_matches_plain_probe(tmp_path_factory):
         t = torch.empty(n, dtype=torch.float32)
         sink = torch.empty(n, dtype=torch.int32)
         assert p1.p1_launch(fat.data_ptr(), fat.shape[0], o.data_ptr(),
-                            d.data_ptr(), n, 64, pp.MODES.index(mode),
+                            d.data_ptr(), n, pops, pp.MODES.index(mode),
                             t.data_ptr(), sink.data_ptr(), None) == 0
-        t_ref, sink_ref = pp.pop_probe(fat, o, d, mode, 64)
+        t_ref, sink_ref = pp.pop_probe(fat, o, d, mode, pops)
         assert torch.equal(t, t_ref) and torch.equal(sink, sink_ref), mode
         if mode in ("box", "full"):
             assert (sink != 0).all()
-        if mode in ("mt", "full"):
+        if mode in ("mt", "full") and pops == 64:
             assert (t < 1e30).sum() > 8  # triangles were hit

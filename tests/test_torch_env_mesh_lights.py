@@ -205,7 +205,7 @@ def test_interop_carries_slice_e_tables():
         b.add_mesh([(0, 3, 0), (1, 3, 0), (0, 3, 1)], [(0, 2, 1)], "lamp")
     js = jb.build(light_power="principled")
     ts = tb.build(light_power="principled", device="cpu")
-    carried = scene_from_numpy(numpy_leaves(js))
+    carried = scene_from_numpy(numpy_leaves(js), device="cpu")
     for group in ("textures", "mesh_lights", "lights"):
         for f, ref in vars(getattr(ts, group)).items():
             np.testing.assert_array_equal(

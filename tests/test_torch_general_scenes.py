@@ -52,7 +52,7 @@ def _build(name):
     js, ts = jb.build(), tb.build(device="cpu")
     if name in ("aniso_spheres", "mesh_env_disk"):
         leaves = general_scenes.make_anisotropic(numpy_leaves(js))
-        ts = scene_from_numpy(leaves)
+        ts = scene_from_numpy(leaves, device="cpu")
         m = leaves["materials"]
         js = js.replace(materials=js.materials.replace(
             alphay=jnp.asarray(m["alphay"]), distrib=jnp.asarray(m["distrib"])))

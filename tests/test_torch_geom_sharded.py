@@ -65,9 +65,9 @@ MESH_MID = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def _port(js, jc, jf):
-    return (scene_from_numpy(numpy_leaves(js)),
-            camera_from_numpy(numpy_leaves(jc)),
-            film_from_numpy(numpy_leaves(jf)))
+    return (scene_from_numpy(numpy_leaves(js), device="cpu"),
+            camera_from_numpy(numpy_leaves(jc), device="cpu"),
+            film_from_numpy(numpy_leaves(jf), device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -209,7 +209,7 @@ def test_shard_tables_match_jax(world, accel):
 
     js = world["jscenes"][accel]
     stk, bases = j_shard(js, 4, accel=accel)
-    scene = scene_from_numpy(numpy_leaves(js))
+    scene = scene_from_numpy(numpy_leaves(js), device="cpu")
     for k in range(4):
         shard, base = shard_scene_geometry(scene, 4, k, accel=accel)
         assert base == int(bases[k])
@@ -245,7 +245,7 @@ def test_mesh_lights_rejected():
                             device="cpu")
         else:
             scene = scene_from_numpy(numpy_leaves(b.build(
-                accel="bvh4", light_power="principled")))
+                accel="bvh4", light_power="principled")), device="cpu")
         with pytest.raises(ValueError, match="mesh lights"):
             shard_scene_geometry(scene, 2, 0)
 

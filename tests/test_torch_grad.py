@@ -63,8 +63,8 @@ def _film(size, deg):
 
 
 def _carry(js, jc):
-    return (scene_from_numpy(numpy_leaves(js)),
-            camera_from_numpy(numpy_leaves(jc)))
+    return (scene_from_numpy(numpy_leaves(js), device="cpu"),
+            camera_from_numpy(numpy_leaves(jc), device="cpu"))
 
 
 def _j_loss(scene, camera, film, depth=2, estimator="physical"):

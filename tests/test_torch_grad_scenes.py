@@ -199,7 +199,7 @@ def test_demo_scene_grads_match_jax(demo_scene, flush_denormals):
     js, jc, tf, mid, target, gj = demo_scene
     ts, tmid = demo.build(demo.checker(64), device="cpu")
     assert tmid == mid
-    carried = scene_from_numpy(numpy_leaves(js))
+    carried = scene_from_numpy(numpy_leaves(js), device="cpu")
     for f in dataclasses.fields(carried):
         a, b = getattr(carried, f.name), getattr(ts, f.name)
         if dataclasses.is_dataclass(a):
@@ -207,7 +207,7 @@ def test_demo_scene_grads_match_jax(demo_scene, flush_denormals):
                 x, y = getattr(a, g.name), getattr(b, g.name)
                 if isinstance(x, torch.Tensor):
                     assert torch.equal(x, y), (f.name, g.name)
-    tc = camera_from_numpy(numpy_leaves(jc))
+    tc = camera_from_numpy(numpy_leaves(jc), device="cpu")
     apply_fn = demo.grafter(ts, mid)
     p = {"texels": torch.full((64 * 64, 3), 0.4, requires_grad=True),
          "alpha": torch.tensor(0.6, requires_grad=True)}

@@ -221,9 +221,9 @@ def test_inverse_renderer_matches_jax(jax_inverse, optimizer, decay, loss):
     jinv = JInverse(js0, jc, jf, jtarget, js0.materials.color[1], j_apply,
                     JConfig(**kw), seed=7)
     jinv._value_and_grad = compiled.setdefault(loss, jinv._value_and_grad)
-    ts0 = scene_from_numpy(numpy_leaves(js0))
+    ts0 = scene_from_numpy(numpy_leaves(js0), device="cpu")
     tinv = InverseRenderer(
-        ts0, camera_from_numpy(numpy_leaves(jc)), _film(8, 40.0),
+        ts0, camera_from_numpy(numpy_leaves(jc), device="cpu"), _film(8, 40.0),
         torch.from_numpy(np.array(jtarget)), ts0.materials.color[1],
         lambda s, p: _set_color(s, 1, p), InverseConfig(**kw), seed=7)
     for _ in range(6):

@@ -93,7 +93,7 @@ def test_mesh_statics_and_interop(both):
                  "matte_lambertian"):
         assert getattr(ts, name) == getattr(js, name), name
     assert ts.smooth_triangles == bool(np.asarray(js.triangles.smooth).any())
-    carried = scene_from_numpy(numpy_leaves(js))
+    carried = scene_from_numpy(numpy_leaves(js), device="cpu")
     _assert_tree_equal(numpy_leaves(carried), numpy_leaves(ts))
 
 
@@ -112,7 +112,7 @@ def test_interop_refuses_a_table_with_slots_in_an_internal_child(where):
     else:
         leaves["tri_parts"] = (leaves["tri_bvh"], table)
     with pytest.raises(ValueError, match=f"fat row {row}: internal child"):
-        scene_from_numpy(leaves)
+        scene_from_numpy(leaves, device="cpu")
 
 
 def test_missing_mesh_file_raises(tmp_path):

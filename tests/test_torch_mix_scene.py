@@ -161,7 +161,7 @@ def test_scene_leaves_equal(both):
     assert js.sph_bvh is None and js.tri_bvh is None
     _assert_tree_equal(numpy_leaves(tc), numpy_leaves(jc))
     _assert_tree_equal(numpy_leaves(tf), numpy_leaves(jf))
-    carried = scene_from_numpy(numpy_leaves(js))
+    carried = scene_from_numpy(numpy_leaves(js), device="cpu")
     _assert_tree_equal(numpy_leaves(carried), numpy_leaves(ts))
 
 

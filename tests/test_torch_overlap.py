@@ -40,9 +40,10 @@ def world():
     jf = JFilm(fov=jnp.float32(np.radians(45.0)), width=16, height=16)
     n = jf.width * jf.height
     case = dict(kind="train", mesh=(WORLD, 1),
-                scene=scene_from_numpy(numpy_leaves(js)),
-                camera=camera_from_numpy(numpy_leaves(jc)),
-                film=film_from_numpy(numpy_leaves(jf)), depth=DEPTH,
+                scene=scene_from_numpy(numpy_leaves(js), device="cpu"),
+                camera=camera_from_numpy(numpy_leaves(jc), device="cpu"),
+                film=film_from_numpy(numpy_leaves(jf), device="cpu"),
+                depth=DEPTH,
                 seed=SEED, spp=0, target=torch.zeros((n, 3)))
     cases = [dict(case, step="bucketed"), dict(case, step="sharded"),
              dict(case, step="bucketed", depth=JAX_DEPTH)]

@@ -48,9 +48,9 @@ SIZE = 16
 
 
 def _port(js, jc, jf):
-    return (scene_from_numpy(numpy_leaves(js)),
-            camera_from_numpy(numpy_leaves(jc)),
-            film_from_numpy(numpy_leaves(jf)))
+    return (scene_from_numpy(numpy_leaves(js), device="cpu"),
+            camera_from_numpy(numpy_leaves(jc), device="cpu"),
+            film_from_numpy(numpy_leaves(jf), device="cpu"))
 
 
 def _one_rank(cases):

@@ -99,7 +99,7 @@ def test_city_and_parts_equal_jax(city):
         assert p.stack_size == q.stack_size
         assert p.fat.numel() * 4 <= budget
     # the parts ride along through the interop and a device move
-    carried = scene_from_numpy(numpy_leaves(cut))
+    carried = scene_from_numpy(numpy_leaves(cut), device="cpu")
     assert len(carried.tri_parts) == len(cut.tri_parts)
     for p, q in zip(carried.tri_parts, cut.to("cpu").tri_parts):
         assert torch.equal(p.fat, q.fat) and p.stack_size == q.stack_size

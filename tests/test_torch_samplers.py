@@ -42,7 +42,7 @@ def test_table_sample_exact(kind):
     ttab = tt.make_sample_table(kind, 16, 7, seed=3, device="cpu")
     assert ttab.kind == kind and (ttab.num_sets, ttab.num_samples) == (7, 16)
     assert np.array_equal(ttab.points.numpy(), np.asarray(jtab.points))
-    carried = sample_table_from_numpy(numpy_leaves(jtab))
+    carried = sample_table_from_numpy(numpy_leaves(jtab), device="cpu")
     assert carried.kind == kind and torch.equal(carried.points, ttab.points)
     pix = np.arange(0, 4000, 3, dtype=np.int32)
     spp = (np.arange(pix.shape[0], dtype=np.int32) * 7) % 40

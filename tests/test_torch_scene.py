@@ -22,7 +22,9 @@ from craytracer_tpu_torch.integrator.pass_kernel import (
 from craytracer_tpu_torch.integrator.wavefront import (camera_rays,
                                                       render_sample)
 from craytracer_tpu_torch.interop import (camera_from_numpy, film_from_numpy,
-                                          numpy_leaves, scene_from_numpy)
+                                          numpy_leaves,
+                                          sample_table_from_numpy,
+                                          scene_from_numpy)
 from craytracer_tpu_torch.io.scenefile import load_scene_file
 from craytracer_tpu_torch.sampling.multijitter import stratified_jitter
 from craytracer_tpu_torch.scene import types as T
@@ -76,12 +78,36 @@ def test_scene_statics_equal(both):
 
 def test_interop_scene_equals_port_parse(both):
     (js, jc, jf), (ts, tc, tf) = both
-    carried = scene_from_numpy(numpy_leaves(js))
+    carried = scene_from_numpy(numpy_leaves(js), device="cpu")
     _assert_tree_equal(numpy_leaves(carried), numpy_leaves(ts))
-    _assert_tree_equal(numpy_leaves(camera_from_numpy(numpy_leaves(jc))),
+    _assert_tree_equal(numpy_leaves(camera_from_numpy(numpy_leaves(jc),
+                                                      device="cpu")),
                        numpy_leaves(tc))
-    _assert_tree_equal(numpy_leaves(film_from_numpy(numpy_leaves(jf))),
+    _assert_tree_equal(numpy_leaves(film_from_numpy(numpy_leaves(jf),
+                                                    device="cpu")),
                        numpy_leaves(tf))
+
+
+@pytest.mark.parametrize("convert", ["scene", "camera", "film",
+                                     "sample_table"])
+def test_interop_defaults_to_the_card(both, monkeypatch, convert):
+    """The converters name no device by default: they take the card, as
+    every entry point does, and raise resolve_device's error when there
+    is none."""
+    (js, jc, jf), _ = both
+    leaves = {"scene": numpy_leaves(js), "camera": numpy_leaves(jc),
+              "film": numpy_leaves(jf),
+              "sample_table": {"points": np.zeros((2, 4, 2), np.float32),
+                               "kind": "multijittered"}}[convert]
+    fn = {"scene": scene_from_numpy, "camera": camera_from_numpy,
+          "film": film_from_numpy,
+          "sample_table": sample_table_from_numpy}[convert]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="runs on a CUDA card by default"):
+        fn(leaves)
+    with pytest.raises(RuntimeError, match="runs on a CUDA card by default"):
+        fn(leaves, device="cuda")
+    assert fn(leaves, device="cpu") is not None
 
 
 def test_camera_and_film_equal(both):

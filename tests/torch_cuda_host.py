@@ -22,7 +22,8 @@ library (ctypes), whose C entry points the tests call on CPU tensors:
   thread takes many work items; the L2 size is `l2_bytes` (the H100's
   50 MB unless the build asks for another), so a test can make a kernel
   that chooses its code by whether a table fits the L2 take either
-  choice;
+  choice; a kernel may opt in to more than 48 KB of dynamic shared
+  memory (`cudaFuncSetAttribute` accepts and does nothing);
 - a barrier that waits longer than `CRAY_HOST_TIMEOUT_S` seconds gives
   up: every thread of the launch unwinds and the launch's
   cudaGetLastError() is cudaErrorLaunchTimeout (702), so a deadlock fails
@@ -66,6 +67,7 @@ enum cudaDeviceAttr {
   cudaDevAttrMultiProcessorCount = 16,
   cudaDevAttrL2CacheSize = 38
 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct float4 { float x, y, z, w; };
 static inline float4 __ldg(const float4* p) { return *p; }
 static inline float __ldg(const float* p) { return *p; }
@@ -301,6 +303,10 @@ static inline int cudaGetDevice(int* d) {
 static inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
   *v = a == cudaDevAttrL2CacheSize ? cray_host::L2_BYTES
                                    : cray_host::SM_COUNT;
+  return 0;
+}
+template <class F>
+static inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return 0;
 }
 template <class F>
