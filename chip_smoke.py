@@ -464,6 +464,22 @@ never JAX or the JAX package. Phases, each printing its own lines:
    and lossless WebP fixtures and of a 2048x2048 BC7 DDS tiled from the
    256x256 fixture (its texels checked equal to the fixture's, tiled),
    with the host's CPU model and the card's line. Budget: 15 s.
+57. slice N (`slice_n_phases`, after phase 56; `python3 chip_smoke.py
+   --slice-n` builds the kernels and runs it alone, with no result
+   line), the decoders of csrc/imgdecode_small.h and _ccitt.h, lossless
+   JPEG and old-style LZW, behind io/imgopen.py's transcription of PIL's
+   plugin search (g++, on the host): (a) every fixture manifest.json
+   marks "phase": 57 (QOI, SGI, PCX, DIB, IM, XBM, SPIDER, ICO, CUR,
+   lossless JPEG, CCITT and old-style LZW TIFF) decoded and hashed
+   against the SHA-256 of PIL's decode; (b) parity_textured with its
+   checker replaced by each colour-lossless re-encoding (QOI, RLE SGI,
+   PCX, IM, an ICO holding a BMP, lossless JPEG): texels equal to the PPM
+   scene's and the 512x512 Morton depth-5 general pass through K3/K4
+   bit-equal with it, K3 = K4 = 6 and nothing else; (c) host seconds per
+   decode, median of 3, of the 2048x2048 Group 4 page and 2048x2048 QOI
+   fixtures and of a 2048x2048 lossless JPEG that `encode_lossless_jpeg`
+   writes from the QOI's texels (and that must decode back to them), with
+   the host's CPU model and the card's line. Budget: 15 s.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
@@ -476,7 +492,7 @@ K2-K4 the ranks' sharded passes of phase 49 (a) and (b), K2 (e)'s and
 K2, K3 `_init` and K4 (f)'s, K3 `_init` and K4 the XL Renderer of phase
 50, K3 hybrid's general route in phases 51-52, K3 `_init` and K4 phase
 53's XL gradients through the kernels, K3 and K4 phase 55's textured
-passes and Renderers and phase 56's textured passes;
+passes and Renderers and phase 56's and phase 57's textured passes;
 `k1_pass_rays`, K1's external-ray mode, on Cornell
 with a multijittered table (phase 41); K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch (K2's launches enqueued
@@ -2587,6 +2603,135 @@ def slice_m_phases(ctx) -> None:
           flush=True)
 
 
+def encode_lossless_jpeg(img: np.ndarray) -> bytes:
+    """A lossless JPEG (SOF3) of `img` [H, W, 3] uint8, written with
+    numpy: selection value 1 (the left neighbour; the first column from
+    above, the first sample from 128), one Huffman table giving
+    difference category k the code of k ones and a zero, the components
+    interleaved, no JFIF or Adobe marker (libjpeg-turbo reads such a file
+    as RGB). Phase 57 (c) times the port's decode of it, which must give
+    `img` back exactly."""
+    a = img.astype(np.int32)
+    h, w, _ = a.shape
+    d = np.empty_like(a)
+    d[:, 1:] = a[:, 1:] - a[:, :-1]
+    d[1:, 0] = a[1:, 0] - a[:-1, 0]
+    d[0, 0] = a[0, 0] - 128
+    d = d.reshape(-1)
+    mag = np.abs(d)
+    cat = sum((mag >= (1 << k)).astype(np.int64) for k in range(8))
+    extra = np.where(d >= 0, d, d + (1 << cat) - 1).astype(np.int64)
+    length = 2 * cat + 1
+    value = (((1 << (cat + 1)) - 2) << cat) | extra
+    ends = np.cumsum(length)
+    which = np.repeat(np.arange(d.size, dtype=np.int32), length)
+    shift = (np.repeat(ends, length) - 1
+             - np.arange(int(ends[-1]), dtype=np.int64))
+    bits = ((value[which] >> shift) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones((-bits.size) % 8, np.uint8)])
+    data = np.packbits(bits)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)
+
+    def seg(marker, payload):
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") \
+            + payload
+
+    return (b"\xff\xd8"
+            + seg(0xC4, bytes([0] + [1] * 9 + [0] * 7 + list(range(9))))
+            + seg(0xC3, bytes([8, h >> 8, h & 255, w >> 8, w & 255, 3,
+                               1, 0x11, 0, 2, 0x11, 0, 3, 0x11, 0]))
+            + seg(0xDA, bytes([3, 1, 0, 2, 0, 3, 0, 1, 0, 0]))
+            + data.tobytes() + b"\xff\xd9")
+
+
+def slice_n_phases(ctx) -> None:
+    """Phase 57: slice N on the card's host (module docstring). `ctx` as
+    for `slice_f_phases`; failures are appended."""
+    import shutil
+    import tempfile
+
+    from craytracer_tpu_torch.io import imgdecode
+    from craytracer_tpu_torch.io.teximage import decode_file
+
+    card = ctx.card
+    t_phase = time.perf_counter()
+    cpu = _host_cpu()
+    tmp = tempfile.mkdtemp(prefix="slice_n_")
+    try:
+        rig = _texture_rig(ctx, "slice-n", tmp)
+        check, want, depth, fx = rig.check, rig.want, rig.depth, rig.fx
+
+        # ---- 57 (a). every fixture of slice N against PIL's manifest
+        t0 = time.perf_counter()
+        imgdecode.library()
+        build_s = time.perf_counter() - t0
+        with open(os.path.join(fx, "manifest.json")) as f:
+            manifest = json.load(f)
+        names = sorted(k for k, v in manifest.items() if v.get("phase") == 57)
+        bad, dt = _manifest_check(rig, names, manifest)
+        check(f"57 (a) {len(names)} fixtures (QOI, SGI, PCX, DIB, IM, XBM, "
+              "SPIDER, ICO, CUR, lossless JPEG, CCITT and old-style LZW "
+              "TIFF) against the SHA-256 of PIL's decode",
+              not bad and len(names) > 0,
+              f"decoder ready in {build_s:.2f} s (g++ "
+              f"{' '.join(imgdecode.CXX_FLAGS)}), all decoded in "
+              f"{dt:.3f} s; differing: {bad}")
+
+        # ---- 57 (b). the checker in six colour-lossless encodings: the
+        # general route's pass bit-equal to the PPM scene's
+        ppm = rig.ppm
+        rig.general_pass(ppm)  # warm-up
+        ref, got, dt = rig.general_pass(ppm)
+        six = want(k3_bvh4_closest=depth + 1, k4_bvh4_any=depth + 1)
+        rig.add_launches(got)
+        check("57 (b) parity_textured (PPM checker) bvh4 512x512 Morton "
+              f"depth {depth} general route", got == six,
+              f"{dt * 1e3:.1f} ms, launches {got}, L mean "
+              f"{float(ref[0].mean()):.6f}")
+        for name in ("checker.qoi", "checker_rle.sgi", "checker.pcx",
+                     "checker.im", "checker_bmp.ico", "checker_lossless.jpg"):
+            vs = rig.variant(name)
+            texels = torch.equal(vs.textures.texels, ppm.textures.texels)
+            out, got, dt = rig.general_pass(vs)
+            rig.add_launches(got)
+            same = rig.same_pass(out, ref)
+            check(f"57 (b) {name}", texels and same and got == six,
+                  f"texels equal {texels}, pass bit-equal {same}, "
+                  f"{dt * 1e3:.1f} ms, launches {got}")
+
+        # ---- 57 (c). host seconds per decode, median of 3: the 2048-wide
+        # Group 4 page, the 2048x2048 QOI, and a 2048x2048 lossless JPEG
+        # of the QOI's texels (which it must decode back to)
+        qoi = os.path.join(fx, "big_2048_blocks.qoi")
+        texels = decode_file(qoi)
+        t0 = time.perf_counter()
+        jpeg = os.path.join(tmp, "big_2048_lossless.jpg")
+        with open(jpeg, "wb") as f:
+            f.write(encode_lossless_jpeg(texels))
+        enc_s = time.perf_counter() - t0
+        for path in (os.path.join(fx, "big_2048_g4.tif"), qoi, jpeg):
+            ts = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                a = decode_file(path)
+                ts.append(time.perf_counter() - t0)
+            ok = a.shape[1] == 2048 and (
+                path != jpeg or np.array_equal(a, texels))
+            check(f"57 (c) decode {os.path.basename(path)}", ok,
+                  f"{a.shape[1]}x{a.shape[0]}, "
+                  f"{os.path.getsize(path)} bytes: "
+                  f"{statistics.median(ts):.4f} s median of {REPS} (runs "
+                  f"{', '.join(f'{t:.4f}' for t in ts)}) on the host, "
+                  f"{cpu}; card {card}" + (
+                      f"; written by encode_lossless_jpeg in {enc_s:.2f} s "
+                      "from the QOI's texels, decoded back to them exactly"
+                      if path == jpeg else ""))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[slice-n] phase 57: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (this smoke test needs the card)")
@@ -2728,6 +2873,13 @@ def main() -> int:
         for f in fails:
             print(f"FAIL: {f}")
         print(json.dumps({"slice_m_only": True, "failures": len(fails)}))
+        return 1 if fails else 0
+    if sys.argv[1:] == ["--slice-n"]:
+        # phase 57 alone, to try it out: no result line
+        slice_n_phases(ctx)
+        for f in fails:
+            print(f"FAIL: {f}")
+        print(json.dumps({"slice_n_only": True, "failures": len(fails)}))
         return 1 if fails else 0
     if sys.argv[1:] == ["--slice-k"]:
         # phases 51-54 alone, to try them out: no result line
@@ -4646,6 +4798,11 @@ def main() -> int:
     # ---- 56. slice M: TIFF, DDS, lossless WebP, PSD and PIL's own PNM
     # on the card's host; the checker in five more encodings through K3/K4
     slice_m_phases(ctx)
+
+    # ---- 57. slice N: PIL's plugin search, QOI, SGI, PCX, DIB, IM, XBM,
+    # SPIDER, ICO/CUR, lossless JPEG, CCITT and old-style LZW TIFF on the
+    # card's host; the checker in six more encodings through K3/K4
+    slice_n_phases(ctx)
 
     # ---- 37. the inverse path: gradients through the general route, the
     # search detached through K3/K4, and InverseRenderer

@@ -1,5 +1,6 @@
 // Texture decoders of craytracer_tpu_torch (io/teximage.py): PNG, JPEG,
-// PNM, BMP, TGA and GIF to 8-bit RGB, each giving the texels that PIL's
+// PNM, BMP (and the DIB core of ICO and CUR), TGA and GIF to 8-bit RGB,
+// each giving the texels that PIL's
 // Image.open(path).convert("RGB") gives (the JAX package's loader,
 // craytracer_tpu/io/teximage.py), quirks included:
 //
@@ -9,16 +10,20 @@
 //   which PIL opens as I;16 and clips at 255. A palette index past PLTE
 //   is black; tRNS and alpha are dropped. The CRC of every chunk before
 //   the first IDAT is checked, as PIL checks it.
-// - JPEG: baseline, extended (SOF1) and progressive Huffman, 8-bit, 1, 3
-//   or 4 components, any integral sampling factors, restart markers. The
+// - JPEG: baseline, extended (SOF1), progressive and lossless (SOF3)
+//   Huffman, 8-bit, 1, 3 or 4 components, any integral sampling factors,
+//   restart markers. The
 //   stages are libjpeg-turbo's defaults, which PIL decodes with: the ISLOW
 //   integer IDCT (jidctint.c), fancy upsampling (jdsample.c: h2v1, h1v2,
 //   h2v2; box replication for other integral factors), jdcolor.c's
 //   fixed-point YCbCr->RGB tables and YCCK->CMYK, then PIL's inverted
 //   Adobe CMYK and its CMYK->RGB. A progressive file whose scans leave
 //   coefficient bits unrefined would be block-smoothed by libjpeg
-//   (jdcoefct.c): it is refused, as are arithmetic coding, lossless,
-//   hierarchical and 12-bit JPEG.
+//   (jdcoefct.c): it is refused, as is arithmetic coding. Lossless data
+//   is undifferenced as jddiffct.c does and replicated up, with no colour
+//   conversion (libjpeg-turbo fails where the markers ask for one).
+//   Hierarchical processes and precisions other than 8 give status 2, as
+//   libjpeg-turbo and PIL refuse them.
 // - PNM: P1-P6, any maxval, scaled as PIL's PpmDecoder and
 //   PpmPlainDecoder scale (round half to even of v / maxval * 255; gray
 //   past maxval 255 opens as mode I, scaled to 65535, and clips at 255);
@@ -31,13 +36,16 @@
 //   and the right-to-left flag.
 // - GIF: the first frame (LZW), global and local palettes, interlace, the
 //   frame at its offset on the logical screen.
-// - TIFF, DDS, lossless WebP and PSD: one file each, included below
-//   (imgdecode_tiff.h, imgdecode_dds.h, imgdecode_webp.h,
-//   imgdecode_psd.h), built with this file as one library.
+// - TIFF (with its CCITT codecs), DDS, lossless WebP, PSD and the small
+//   formats (QOI, SGI, PCX, DIB, ICO, CUR, IM, XBM, SPIDER): included
+//   below (imgdecode_tiff.h, _ccitt.h, _dds.h, _webp.h, _psd.h,
+//   _small.h), built with this file as one library.
 //
 // A file the decoder does not handle gives status 1 (the caller raises
 // NotImplementedError); a file PIL would fail to read gives status 2 (the
-// caller returns None, as the JAX loader does).
+// caller returns None, as the JAX loader does); a file PIL's plugin hands
+// on to the next plugin from inside its _open gives status 3 (the caller
+// goes on with PIL's search, io/imgopen.py).
 //
 // C interface: imgd_decode(kind, bytes, n) -> handle; imgd_status,
 // imgd_message, imgd_width, imgd_height, imgd_copy ([H, W, 3] uint8 rows),
@@ -60,6 +68,11 @@ struct Unsupported : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
 struct Invalid : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+// the plugin's _open fails with an error that makes PIL's Image.open try
+// the next plugin (status 3)
+struct HandOnErr : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
 
@@ -569,6 +582,7 @@ const int NATURAL[80] = {
 
 struct JHuff {
   bool defined = false;
+  int max_val = 0;  // the largest symbol of a DC table
   uint8_t vals[256];
   int32_t maxcode[18];
   int32_t valoffset[18];
@@ -613,9 +627,9 @@ void build_jhuff(JHuff& t, const uint8_t* counts, const uint8_t* vals,
         t.look[lb + c] = uint16_t(l << 8 | vals[p]);
     }
   std::memcpy(t.vals, vals, nvals);
-  if (dc)
-    for (int i = 0; i < nvals; i++)
-      if (vals[i] > 15) invalid("bad DC Huffman table");
+  t.max_val = 0;
+  if (dc)  // checked when a scan uses it: lossless JPEG allows 16
+    for (int i = 0; i < nvals; i++) t.max_val = std::max<int>(t.max_val, vals[i]);
   t.defined = true;
 }
 
@@ -721,6 +735,7 @@ struct JComp {
   bool latched = false;
   int16_t q[64];  // natural order, as libjpeg's ISLOW multiplier table
   std::vector<int16_t> coef;
+  std::vector<uint16_t> samples;  // lossless: differences, then samples
   int coef_bits[64];
   int16_t* block(int by, int bx) {
     return &coef[(size_t(by) * bw + bx) * 64];
@@ -879,7 +894,7 @@ struct Jpeg {
   int restart = 0;
   bool jfif = false, adobe = false;
   int transform = -1;
-  bool frame = false, progressive = false;
+  bool frame = false, progressive = false, lossless = false;
   int W = 0, H = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   std::vector<JComp> comps;
   // for TIFF's JPEG strips: keep the upsampled component planes instead of
@@ -924,6 +939,8 @@ struct Jpeg {
     if (len < size_t(6 + 3 * nc)) invalid("short SOF");
     if (W <= 0 || H <= 0) invalid("empty JPEG");
     if (int64_t(W) * H > MAX_PIXELS) invalid("JPEG larger than PIL opens");
+    lossless = (m & 0xFF) == 0xC3;
+    const int du = lossless ? 1 : 8;  // samples across a data unit
     comps.resize(nc);
     for (int i = 0; i < nc; i++) {
       JComp& c = comps[i];
@@ -936,14 +953,17 @@ struct Jpeg {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    mcux = (W + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+    mcux = (W + du * hmax - 1) / (du * hmax);
+    mcuy = (H + du * vmax - 1) / (du * vmax);
     for (JComp& c : comps) {
-      c.wib = int((int64_t(W) * c.h + 8 * hmax - 1) / (8 * hmax));
-      c.hib = int((int64_t(H) * c.v + 8 * vmax - 1) / (8 * vmax));
+      c.wib = int((int64_t(W) * c.h + du * hmax - 1) / (du * hmax));
+      c.hib = int((int64_t(H) * c.v + du * vmax - 1) / (du * vmax));
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
-      c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+      if (lossless)
+        c.samples.assign(size_t(c.bw) * c.bh, 0);
+      else
+        c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
       for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
     progressive = (m & 0xFF) == 0xC2;
@@ -1041,6 +1061,10 @@ struct Jpeg {
     int Ss = s[1 + 2 * ns], Se = s[2 + 2 * ns];
     int Ah = s[3 + 2 * ns] >> 4, Al = s[3 + 2 * ns] & 15;
     pos += len;
+    if (lossless) {
+      read_scan_lossless(sc, Ss, Se, Ah, Al);
+      return;
+    }
     if (progressive) {
       bool bad = false;
       if (Ss == 0) {
@@ -1071,6 +1095,8 @@ struct Jpeg {
     for (JComp* c : sc) {
       if ((!progressive || dc_first) && !dc[c->td].defined)
         invalid("missing DC Huffman table");
+      if ((!progressive || dc_first) && dc[c->td].max_val > 15)
+        invalid("bad DC Huffman table");
       if ((!progressive || ac_first || ac_refine) && !ac[c->ta].defined)
         invalid("missing AC Huffman table");
       c->pred = 0;
@@ -1211,6 +1237,90 @@ struct Jpeg {
     pos = b.pos;
   }
 
+  // T.81 Annex H as libjpeg-turbo decodes it (jdlhuff.c, jddiffct.c,
+  // jdlossls.c): Huffman-coded sample differences (category 16 is 32768
+  // with no extra bits), undifferenced modulo 2^16 with selection value
+  // Ss, the first row of the image and of each restart interval from
+  // 2^(P - Al - 1) and the left neighbour, the first column from above;
+  // then shifted up by Al and cut to 8 bits.
+  void read_scan_lossless(std::vector<JComp*>& sc, int Ss, int Se, int Ah,
+                          int Al) {
+    if (Ss < 1 || Ss > 7 || Se != 0 || Ah != 0 || Al >= 8)
+      invalid("bad lossless JPEG scan parameters");
+    for (JComp* c : sc) {
+      if (!dc[c->td].defined) invalid("missing DC Huffman table");
+      if (dc[c->td].max_val > 16) invalid("bad DC Huffman table");
+    }
+    const int ns = int(sc.size());
+    const int per_row = ns == 1 ? sc[0]->wib : mcux;
+    if (restart && restart % per_row)
+      invalid("lossless JPEG restart interval not a multiple of a row");
+    JBits b{d, n, pos};
+    auto sample = [&](JComp& c, int y, int x) {
+      int s = b.decode(dc[c.td]);
+      int diff = 0;
+      if (s == 16)
+        diff = 32768;
+      else if (s)
+        diff = extend(b.get(s), s);
+      c.samples[size_t(y) * c.bw + x] = uint16_t(diff);
+    };
+    int64_t total = ns == 1 ? int64_t(sc[0]->wib) * sc[0]->hib
+                            : int64_t(mcux) * mcuy;
+    for (int64_t m = 0; m < total; m++) {
+      if (restart && m > 0 && m % restart == 0) restart_at(b);
+      if (b.insufficient) continue;
+      if (ns == 1) {
+        JComp& c = *sc[0];
+        sample(c, int(m / c.wib), int(m % c.wib));
+      } else {
+        const int my = int(m / mcux), mx = int(m % mcux);
+        for (JComp* c : sc)
+          for (int y = 0; y < c->v; y++)
+            for (int x = 0; x < c->h; x++)
+              sample(*c, my * c->v + y, mx * c->h + x);
+      }
+    }
+    if (b.insufficient && b.eof) invalid("truncated JPEG data");
+    pos = b.pos;
+    for (JComp* c : sc) {
+      const int rows_per_interval =
+          restart ? restart / per_row * (ns == 1 ? 1 : c->v) : 0;
+      const int init = 1 << (8 - Al - 1);
+      std::vector<uint16_t> prev(size_t(c->wib)), cur(size_t(c->wib));
+      for (int y = 0; y < c->hib; y++) {
+        uint16_t* diff = &c->samples[size_t(y) * c->bw];
+        const bool first =
+            y == 0 || (rows_per_interval && y % rows_per_interval == 0);
+        for (int x = 0; x < c->wib; x++) {
+          int pred;
+          if (first) {
+            pred = x ? cur[size_t(x) - 1] : init;
+          } else if (x == 0) {
+            pred = prev[0];
+          } else {
+            const int ra = cur[size_t(x) - 1], rb = prev[size_t(x)],
+                      rc = prev[size_t(x) - 1];
+            switch (Ss) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+          }
+          cur[size_t(x)] = uint16_t((diff[x] + pred) & 0xFFFF);
+        }
+        for (int x = 0; x < c->wib; x++)
+          diff[x] = uint16_t(uint8_t(cur[size_t(x)] << Al));
+        std::swap(prev, cur);
+      }
+      c->latched = true;
+    }
+  }
+
   void decode(Image& img) {
     if (n < 3 || d[0] != 0xFF || d[1] != 0xD8 || d[2] != 0xFF)
       invalid("not a JPEG file");
@@ -1219,14 +1329,17 @@ struct Jpeg {
       int m = next_marker();
       if (m < 0) break;
       if (m == 0xFFD9) break;
-      if (m == 0xFFC0 || m == 0xFFC1 || m == 0xFFC2) {
+      if (m == 0xFFC0 || m == 0xFFC1 || m == 0xFFC2 || m == 0xFFC3) {
         read_sof(m);
-      } else if ((m >= 0xFFC3 && m <= 0xFFCF) && m != 0xFFC4 &&
-                 m != 0xFFC8 && m != 0xFFCC) {
+      } else if (m == 0xFFC5 || m == 0xFFC6 || m == 0xFFC7 || m == 0xFFCD ||
+                 m == 0xFFCE || m == 0xFFCF) {
+        // libjpeg-turbo refuses the hierarchical processes (jdmarker.c)
+        invalid(std::string("JPEG ") + sof_name(m & 0xFF));
+      } else if (m == 0xFFC9 || m == 0xFFCA || m == 0xFFCB) {
         throw Unsupported(std::string("JPEG ") + sof_name(m & 0xFF) +
                           " is not decoded by craytracer_tpu_torch "
-                          "(baseline, extended and progressive Huffman "
-                          "JPEG are)");
+                          "(baseline, extended, progressive and lossless "
+                          "Huffman JPEG are)");
       } else if (m == 0xFFC4) {
         read_dht();
       } else if (m == 0xFFDB) {
@@ -1275,7 +1388,19 @@ struct Jpeg {
   void output(Image& img) {
     const int nc = int(comps.size());
     std::vector<std::vector<uint8_t>> full(nc);
-    for (int ci = 0; ci < nc; ci++) {
+    for (int ci = 0; ci < nc && lossless; ci++) {
+      JComp& c = comps[ci];
+      if (!c.latched) invalid("a component no scan carries");
+      std::vector<uint8_t> plane(size_t(c.wib) * c.hib);
+      for (int y = 0; y < c.hib; y++)
+        for (int x = 0; x < c.wib; x++)
+          plane[size_t(y) * c.wib + x] = uint8_t(c.samples[size_t(y) * c.bw + x]);
+      // libjpeg upsamples lossless data by replication (no fancy
+      // upsampling without a DCT)
+      full[ci] = upsample(plane, size_t(c.wib), c.wib, c.hib, hmax / c.h,
+                          vmax / c.v, hmax % c.h || vmax % c.v, true);
+    }
+    for (int ci = 0; ci < nc && !lossless; ci++) {
       JComp& c = comps[ci];
       if (!c.latched) invalid("a component no scan carries");
       size_t stride = size_t(c.wib) * 8;
@@ -1310,6 +1435,11 @@ struct Jpeg {
       cs = adobe ? (transform == 0 ? CMYK : YCCK) : CMYK;
     }
     if (force_ycc && nc == 3) cs = YCC;
+    // libjpeg-turbo converts no colour space of lossless data: where the
+    // markers ask for YCbCr or YCCK it fails
+    if (lossless && (cs == YCC || cs == YCCK) && (jfif || adobe))
+      invalid("lossless JPEG in a colour space libjpeg cannot convert");
+    if (lossless && cs == YCC) cs = RGB;
     // jdcolor.c build_ycc_rgb_table
     struct Ycc {
       int cr_r[256], cb_b[256];
@@ -1367,13 +1497,13 @@ struct Jpeg {
   // samples (rows `stride` apart), for expansion factors rh x rv
   std::vector<uint8_t> upsample(const std::vector<uint8_t>& in, size_t stride,
                                 int dw, int dh, int rh, int rv,
-                                bool fractional) {
+                                bool fractional, bool box = false) {
     if (fractional) invalid("fractional JPEG sampling factors");
     std::vector<uint8_t> out(size_t(W) * H);
     auto at = [&](int x, int y) -> int { return in[size_t(y) * stride + x]; };
-    const bool h2v1 = rh == 2 && rv == 1 && dw > 2;
-    const bool h1v2 = rh == 1 && rv == 2;
-    const bool h2v2 = rh == 2 && rv == 2 && dw > 2;
+    const bool h2v1 = !box && rh == 2 && rv == 1 && dw > 2;
+    const bool h1v2 = !box && rh == 1 && rv == 2;
+    const bool h2v2 = !box && rh == 2 && rv == 2 && dw > 2;
     if (h2v1) {
       for (int y = 0; y < H; y++)
         for (int x = 0; x < W; x++) {
@@ -1653,13 +1783,25 @@ inline void bgr16(uint32_t p, int& r, int& g, int& b) {
   r = ((p >> 11) & 31) * 255 / 31;
 }
 
-void decode_bmp(const uint8_t* d, size_t n, Image& img) {
-  if (n < 18 || d[0] != 'B' || d[1] != 'M') invalid("not a BMP file");
-  int64_t offset = le32(d + 10);
-  size_t hs = le32(d + 14);
-  if (hs < 4 || n - 14 < hs) invalid("truncated BMP header");
-  const uint8_t* hd = d + 18;  // the header after its size field
-  size_t pos = 14 + hs;
+// What BmpImageFile._bitmap reads of a bitmap whose header starts at
+// `hpos`, with `offset` the file header's data offset (0: the data follow
+// the header, palette and masks, as in a DIB, an ICO or a CUR).
+// `rows_of(h)` gives the rows decoded: h for a BMP or DIB, h / 2 for the
+// XOR half of an icon or cursor. Returns the data's start in the file.
+struct Bitmap {
+  int64_t w = 0, h = 0;
+  int bits = 0;
+};
+
+size_t decode_bitmap(const uint8_t* d, size_t n, size_t hpos, int64_t offset,
+                     Image& img, int64_t (*rows_of)(int64_t),
+                     Bitmap* info = nullptr, bool bomb_full = false) {
+  // i32(read(4)) of a short file is a struct.error: PIL's plugin hands on
+  if (hpos > n || n - hpos < 4) throw HandOnErr("truncated bitmap header");
+  size_t hs = le32(d + hpos);
+  if (hs < 4 || n - hpos < hs) invalid("truncated BMP header");
+  const uint8_t* hd = d + hpos + 4;  // the header after its size field
+  size_t pos = hpos + hs;
   int64_t w, h;
   int bits, compression;
   int64_t colors = 0;
@@ -1675,7 +1817,7 @@ void decode_bmp(const uint8_t* d, size_t n, Image& img) {
   } else if (hs == 40 || hs == 52 || hs == 56 || hs == 64 || hs == 108 ||
              hs == 124) {
     top_down = hd[7] == 0xFF;
-    w = int32_t(le32(hd));
+    w = le32(hd);  // PIL's i32 is unsigned
     h = top_down ? int64_t(4294967296LL) - le32(hd + 4) : int64_t(le32(hd + 4));
     bits = int(le16(hd + 10));
     compression = int(le32(hd + 12));
@@ -1694,8 +1836,15 @@ void decode_bmp(const uint8_t* d, size_t n, Image& img) {
   } else {
     invalid("unsupported BMP header");
   }
+  // an ICO frame is checked before its height is halved
+  if (bomb_full && double(w) * double(h) > double(MAX_PIXELS))
+    invalid("image larger than PIL opens");
+  h = rows_of(h);
+  if (w <= 0 || h <= 0) throw HandOnErr("bitmap of size 0");
+  if (info) *info = Bitmap{w, h, bits};
   if (!colors) colors = int64_t(1) << std::min(bits, 40);
-  if (offset == 14 + int64_t(hs) && bits <= 8) offset += 4 * colors;
+  if (offset && offset == 14 + int64_t(hs) && bits <= 8)
+    offset += 4 * colors;
   if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 &&
       bits != 32)
     invalid("unsupported BMP pixel depth");
@@ -1828,7 +1977,7 @@ void decode_bmp(const uint8_t* d, size_t n, Image& img) {
       int64_t y = top_down ? r : h - 1 - r;
       for (int64_t c = 0; c < w; c++) put_index(c, y, data[size_t(r * w + c)]);
     }
-    return;
+    return start;
   }
   const size_t stride = size_t(((w * bits + 31) >> 3) & ~int64_t(3));
   if ((n - start) / stride < size_t(h)) invalid("truncated BMP data");
@@ -1854,6 +2003,14 @@ void decode_bmp(const uint8_t* d, size_t n, Image& img) {
       }
     }
   }
+  return start;
+}
+
+int64_t all_rows(int64_t h) { return h; }
+
+void decode_bmp(const uint8_t* d, size_t n, Image& img) {
+  if (n < 18 || d[0] != 'B' || d[1] != 'M') invalid("not a BMP file");
+  decode_bitmap(d, n, 14, le32(d + 10), img, all_rows);
 }
 
 // ---------------------------------------------------------------- TGA
@@ -2167,6 +2324,8 @@ void decode_gif(const uint8_t* d, size_t n, Image& img) {
 
 #include "imgdecode_dds.h"
 #include "imgdecode_psd.h"
+#include "imgdecode_small.h"
+#include "imgdecode_ccitt.h"
 #include "imgdecode_tiff.h"
 #include "imgdecode_webp.h"
 
@@ -2183,7 +2342,8 @@ struct Result {
 extern "C" {
 
 // kind: 1 PNG, 2 JPEG, 3 PNM, 4 BMP, 5 TGA, 6 GIF, 7 TIFF, 8 DDS, 9 WebP,
-// 10 PSD
+// 10 PSD, 11 DIB, 12 ICO, 13 CUR, 14 QOI, 15 SGI, 16 PCX, 17 IM, 18 XBM,
+// 19 SPIDER
 void* imgd_decode(int kind, const uint8_t* data, int64_t n) {
   Result* r = new Result;
   try {
@@ -2222,6 +2382,33 @@ void* imgd_decode(int kind, const uint8_t* data, int64_t n) {
       case 10:
         decode_psd(data, size_t(n), r->img);
         break;
+      case 11:
+        decode_dib(data, size_t(n), r->img);
+        break;
+      case 12:
+        decode_ico(data, size_t(n), r->img);
+        break;
+      case 13:
+        decode_cur(data, size_t(n), r->img);
+        break;
+      case 14:
+        decode_qoi(data, size_t(n), r->img);
+        break;
+      case 15:
+        decode_sgi(data, size_t(n), r->img);
+        break;
+      case 16:
+        decode_pcx(data, size_t(n), r->img);
+        break;
+      case 17:
+        decode_im(data, size_t(n), r->img);
+        break;
+      case 18:
+        decode_xbm(data, size_t(n), r->img);
+        break;
+      case 19:
+        decode_spider(data, size_t(n), r->img);
+        break;
       default:
         throw Unsupported("unknown image kind");
     }
@@ -2230,6 +2417,9 @@ void* imgd_decode(int kind, const uint8_t* data, int64_t n) {
     r->message = e.what();
   } catch (const Invalid& e) {
     r->status = 2;
+    r->message = e.what();
+  } catch (const HandOnErr& e) {
+    r->status = 3;
     r->message = e.what();
   } catch (const std::bad_alloc&) {
     r->status = 2;

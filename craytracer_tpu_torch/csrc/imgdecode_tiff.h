@@ -14,7 +14,7 @@
 //   Planar files take one character of the raw mode per plane. So an
 //   uncompressed YCbCr file is read as RGBX, as PIL reads it.
 // - Compressed files go through libtiff: PackBits, LZW (MSB-first codes
-//   with early change; old-style LZW is refused), Deflate (8 and 32946)
+//   with early change, or old-style LSB-first codes), Deflate (8 and 32946)
 //   and JPEG (7, with JPEGTables; YCbCr converted by the JPEG decoder's
 //   colour path, other photometrics passed through), then predictor 2 (8,
 //   16 and 32 bits) or 3 (floating point), the samples swapped to the
@@ -28,8 +28,13 @@
 // - The Orientation tag is applied at the end, as PIL's exif_transpose
 //   applies it on load.
 //
-// CCITT (2, 3, 4, 32771), old-style JPEG (6), LZMA, ZSTD, WebP, SGILog,
-// ThunderScan, old-style LZW and Lab are refused by name (status 1).
+// - CCITT RLE, Group 3, Group 4 and RLEW go through imgdecode_ccitt.h,
+//   old-style LZW through LZWDecodeCompat.
+//
+// Old-style JPEG (6), LZMA, ZSTD, 4-bit ThunderScan and Lab are refused
+// by name (status 1). WebP (libtiff here is built without it), SGILog
+// (which wants a photometric PIL does not open) and CCITT or ThunderScan
+// with other sample sizes than theirs give status 2, as libtiff fails.
 
 namespace {
 
@@ -469,29 +474,132 @@ struct Tiff {
   }
 };
 
+// the compressions PIL reads through libtiff here and the port does not
 const char* tiff_compression_name(int64_t c) {
   switch (c) {
-    case 2: return "CCITT RLE (2)";
-    case 3: return "CCITT Group 3 (3)";
-    case 4: return "CCITT Group 4 (4)";
     case 6: return "old-style JPEG (6)";
-    case 32771: return "CCITT RLEW (32771)";
     case 32809: return "ThunderScan (32809)";
-    case 34676: return "SGILog (34676)";
-    case 34677: return "SGILog24 (34677)";
     case 34925: return "LZMA (34925)";
     case 50000: return "ZSTD (50000)";
-    case 50001: return "WebP (50001)";
     default: return nullptr;
   }
+}
+
+bool tiff_ccitt(int64_t c) {
+  return c == 2 || c == 3 || c == 4 || c == 32771;
+}
+
+// libtiff's LZWDecodeCompat (tif_lzw.c), for a strip that starts 00 with
+// bit 0 of its second byte set: codes low bit first, the width growing
+// once the table passes 511, 1023 and 2047 (one code later than the new
+// style), a table that a clear code starts afresh. `want` bytes or an
+// error, as tiff_lzw.
+std::vector<uint8_t> tiff_lzw_compat(const uint8_t* s, size_t n, size_t want,
+                                     bool lenient, bool* cut) {
+  struct Code {
+    int next;  // -1: none
+    uint16_t length;
+    uint8_t value, firstchar;
+  };
+  const int CSIZE = 4095 + 1024;
+  std::vector<Code> tab(size_t(CSIZE), Code{-1, 0, 0, 0});
+  for (int i = 0; i < 256; i++)
+    tab[size_t(i)] = Code{-1, 1, uint8_t(i), uint8_t(i)};
+  std::vector<uint8_t> out(want, 0);
+  size_t op = 0, bp = 0;
+  uint64_t bitsleft = uint64_t(n) * 8, nextdata = 0;
+  int nextbits = 0, nbits = 9;
+  uint64_t mask = 511;
+  int free_ent = 258, maxcode = 510, old = 0;
+  bool bad = false;
+  auto byte_at = [&](size_t i) -> uint64_t { return i < n ? s[i] : 0; };
+  auto next_code = [&]() -> int {
+    if (bitsleft < uint64_t(nbits)) return 257;  // not terminated with EOI
+    nextdata |= byte_at(bp++) << nextbits;
+    nextbits += 8;
+    if (nextbits < nbits) {
+      nextdata |= byte_at(bp++) << nextbits;
+      nextbits += 8;
+    }
+    const int code = int(nextdata & mask);
+    nextdata >>= nbits;
+    nextbits -= nbits;
+    bitsleft -= uint64_t(nbits);
+    return code;
+  };
+  while (op < want) {
+    int code = next_code();
+    if (code == 257) break;
+    if (code == 256) {
+      do {
+        free_ent = 258;
+        for (int i = 258; i < CSIZE; i++) tab[size_t(i)] = Code{-1, 0, 0, 0};
+        nbits = 9;
+        mask = 511;
+        maxcode = 511;
+        code = next_code();
+      } while (code == 256);
+      if (code == 257) break;
+      if (code > 256) {
+        bad = true;  // "Corrupted LZW table"
+        break;
+      }
+      out[op++] = uint8_t(code);
+      old = code;
+      continue;
+    }
+    if (free_ent >= CSIZE) {
+      bad = true;
+      break;
+    }
+    Code& f = tab[size_t(free_ent)];
+    f.next = old;
+    f.firstchar = tab[size_t(old)].firstchar;
+    f.length = uint16_t(tab[size_t(old)].length + 1);
+    f.value = code < free_ent ? tab[size_t(code)].firstchar : f.firstchar;
+    if (++free_ent > maxcode) {
+      if (++nbits > 12) nbits = 12;
+      mask = (uint64_t(1) << nbits) - 1;
+      maxcode = int(mask);
+    }
+    old = code;
+    if (code >= 256) {
+      int c = code;
+      if (tab[size_t(c)].length == 0) {
+        bad = true;  // "Wrong length of decoded string"
+        break;
+      }
+      size_t occ = want - op;
+      if (tab[size_t(c)].length > occ) {  // the string's head that fits
+        while (c >= 0 && tab[size_t(c)].length > occ) c = tab[size_t(c)].next;
+        for (size_t k = occ; k > 0 && c >= 0; k--) {
+          out[op + k - 1] = tab[size_t(c)].value;
+          c = tab[size_t(c)].next;
+        }
+        op = want;
+        break;
+      }
+      const size_t len = tab[size_t(c)].length;
+      for (size_t k = len; k > 0 && c >= 0; k--) {
+        out[op + k - 1] = tab[size_t(c)].value;
+        c = tab[size_t(c)].next;
+      }
+      op += len;
+    } else {
+      out[op++] = uint8_t(code);
+    }
+  }
+  if ((bad || op < want) && !lenient) invalid("bad old-style LZW data");
+  if (cut) *cut = op < want;
+  if (op < want) std::fill(out.begin() + op, out.end(), 0);
+  return out;
 }
 
 // libtiff's LZW decoder (tif_lzw.c): `want` bytes or an error
 std::vector<uint8_t> tiff_lzw(const uint8_t* s, size_t n, size_t want,
                               bool lenient = false, bool* cut = nullptr) {
   if (n >= 2 && s[0] == 0 && (s[1] & 1))
-    throw Unsupported("TIFF with old-style LZW (LSB-first codes) is not "
-                      "decoded by craytracer_tpu_torch");
+    return tiff_lzw_compat(s, n, want, lenient, cut);
   std::vector<uint8_t> out;
   out.reserve(want);
   std::vector<uint16_t> prefix(4096);
@@ -727,11 +835,21 @@ void decode_tiff(const uint8_t* d, size_t n, Image& img) {
   std::string rawmode = info->rawmode;
   const bool raw_path = compression == 1;
   if (!raw_path) {
+    // what libtiff here fails on for every strip: WebP is not built in;
+    // SGILog wants a LogLuv or LogL photometric, which PIL does not open;
+    // ThunderScan wants 4-bit samples, CCITT 1-bit ones
+    if (compression == 50001)
+      invalid("TIFF WebP compression, which libtiff here lacks");
+    if (compression == 34676 || compression == 34677)
+      invalid("SGILog TIFF of a photometric libtiff refuses");
+    if ((compression == 32809 && bps[0] != 4) ||
+        (tiff_ccitt(compression) && bps[0] != 1))
+      invalid("TIFF sample size its compression refuses");
     const char* name = tiff_compression_name(compression);
     if (name)
       throw Unsupported(std::string("TIFF compression ") + name +
                         " is not decoded by craytracer_tpu_torch (none, "
-                        "PackBits, LZW, Deflate and JPEG are)");
+                        "PackBits, LZW, Deflate, JPEG and CCITT are)");
     if (fill == 2) {  // libtiff undoes the fill order itself
       info = lookup(1);
       if (!info) invalid("TIFF pixel layout PIL does not open");
@@ -994,6 +1112,11 @@ void decode_tiff(const uint8_t* d, size_t n, Image& img) {
           } else if (compression == 32773) {
             buf = tiff_packbits(raw.data(), raw.size(), want, ycc_rgba,
                                 &short_seg);
+          } else if (tiff_ccitt(compression)) {
+            buf.assign(want, 0);
+            if (!ccitt_decode(raw.data(), raw.size(), compression,
+                              lt.get(292, 0), sw, rows, buf))
+              invalid("bad CCITT data");
           } else {  // 7: JPEG
             if (bits != 8 || (photo == 6 && spl != 3))
               invalid("improper JPEG data precision or component count");

@@ -1,6 +1,7 @@
 """ctypes binding to the port's image decoders, csrc/imgdecode.cpp and the
 per-format files it includes (PNG, JPEG, PNM, BMP, TGA, GIF, TIFF, DDS,
-lossless WebP and PSD to 8-bit RGB, each equal to PIL's
+lossless WebP, PSD, DIB, ICO, CUR, QOI, SGI, PCX, IM, XBM and SPIDER to
+8-bit RGB, each equal to PIL's
 `Image.open(path).convert("RGB")`, which the JAX package's texture loader
 calls).
 
@@ -24,9 +25,16 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "imgdecode.cpp"
 # -ffp-contract=off: PNM's v / maxval * 255 rounds like Python's floats
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off")
 KINDS = {"png": 1, "jpeg": 2, "pnm": 3, "bmp": 4, "tga": 5, "gif": 6,
-         "tiff": 7, "dds": 8, "webp": 9, "psd": 10}
+         "tiff": 7, "dds": 8, "webp": 9, "psd": 10, "dib": 11, "ico": 12,
+         "cur": 13, "qoi": 14, "sgi": 15, "pcx": 16, "im": 17, "xbm": 18,
+         "spider": 19}
 
 _LIB = None
+
+
+class HandOn(Exception):
+    """The file fails inside the plugin's `_open` with an error that makes
+    PIL's `Image.open` try the next plugin (status 3)."""
 
 
 def bind(so: Path) -> ctypes.CDLL:
@@ -60,14 +68,15 @@ def library() -> ctypes.CDLL:
 def decode(data: bytes, kind: str, name: str = "image") -> np.ndarray:
     """[H, W, 3] uint8 of a file's bytes in the format `kind` (a key of
     KINDS). Raises NotImplementedError for an encoding the decoder leaves
-    out and ValueError for a file PIL would not read either."""
+    out, ValueError for a file PIL would not read either, and HandOn where
+    PIL's plugin hands the file to the next one."""
     lib = library()
     h = lib.imgd_decode(KINDS[kind], data, len(data))
     try:
         status = lib.imgd_status(h)
         if status:
             msg = f"{name}: {lib.imgd_message(h).decode()}"
-            raise NotImplementedError(msg) if status == 1 else ValueError(msg)
+            raise (NotImplementedError, ValueError, HandOn)[status - 1](msg)
         out = np.empty((lib.imgd_height(h), lib.imgd_width(h), 3), np.uint8)
         lib.imgd_copy(h, out.ctypes.data)
         return out

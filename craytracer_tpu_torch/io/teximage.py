@@ -5,23 +5,25 @@ The JAX package reads LDR images through PIL (`Image.open(path)
 .convert("RGB")`); the card's machine has no PIL, so the port decodes
 them in C++ (csrc/imgdecode.cpp through io/imgdecode.py) to the same
 texels: PNG of every bit depth, colour type and interlace; baseline,
-extended and progressive Huffman JPEG; PNM P1-P6 at any maxval and PIL's
-own Pf, P0CMYK, PyCMYK, PyRGBA and PyP; BMP; TGA; the first frame of a
-GIF; TIFF and BigTIFF (the first page); DDS (BC1-BC7, the top mip);
-lossless WebP (the first frame); PSD (the merged image). The format is
-told by the file's first bytes, not its name, as PIL tells it. LDR texels are value / 255 in
-float32. EXR goes through io/exr.py and keeps HDR values;
+extended, progressive Huffman and lossless JPEG; PNM P1-P6 at any maxval
+and PIL's own Pf, P0CMYK, PyCMYK, PyRGBA and PyP; BMP and DIB; TGA; the
+first frame of a GIF; TIFF and BigTIFF (the first page, CCITT and
+old-style LZW included); DDS (BC1-BC7, the top mip); lossless WebP (the
+first frame); PSD (the merged image); QOI; SGI; PCX; IM; XBM; SPIDER;
+ICO and CUR. The format is told by the file's bytes, not its name: PIL's
+plugins are tried in `Image.open`'s order (io/imgopen.py). LDR texels are
+value / 255 in float32. EXR goes through io/exr.py and keeps HDR values;
 CRAY_TEX_FLOAT_DIV255=1 divides them by 255 as the reference's
 getTexColor does for float texels (texture.cpp:78), which the textured
 golden needs.
 
-A file that is missing or that PIL would not read either gives None, as
-in the JAX loader, and the caller drops the texture; so does an EXR file
-the JAX reader refuses (a tiled one, or a compression other than NONE,
-ZIPS and ZIP). A format PIL reads and the port does not (lossy WebP,
-JPEG 2000, AVIF, arithmetic-coded, lossless or hierarchical JPEG, TIFF
-compressed by CCITT, LZMA or ZSTD, ...) raises NotImplementedError naming
-it: a texture is never quietly left out because of its encoding.
+A file that is missing, that no PIL plugin opens, or that PIL opens and
+cannot read gives None, as in the JAX loader, and the caller drops the
+texture; so does an EXR file the JAX reader refuses (a tiled one, or a
+compression other than NONE, ZIPS and ZIP). A format PIL reads and the
+port does not (lossy WebP, JPEG 2000, AVIF, arithmetic-coded JPEG, BLP,
+ICNS, MSP, ...) raises NotImplementedError naming it: a texture is never
+quietly left out because of its encoding.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import zlib
 import numpy as np
 
 from craytracer_tpu_torch.io.exr import read_exr_texture
-from craytracer_tpu_torch.io.imgdecode import decode
+from craytracer_tpu_torch.io.imgdecode import HandOn, decode
+from craytracer_tpu_torch.io.imgopen import open_plugin
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # the JAX loader drops a texture on any error of its EXR reader or of
@@ -42,63 +45,43 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # not decode raises
 _UNREADABLE = (OSError, ValueError, KeyError, IndexError, TypeError,
                OverflowError, MemoryError, struct.error, zlib.error)
-# first bytes of the formats PIL reads that the port refuses
-_REFUSED = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
-            (b"\xff\x4f\xff\x51", "JPEG 2000"))
-# PIL's TiffImagePlugin.PREFIXES: the two invalid ones open too
-_TIFF = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+", b"MM*\0", b"II\0*")
 
 
-def _is_tga(head: bytes) -> bool:
-    """The header checks of PIL's TgaImageFile._open (TGA has no magic)."""
-    if len(head) < 18:
-        return False
-    w, h = struct.unpack_from("<HH", head, 12)
-    return (head[1] in (0, 1) and w > 0 and h > 0
-            and head[16] in (1, 8, 16, 24, 32)
-            and head[2] in (1, 2, 3, 9, 10, 11))
+def _opened(data: bytes, skip=()):
+    opened = open_plugin(data, skip)
+    if opened is None:
+        raise ValueError("no PIL plugin opens this file")
+    if opened.kind is None:
+        if not opened.readable:
+            raise ValueError(f"PIL opens {opened.name} files and never "
+                             "reads their pixels")
+        raise NotImplementedError(
+            f"{opened.name} textures are not decoded by craytracer_tpu_torch"
+            " (PNG, JPEG, PNM, BMP, DIB, TGA, GIF, TIFF, DDS, lossless WebP,"
+            " PSD, QOI, SGI, PCX, IM, XBM, SPIDER, ICO, CUR and EXR are)")
+    return opened
 
 
-def image_kind(head: bytes) -> str:
-    """The decoder for a file starting with `head` (at least 18 bytes
-    unless the file is shorter), in PIL's order of looking; raises
-    NotImplementedError for a format the port does not decode."""
-    if head.startswith(_PNG_SIGNATURE):
-        return "png"
-    if head.startswith(b"\xff\xd8\xff"):
-        return "jpeg"
-    if head.startswith(b"BM"):
-        return "bmp"
-    if head.startswith((b"GIF87a", b"GIF89a")):
-        return "gif"
-    if len(head) >= 2 and head[:1] == b"P" and head[1] in b"0123456fy":
-        return "pnm"
-    if head.startswith(_TIFF):
-        return "tiff"
-    if head.startswith(b"DDS "):
-        return "dds"
-    if head.startswith(b"8BPS"):
-        return "psd"
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        return "webp"
-    if head.startswith(b"PF"):
-        raise ValueError("PF (colour float PNM) is not a file PIL opens")
-    kind = next((k for magic, k in _REFUSED if head.startswith(magic)), None)
-    if kind is None and _is_tga(head):
-        return "tga"
-    raise NotImplementedError(
-        f"{kind or f'an image starting {head[:4]!r}'} textures are not "
-        "decoded by craytracer_tpu_torch (PNG, JPEG, PNM, BMP, TGA, GIF, "
-        "TIFF, DDS, lossless WebP, PSD and EXR are)")
+def image_kind(data: bytes) -> str:
+    """The decoder for a file of these bytes (its first bytes will do
+    for most formats; PCD looks at offset 2048, SPIDER at 108 bytes, IM
+    and XBM at their text headers): the plugin PIL's `Image.open` picks.
+    Raises NotImplementedError for a format the port does not decode and
+    ValueError where PIL opens nothing, or nothing it can read."""
+    return _opened(data).kind
 
 
 def decode_file(path: str) -> np.ndarray:
     """[H, W, 3] uint8 of an LDR image file, as PIL's convert("RGB")."""
     with open(path, "rb") as f:
         data = f.read()
-    if not data:
-        raise ValueError(f"{path} is empty")
-    return decode(data, image_kind(data[:18]), path)
+    opened, skip = _opened(data), []
+    while True:
+        try:
+            return decode(data, opened.kind, path)
+        except HandOn:  # the plugin's _open failed: PIL tries the next
+            skip.append(opened.plugin)
+            opened = _opened(data, tuple(skip))
 
 
 def read_png(path: str) -> np.ndarray:

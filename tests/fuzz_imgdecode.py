@@ -5,8 +5,10 @@ Each case is a texture fixture of craytracer_tpu_torch/testdata/textures
 mutated at random: cut short, bytes set or flipped, bytes inserted, or a
 16- or 32-bit field of its first 512 bytes set to an edge value (0, 1,
 the top bit, all ones), which reaches header fields such as sizes, bit
-counts and channel masks. A decode must give an image or raise
-ValueError / NotImplementedError; a sanitizer report, a crash, or a
+counts and channel masks. The plugin PIL's search picks
+(io/imgopen.py) names the decoder; a decode must give an image or raise
+ValueError / NotImplementedError / HandOn (the plugin hands the file on);
+a sanitizer report, a crash, or a
 decode that runs past 120 s ends the run, the case left in --out (an
 image at PIL's pixel limit, which a mutated header can ask for, takes
 about 10 s in this build).
@@ -79,21 +81,22 @@ def run(args) -> int:
     rng = np.random.default_rng(args.seed)
     signal.signal(signal.SIGALRM, signal.SIG_DFL)  # a hang ends the process
     case = Path(args.out) / "fuzz_case.bin"
-    counts = {"image": 0, "ValueError": 0, "NotImplementedError": 0}
+    counts = {"image": 0, "ValueError": 0, "NotImplementedError": 0,
+              "HandOn": 0}
     for it in range(args.cases):
         name = names[int(rng.integers(len(names)))]
         data = bytes(mutate(bytearray((FIXTURES / name).read_bytes()), rng))
         case.write_bytes(data)
         (Path(args.out) / "fuzz_case.txt").write_text(f"{it} {name}\n")
         try:
-            kind = image_kind(data[:18])
+            kind = image_kind(data)
         except (ValueError, NotImplementedError):
             continue
         signal.alarm(120)
         try:
             imgdecode.decode(data, kind, name)
             counts["image"] += 1
-        except (ValueError, NotImplementedError) as e:
+        except (ValueError, NotImplementedError, imgdecode.HandOn) as e:
             counts[type(e).__name__] += 1
         signal.alarm(0)
     print(f"{args.cases} cases over {len(names)} fixtures: {counts}")

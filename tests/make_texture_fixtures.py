@@ -1,5 +1,5 @@
 """Write the texture fixtures the card checks the port's decoders on
-(chip_smoke.py phases 55 and 56), which has no PIL: one small file per
+(chip_smoke.py phases 55, 56 and 57), which has no PIL: one small file per
 format and variant (tests/torch_image_files.py and tests/torch_tiff_files.py
 write those PIL cannot), the parity_textured checker re-encoded losslessly
 in eleven formats and as a 4:2:0 JPEG, and for timing a 2048x2048 4:2:0
@@ -94,6 +94,131 @@ def checker_variants_m(checker: np.ndarray) -> dict:
         "checker_rle.psd": T.psd_bytes(checker.transpose(2, 0, 1), 3,
                                        rle=True),
     }
+
+
+def checker_variants_n(checker: np.ndarray) -> dict:
+    """The checker in the colour-lossless encodings of phase 57: QOI, RLE
+    SGI, PCX (three planes), IM, an ICO holding a BMP, and a lossless
+    JPEG (no JFIF or Adobe marker: libjpeg-turbo reads it as RGB)."""
+    img = Image.fromarray(checker)
+    h, w = checker.shape[:2]
+    return {
+        "checker.qoi": _pil(img, "QOI"),
+        "checker_rle.sgi": F.sgi_bytes(checker.transpose(2, 0, 1), 1, True),
+        "checker.pcx": _pil(img, "PCX"),
+        "checker.im": _pil(img, "IM"),
+        "checker_bmp.ico": _pil(img, "ICO", sizes=[(w, h)],
+                                bitmap_format="bmp"),
+        "checker_lossless.jpg": F.jpeg_lossless_bytes(
+            [checker[..., c] for c in range(3)], predictor=1),
+    }
+
+
+def _blocks(rng, h, w, cell, c=3):
+    a = rng.integers(0, 256, (-(-h // cell), -(-w // cell), c))
+    return np.repeat(np.repeat(a, cell, 0), cell, 1)[:h, :w].astype(np.uint8)
+
+
+def _text_page(rng, h, w):
+    """A bilevel page of text-like lines of glyph noise (1 black)."""
+    page = np.zeros((h, w), np.uint8)
+    for y0 in range(96, h - 96, 44):
+        x = 128
+        while x < w - 160:
+            n = int(rng.integers(3, 11)) * 18
+            g = rng.random((14, n // 3)) < 0.35
+            glyphs = np.repeat(np.repeat(g, 2, 0), 3, 1)[:, :w - x]
+            page[y0:y0 + 28, x:x + glyphs.shape[1]] = glyphs
+            x += n + 20
+    return page
+
+
+def slice_n_files() -> dict:
+    """Phase 57's fixtures: one small file per new decoder and variant
+    (QOI, SGI, PCX, DIB, IM, XBM, SPIDER, ICO, CUR, lossless JPEG, CCITT
+    and old-style LZW TIFF), and for timing a 2048x2048 QOI of 256-pixel
+    blocks and a 2048x2048 Group 4 page of text-like lines."""
+    rng = np.random.default_rng(57)
+    files = {}
+    h, w = 13, 21
+    px = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+    blk = _blocks(rng, h, w, 3, 4)
+    files["qoi_rgba.qoi"] = _pil(Image.fromarray(blk, "RGBA"), "QOI")
+    files["qoi_rgb.qoi"] = _pil(Image.fromarray(px[..., :3]), "QOI")
+    files["sgi_l_raw.sgi"] = _pil(Image.fromarray(px[..., 0]), "SGI")
+    files["sgi_rgb_rle.sgi"] = F.sgi_bytes(blk[..., :3].transpose(2, 0, 1),
+                                           1, True)
+    files["sgi_rgba16_rle.sgi"] = F.sgi_bytes(
+        blk.transpose(2, 0, 1).astype(np.int64) * 257 + 5, 2, True)
+    for mode in ("1", "P", "RGB"):
+        files[f"pcx_{mode.lower()}.pcx"] = _pil(
+            Image.fromarray(blk[..., :3]).convert(mode), "PCX")
+    files["pcx_p4l.pcx"] = F.pcx_bytes(
+        rng.integers(0, 256, (h, 4 * 4)), w, h, 1, 4,
+        palette=rng.integers(0, 256, (16, 3)), stride=4)
+    for mode in ("1", "P", "RGBA"):
+        files[f"dib_{mode.lower()}.dib"] = _pil(
+            Image.fromarray(px[..., :3]).convert(mode), "DIB")
+    for mode in ("P", "LA", "I", "F", "RGB", "CMYK", "YCbCr"):
+        files[f"im_{mode.lower()}.im"] = _pil(
+            Image.fromarray(px[..., :3]).convert(mode), "IM")
+    hdr = b"Image type: L*12 image\r\nImage size (x*y): 7*5\r\n"
+    body = rng.integers(0, 256, 80).astype(np.uint8)
+    body[1::2] = 0
+    files["im_bits12.im"] = hdr.ljust(511, b"\0") + b"\x1a" + body.tobytes()
+    files["xbm_hotspot.xbm"] = _pil(
+        Image.fromarray(px[..., 0]).convert("1"), "XBM", hotspot=(3, 4))
+    f = rng.normal(100, 150, (9, 11)).astype(np.float32)
+    files["spider_be.spi"] = F.spider_bytes(f, True)
+    files["spider_le_stack.spi"] = F.spider_bytes(f, False, stack=True)
+    small = Image.fromarray(px[:8, :8, :3])
+    big = Image.fromarray(rng.integers(0, 256, (16, 16, 3)).astype(np.uint8))
+    files["ico_png.ico"] = _pil(big, "ICO", sizes=[(8, 8), (16, 16)])
+    files["ico_bmp1.ico"] = F.icon_bytes([(16, 16, 2, 1, 1, F.dib_frame(
+        _pil(big.convert("1"), "DIB")))])
+    files["cur_two.cur"] = F.icon_bytes([
+        (8, 8, 0, 1, 1, F.dib_frame(_pil(small, "DIB"))),
+        (16, 16, 0, 2, 2, F.dib_frame(_pil(big.convert("P"), "DIB")))],
+        cursor=True)
+    planes = [px[..., c].astype(np.int64) for c in range(4)]
+    for p in range(1, 8):
+        files[f"jpeg_lossless_p{p}.jpg"] = F.jpeg_lossless_bytes(
+            planes[:3], predictor=p)
+    files["jpeg_lossless_gray_pt2.jpg"] = F.jpeg_lossless_bytes(
+        planes[:1], pt=2, markers="jfif")
+    files["jpeg_lossless_cmyk.jpg"] = F.jpeg_lossless_bytes(planes)
+    files["jpeg_lossless_sub_restart.jpg"] = F.jpeg_lossless_bytes(
+        planes[:3], predictor=6, restart_rows=2,
+        factors=[(2, 2), (1, 1), (1, 1)])
+    bits = (rng.random((h, 37)) < 0.4).astype(np.uint8)
+    for name, comp, fax in (("rle", 2, {}), ("rlew", 32771, {}),
+                            ("g3_1d", 3, {}), ("g4", 4, {}),
+                            ("g3_2d", 3, dict(t4options=1, two_d=[
+                                y % 3 != 0 for y in range(h)]))):
+        extra = [(292, 4, [1])] if name == "g3_2d" else []
+        files[f"tiff_{name}.tif"] = T.tiff_bytes(
+            bits[..., None], 1, 0, compression=comp, fax=fax,
+            extra_tags=extra)
+    files["tiff_g4_fo2_white1.tif"] = T.tiff_bytes(
+        bits[..., None], 1, 1, compression=4, fill_order=2)
+    runs, c = [], 0
+    for k in list(range(64)) + list(range(64, 2561, 64)) + [2623, 1793]:
+        runs += [c] * k
+        c ^= 1
+    runs += [c] * ((-len(runs)) % 2640)
+    files["tiff_g4_makeup.tif"] = T.tiff_bytes(
+        np.array(runs, np.uint8).reshape(-1, 2640)[..., None], 1, 0,
+        compression=4)
+    files["tiff_old_lzw.tif"] = T.tiff_bytes(blk[..., :3], 8, 2,
+                                             compression=5, old_lzw=True,
+                                             predictor=2, rows_per_strip=5)
+    # timing files
+    files["big_2048_blocks.qoi"] = _pil(
+        Image.fromarray(_blocks(rng, 2048, 2048, 256)), "QOI")
+    files["big_2048_g4.tif"] = _pil(
+        Image.fromarray((1 - _text_page(rng, 2048, 2048)) * 255).convert(
+            "1"), "TIFF", compression="group4")
+    return files
 
 
 def _jpeg_tiff(img, ss, sub):
@@ -340,6 +465,8 @@ def fixture_files() -> dict:
     files.update(checker_variants(checker))
     files.update(checker_variants_m(checker))
     files.update(slice_m_files())
+    files.update(checker_variants_n(checker))
+    files.update(slice_n_files())
     y, x = np.mgrid[0:2048, 0:2048]
     big = np.stack([127 + 120 * np.sin(x / (60 + 20 * k)) *
                     np.cos(y / (80 - 15 * k)) for k in range(3)], -1)
@@ -356,6 +483,9 @@ def main() -> None:
     phase56 = set(checker_variants_m(
         np.asarray(Image.open(CHECKER).convert("RGB"))))
     phase56 |= set(slice_m_files())
+    phase57 = set(checker_variants_n(
+        np.asarray(Image.open(CHECKER).convert("RGB"))))
+    phase57 |= set(slice_n_files())
     for name, data in sorted(fixture_files().items()):
         path = os.path.join(OUT, name)
         with open(path, "wb") as f:
@@ -365,6 +495,8 @@ def main() -> None:
                           "shape": list(rgb.shape)}
         if name in phase56:  # checked by phase 56 rather than 55
             manifest[name]["phase"] = 56
+        if name in phase57:
+            manifest[name]["phase"] = 57
     with open(os.path.join(OUT, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -469,3 +469,274 @@ def jpeg_bytes(planes, factors, q=8, adobe=None, restart=0):
         sos += bytes([i + 1, 0x00])
     out += seg(0xDA, sos + b"\x00\x3f\x00")
     return out + bytes(entropy) + b"\xff\xd9"
+
+
+# lossless JPEG's difference categories 0-16, one table for all
+_LL_BITS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0]
+_LL_VALS = list(range(17))
+
+
+def _ll_predict(sel, ra, rb, rc):
+    return {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[sel]
+
+
+def jpeg_lossless_bytes(planes, predictor=1, pt=0, restart_rows=0,
+                        factors=None, markers="none", ids=None,
+                        precision=8, scans=None):
+    """A lossless (SOF3) JPEG of component planes (each [H, W] ints at
+    full size; subsampled components keep every h-th column and v-th row
+    of theirs): T.81 Annex H with selection value `predictor`, point
+    transform `pt` (the samples' low bits dropped), a restart interval of
+    `restart_rows` MCU rows if set, component ids `ids` (default 1, 2,
+    ...), a JFIF or Adobe (transform 0) marker or none, and the
+    components in one interleaved scan or in `scans` (lists of component
+    indices)."""
+    n = len(planes)
+    factors = factors or [(1, 1)] * n
+    ids = ids or list(range(1, n + 1))
+    H, W = np.asarray(planes[0]).shape
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    mx, my = -(-W // hmax), -(-H // vmax)
+    comps = []
+    for p, (h, v) in zip(planes, factors):
+        a = np.asarray(p, np.int64)[::vmax // v, ::hmax // h] >> pt
+        cw, ch = -(-W * h // hmax), -(-H * v // vmax)
+        a = a[:ch, :cw]
+        # the MCUs' padding repeats the last column and row
+        comps.append(np.pad(a, ((0, my * v - ch), (0, mx * h - cw)),
+                            mode="edge"))
+    table = _huff_codes(_LL_BITS, _LL_VALS)
+    init = 1 << (precision - pt - 1)
+
+    def diffs(ci):
+        a = comps[ci]
+        h, v = factors[ci]
+        ch, cw = -(-H * v // vmax), -(-W * h // hmax)
+        d = np.zeros_like(a)
+        rows_per_interval = restart_rows * v if restart_rows else 0
+        for y in range(a.shape[0]):
+            first = y == 0 or (rows_per_interval
+                               and y % rows_per_interval == 0)
+            for x in range(a.shape[1]):
+                if y >= ch or x >= cw:
+                    pred = 0  # padding: any difference will do
+                elif first:
+                    pred = init if x == 0 else a[y, x - 1]
+                elif x == 0:
+                    pred = a[y - 1, 0]
+                else:
+                    pred = _ll_predict(predictor, a[y, x - 1], a[y - 1, x],
+                                       a[y - 1, x - 1])
+                d[y, x] = (a[y, x] - pred) & 0xFFFF
+        return d
+
+    def scan(members):
+        ds = {ci: diffs(ci) for ci in members}
+        out, acc, nacc = bytearray(), 0, 0
+
+        def put(code, length):
+            nonlocal acc, nacc
+            acc = (acc << length) | code
+            nacc += length
+            while nacc >= 8:
+                byte = (acc >> (nacc - 8)) & 255
+                out.append(byte)
+                if byte == 255:
+                    out.append(0)
+                nacc -= 8
+                acc &= (1 << nacc) - 1
+
+        def flush():
+            nonlocal acc, nacc
+            if nacc:
+                put((1 << (8 - nacc)) - 1, 8 - nacc)
+
+        one = len(members) == 1
+        if one:  # a non-interleaved scan's MCU is one sample
+            h, v = factors[members[0]]
+            cw, ch = -(-W * h // hmax), -(-H * v // vmax)
+            rows, cols = ch, cw
+            units = [(members[0], 0, 0)]
+        else:
+            rows, cols = my, mx
+            units = [(ci, yy, xx) for ci in members
+                     for yy in range(factors[ci][1])
+                     for xx in range(factors[ci][0])]
+        rst = 0
+        for r in range(rows):
+            if restart_rows and r and r % restart_rows == 0:
+                flush()
+                out.extend(bytes([0xFF, 0xD0 + rst % 8]))
+                rst += 1
+            for c in range(cols):
+                for ci, yy, xx in units:
+                    h, v = factors[ci]
+                    y, x = (r, c) if one else (r * v + yy, c * h + xx)
+                    dv = int(ds[ci][y, x])
+                    if dv >= 32768:
+                        dv -= 65536
+                    if dv == -32768:
+                        put(*table[16])
+                        continue
+                    nb = abs(dv).bit_length()
+                    put(*table[nb])
+                    if nb:
+                        put(dv if dv >= 0 else dv + (1 << nb) - 1, nb)
+        flush()
+        return bytes(out), (cols if one else mx)
+
+    def seg(marker, payload):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) \
+            + payload
+
+    out = b"\xff\xd8"
+    if markers == "jfif":
+        out += seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    elif markers == "adobe":
+        out += seg(0xEE, b"Adobe\0\x64\0\0\0\0\0")
+    sof = struct.pack(">BHHB", precision, H, W, n)
+    for i, (h, v) in enumerate(factors):
+        sof += bytes([ids[i], (h << 4) | v, 0])
+    out += seg(0xC3, sof)
+    out += seg(0xC4, b"\x00" + bytes(_LL_BITS) + bytes(_LL_VALS))
+    for members in scans or [list(range(n))]:
+        data, per_row = scan(members)
+        if restart_rows:
+            out += seg(0xDD, struct.pack(">H", restart_rows * per_row))
+        sos = bytes([len(members)])
+        for ci in members:
+            sos += bytes([ids[ci], 0x00])
+        out += seg(0xDA, sos + bytes([predictor, 0, pt])) + data
+    return out + b"\xff\xd9"
+
+
+def sgi_bytes(planes, bpc=1, rle=True, dimension=None, row_order=None):
+    """An SGI image of `planes` [bands, H, W] (values < 256 ** bpc), rows
+    stored bottom first: raw, or RLE with repeat runs of 3 or more values
+    and copy runs otherwise (up to 127 values a chunk, a 0 chunk ending
+    each row), the offset and length tables first. `row_order` permutes
+    where each (band, row)'s chunk list is stored."""
+    p = np.asarray(planes, np.int64)
+    z, h, w = p.shape
+    dim = dimension or (1 if z == 1 and h == 1 else 2 if z == 1 else 3)
+    head = struct.pack(">HBBHHHHII4s80sI", 474, 1 if rle else 0, bpc, dim, w,
+                       h, z, 0, 255 if bpc == 1 else 65535, b"", b"x", 0)
+    head = head.ljust(512, b"\0")
+    fmt = ">u1" if bpc == 1 else ">u2"
+    rows = p[:, ::-1]  # bottom row first
+    if not rle:
+        return head + rows.astype(fmt).tobytes()
+
+    def encode(row):
+        out, i = [], 0
+        while i < w:
+            j = i
+            while j + 1 < w and row[j + 1] == row[i] and j - i < 126:
+                j += 1
+            if j - i >= 2:
+                out += [j - i + 1, int(row[i])]
+                i = j + 1
+                continue
+            j = i
+            while j < w and j - i < 127 and not (
+                    j + 2 < w and row[j] == row[j + 1] == row[j + 2]):
+                j += 1
+            out += [0x80 | (j - i)] + [int(v) for v in row[i:j]]
+            i = j
+        return np.array(out + [0], np.int64).astype(fmt).tobytes()
+
+    chunks = [encode(rows[b, y]) for b in range(z) for y in range(h)]
+    order = row_order or list(range(len(chunks)))
+    base = 512 + 8 * len(chunks)
+    offsets, data = [0] * len(chunks), b""
+    for k in order:
+        offsets[k] = base + len(data)
+        data += chunks[k]
+    return (head + struct.pack(f">{len(chunks)}I", *offsets)
+            + struct.pack(f">{len(chunks)}I", *[len(c) for c in chunks])
+            + data)
+
+
+def pcx_bytes(lines, w, h, bits, planes, *, version=5, palette=None,
+              stride=None, runs=True, trailer=None):
+    """A PCX file: `lines` [h, planes * stride] bytes (each plane's bytes
+    of a row, `stride` apart), RLE-coded per row (runs of 2 or more and
+    every byte of 0xC0 or more as a run), `palette` (16 RGB) in the
+    header, `trailer` (the 769-byte 8-bit palette block) appended."""
+    stride = stride or ((w * bits + 7) // 8 + ((w * bits + 7) // 8) % 2)
+    head = bytearray(128)
+    head[0:4] = bytes([10, version, 1, bits])
+    struct.pack_into("<HHHHHH", head, 4, 0, 0, w - 1, h - 1, 72, 72)
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8).reshape(-1)[:48]
+        head[16:16 + 48] = pal.tobytes()
+    head[65] = planes
+    struct.pack_into("<HH", head, 66, stride, 1)
+    out = bytearray(head)
+    for row in np.asarray(lines, np.uint8).reshape(h, -1):
+        i, n = 0, len(row)
+        while i < n:
+            j = i
+            while runs and j + 1 < n and row[j + 1] == row[i] and j - i < 62:
+                j += 1
+            if j > i or row[i] >= 0xC0:
+                out += bytes([0xC0 | (j - i + 1), row[i]])
+            else:
+                out.append(row[i])
+            i = j + 1
+    return bytes(out) + (trailer or b"")
+
+
+def dib_frame(dib: bytes, mask=True) -> bytes:
+    """PIL's DIB of an image as an icon or cursor frame: the header's
+    height doubled and, with `mask`, a blank AND mask (rows of 32-bit
+    words) appended."""
+    d = bytearray(dib)
+    hs, = struct.unpack_from("<I", d, 0)
+    if hs == 12:
+        w, h = struct.unpack_from("<HH", d, 4)
+        struct.pack_into("<H", d, 6, 2 * h)
+    else:
+        w, h = struct.unpack_from("<ii", d, 4)
+        struct.pack_into("<i", d, 8, 2 * h)
+    if mask:
+        d += bytes((w + 31) // 32 * 4 * abs(h))
+    return bytes(d)
+
+
+def icon_bytes(frames, cursor=False) -> bytes:
+    """An ICO (or CUR) of `frames`: (width byte, height byte, colour count,
+    planes or hotspot x, bpp or hotspot y, frame bytes: PNG or DIB)."""
+    out = struct.pack("<HHH", 0, 2 if cursor else 1, len(frames))
+    at = 6 + 16 * len(frames)
+    data = b""
+    for w, h, ncol, a, b, blob in frames:
+        out += struct.pack("<BBBBHHII", w, h, ncol, 0, a, b, len(blob),
+                           at + len(data))
+        data += blob
+    return out + data
+
+
+def spider_bytes(f, big=True, stack=False) -> bytes:
+    """A SPIDER image of float32 `f` [H, W]: the 1024-byte-record header
+    (labrec 1, lenbyt 4 * W rounded to a record) in either byte order,
+    alone or as the first image of a stack (its own header after the
+    stack's)."""
+    f = np.asarray(f, np.float32)
+    h, w = f.shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    hdr = np.zeros(labbyt // 4, np.float32)
+    hdr[[0, 1, 4, 11, 12, 21, 22]] = [1, h, 1, w, labrec, labbyt, lenbyt]
+    dt = ">f4" if big else "<f4"
+    if stack:
+        top = hdr.copy()
+        top[23], top[25] = 2, 1  # istack, maxim
+        one = hdr.copy()
+        one[26] = 1  # imgnum
+        return (top.astype(dt).tobytes() + one.astype(dt).tobytes()
+                + f.astype(dt).tobytes())
+    return hdr.astype(dt).tobytes() + f.astype(dt).tobytes()
