@@ -480,6 +480,28 @@ never JAX or the JAX package. Phases, each printing its own lines:
    fixtures and of a 2048x2048 lossless JPEG that `encode_lossless_jpeg`
    writes from the QOI's texels (and that must decode back to them), with
    the host's CPU model and the card's line. Budget: 15 s.
+58. slice O (`slice_o_phases`, after phase 57; `python3 chip_smoke.py
+   --slice-o` builds the kernels and runs it alone, with no result
+   line), arithmetic-coded JPEG (csrc/imgdecode_arith.h), block-smoothed
+   progressive JPEG (_jsmooth.h) and the sixteen plugins of _plugins.h
+   (g++, on the host): (a) every fixture manifest.json marks "phase": 58
+   (arithmetic twins and a re-marked file, smoothed progressive files,
+   SUN, XPM, MSP, DCX, PIXAR, McIdas, IMT, XVThumb, GBR, FITS, FTEX,
+   BLP, ICNS, IPTC, FLI) decoded and hashed against the SHA-256 of PIL's
+   decode, and a 768x512 PhotoCD file `pcd_bytes` writes from SHA-256 in
+   counter mode against PCD_SHA256, PIL's decode of it; (b)
+   parity_textured with its checker replaced by each colour-exact
+   re-encoding (SUN, PIXAR, DCX, BLP2 palette, XPM): texels equal to the
+   PPM scene's; the checker at 16x16 as an ICNS RLE icon against a PPM of
+   the same; the checker's SOF9 and SOF10 arithmetic twins against its
+   baseline Huffman file: texels equal, and each 512x512 Morton depth-5
+   general pass through K3/K4 bit-equal with its reference's, K3 = K4 =
+   6 and nothing else; (c) host seconds per decode, median of 3, of the
+   2048x2048 baseline Huffman fixture against its arithmetic progressive
+   twin (`pad_arith_scans` gives each scan a read of PIL's own; texels
+   equal) and of the 2048x2048 progressive fixture against the same file
+   without its refinement scans (block-smoothed), with the host's CPU
+   model and the card's line. Budget: 15 s.
 
 Then one JSON line describing the kernels (each with its launches on its
 main path: K1 on parity_mix's, K2-K4 on parity_mesh_mid's, K2 plus the
@@ -492,7 +514,7 @@ K2-K4 the ranks' sharded passes of phase 49 (a) and (b), K2 (e)'s and
 K2, K3 `_init` and K4 (f)'s, K3 `_init` and K4 the XL Renderer of phase
 50, K3 hybrid's general route in phases 51-52, K3 `_init` and K4 phase
 53's XL gradients through the kernels, K3 and K4 phase 55's textured
-passes and Renderers and phase 56's and phase 57's textured passes;
+passes and Renderers and phase 56's, 57's and 58's textured passes;
 `k1_pass_rays`, K1's external-ray mode, on Cornell
 with a multijittered table (phase 41); K5, K6 and P1 lie on no path: 0;
 max_abs_err over its checks, ms per bare launch (K2's launches enqueued
@@ -2732,6 +2754,217 @@ def slice_n_phases(ctx) -> None:
           flush=True)
 
 
+def pad_arith_scans(data: bytes) -> bytes:
+    """`data`, an arithmetic-coded JPEG whose scans are each under 64 KB,
+    with APP15 padding before each SOS after the first, so that every
+    scan's coded data starts one byte into a read of PIL's: PIL hands
+    libjpeg a file in reads of 65536 bytes (ImageFile.MAXBLOCK), one more
+    each time the marker reader suspends for want of a byte, and
+    libjpeg's arithmetic decoder cannot suspend, so PIL reads such a file
+    only where no scan runs past the read that holds its SOS marker's
+    end."""
+    out, p, first = bytearray(data[:2]), 2, True
+    while p < len(data):
+        m = data[p + 1]
+        if m == 0xD9:
+            out += data[p:]
+            break
+        q = p + 2 + int.from_bytes(data[p + 2:p + 4], "big")
+        if m != 0xDA:
+            out += data[p:q]
+            p = q
+            continue
+        e = q  # the scan's data runs to the next marker but RSTn
+        while not (data[e] == 0xFF and data[e + 1] not in
+                   (0, *range(0xD0, 0xD8))):
+            e += 1
+        if e - q + 2 >= 65535:
+            raise ValueError("a scan of 64 KB or more fits no read")
+        if not first:
+            head = q - p
+            start = -(-(len(out) + 4 + head - 1) // 65536) * 65536 + 1
+            gap = start - head - len(out)
+            while gap:
+                k = min(gap, 65537)
+                if 0 < gap - k < 4:
+                    k -= 4
+                out += b"\xff\xef" + (k - 2).to_bytes(2, "big") + bytes(k - 4)
+                gap -= k
+        first = False
+        out += data[p:e]
+        p = e
+    return bytes(out)
+
+
+# PIL's decode of pcd_bytes() (768x512 RGB), as its SHA-256
+PCD_SHA256 = "a23b46e99ec055b4df0b0982a58ba7d3c8abc1d768d427cf577d6d039e903a66"
+
+
+def pcd_bytes(orientation: int = 0, seed: bytes = b"craytracer PCD") -> bytes:
+    """A PhotoCD image pack that PIL's PCD plugin reads (96 * 2048 bytes
+    of header, then 768x512 PhotoYCC line pairs): the "PCD_" signature at
+    2048, the orientation in the low bits of byte 2048 + 1538, and every
+    other byte from SHA-256 in counter mode over `seed`."""
+    import hashlib
+
+    size = 96 * 2048 + 768 * 512 * 3 // 2
+    out = bytearray()
+    i = 0
+    while len(out) < size:
+        out += hashlib.sha256(seed + i.to_bytes(8, "little")).digest()
+        i += 1
+    out = out[:size]
+    out[2048:2052] = b"PCD_"
+    out[2048 + 1538] = (out[2048 + 1538] & ~3) | orientation
+    return bytes(out)
+
+
+def _drop_refinements(data: bytes) -> bytes:
+    """A progressive JPEG without its refinement scans (Ah > 0): libjpeg
+    block-smooths what they would have refined."""
+    out, p = bytearray(data[:2]), 2
+    while p < len(data):
+        m = data[p + 1]
+        if m == 0xD9:
+            out += data[p:p + 2]
+            break
+        q = p + 2 + int.from_bytes(data[p + 2:p + 4], "big")
+        if m == 0xDA:
+            while not (data[q] == 0xFF and data[q + 1] not in
+                       (0, *range(0xD0, 0xD8))):
+                q += 1
+            if data[p + 4 + 2 * data[p + 4] + 3] >> 4:
+                p = q
+                continue
+        out += data[p:q]
+        p = q
+    return bytes(out)
+
+
+def slice_o_phases(ctx) -> None:
+    """Phase 58: slice O on the card's host (module docstring). `ctx` as
+    for `slice_f_phases`; failures are appended."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from craytracer_tpu_torch.io import imgdecode
+    from craytracer_tpu_torch.io.teximage import decode_file
+
+    card = ctx.card
+    t_phase = time.perf_counter()
+    cpu = _host_cpu()
+    tmp = tempfile.mkdtemp(prefix="slice_o_")
+    try:
+        rig = _texture_rig(ctx, "slice-o", tmp)
+        check, want, depth, fx = rig.check, rig.want, rig.depth, rig.fx
+
+        # ---- 58 (a). every fixture of slice O against PIL's manifest,
+        # and the PhotoCD file written here against PIL's hash of it
+        t0 = time.perf_counter()
+        imgdecode.library()
+        build_s = time.perf_counter() - t0
+        with open(os.path.join(fx, "manifest.json")) as f:
+            manifest = json.load(f)
+        names = sorted(k for k, v in manifest.items() if v.get("phase") == 58)
+        bad, dt = _manifest_check(rig, names, manifest)
+        check(f"58 (a) {len(names)} fixtures (arithmetic and smoothed JPEG, "
+              "SUN, XPM, MSP, DCX, PIXAR, McIdas, IMT, XVThumb, GBR, FITS, "
+              "FTEX, BLP, ICNS, IPTC, FLI) against the SHA-256 of PIL's "
+              "decode", not bad and len(names) > 0,
+              f"decoder ready in {build_s:.2f} s (g++ "
+              f"{' '.join(imgdecode.CXX_FLAGS)}), all decoded in "
+              f"{dt:.3f} s; differing: {bad}")
+        pcd = os.path.join(tmp, "photo.pcd")
+        with open(pcd, "wb") as f:
+            f.write(pcd_bytes())
+        t0 = time.perf_counter()
+        a = decode_file(pcd)
+        dt = time.perf_counter() - t0
+        got_sha = hashlib.sha256(a.tobytes()).hexdigest()
+        check("58 (a) PCD 768x512 from SHA-256 in counter mode",
+              a.shape == (512, 768, 3) and got_sha == PCD_SHA256,
+              f"{os.path.getsize(pcd)} bytes, decoded in {dt:.4f} s, "
+              f"SHA-256 {got_sha[:16]} (PIL's {PCD_SHA256[:16]})")
+
+        # ---- 58 (b). the checker in colour-exact encodings, at 16x16 as
+        # an ICNS RLE icon, and as arithmetic twins of a Huffman JPEG: the
+        # general route's pass bit-equal to its reference's
+        six = want(k3_bvh4_closest=depth + 1, k4_bvh4_any=depth + 1)
+        refs = {}
+        for ref_name in (None, "checker_x2.ppm", "checker_huffman.jpg"):
+            scn = rig.ppm if ref_name is None else rig.variant(ref_name)
+            rig.general_pass(scn)  # warm-up
+            out, got, dt = rig.general_pass(scn)
+            rig.add_launches(got)
+            refs[ref_name] = (scn, out)
+            check(f"58 (b) parity_textured ({ref_name or 'PPM checker'}) "
+                  f"bvh4 512x512 Morton depth {depth} general route",
+                  got == six, f"{dt * 1e3:.1f} ms, launches {got}, L mean "
+                  f"{float(out[0].mean()):.6f}")
+        for name, ref_name in (
+                ("checker.ras", None), ("checker.pxr", None),
+                ("checker.dcx", None), ("checker_palette.blp", None),
+                ("checker.xpm", None),
+                ("checker_x2_rle.icns", "checker_x2.ppm"),
+                ("checker_arith_sof9.jpg", "checker_huffman.jpg"),
+                ("checker_arith_sof10.jpg", "checker_huffman.jpg")):
+            ref_scn, ref = refs[ref_name]
+            vs = rig.variant(name)
+            texels = torch.equal(vs.textures.texels, ref_scn.textures.texels)
+            out, got, dt = rig.general_pass(vs)
+            rig.add_launches(got)
+            same = rig.same_pass(out, ref)
+            check(f"58 (b) {name} against {ref_name or 'the PPM'}",
+                  texels and same and got == six,
+                  f"texels equal {texels}, pass bit-equal {same}, "
+                  f"{dt * 1e3:.1f} ms, launches {got}")
+
+        # ---- 58 (c). host seconds per decode, median of 3: the 2048x2048
+        # Huffman baseline and its arithmetic twin, the 2048x2048
+        # progressive file and the same without its refinement scans
+        with open(os.path.join(fx, "big_2048_arith.jpg"), "rb") as f:
+            arith = os.path.join(tmp, "big_2048_arith_padded.jpg")
+            padded = pad_arith_scans(f.read())
+        with open(arith, "wb") as f:
+            f.write(padded)
+        with open(os.path.join(fx, "big_2048_prog.jpg"), "rb") as f:
+            smoothed = os.path.join(tmp, "big_2048_prog_unrefined.jpg")
+            unrefined = _drop_refinements(f.read())
+        with open(smoothed, "wb") as f:
+            f.write(unrefined)
+        huffman = os.path.join(fx, "big_2048_huffman.jpg")
+        prog = os.path.join(fx, "big_2048_prog.jpg")
+        decoded = {}
+        for path in (huffman, arith, prog, smoothed):
+            ts = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                a = decode_file(path)
+                ts.append(time.perf_counter() - t0)
+            decoded[path] = a
+            ok = a.shape == (2048, 2048, 3)
+            note = ""
+            if path == arith:
+                ok = ok and np.array_equal(a, decoded[huffman])
+                note = ("; padded by pad_arith_scans, texels equal to the "
+                        "Huffman twin's")
+            if path == smoothed:
+                diff = int(np.count_nonzero(a != decoded[prog]))
+                note = (f"; refinement scans dropped, block-smoothed: "
+                        f"{diff} samples differ from the refined file's")
+            check(f"58 (c) decode {os.path.basename(path)}", ok,
+                  f"{a.shape[1]}x{a.shape[0]}, "
+                  f"{os.path.getsize(path)} bytes: "
+                  f"{statistics.median(ts):.4f} s median of {REPS} (runs "
+                  f"{', '.join(f'{t:.4f}' for t in ts)}) on the host, "
+                  f"{cpu}; card {card}{note}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[slice-o] phase 58: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (this smoke test needs the card)")
@@ -2880,6 +3113,13 @@ def main() -> int:
         for f in fails:
             print(f"FAIL: {f}")
         print(json.dumps({"slice_n_only": True, "failures": len(fails)}))
+        return 1 if fails else 0
+    if sys.argv[1:] == ["--slice-o"]:
+        # phase 58 alone, to try it out: no result line
+        slice_o_phases(ctx)
+        for f in fails:
+            print(f"FAIL: {f}")
+        print(json.dumps({"slice_o_only": True, "failures": len(fails)}))
         return 1 if fails else 0
     if sys.argv[1:] == ["--slice-k"]:
         # phases 51-54 alone, to try them out: no result line
@@ -4803,6 +5043,11 @@ def main() -> int:
     # SPIDER, ICO/CUR, lossless JPEG, CCITT and old-style LZW TIFF on the
     # card's host; the checker in six more encodings through K3/K4
     slice_n_phases(ctx)
+
+    # ---- 58. slice O: arithmetic-coded and block-smoothed JPEG and the
+    # last sixteen plugins on the card's host; the checker in eight more
+    # encodings through K3/K4
+    slice_o_phases(ctx)
 
     # ---- 37. the inverse path: gradients through the general route, the
     # search detached through K3/K4, and InverseRenderer

@@ -11,19 +11,20 @@
 //   is black; tRNS and alpha are dropped. The CRC of every chunk before
 //   the first IDAT is checked, as PIL checks it.
 // - JPEG: baseline, extended (SOF1), progressive and lossless (SOF3)
-//   Huffman, 8-bit, 1, 3 or 4 components, any integral sampling factors,
-//   restart markers. The
-//   stages are libjpeg-turbo's defaults, which PIL decodes with: the ISLOW
-//   integer IDCT (jidctint.c), fancy upsampling (jdsample.c: h2v1, h1v2,
+//   Huffman and sequential or progressive arithmetic coding (SOF9,
+//   SOF10; imgdecode_arith.h), 8-bit, 1, 3 or 4 components, any integral
+//   sampling factors, restart markers. The stages are libjpeg-turbo's
+//   defaults, which PIL decodes with: the ISLOW integer IDCT as its x86
+//   SIMD code computes it, fancy upsampling (jdsample.c: h2v1, h1v2,
 //   h2v2; box replication for other integral factors), jdcolor.c's
 //   fixed-point YCbCr->RGB tables and YCCK->CMYK, then PIL's inverted
 //   Adobe CMYK and its CMYK->RGB. A progressive file whose scans leave
-//   coefficient bits unrefined would be block-smoothed by libjpeg
-//   (jdcoefct.c): it is refused, as is arithmetic coding. Lossless data
-//   is undifferenced as jddiffct.c does and replicated up, with no colour
-//   conversion (libjpeg-turbo fails where the markers ask for one).
-//   Hierarchical processes and precisions other than 8 give status 2, as
-//   libjpeg-turbo and PIL refuse them.
+//   coefficients 1-9 unrefined is block-smoothed as jdcoefct.c does
+//   (imgdecode_jsmooth.h). Lossless data is undifferenced as jddiffct.c
+//   does and replicated up, with no colour conversion (libjpeg-turbo
+//   fails where the markers ask for one). Hierarchical processes, SOF11
+//   and precisions other than 8 give status 2, as libjpeg-turbo and PIL
+//   refuse them.
 // - PNM: P1-P6, any maxval, scaled as PIL's PpmDecoder and
 //   PpmPlainDecoder scale (round half to even of v / maxval * 255; gray
 //   past maxval 255 opens as mode I, scaled to 65535, and clips at 255);
@@ -36,10 +37,12 @@
 //   and the right-to-left flag.
 // - GIF: the first frame (LZW), global and local palettes, interlace, the
 //   frame at its offset on the logical screen.
-// - TIFF (with its CCITT codecs), DDS, lossless WebP, PSD and the small
-//   formats (QOI, SGI, PCX, DIB, ICO, CUR, IM, XBM, SPIDER): included
-//   below (imgdecode_tiff.h, _ccitt.h, _dds.h, _webp.h, _psd.h,
-//   _small.h), built with this file as one library.
+// - TIFF (with its CCITT codecs), DDS, lossless WebP, PSD, the small
+//   formats (QOI, SGI, PCX, DIB, ICO, CUR, IM, XBM, SPIDER) and the last
+//   plugins (SUN, XPM, MSP, DCX, PIXAR, McIdas, IMT, XVThumb, GBR, FITS,
+//   FTEX, BLP, ICNS, IPTC, FLI, PCD): included below (imgdecode_tiff.h,
+//   _ccitt.h, _dds.h, _webp.h, _psd.h, _small.h, _plugins.h), built with
+//   this file as one library.
 //
 // A file the decoder does not handle gives status 1 (the caller raises
 // NotImplementedError); a file PIL would fail to read gives status 2 (the
@@ -246,15 +249,10 @@ const uint8_t DIST_EXTRA[30] = {0, 0, 0, 0, 1, 1, 2, 2,  3,  3,  4,  4,  5,  5, 
 // unless `partial` asks for what the stream holds. With `adler`, a stream
 // that ends with its whole Adler-32 checksum is held to it, as zlib's
 // inflate, which libtiff calls, holds it.
-std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want,
-                                  bool partial = false, bool adler = false) {
-  if (n < 2) invalid("truncated zlib stream");
-  if ((d[0] & 15) != 8 || (uint32_t(d[0]) << 8 | d[1]) % 31 != 0 ||
-      (d[1] & 32))
-    invalid("bad zlib header");
-  std::vector<uint8_t> out;
-  out.reserve(want);
-  LsbBits b{d + 2, d + n};
+// The deflate blocks from b into out, up to `want` bytes; `last` tells
+// whether the final block was reached.
+void inflate_blocks(LsbBits& b, std::vector<uint8_t>& out, size_t want,
+                    bool partial, bool& last) {
   // built once, thread-safely (ctypes calls run without the GIL)
   static const InflateHuff fixed_lit = [] {
     InflateHuff t;
@@ -272,7 +270,7 @@ std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want,
     return t;
   }();
   InflateHuff lit, dist;
-  bool last = false;
+  last = false;
   while (!last && out.size() < want) {
     last = b.get(1);
     int type = int(b.get(2));
@@ -363,6 +361,19 @@ std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want,
     }
     if (b.overrun()) invalid("truncated deflate stream");
   }
+}
+
+std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want,
+                                  bool partial = false, bool adler = false) {
+  if (n < 2) invalid("truncated zlib stream");
+  if ((d[0] & 15) != 8 || (uint32_t(d[0]) << 8 | d[1]) % 31 != 0 ||
+      (d[1] & 32))
+    invalid("bad zlib header");
+  std::vector<uint8_t> out;
+  out.reserve(want);
+  LsbBits b{d + 2, d + n};
+  bool last;
+  inflate_blocks(b, out, want, partial, last);
   if (!partial && (b.overrun() || out.size() < want))
     invalid("truncated PNG image data");
   // zlib reaches the checksum only when the output did not fill first
@@ -379,6 +390,19 @@ std::vector<uint8_t> zlib_inflate(const uint8_t* d, size_t n, size_t want,
       if ((s2 << 16 | s1) != want_sum) invalid("zlib checksum mismatch");
     }
   }
+  return out;
+}
+
+// A raw deflate stream to its end (zlib's wbits -15); `used` is the
+// bytes it took, up to the byte after its last block.
+std::vector<uint8_t> raw_inflate(const uint8_t* d, size_t n, size_t& used) {
+  std::vector<uint8_t> out;
+  LsbBits b{d, d + n};
+  bool last;
+  inflate_blocks(b, out, SIZE_MAX, true, last);
+  if (!last || b.overrun())
+    invalid("Compressed file ended before the end-of-stream marker");
+  used = size_t(b.p - d) - size_t(std::max<int64_t>(0, b.cnt - b.pad) / 8);
   return out;
 }
 
@@ -737,138 +761,90 @@ struct JComp {
   std::vector<int16_t> coef;
   std::vector<uint16_t> samples;  // lossless: differences, then samples
   int coef_bits[64];
+  int prev_bits[10];  // coefficients 1-9 before the latest scan of it
   int16_t* block(int by, int bx) {
     return &coef[(size_t(by) * bw + bx) * 64];
   }
 };
 
-// jidctint.c jpeg_idct_islow, with the range-limit table of
-// jdmaster.c prepare_range_limit_table
+// jidctint.c's ISLOW IDCT as libjpeg-turbo's x86-64 SIMD code computes
+// it (jidctint-avx2.asm; the SSE2 code does the same arithmetic), which
+// is what PIL's libjpeg runs on such a CPU. For coefficients in range it
+// equals the C code; past that the lanes decide: the dequantized
+// coefficient and the sums in0 + in4, in0 - in4, in7 + in3 and in5 + in1
+// wrap to 16 bits, each pass saturates to 16 bits, the samples saturate
+// to [-128, 127] (no range-limit table), and a block whose rows 1-7 are
+// all zero takes pass 1 as DC << 2 in 16-bit lanes.
+namespace islow {
+inline int32_t wrap32(int64_t x) { return int32_t(uint32_t(uint64_t(x))); }
+inline int16_t wrap16(int32_t x) { return int16_t(uint16_t(uint32_t(x))); }
+inline int16_t sat16(int32_t x) {
+  return int16_t(x < -32768 ? -32768 : x > 32767 ? 32767 : x);
+}
+// the dodct macro on one column or row of 16-bit lanes
+inline void dodct(const int16_t* in, int16_t* out, int shift) {
+  const int32_t F054 = 4433, F130 = 10703, MF130 = -10704, MF078 = -6436,
+                F117 = 9633, F078 = 6437, MF060 = -4927, MF089 = -7373,
+                MF050 = -4176, MF256 = -20995, F050 = 4177, F060 = 4926;
+  const int32_t z2 = in[2], z3 = in[6];
+  const int32_t tmp3 = wrap32(int64_t(z2) * F130 + int64_t(z3) * F054);
+  const int32_t tmp2 = wrap32(int64_t(z2) * F054 + int64_t(z3) * MF130);
+  const int32_t tmp0 = int32_t(uint32_t(int32_t(wrap16(in[0] + in[4]))) << 13);
+  const int32_t tmp1 = int32_t(uint32_t(int32_t(wrap16(in[0] - in[4]))) << 13);
+  const int32_t t10 = wrap32(int64_t(tmp0) + tmp3),
+                t13 = wrap32(int64_t(tmp0) - tmp3),
+                t11 = wrap32(int64_t(tmp1) + tmp2),
+                t12 = wrap32(int64_t(tmp1) - tmp2);
+  const int64_t a = wrap16(in[7] + in[3]), b = wrap16(in[5] + in[1]);
+  const int32_t Z3 = wrap32(a * MF078 + b * F117);
+  const int32_t Z4 = wrap32(a * F117 + b * F078);
+  const int64_t i1 = in[1], i3 = in[3], i5 = in[5], i7 = in[7];
+  const int32_t o0 = wrap32(i7 * MF060 + i1 * MF089 + Z3);
+  const int32_t o1 = wrap32(i5 * MF050 + i3 * MF256 + Z4);
+  const int32_t o2 = wrap32(i5 * MF256 + i3 * F050 + Z3);
+  const int32_t o3 = wrap32(i7 * MF089 + i1 * F060 + Z4);
+  const int32_t rnd = 1 << (shift - 1);
+  auto d = [&](int64_t x) {
+    return sat16(wrap32(int64_t(wrap32(x)) + rnd) >> shift);
+  };
+  out[0] = d(int64_t(t10) + o3);
+  out[7] = d(int64_t(t10) - o3);
+  out[1] = d(int64_t(t11) + o2);
+  out[6] = d(int64_t(t11) - o2);
+  out[2] = d(int64_t(t12) + o1);
+  out[5] = d(int64_t(t12) - o1);
+  out[3] = d(int64_t(t13) + o0);
+  out[4] = d(int64_t(t13) - o0);
+}
+}  // namespace islow
+
 void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
                 size_t stride) {
-  // idct_table[x & 1023]: x + 128 clamped to [0, 255], wrapping past
-  // +-512 as libjpeg's table does
-  struct Limit {
-    uint8_t v[1024];
-    Limit() {
-      for (int i = 0; i < 1024; i++) {
-        int x = i < 512 ? i : i - 1024;
-        v[i] = uint8_t(i >= 512 && i < 896 ? 0
-                                           : std::min(255, std::max(0, x + 128)));
-      }
+  using namespace islow;
+  int16_t ws[64];  // pass 1's output, [row][column]
+  bool ac_zero = true;
+  for (int k = 8; k < 64 && ac_zero; k++) ac_zero = in[k] == 0;
+  if (ac_zero) {
+    for (int c = 0; c < 8; c++) {
+      const int16_t v = wrap16(int32_t(uint32_t(int32_t(
+                                   wrap16(int32_t(in[c]) * q[c]))) << 2));
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = v;
     }
-  };
-  static const Limit lim;
-  const uint8_t* limit = lim.v;
-  const int CB = 13, P1 = 2;
-  const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270,
-                F0899 = 7373, F1175 = 9633, F1501 = 12299, F1847 = 15137,
-                F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
-  auto descale = [](int64_t x, int nb) {
-    return (x + (int64_t(1) << (nb - 1))) >> nb;
-  };
-  int ws[64];
-  for (int c = 0; c < 8; c++) {
-    const int16_t* ip = in + c;
-    const int16_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-        ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-      int dc = (int(ip[0]) * int(qp[0])) * (1 << P1);
-      for (int r = 0; r < 8; r++) wp[8 * r] = dc;
-      continue;
+  } else {
+    int16_t col[8], res[8];
+    for (int c = 0; c < 8; c++) {
+      for (int r = 0; r < 8; r++)
+        col[r] = wrap16(int32_t(in[8 * r + c]) * q[8 * r + c]);
+      dodct(col, res, 11);
+      for (int r = 0; r < 8; r++) ws[8 * r + c] = res[r];
     }
-    int64_t z2 = int(ip[16]) * int(qp[16]), z3 = int(ip[48]) * int(qp[48]);
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847;
-    int64_t tmp3 = z1 + z2 * F0765;
-    z2 = int(ip[0]) * int(qp[0]);
-    z3 = int(ip[32]) * int(qp[32]);
-    int64_t tmp0 = (z2 + z3) * (1 << CB);
-    int64_t tmp1 = (z2 - z3) * (1 << CB);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = int(ip[56]) * int(qp[56]);
-    tmp1 = int(ip[40]) * int(qp[40]);
-    tmp2 = int(ip[24]) * int(qp[24]);
-    tmp3 = int(ip[8]) * int(qp[8]);
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    wp[0] = int(descale(tmp10 + tmp3, CB - P1));
-    wp[56] = int(descale(tmp10 - tmp3, CB - P1));
-    wp[8] = int(descale(tmp11 + tmp2, CB - P1));
-    wp[48] = int(descale(tmp11 - tmp2, CB - P1));
-    wp[16] = int(descale(tmp12 + tmp1, CB - P1));
-    wp[40] = int(descale(tmp12 - tmp1, CB - P1));
-    wp[24] = int(descale(tmp13 + tmp0, CB - P1));
-    wp[32] = int(descale(tmp13 - tmp0, CB - P1));
   }
+  int16_t res[8];
   for (int r = 0; r < 8; r++) {
-    const int* wp = ws + 8 * r;
+    dodct(ws + 8 * r, res, 18);
     uint8_t* op = out + r * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 &&
-        wp[6] == 0 && wp[7] == 0) {
-      uint8_t v = limit[int(descale(wp[0], P1 + 3)) & 1023];
-      std::memset(op, v, 8);
-      continue;
-    }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * -F1847;
-    int64_t tmp3 = z1 + z2 * F0765;
-    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CB);
-    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CB);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int S = CB + P1 + 3;
-    op[0] = limit[int(descale(tmp10 + tmp3, S)) & 1023];
-    op[7] = limit[int(descale(tmp10 - tmp3, S)) & 1023];
-    op[1] = limit[int(descale(tmp11 + tmp2, S)) & 1023];
-    op[6] = limit[int(descale(tmp11 - tmp2, S)) & 1023];
-    op[2] = limit[int(descale(tmp12 + tmp1, S)) & 1023];
-    op[5] = limit[int(descale(tmp12 - tmp1, S)) & 1023];
-    op[3] = limit[int(descale(tmp13 + tmp0, S)) & 1023];
-    op[4] = limit[int(descale(tmp13 - tmp0, S)) & 1023];
+    for (int c = 0; c < 8; c++)
+      op[c] = uint8_t((res[c] < -128 ? -128 : res[c] > 127 ? 127 : res[c]) + 128);
   }
 }
 
@@ -892,9 +868,19 @@ struct Jpeg {
     uint16_t v[64];  // natural order
   } qt[4];
   int restart = 0;
+  int scan_no = 0;    // SOS markers read (input_scan_number)
+  int last_good = 0;  // the last iMCU row decoded with data in hand
   bool jfif = false, adobe = false;
   int transform = -1;
   bool frame = false, progressive = false, lossless = false;
+  bool arith = false;  // SOF9 / SOF10: arithmetic coding
+  // the DAC segment's conditioning per table (jdmarker.c get_soi's
+  // defaults L = 0, U = 1, K = 5)
+  uint8_t arith_L[16] = {}, arith_U[16] = {1, 1, 1, 1, 1, 1, 1, 1,
+                                           1, 1, 1, 1, 1, 1, 1, 1};
+  uint8_t arith_K[16] = {5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5};
+  bool feed = false;  // the JPEG plugin: PIL's 65536-byte reads
+  bool force_cmyk = false;  // jpegmode "CMYK": 4 layers never YCCK
   int W = 0, H = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   std::vector<JComp> comps;
   // for TIFF's JPEG strips: keep the upsampled component planes instead of
@@ -966,10 +952,16 @@ struct Jpeg {
         c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
       for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
-    progressive = (m & 0xFF) == 0xC2;
+    progressive = (m & 0xFF) == 0xC2 || (m & 0xFF) == 0xCA;
+    arith = (m & 0xFF) >= 0xC9;
     frame = true;
     pos += len;
   }
+
+  void read_dac();
+  size_t arith_limit(size_t at) const;
+  void read_scan_arith(std::vector<JComp*>& sc, int Ss, int Se, int Ah,
+                       int Al);
 
   void read_dht() {
     size_t len = segment();
@@ -1050,7 +1042,7 @@ struct Jpeg {
       if (!c) invalid("SOS names an unknown component");
       c->td = s[2 + 2 * i] >> 4;
       c->ta = s[2 + 2 * i] & 15;
-      if (c->td > 3 || c->ta > 3) invalid("bad SOS table");
+      if (!arith && (c->td > 3 || c->ta > 3)) invalid("bad SOS table");
       sc.push_back(c);
     }
     if (ns > 1) {  // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
@@ -1061,6 +1053,7 @@ struct Jpeg {
     int Ss = s[1 + 2 * ns], Se = s[2 + 2 * ns];
     int Ah = s[3 + 2 * ns] >> 4, Al = s[3 + 2 * ns] & 15;
     pos += len;
+    scan_no++;
     if (lossless) {
       read_scan_lossless(sc, Ss, Se, Ah, Al);
       return;
@@ -1075,8 +1068,11 @@ struct Jpeg {
       if (Ah != 0 && Al != Ah - 1) bad = true;
       if (Al > 13) bad = true;
       if (bad) invalid("bad progressive scan parameters");
-      for (JComp* c : sc)
+      for (JComp* c : sc) {  // jdphuff.c / jdarith.c start_pass
+        for (int k = 1; k < 10; k++)
+          c->prev_bits[k] = scan_no > 1 ? c->coef_bits[k] : 0;
         for (int k = Ss; k <= Se; k++) c->coef_bits[k] = Al;
+      }
     } else {
       Ss = 0;
       Se = 63;
@@ -1087,6 +1083,10 @@ struct Jpeg {
       if (!qt[c->tq].defined) invalid("missing quantization table");
       for (int k = 0; k < 64; k++) c->q[k] = int16_t(qt[c->tq].v[k]);
       c->latched = true;
+    }
+    if (arith) {
+      read_scan_arith(sc, Ss, Se, Ah, Al);
+      return;
     }
     const bool dc_first = progressive && Ss == 0 && Ah == 0;
     const bool dc_refine = progressive && Ss == 0 && Ah != 0;
@@ -1205,6 +1205,7 @@ struct Jpeg {
             eobrun = 0;
           }
           if (b.insufficient) continue;
+          last_good = int(m / c.wib) / c.v;
           fn(c, c.block(int(m / c.wib), int(m % c.wib)));
         }
       } else {
@@ -1216,6 +1217,7 @@ struct Jpeg {
           }
           if (b.insufficient) continue;
           int my = int(m / mcux), mx = int(m % mcux);
+          last_good = my;
           for (JComp* c : sc)
             for (int y = 0; y < c->v; y++)
               for (int x = 0; x < c->h; x++)
@@ -1329,17 +1331,18 @@ struct Jpeg {
       int m = next_marker();
       if (m < 0) break;
       if (m == 0xFFD9) break;
-      if (m == 0xFFC0 || m == 0xFFC1 || m == 0xFFC2 || m == 0xFFC3) {
+      if (m == 0xFFC0 || m == 0xFFC1 || m == 0xFFC2 || m == 0xFFC3 ||
+          m == 0xFFC9 || m == 0xFFCA) {
         read_sof(m);
       } else if (m == 0xFFC5 || m == 0xFFC6 || m == 0xFFC7 || m == 0xFFCD ||
                  m == 0xFFCE || m == 0xFFCF) {
         // libjpeg-turbo refuses the hierarchical processes (jdmarker.c)
         invalid(std::string("JPEG ") + sof_name(m & 0xFF));
-      } else if (m == 0xFFC9 || m == 0xFFCA || m == 0xFFCB) {
-        throw Unsupported(std::string("JPEG ") + sof_name(m & 0xFF) +
-                          " is not decoded by craytracer_tpu_torch "
-                          "(baseline, extended, progressive and lossless "
-                          "Huffman JPEG are)");
+      } else if (m == 0xFFCB) {
+        // jdmaster.c: libjpeg-turbo has no lossless arithmetic decoder
+        invalid("JPEG SOF11 (lossless arithmetic coding)");
+      } else if (m == 0xFFCC) {
+        read_dac();
       } else if (m == 0xFFC4) {
         read_dht();
       } else if (m == 0xFFDB) {
@@ -1360,30 +1363,12 @@ struct Jpeg {
       }
     }
     if (!frame || !scanned) invalid("JPEG without image data");
-    if (progressive) smoothing_check();
     output(img);
   }
 
-  // jdcoefct.c smoothing_ok (libjpeg-turbo 2.1+): block smoothing runs
-  // when every component's DC is known, its first ten quantizers are
-  // non-zero, and some coefficient 1-9 of some component is unrefined.
-  void smoothing_check() {
-    static const int Q[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
-    bool useful = false;
-    for (JComp& c : comps) {
-      if (!c.latched) return;
-      for (int i = 0; i < 10; i++)
-        if (c.q[Q[i]] == 0) return;
-      if (c.coef_bits[0] < 0) return;
-      for (int k = 1; k < 10; k++)
-        if (c.coef_bits[k] != 0) useful = true;
-    }
-    if (useful)
-      throw Unsupported(
-          "progressive JPEG whose scans leave coefficient bits unrefined: "
-          "libjpeg block-smooths it (jdcoefct.c), which craytracer_tpu_torch "
-          "does not reproduce");
-  }
+  bool smoothing_ok(int (*latch)[2][10]) const;
+  void smooth_block(const JComp& c, const int (&bits)[10], int by, int bx,
+                    int16_t* ws) const;
 
   void output(Image& img) {
     const int nc = int(comps.size());
@@ -1400,15 +1385,23 @@ struct Jpeg {
       full[ci] = upsample(plane, size_t(c.wib), c.wib, c.hib, hmax / c.h,
                           vmax / c.v, hmax % c.h || vmax % c.v, true);
     }
+    int latch[4][2][10];  // per component: the coef_bits, the earlier ones
+    const bool smooth = !lossless && smoothing_ok(latch);
     for (int ci = 0; ci < nc && !lossless; ci++) {
       JComp& c = comps[ci];
       if (!c.latched) invalid("a component no scan carries");
       size_t stride = size_t(c.wib) * 8;
       std::vector<uint8_t> plane(stride * size_t(c.hib) * 8);
+      int16_t ws[64];
       for (int by = 0; by < c.hib; by++)
-        for (int bx = 0; bx < c.wib; bx++)
-          idct_islow(c.block(by, bx), c.q, &plane[by * 8 * stride + bx * 8],
-                     stride);
+        for (int bx = 0; bx < c.wib; bx++) {
+          const int16_t* blk = c.block(by, bx);
+          if (smooth) {
+            smooth_block(c, latch[ci][by / c.v > last_good], by, bx, ws);
+            blk = ws;
+          }
+          idct_islow(blk, c.q, &plane[by * 8 * stride + bx * 8], stride);
+        }
       int dw = int((int64_t(W) * c.h + hmax - 1) / hmax);
       int dh = int((int64_t(H) * c.v + vmax - 1) / vmax);
       full[ci] = upsample(plane, stride, dw, dh, hmax / c.h, vmax / c.v,
@@ -1435,6 +1428,7 @@ struct Jpeg {
       cs = adobe ? (transform == 0 ? CMYK : YCCK) : CMYK;
     }
     if (force_ycc && nc == 3) cs = YCC;
+    if (force_cmyk && nc == 4) cs = CMYK;
     // libjpeg-turbo converts no colour space of lossless data: where the
     // markers ask for YCbCr or YCCK it fails
     if (lossless && (cs == YCC || cs == YCCK) && (jfif || adobe))
@@ -2322,12 +2316,15 @@ void decode_gif(const uint8_t* d, size_t n, Image& img) {
 
 }  // namespace
 
+#include "imgdecode_arith.h"
+#include "imgdecode_jsmooth.h"
 #include "imgdecode_dds.h"
 #include "imgdecode_psd.h"
 #include "imgdecode_small.h"
 #include "imgdecode_ccitt.h"
 #include "imgdecode_tiff.h"
 #include "imgdecode_webp.h"
+#include "imgdecode_plugins.h"
 
 namespace {
 
@@ -2343,7 +2340,9 @@ extern "C" {
 
 // kind: 1 PNG, 2 JPEG, 3 PNM, 4 BMP, 5 TGA, 6 GIF, 7 TIFF, 8 DDS, 9 WebP,
 // 10 PSD, 11 DIB, 12 ICO, 13 CUR, 14 QOI, 15 SGI, 16 PCX, 17 IM, 18 XBM,
-// 19 SPIDER
+// 19 SPIDER, 20 SUN, 21 XPM, 22 MSP, 23 DCX, 24 PIXAR, 25 McIdas, 26 IMT,
+// 27 XVThumb, 28 GBR, 29 FITS, 30 FTEX, 31 BLP, 32 ICNS, 33 IPTC, 34 FLI,
+// 35 PCD
 void* imgd_decode(int kind, const uint8_t* data, int64_t n) {
   Result* r = new Result;
   try {
@@ -2355,6 +2354,7 @@ void* imgd_decode(int kind, const uint8_t* data, int64_t n) {
         Jpeg j;
         j.d = data;
         j.n = size_t(n);
+        j.feed = true;
         j.decode(r->img);
         break;
       }
@@ -2408,6 +2408,54 @@ void* imgd_decode(int kind, const uint8_t* data, int64_t n) {
         break;
       case 19:
         decode_spider(data, size_t(n), r->img);
+        break;
+      case 20:
+        decode_sun(data, size_t(n), r->img);
+        break;
+      case 21:
+        decode_xpm(data, size_t(n), r->img);
+        break;
+      case 22:
+        decode_msp(data, size_t(n), r->img);
+        break;
+      case 23:
+        decode_dcx(data, size_t(n), r->img);
+        break;
+      case 24:
+        decode_pixar(data, size_t(n), r->img);
+        break;
+      case 25:
+        decode_mcidas(data, size_t(n), r->img);
+        break;
+      case 26:
+        decode_imt(data, size_t(n), r->img);
+        break;
+      case 27:
+        decode_xvthumb(data, size_t(n), r->img);
+        break;
+      case 28:
+        decode_gbr(data, size_t(n), r->img);
+        break;
+      case 29:
+        decode_fits(data, size_t(n), r->img);
+        break;
+      case 30:
+        decode_ftex(data, size_t(n), r->img);
+        break;
+      case 31:
+        decode_blp(data, size_t(n), r->img);
+        break;
+      case 32:
+        decode_icns(data, size_t(n), r->img);
+        break;
+      case 33:
+        decode_iptc(data, size_t(n), r->img);
+        break;
+      case 34:
+        decode_fli(data, size_t(n), r->img);
+        break;
+      case 35:
+        decode_pcd(data, size_t(n), r->img);
         break;
       default:
         throw Unsupported("unknown image kind");

@@ -1,7 +1,8 @@
 """ctypes binding to the port's image decoders, csrc/imgdecode.cpp and the
 per-format files it includes (PNG, JPEG, PNM, BMP, TGA, GIF, TIFF, DDS,
-lossless WebP, PSD, DIB, ICO, CUR, QOI, SGI, PCX, IM, XBM and SPIDER to
-8-bit RGB, each equal to PIL's
+lossless WebP, PSD, DIB, ICO, CUR, QOI, SGI, PCX, IM, XBM, SPIDER, SUN,
+XPM, MSP, DCX, PIXAR, McIdas, IMT, XVThumb, GBR, FITS, FTEX, BLP, ICNS,
+IPTC, FLI and PCD to 8-bit RGB, each equal to PIL's
 `Image.open(path).convert("RGB")`, which the JAX package's texture loader
 calls).
 
@@ -27,7 +28,10 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off")
 KINDS = {"png": 1, "jpeg": 2, "pnm": 3, "bmp": 4, "tga": 5, "gif": 6,
          "tiff": 7, "dds": 8, "webp": 9, "psd": 10, "dib": 11, "ico": 12,
          "cur": 13, "qoi": 14, "sgi": 15, "pcx": 16, "im": 17, "xbm": 18,
-         "spider": 19}
+         "spider": 19, "sun": 20, "xpm": 21, "msp": 22, "dcx": 23,
+         "pixar": 24, "mcidas": 25, "imt": 26, "xvthumb": 27, "gbr": 28,
+         "fits": 29, "ftex": 30, "blp": 31, "icns": 32, "iptc": 33,
+         "fli": 34, "pcd": 35}
 
 _LIB = None
 

@@ -268,7 +268,7 @@ def _blp(fp, prefix):
     size = struct.unpack("<II", fp.read(8))
     if magic == b"BLP1":
         struct.unpack("<i", fp.read(4))
-    return Opened("BLP", name="BLP", size=size)
+    return Opened("BLP", "blp", size=size)
 
 
 def _stub(name):
@@ -322,7 +322,7 @@ def _dcx(fp, prefix):
             break
         offsets.append(off)
     fp.seek(offsets[0])
-    return Opened("DCX", name="DCX (multi-page PCX)", size=_pcx_header(fp))
+    return Opened("DCX", "dcx", size=_pcx_header(fp))
 
 
 def _dds(fp, prefix):
@@ -336,7 +336,7 @@ def _fits(fp, prefix):
         value = value[1:].strip()
     if header[:8].strip() != b"SIMPLE" or value != b"T":
         raise SyntaxError("Not a FITS file")
-    return Opened("FITS", name="FITS")
+    return Opened("FITS", "fits")
 
 
 def _fli(fp, prefix):
@@ -344,7 +344,7 @@ def _fli(fp, prefix):
     if not (s[20:22] == b"\0\0" and s[42:80] == bytes(38)
             and s[88:] == bytes(40)):
         raise SyntaxError("not an FLI/FLC file")
-    return Opened("FLI", name="FLI", size=(_u16(s, 8), _u16(s, 10)))
+    return Opened("FLI", "fli", size=(_u16(s, 8), _u16(s, 10)))
 
 
 def _ftex(fp, prefix):
@@ -359,7 +359,7 @@ def _ftex(fp, prefix):
     struct.unpack("<i", fp.read(4))
     if fmt not in (0, 1):
         raise ValueError("Invalid texture compression format")
-    return Opened("FTEX", name="FTEX", size=size)
+    return Opened("FTEX", "ftex", size=size)
 
 
 def _gbr(fp, prefix):
@@ -375,16 +375,18 @@ def _gbr(fp, prefix):
     if version == 2 and fp.read(4) != b"GIMP":
         raise SyntaxError("not a GIMP brush, bad magic number")
     _bomb_check((w, h))
-    return Opened("GBR", name="GBR (GIMP brush)", size=(w, h))
+    return Opened("GBR", "gbr", size=(w, h))
 
 
 def _jpeg2000(fp, prefix):
     return Opened("JPEG2000", name="JPEG 2000")
 
 
+# every code of IcnsFile.SIZES: a size counts where any of its codes is
+# there, a mask alone included
 _ICNS_SIGS = {b"ic10", b"ic09", b"ic14", b"ic08", b"ic13", b"ic07", b"it32",
-              b"icp6", b"ic12", b"ih32", b"icp5", b"il32", b"ic11", b"icp4",
-              b"is32"}
+              b"t8mk", b"icp6", b"ic12", b"ih32", b"h8mk", b"icp5", b"il32",
+              b"l8mk", b"ic11", b"icp4", b"is32", b"s8mk"}
 
 
 def _icns(fp, prefix):
@@ -403,7 +405,7 @@ def _icns(fp, prefix):
         i += blocksize
     if not sigs & _ICNS_SIGS:
         raise SyntaxError("No 32bit icon resources found")
-    return Opened("ICNS", name="ICNS")
+    return Opened("ICNS", "icns")
 
 
 def _ico(fp, prefix):
@@ -513,7 +515,7 @@ def _imt(fp, prefix):
             mode = "L"
     if not mode:
         raise SyntaxError("no mode")
-    return Opened("IMT", name="IMT", size=(xsize, ysize))
+    return Opened("IMT", "imt", size=(xsize, ysize))
 
 
 def _iptc(fp, prefix):
@@ -553,7 +555,7 @@ def _iptc(fp, prefix):
     if not (layers == 1 and not component) and not (
             layers in (3, 4) and component):
         raise SyntaxError("no mode")
-    return Opened("IPTC", name="IPTC", size=size)
+    return Opened("IPTC", "iptc", size=size)
 
 
 def _mcidas(fp, prefix):
@@ -563,7 +565,7 @@ def _mcidas(fp, prefix):
     w = (0,) + struct.unpack("!64i", s)
     if w[11] not in (1, 2, 4):
         raise SyntaxError("unsupported McIdas format")
-    return Opened("MCIDAS", name="McIdas", size=(w[10], w[9]))
+    return Opened("MCIDAS", "mcidas", size=(w[10], w[9]))
 
 
 def _mpeg(fp, prefix):
@@ -584,7 +586,7 @@ def _msp(fp, prefix):
         checksum ^= _u16(s, i)
     if checksum:
         raise SyntaxError("bad MSP checksum")
-    return Opened("MSP", name="MSP", size=(_u16(s, 4), _u16(s, 6)))
+    return Opened("MSP", "msp", size=(_u16(s, 4), _u16(s, 6)))
 
 
 def _pcd(fp, prefix):
@@ -593,7 +595,7 @@ def _pcd(fp, prefix):
     if not s.startswith(b"PCD_"):
         raise SyntaxError("not a PCD file")
     s[1538]
-    return Opened("PCD", name="PCD (Kodak PhotoCD)")
+    return Opened("PCD", "pcd")
 
 
 def _pixar(fp, prefix):
@@ -601,7 +603,7 @@ def _pixar(fp, prefix):
     size = _u16(s, 418), _u16(s, 416)
     if (_u16(s, 424), _u16(s, 426)) != (14, 2):
         raise SyntaxError("no mode")
-    return Opened("PIXAR", name="PIXAR", size=size)
+    return Opened("PIXAR", "pixar", size=size)
 
 
 def _psd(fp, prefix):
@@ -665,9 +667,9 @@ def _sun(fp, prefix):
             raise SyntaxError("Unsupported Color Palette Length")
         if ptype != 1:
             raise SyntaxError("Unsupported Palette Type")
-    if ftype not in (0, 1, 2, 3):
+    if ftype not in (0, 1, 2, 3, 4, 5):
         raise SyntaxError("Unsupported Sun Raster file type")
-    return Opened("SUN", name="SUN raster", size=size)
+    return Opened("SUN", "sun", size=size)
 
 
 def _tga(fp, prefix):
@@ -720,7 +722,7 @@ def _xpm(fp, prefix):
             break
     size = int(m.group(1)), int(m.group(2))
     int(m.group(3)), int(m.group(4))
-    return Opened("XPM", name="XPM", size=size)
+    return Opened("XPM", "xpm", size=size)
 
 
 def _xvthumb(fp, prefix):
@@ -733,7 +735,7 @@ def _xvthumb(fp, prefix):
         if s[0] != 35:
             break
     w, h = s.strip().split(maxsplit=2)[:2]
-    return Opened("XVTHUMB", name="XV thumbnail", size=(int(w), int(h)))
+    return Opened("XVTHUMB", "xvthumb", size=(int(w), int(h)))
 
 
 def _eps_accept(p):

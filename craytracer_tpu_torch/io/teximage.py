@@ -5,12 +5,14 @@ The JAX package reads LDR images through PIL (`Image.open(path)
 .convert("RGB")`); the card's machine has no PIL, so the port decodes
 them in C++ (csrc/imgdecode.cpp through io/imgdecode.py) to the same
 texels: PNG of every bit depth, colour type and interlace; baseline,
-extended, progressive Huffman and lossless JPEG; PNM P1-P6 at any maxval
-and PIL's own Pf, P0CMYK, PyCMYK, PyRGBA and PyP; BMP and DIB; TGA; the
-first frame of a GIF; TIFF and BigTIFF (the first page, CCITT and
-old-style LZW included); DDS (BC1-BC7, the top mip); lossless WebP (the
-first frame); PSD (the merged image); QOI; SGI; PCX; IM; XBM; SPIDER;
-ICO and CUR. The format is told by the file's bytes, not its name: PIL's
+extended, progressive (block-smoothed where scans leave coefficients
+unrefined) and lossless Huffman JPEG and SOF9/SOF10 arithmetic JPEG;
+PNM P1-P6 at any maxval and PIL's own Pf, P0CMYK, PyCMYK, PyRGBA and
+PyP; BMP and DIB; TGA; the first frame of a GIF; TIFF and BigTIFF (the
+first page, CCITT and old-style LZW included); DDS (BC1-BC7, the top
+mip); lossless WebP (the first frame); PSD (the merged image); QOI; SGI;
+PCX; IM; XBM; SPIDER; ICO and CUR; SUN, XPM, MSP, DCX, PIXAR, McIdas,
+IMT, XVThumb, GBR, FITS, FTEX, BLP, ICNS, IPTC, FLI and PCD. The format is told by the file's bytes, not its name: PIL's
 plugins are tried in `Image.open`'s order (io/imgopen.py). LDR texels are
 value / 255 in float32. EXR goes through io/exr.py and keeps HDR values;
 CRAY_TEX_FLOAT_DIV255=1 divides them by 255 as the reference's
@@ -21,9 +23,10 @@ A file that is missing, that no PIL plugin opens, or that PIL opens and
 cannot read gives None, as in the JAX loader, and the caller drops the
 texture; so does an EXR file the JAX reader refuses (a tiled one, or a
 compression other than NONE, ZIPS and ZIP). A format PIL reads and the
-port does not (lossy WebP, JPEG 2000, AVIF, arithmetic-coded JPEG, BLP,
-ICNS, MSP, ...) raises NotImplementedError naming it: a texture is never
-quietly left out because of its encoding.
+port does not (lossy WebP, JPEG 2000, AVIF, Lab TIFF and PSD, the TIFF
+codecs LZMA, ZSTD, old-style JPEG, SGILog and ThunderScan) raises
+NotImplementedError naming it: a texture is never quietly left out
+because of its encoding.
 """
 
 from __future__ import annotations
@@ -58,7 +61,9 @@ def _opened(data: bytes, skip=()):
         raise NotImplementedError(
             f"{opened.name} textures are not decoded by craytracer_tpu_torch"
             " (PNG, JPEG, PNM, BMP, DIB, TGA, GIF, TIFF, DDS, lossless WebP,"
-            " PSD, QOI, SGI, PCX, IM, XBM, SPIDER, ICO, CUR and EXR are)")
+            " PSD, QOI, SGI, PCX, IM, XBM, SPIDER, ICO, CUR, SUN, XPM, MSP,"
+            " DCX, PIXAR, McIdas, IMT, XVThumb, GBR, FITS, FTEX, BLP, ICNS,"
+            " IPTC, FLI, PCD and EXR are)")
     return opened
 
 

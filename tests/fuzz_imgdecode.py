@@ -14,6 +14,10 @@ image at PIL's pixel limit, which a mutated header can ask for, takes
 about 10 s in this build).
 
     python tests/fuzz_imgdecode.py [--cases 20000] [--seed 0] [--out DIR]
+                                   [--phase N]
+
+--phase takes only the fixtures manifest.json marks with that chip_smoke.py
+phase (55 for those without a mark), to fuzz one slice's decoders.
 
 The library is built with g++ into craytracer_tpu_torch/_build/ with the
 sanitizer flags, and the script runs itself again with libasan preloaded
@@ -76,8 +80,9 @@ def mutate(data: bytearray, rng) -> bytearray:
 def run(args) -> int:
     imgdecode._LIB = imgdecode.bind(
         native.build_shared(imgdecode.SOURCE, "imgdecode_san", SAN_FLAGS))
-    names = sorted(n for n in json.loads(
-        (FIXTURES / "manifest.json").read_text()) if "2048" not in n)
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    names = sorted(n for n, v in manifest.items() if "2048" not in n and (
+        args.phase is None or v.get("phase", 55) == args.phase))
     rng = np.random.default_rng(args.seed)
     signal.signal(signal.SIGALRM, signal.SIG_DFL)  # a hang ends the process
     case = Path(args.out) / "fuzz_case.bin"
@@ -108,6 +113,7 @@ def main() -> int:
     ap.add_argument("--cases", type=int, default=20000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=tempfile.gettempdir())
+    ap.add_argument("--phase", type=int, default=None)
     args = ap.parse_args()
     if os.environ.get("IMGDECODE_FUZZ_CHILD"):
         return run(args)

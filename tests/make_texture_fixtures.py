@@ -1,8 +1,9 @@
 """Write the texture fixtures the card checks the port's decoders on
-(chip_smoke.py phases 55, 56 and 57), which has no PIL: one small file per
+(chip_smoke.py phases 55, 56, 57 and 58), which has no PIL: one small file per
 format and variant (tests/torch_image_files.py and tests/torch_tiff_files.py
-write those PIL cannot), the parity_textured checker re-encoded losslessly
-in eleven formats and as a 4:2:0 JPEG, and for timing a 2048x2048 4:2:0
+write those PIL cannot; tests/torch_plugin_files.py those of slice O),
+the parity_textured checker re-encoded losslessly in many formats and as
+a 4:2:0 JPEG, and for timing a 2048x2048 4:2:0
 JPEG, a 2048x2048 LZW TIFF with the horizontal predictor and a 2048x2048
 lossless WebP (an 8-level posterized sinusoid, so that they stay small),
 and a 256x256 BC7 DDS that phase 56 tiles to 2048x2048, into
@@ -19,6 +20,7 @@ runs with the same Pillow.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import io
 import json
@@ -33,6 +35,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, HERE)
 import torch_image_files as F  # noqa: E402
+import torch_plugin_files as P  # noqa: E402
 import torch_tiff_files as T  # noqa: E402
 
 OUT = os.path.join(REPO, "craytracer_tpu_torch", "testdata", "textures")
@@ -112,6 +115,225 @@ def checker_variants_n(checker: np.ndarray) -> dict:
         "checker_lossless.jpg": F.jpeg_lossless_bytes(
             [checker[..., c] for c in range(3)], predictor=1),
     }
+
+
+def checker_variants_o(checker: np.ndarray) -> dict:
+    """The checker in phase 58's encodings: SUN, PIXAR, DCX, BLP2 palette
+    and XPM keep its colours exactly; an ICNS RLE icon holds it at 16x16
+    beside a PPM of the same; a baseline Huffman JPEG of its RGB planes
+    (Adobe transform 0) has SOF9 and SOF10 arithmetic twins of the same
+    coefficients."""
+    h, w = checker.shape[:2]
+    img = Image.fromarray(checker)
+    colors, idx = np.unique(checker.reshape(-1, 3), axis=0,
+                            return_inverse=True)
+    idx = idx.reshape(h, w)
+    bgra = np.concatenate([colors[:, ::-1], np.full((len(colors), 1), 255)],
+                          1).astype(np.uint8).tobytes()
+    x2 = checker.repeat(2, 0).repeat(2, 1)
+    planes = [checker[..., c] for c in range(3)]
+    keys = [chr(ord("a") + i) for i in range(len(colors))]
+    return {
+        "checker.ras": P.sun_bytes([bytes(r[:, ::-1].reshape(-1))
+                                    for r in checker], w, h, 24),
+        "checker.pxr": P.pixar_bytes(checker),
+        "checker.dcx": struct.pack("<III", 0x3ADE68B1, 12, 0) + _pil(
+            img, "PCX"),
+        "checker_palette.blp": P.blp2_bytes(
+            w, h, 1, 0, 0, idx.astype(np.uint8).tobytes(), palette=bgra),
+        "checker.xpm": P.xpm_bytes(idx, [tuple(int(v) for v in c)
+                                         for c in colors], keys),
+        "checker_x2.ppm": F.pnm_bytes(6, x2),
+        "checker_x2_rle.icns": P.icns_bytes([(b"is32", b"".join(
+            P.icns_rle(x2[..., c].tobytes()) for c in range(3)))]),
+        "checker_huffman.jpg": F.jpeg_bytes(planes, [(1, 1)] * 3, adobe=0),
+        "checker_arith_sof9.jpg": F.jpeg_arith_bytes(
+            planes, [(1, 1)] * 3, adobe=0, restart=1,
+            dac=[(0, 0x41), (16, 3)]),
+        "checker_arith_sof10.jpg": F.jpeg_arith_bytes(
+            planes, [(1, 1)] * 3, adobe=0, scans=[
+                ([0, 1, 2], 0, 0, 0, 1), ([0], 1, 63, 0, 1), ([1], 1, 63, 0, 1),
+                ([2], 1, 63, 0, 1), ([0, 1, 2], 0, 0, 1, 0),
+                ([0], 1, 63, 1, 0), ([1], 1, 63, 1, 0), ([2], 1, 63, 1, 0)]),
+    }
+
+
+def _drop_scans(data, keep):
+    """A progressive JPEG with only the scans keep(Ss, Se, Ah, Al)
+    allows."""
+    out, p = bytearray(data[:2]), 2
+    while p < len(data):
+        m = data[p + 1]
+        if m == 0xD9:
+            out += data[p:p + 2]
+            break
+        q = p + 2 + struct.unpack(">H", data[p + 2:p + 4])[0]
+        if m == 0xDA:
+            while not (data[q] == 0xFF and data[q + 1] not in
+                       (0, *range(0xD0, 0xD8))):
+                q += 1
+            o = p + 5 + 2 * data[p + 4]
+            if not keep(data[o], data[o + 1], data[o + 2] >> 4,
+                        data[o + 2] & 15):
+                p = q
+                continue
+        out += data[p:q]
+        p = q
+    return bytes(out)
+
+
+def big_2048_gray() -> np.ndarray:
+    """The 2048x2048 grey image of phase 58's timing files: a slow
+    sinusoid with a finer ripple, so that AC coefficients stay."""
+    y, x = np.mgrid[0:2048, 0:2048]
+    return (127 + 100 * np.sin(x / 60) * np.cos(y / 80)
+            + 20 * np.sin(x / 7.0 + y / 11.0) * np.cos(y / 23.0)).clip(
+                0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(None)
+def slice_o_files() -> dict:
+    """Phase 58's fixtures: arithmetic-coded JPEG (twins, a re-marked
+    file, a smoothed one), block-smoothed progressive JPEG, one or more
+    small files per plugin of csrc/imgdecode_plugins.h, and for timing a
+    2048x2048 grey baseline Huffman JPEG with its arithmetic progressive
+    twin (each scan under 60 KB, so that padding can give each a read of
+    PIL's own) and a 2048x2048 progressive JPEG of PIL's."""
+    rng = np.random.default_rng(58)
+    files = {}
+    h, w = 21, 29
+    planes = [_smooth(rng, h, w, 1)[..., 0] for _ in range(4)]
+    sub = [(2, 2), (1, 1), (1, 1)]
+    files["arith_sof9_420_restart_dac.jpg"] = F.jpeg_arith_bytes(
+        planes[:3], sub, restart=2, dac=[(0, 0x52), (16, 2)])
+    files["arith_sof9_cmyk.jpg"] = F.jpeg_arith_bytes(planes, [(1, 1)] * 4,
+                                                      adobe=0)
+    files["arith_sof10_gray_spectral.jpg"] = F.jpeg_arith_bytes(
+        planes[:1], [(1, 1)], scans=[([0], 0, 0, 0, 0), ([0], 1, 9, 0, 0),
+                                     ([0], 10, 63, 0, 0)])
+    files["arith_sof10_422_approx.jpg"] = F.jpeg_arith_bytes(
+        planes[:3], [(2, 1), (1, 1), (1, 1)], restart=3, scans=[
+            ([0, 1, 2], 0, 0, 0, 1)] + [([c], 1, 63, 0, 1) for c in range(3)]
+        + [([0, 1, 2], 0, 0, 1, 0)] + [([c], 1, 63, 1, 0) for c in range(3)])
+    files["arith_sof10_smoothed.jpg"] = F.jpeg_arith_bytes(
+        planes[:3], sub, q=4, scans=[([0, 1, 2], 0, 0, 0, 0)] + [
+            ([c], 1, 5, 0, 2) for c in range(3)] + [
+            ([c], 6, 63, 0, 0) for c in range(3)])
+    remarked = bytearray(_pil(Image.fromarray(_smooth(rng, 40, 33)), "JPEG",
+                              progressive=True, restart_marker_blocks=2))
+    remarked[remarked.index(b"\xff\xc2") + 1] = 0xCA
+    files["arith_remarked_prog.jpg"] = bytes(remarked)
+    prog = _pil(Image.fromarray(_smooth(rng, 45, 61)), "JPEG",
+                progressive=True, subsampling="4:2:0")
+    files["jpeg_prog_unrefined_420.jpg"] = _drop_scans(
+        prog, lambda ss, se, ah, al: ah == 0)
+    files["jpeg_prog_dc_only.jpg"] = _drop_scans(
+        prog, lambda ss, se, ah, al: ss == 0)
+    # the plugins
+    img = _smooth(rng, 11, 14)
+    blk = _blocks(rng, 11, 14, 3, 4)
+    idx = blk[..., 0] % 16
+    pal16 = [tuple(int(v) for v in rng.integers(0, 256, 3))
+             for _ in range(16)]
+    files["sun_8_palette.ras"] = P.sun_bytes(
+        [bytes(r) for r in idx.astype(np.uint8)], 14, 11, 8, 1, pal16)
+    files["sun_24_rle.ras"] = P.sun_bytes(
+        [bytes(r[:, ::-1].reshape(-1)) for r in blk[..., :3]], 14, 11, 24, 2)
+    files["sun_1.ras"] = P.sun_bytes(
+        [P.pack_bits(r % 2, 1) for r in blk[..., 1]], 14, 11, 1)
+    keys = [chr(ord("A") + i) for i in range(16)]
+    files["xpm_16.xpm"] = P.xpm_bytes(idx, pal16, keys, none_key="-")
+    keys3 = []
+    for i in range(300):
+        keys3.append(chr(35 + i % 40) + chr(35 + i // 40) + "x")
+    cols = [tuple(int(v) for v in rng.integers(0, 256, 3)) for _ in keys3]
+    files["xpm_rgb_300.xpm"] = P.xpm_bytes(
+        rng.integers(0, 300, (7, 9)), cols, keys3)
+    bits = (blk[..., 2] % 2).astype(np.uint8)
+    files["msp_v1.msp"] = _pil(Image.fromarray(bits * 255).convert("1"),
+                               "MSP")
+    files["msp_v2.msp"] = P.msp_v2_bytes(bits)
+    files["dcx_p.dcx"] = struct.pack("<III", 0x3ADE68B1, 12, 0) + _pil(
+        Image.fromarray(img).convert("P"), "PCX")
+    files["pixar.pxr"] = P.pixar_bytes(img)
+    vals = rng.integers(0, 400, (6, 9))
+    files["mcidas_i16.area"] = P.mcidas_bytes(b"".join(
+        b"\0\1" + vals[y].astype(">u2").tobytes() for y in range(6)), 9, 6,
+        2, prefix=2)
+    files["imt.imt"] = P.imt_bytes(img[..., 0])
+    files["xvthumb.xv"] = P.xvthumb_bytes(img[..., 1])
+    files["gbr_v1_l.gbr"] = P.gbr_bytes(img[..., 0], 1)
+    files["gbr_v2_rgba.gbr"] = P.gbr_bytes(blk, 2)
+    files["fits_16.fits"] = P.fits_bytes(
+        rng.integers(0, 600, (7, 9)).astype(">u2").tobytes(), 9, 7, 16)
+    files["fits_f32.fits"] = P.fits_bytes(
+        rng.normal(100, 120, (7, 9)).astype(">f4").tobytes(), 9, 7, -32)
+    files["fits_gzip.fits"] = P.fits_gzip_bytes(
+        rng.integers(0, 2**32, 12 * 9, dtype=np.uint64).astype(np.uint32),
+        12, 9, 16)
+    files["ftex_bc1.ftc"] = P.ftex_bytes(P.bc1_blocks(rng, 14, 11, True),
+                                         14, 11, 0)
+    files["ftex_rgb.ftu"] = P.ftex_bytes(img.tobytes(), 14, 11, 1)
+    jpeg = _pil(Image.fromarray(img), "JPEG", quality=90)
+    sos = jpeg.index(b"\xff\xda")
+    files["blp1_jpeg.blp"] = P.blp1_bytes(14, 11, 0, jpeg[sos:],
+                                          jpeg_header=jpeg[:sos])
+    bpal = rng.integers(0, 256, 1024).astype(np.uint8).tobytes()
+    pix = blk[..., 3].tobytes()
+    files["blp1_palette.blp"] = P.blp1_bytes(14, 11, 1, pix, palette=bpal)
+    files["blp2_palette_a4.blp"] = P.blp2_bytes(14, 11, 1, 4, 0, pix,
+                                                palette=bpal)
+    for name, ae in (("dxt1", 0), ("dxt3", 1), ("dxt5", 7)):
+        payload = (P.bc1_blocks(rng, 14, 11, True) if ae == 0 else
+                   rng.integers(0, 256, 16 * 4 * 3).astype(np.uint8).tobytes())
+        files[f"blp2_{name}.blp"] = P.blp2_bytes(14, 11, 2, 8, ae, payload)
+    icon = Image.fromarray(_blocks(rng, 32, 32, 4, 4), "RGBA")
+    files["icns_png.icns"] = P.icns_bytes([
+        (b"icp4", _pil(icon.resize((16, 16)), "PNG")),
+        (b"icp5", _pil(icon, "PNG"))])
+    icon = _blocks(rng, 128, 128, 16)
+    files["icns_it32.icns"] = P.icns_bytes([
+        (b"it32", b"\0\0\0\0" + b"".join(
+            P.icns_rle(icon[..., c].tobytes()) for c in range(3)))])
+    icon = _blocks(rng, 32, 32, 3)
+    files["icns_il32_mask.icns"] = P.icns_bytes([
+        (b"il32", b"".join(P.icns_rle(icon[..., c].tobytes())
+                           for c in range(3))),
+        (b"l8mk", rng.integers(0, 256, 32 * 32).astype(np.uint8).tobytes())])
+    files["iptc_l.iptc"] = P.iptc_bytes(img[..., 0].tobytes(), 14, 11,
+                                        chunks=2)
+    files["iptc_rgb_band2.iptc"] = P.iptc_bytes(img[..., 1].tobytes(), 14, 11,
+                                                layers=3, component=1, band=2)
+    fimg = _blocks(rng, 11, 23, 3, 1)[..., 0]
+    files["fli_brun_color256.flc"] = P.fli_bytes(23, 11, [P.fli_frame([
+        P.fli_color([(0, [tuple(rng.integers(0, 256, 3)) for _ in range(256)])]),
+        P.fli_brun(fimg)])])
+    files["fli_copy_ss2.flc"] = P.fli_bytes(23, 11, [P.fli_frame([
+        P.fli_chunk(16, fimg.tobytes()),
+        P.fli_ss2([[("packets", [(1, "copy", [1, 2, 3, 4]),
+                                 (0, "run", (7, 8, 2))])],
+                   [("skip", 2), ("last", 77),
+                    ("packets", [(0, "copy", [9, 9])])]])])])
+    files["fli_black_lc_color64.fli"] = P.fli_bytes(23, 11, [P.fli_frame([
+        P.fli_color([(0, [tuple(rng.integers(0, 64, 3)) for _ in range(256)])],
+                    kind=11), P.fli_chunk(13, b""),
+        P.fli_lc(2, [[(1, "copy", [5, 6, 7]), (2, "run", (9, 3))],
+                     [(0, "run", (200, 2))]])])], magic=0xAF11)
+    # timing files
+    big = big_2048_gray()
+    files["big_2048_huffman.jpg"] = F.jpeg_bytes([big], [(1, 1)], q=12)
+    files["big_2048_arith.jpg"] = F.jpeg_arith_bytes(
+        [big], [(1, 1)], q=12, scans=[([0], 0, 0, 0, 0), ([0], 1, 2, 0, 0),
+                                      ([0], 3, 9, 0, 0), ([0], 10, 63, 0, 0)])
+    files["big_2048_prog.jpg"] = _pil(Image.fromarray(big), "JPEG",
+                                      progressive=True, quality=60)
+    return files
+
+
+# phase 58's timing file that PIL cannot read as it stands (its scans run
+# past PIL's first 65536-byte read): chip_smoke.pad_arith_scans makes it
+# readable, and tests/test_torch_texture_formats_o.py holds that
+UNREAD_BY_PIL = {"big_2048_arith.jpg"}
 
 
 def _blocks(rng, h, w, cell, c=3):
@@ -467,6 +689,8 @@ def fixture_files() -> dict:
     files.update(slice_m_files())
     files.update(checker_variants_n(checker))
     files.update(slice_n_files())
+    files.update(checker_variants_o(checker))
+    files.update(slice_o_files())
     y, x = np.mgrid[0:2048, 0:2048]
     big = np.stack([127 + 120 * np.sin(x / (60 + 20 * k)) *
                     np.cos(y / (80 - 15 * k)) for k in range(3)], -1)
@@ -486,10 +710,16 @@ def main() -> None:
     phase57 = set(checker_variants_n(
         np.asarray(Image.open(CHECKER).convert("RGB"))))
     phase57 |= set(slice_n_files())
-    for name, data in sorted(fixture_files().items()):
+    files = fixture_files()
+    phase58 = set(checker_variants_o(
+        np.asarray(Image.open(CHECKER).convert("RGB"))))
+    phase58 |= set(slice_o_files())
+    for name, data in sorted(files.items()):
         path = os.path.join(OUT, name)
         with open(path, "wb") as f:
             f.write(data)
+        if name in UNREAD_BY_PIL:
+            continue
         rgb = np.asarray(Image.open(path).convert("RGB"))
         manifest[name] = {"sha256": hashlib.sha256(rgb.tobytes()).hexdigest(),
                           "shape": list(rgb.shape)}
@@ -497,6 +727,8 @@ def main() -> None:
             manifest[name]["phase"] = 56
         if name in phase57:
             manifest[name]["phase"] = 57
+        if name in phase58:
+            manifest[name]["phase"] = 58
     with open(os.path.join(OUT, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -4,8 +4,10 @@ writes no such file: PNG of any bit depth, colour type, interlace and row
 filters; PNM P1-P6 at any maxval; BMP of any depth, header, row order,
 BITFIELDS layout and RLE packets; TGA raw and RLE with chosen packets;
 GIF with an LZW stream, global or local palette, an offset frame,
-interlace and transparency; a baseline JPEG with any sampling factors.
-numpy and zlib only: the tests hold each file to PIL's decode of it."""
+interlace and transparency; a baseline JPEG with any sampling factors,
+and its arithmetic-coded twin (SOF9, or SOF10 with any scan script).
+numpy and the standard library only: the tests hold each file to PIL's
+decode of it."""
 
 from __future__ import annotations
 
@@ -353,14 +355,10 @@ def _huff_codes(bits, vals):
     return codes
 
 
-def jpeg_bytes(planes, factors, q=8, adobe=None, restart=0):
-    """A baseline JPEG of component planes (each [H, W] uint8 at full
-    size, already in the colour space the file declares) with sampling
-    `factors` [(h, v), ...]: each plane is box-averaged to its factors,
-    cut into blocks, transformed with a float DCT and quantized by a flat
-    table of `q`; interleaved MCUs, Annex K's tables, a restart marker
-    every `restart` MCUs if set, an Adobe APP14 of that transform if
-    given (else JFIF for 1 or 3 components)."""
+def _jpeg_coefs(planes, factors, q):
+    """Each plane box-averaged to its sampling factors, cut into the
+    blocks of whole MCUs, transformed with a float DCT and quantized by a
+    flat table of `q`: a list of [rows, cols, 8, 8] int arrays."""
     planes = [np.asarray(p, np.float64) for p in planes]
     H, W = planes[0].shape
     hmax = max(f[0] for f in factors)
@@ -378,6 +376,64 @@ def jpeg_bytes(planes, factors, q=8, adobe=None, restart=0):
         blocks = small.reshape(ph // 8, 8, pw // 8, 8).transpose(0, 2, 1, 3)
         coef = np.einsum("ij,abjk,lk->abil", cmat, blocks, cmat)
         comps.append(np.rint(coef / q).astype(np.int64))
+    return comps
+
+
+def _jseg(marker, payload):
+    return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) \
+        + payload
+
+
+def _jpeg_head(n, H, W, factors, q, adobe, sof):
+    out = b"\xff\xd8"
+    if adobe is None and n in (1, 3):
+        out += _jseg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
+    if adobe is not None:
+        out += _jseg(0xEE, b"Adobe\0\x64\0\0\0\0" + bytes([adobe]))
+    out += _jseg(0xDB, b"\0" + bytes([q] * 64))
+    body = struct.pack(">BHHB", 8, H, W, n)
+    for i, (h, v) in enumerate(factors):
+        body += bytes([i + 1, (h << 4) | v, 0])
+    return out + _jseg(sof, body)
+
+
+def _mcu_blocks(comps, factors, members, H, W):
+    """(component index, [8, 8] block) in a scan's MCU order, with None
+    between MCUs: interleaved MCUs over `members`, or one component's
+    blocks that hold image samples, row by row."""
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    if len(members) == 1:
+        ci = members[0]
+        h, v = factors[ci]
+        bw = -(-(-(-W * h // hmax)) // 8)
+        bh = -(-(-(-H * v // vmax)) // 8)
+        for by in range(bh):
+            for bx in range(bw):
+                yield None
+                yield ci, comps[ci][by, bx]
+        return
+    mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    for by in range(my):
+        for bx in range(mx):
+            yield None
+            for ci in members:
+                h, v = factors[ci]
+                for y in range(v):
+                    for x in range(h):
+                        yield ci, comps[ci][by * v + y, bx * h + x]
+
+
+def jpeg_bytes(planes, factors, q=8, adobe=None, restart=0):
+    """A baseline JPEG of component planes (each [H, W] uint8 at full
+    size, already in the colour space the file declares) with sampling
+    `factors` [(h, v), ...]: each plane is box-averaged to its factors,
+    cut into blocks, transformed with a float DCT and quantized by a flat
+    table of `q`; interleaved MCUs, Annex K's tables, a restart marker
+    every `restart` MCUs if set, an Adobe APP14 of that transform if
+    given (else JFIF for 1 or 3 components)."""
+    H, W = np.asarray(planes[0]).shape
+    comps = _jpeg_coefs(planes, factors, q)
     dc = _huff_codes(_DC_BITS, _DC_VALS)
     ac = _huff_codes(_AC_BITS, _AC_VALS)
     bits_out = []
@@ -411,64 +467,355 @@ def jpeg_bytes(planes, factors, q=8, adobe=None, restart=0):
 
     preds = [0] * len(comps)
     n_mcu = 0
-    for by in range(my):
-        for bx in range(mx):
+    for item in _mcu_blocks(comps, factors, range(len(comps)), H, W):
+        if item is None:
             if restart and n_mcu and n_mcu % restart == 0:
                 flush()
                 entropy.extend(bytes([0xFF, 0xD0 + (n_mcu // restart - 1) % 8]))
                 preds = [0] * len(comps)
             n_mcu += 1
-            for ci, (h, v) in enumerate(factors):
-                for y in range(v):
-                    for x in range(h):
-                        blk = comps[ci][by * v + y, bx * h + x].reshape(-1)
-                        zz = blk[_ZIGZAG]
-                        diff = int(zz[0]) - preds[ci]
-                        preds[ci] = int(zz[0])
-                        n, m = magnitude(diff)
-                        put(*dc[n])
-                        if n:
-                            put(m, n)
-                        run = 0
-                        for k in range(1, 64):
-                            val = int(zz[k])
-                            if val == 0:
-                                run += 1
-                                continue
-                            while run > 15:
-                                put(*ac[0xF0])
-                                run -= 16
-                            n, m = magnitude(val)
-                            put(*ac[(run << 4) | n])
-                            put(m, n)
-                            run = 0
-                        if run:
-                            put(*ac[0x00])
+            continue
+        ci, blk = item
+        zz = blk.reshape(-1)[_ZIGZAG]
+        diff = int(zz[0]) - preds[ci]
+        preds[ci] = int(zz[0])
+        n, m = magnitude(diff)
+        put(*dc[n])
+        if n:
+            put(m, n)
+        run = 0
+        for k in range(1, 64):
+            val = int(zz[k])
+            if val == 0:
+                run += 1
+                continue
+            while run > 15:
+                put(*ac[0xF0])
+                run -= 16
+            n, m = magnitude(val)
+            put(*ac[(run << 4) | n])
+            put(m, n)
+            run = 0
+        if run:
+            put(*ac[0x00])
     flush()
 
-    def seg(marker, payload):
-        return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) \
-            + payload
-
-    out = b"\xff\xd8"
-    if adobe is None and len(planes) in (1, 3):
-        out += seg(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")
-    if adobe is not None:
-        out += seg(0xEE, b"Adobe\0\x64\0\0\0\0" + bytes([adobe]))
-    out += seg(0xDB, b"\0" + bytes([q] * 64))
-    sof = struct.pack(">BHHB", 8, H, W, len(planes))
-    for i, (h, v) in enumerate(factors):
-        sof += bytes([i + 1, (h << 4) | v, 0])
-    out += seg(0xC0, sof)
-    out += seg(0xC4, b"\x00" + bytes(_DC_BITS) + bytes(_DC_VALS))
-    out += seg(0xC4, b"\x10" + bytes(_AC_BITS) + bytes(_AC_VALS))
+    out = _jpeg_head(len(planes), H, W, factors, q, adobe, 0xC0)
+    out += _jseg(0xC4, b"\x00" + bytes(_DC_BITS) + bytes(_DC_VALS))
+    out += _jseg(0xC4, b"\x10" + bytes(_AC_BITS) + bytes(_AC_VALS))
     if restart:
-        out += seg(0xDD, struct.pack(">H", restart))
+        out += _jseg(0xDD, struct.pack(">H", restart))
     sos = bytes([len(planes)])
     for i in range(len(planes)):
         sos += bytes([i + 1, 0x00])
-    out += seg(0xDA, sos + b"\x00\x3f\x00")
+    out += _jseg(0xDA, sos + b"\x00\x3f\x00")
     return out + bytes(entropy) + b"\xff\xd9"
+
+
+def _aritab():
+    """T.81 Table D.2 (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS),
+    as the port's csrc/imgdecode_arith.h holds it."""
+    import re
+    from pathlib import Path
+    src = (Path(__file__).resolve().parent.parent / "craytracer_tpu_torch"
+           / "csrc" / "imgdecode_arith.h").read_text()
+    body = src[src.index("ARITAB[114]"):]
+    body = body[:body.index("};")]
+    return [tuple(int(x, 0) for x in m) for m in re.findall(
+        r"\{(0x[0-9a-f]+), (\d+), (\d+), (\d+)\}", body)]
+
+
+class ArithCoder:
+    """jcarith.c's arith_encode and finish_pass (T.81 D.1): binary
+    decisions coded against state bytes that the caller keeps (ints in a
+    list, index `st`), bytes out with 0xFF stuffing."""
+
+    def __init__(self):
+        self.tab = _aritab()
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct = 0, 0x10000, 0, 0, 11
+        self.buffer = -1
+
+    def _emit(self, b):
+        self.out.append(b)
+        if b == 0xFF:
+            self.out.append(0)
+
+    def _zeros(self):
+        while self.zc:
+            self.out.append(0)
+            self.zc -= 1
+
+    def _byte_out(self, temp):
+        if temp > 0xFF:
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+            self.buffer = temp & 0xFF
+        elif temp == 0xFF:
+            self.sc += 1
+        else:
+            self._flush_stacked()
+            self.buffer = temp & 0xFF
+
+    def _flush_stacked(self):
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self._emit(self.buffer)
+        if self.sc:
+            self._zeros()
+            for _ in range(self.sc):
+                self.out += b"\xff\x00"
+            self.sc = 0
+
+    def encode(self, stats, st, val):
+        sv = stats[st]
+        qe, nlps, nmps, sw = self.tab[sv & 0x7F]
+        nl, nm = sw << 7 | nlps, nmps
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            stats[st] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            stats[st] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._byte_out(self.c >> 19)
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self):
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._flush_stacked()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+        self.reset()
+
+
+def jpeg_arith_bytes(planes, factors, q=8, adobe=None, restart=0,
+                     scans=None, dac=None):
+    """The arithmetic-coded twin of `jpeg_bytes` (T.81 Annex D and F.1.4,
+    jcarith.c's coder): the same quantized coefficients, SOF9 with one
+    interleaved scan, or SOF10 with `scans`, a list of (component
+    indices, Ss, Se, Ah, Al) in file order; a restart marker every
+    `restart` MCUs of each scan if set; a DAC segment of (index, value)
+    pairs if given (index < 16 sets a DC table's L | U << 4, 16 + t an AC
+    table's K; every component uses tables 0)."""
+    H, W = np.asarray(planes[0]).shape
+    comps = _jpeg_coefs(planes, factors, q)
+    L, U, K = 0, 1, 5
+    for index, val in dac or ():
+        if index == 0:
+            L, U = val & 15, val >> 4
+        elif index == 16:
+            K = val
+    progressive = scans is not None
+    scans = scans or [(list(range(len(comps))), 0, 63, 0, 0)]
+    nat = _ZIGZAG
+
+    def scan_bytes(members, Ss, Se, Ah, Al):
+        coder = ArithCoder()
+        fixed = [113]
+        state = {}
+
+        def clear():
+            state["dc"] = [0] * 64
+            state["ac"] = [0] * 256
+            state["last"] = {ci: 0 for ci in members}
+            state["ctx"] = {ci: 0 for ci in members}
+
+        def magnitude(stats, st, v, x1, k=None):
+            # Figures F.8 and F.9: v > 0 after the sign
+            m = 0
+            v -= 1
+            if v:
+                coder.encode(stats, st, 1)
+                m = 1
+                v2 = v
+                if k is None:
+                    st = x1
+                    v2 >>= 1
+                    while v2:
+                        coder.encode(stats, st, 1)
+                        m <<= 1
+                        st += 1
+                        v2 >>= 1
+                else:
+                    v2 >>= 1
+                    if v2:
+                        coder.encode(stats, st, 1)
+                        m <<= 1
+                        st = 189 if k <= K else 217
+                        v2 >>= 1
+                        while v2:
+                            coder.encode(stats, st, 1)
+                            m <<= 1
+                            st += 1
+                            v2 >>= 1
+            coder.encode(stats, st, 0)
+            return m, st, v
+
+        def dc_value(ci, value):
+            dcs, ctx = state["dc"], state["ctx"]
+            st = ctx[ci]
+            v = value - state["last"][ci]
+            if v == 0:
+                coder.encode(dcs, st, 0)
+                ctx[ci] = 0
+                return
+            state["last"][ci] = value
+            coder.encode(dcs, st, 1)
+            if v > 0:
+                coder.encode(dcs, st + 1, 0)
+                st += 2
+                ctx[ci] = 4
+            else:
+                v = -v
+                coder.encode(dcs, st + 1, 1)
+                st += 3
+                ctx[ci] = 8
+            m, st, v = magnitude(dcs, st, v, 20)
+            if m < (1 << L) >> 1:
+                ctx[ci] = 0
+            elif m > (1 << U) >> 1:
+                ctx[ci] += 8
+            st += 14
+            m >>= 1
+            while m:
+                coder.encode(dcs, st, 1 if m & v else 0)
+                m >>= 1
+
+        def shifted(blk, k, al):
+            v = int(blk[nat[k]])
+            return v >> al if v >= 0 else -((-v) >> al)
+
+        def ac_first(blk, ks, ke_max, al):
+            acs = state["ac"]
+            ke = ke_max
+            while ke > 0 and shifted(blk, ke, al) == 0:
+                ke -= 1
+            k = ks
+            while k <= ke:
+                st = 3 * (k - 1)
+                coder.encode(acs, st, 0)
+                while shifted(blk, k, al) == 0:
+                    coder.encode(acs, st + 1, 0)
+                    st += 3
+                    k += 1
+                coder.encode(acs, st + 1, 1)
+                v = shifted(blk, k, al)
+                coder.encode(fixed, 0, 0 if v > 0 else 1)
+                v = abs(v)
+                st += 2
+                m, st, v = magnitude(acs, st, v, None, k)
+                st += 14
+                m >>= 1
+                while m:
+                    coder.encode(acs, st, 1 if m & v else 0)
+                    m >>= 1
+                k += 1
+            if k <= ke_max:
+                coder.encode(acs, 3 * (k - 1), 1)
+
+        def ac_refine(blk):
+            acs = state["ac"]
+            ke = Se
+            while ke > 0 and shifted(blk, ke, Al) == 0:
+                ke -= 1
+            kex = ke
+            while kex > 0 and shifted(blk, kex, Ah) == 0:
+                kex -= 1
+            k = Ss
+            while k <= ke:
+                st = 3 * (k - 1)
+                if k > kex:
+                    coder.encode(acs, st, 0)
+                while True:
+                    v = shifted(blk, k, Al)
+                    if v:
+                        if abs(v) >> 1:
+                            coder.encode(acs, st + 2, abs(v) & 1)
+                        else:
+                            coder.encode(acs, st + 1, 1)
+                            coder.encode(fixed, 0, 0 if v > 0 else 1)
+                        break
+                    coder.encode(acs, st + 1, 0)
+                    st += 3
+                    k += 1
+                k += 1
+            if k <= Se:
+                coder.encode(acs, 3 * (k - 1), 1)
+
+        clear()
+        n_mcu = 0
+        for item in _mcu_blocks(comps, factors, members, H, W):
+            if item is None:
+                if restart and n_mcu and n_mcu % restart == 0:
+                    coder.finish()
+                    coder.out += bytes([0xFF, 0xD0 + (n_mcu // restart - 1) % 8])
+                    clear()
+                n_mcu += 1
+                continue
+            ci, blk = item
+            blk = blk.reshape(-1)
+            if not progressive:
+                dc_value(ci, int(blk[0]))
+                ac_first(blk, 1, 63, 0)
+            elif Ss == 0 and Ah == 0:
+                dc_value(ci, int(blk[0]) >> Al)
+            elif Ss == 0:
+                coder.encode(fixed, 0, (int(blk[0]) >> Al) & 1)
+            elif Ah == 0:
+                ac_first(blk, Ss, Se, Al)
+            else:
+                ac_refine(blk)
+        coder.finish()
+        return bytes(coder.out)
+
+    out = _jpeg_head(len(planes), H, W, factors, q, adobe,
+                     0xCA if progressive else 0xC9)
+    if dac:
+        out += _jseg(0xCC, b"".join(bytes([i, v]) for i, v in dac))
+    if restart:
+        out += _jseg(0xDD, struct.pack(">H", restart))
+    for members, Ss, Se, Ah, Al in scans:
+        sos = bytes([len(members)])
+        for ci in members:
+            sos += bytes([ci + 1, 0x00])
+        out += _jseg(0xDA, sos + bytes([Ss, Se, (Ah << 4) | Al]))
+        out += scan_bytes(list(members), Ss, Se, Ah, Al)
+    return out + b"\xff\xd9"
 
 
 # lossless JPEG's difference categories 0-16, one table for all
